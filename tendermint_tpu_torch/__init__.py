@@ -1,0 +1,13 @@
+"""tendermint_tpu_torch — the PyTorch/CUDA port of tendermint_tpu.
+
+This slice carries the commit-verification main path: a
+``ValidatorSet.verify_commit*`` call over an ed25519 validator set is
+verified on an NVIDIA GPU by four hand-written CUDA kernels
+(``crypto/cuda/``, sources in ``csrc/``). The JAX package
+``tendermint_tpu`` is the reference it is held against; nothing here
+imports it or JAX.
+
+Device work runs on CUDA unless ``device.set_default_device("cpu")``
+was called, in which case every kernel wrapper takes its plain PyTorch
+version (the CPU tests do this).
+"""

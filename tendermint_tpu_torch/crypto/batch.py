@@ -1,0 +1,68 @@
+"""BatchVerifier: accumulate (pubkey, msg, sig) triples and verify them
+as one wide batch with per-lane verdicts.
+
+Per-lane verdicts are load-bearing: evidence handling must know which
+signature failed, and one bad vote must not poison the others. Batches
+under ``_DEVICE_THRESHOLD`` signatures stay on the host (a launch is not
+worth it); larger ed25519 batches run the general kernel
+(crypto/cuda/verify.py). A device failure raises: this slice of the
+port has no breaker and no host degrade.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import PubKey
+
+# Below this many sigs, host verification beats a launch (the
+# reference's crossover, kept so both route at the same points).
+_DEVICE_THRESHOLD = 40
+
+
+class BatchVerifier:
+    """Accumulate signatures, verify them all at once.
+
+    Usage:
+        bv = BatchVerifier()
+        bv.add(pk, msg, sig)
+        all_ok, lane_ok = bv.verify()
+    """
+
+    def __init__(self):
+        self._items: list[tuple[PubKey, bytes, bytes]] = []
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
+        self._items.append((pub_key, msg, sig))
+
+    def verify(self) -> tuple[bool, np.ndarray]:
+        """Returns (all_valid, per-lane verdicts in add order)."""
+        n = len(self._items)
+        if n == 0:
+            return True, np.zeros(0, bool)
+        verdicts = np.zeros(n, bool)
+        by_type: dict[str, list[int]] = {}
+        for i, (pk, _, _) in enumerate(self._items):
+            by_type.setdefault(pk.type_name, []).append(i)
+        for type_name, idxs in by_type.items():
+            items = [self._items[i] for i in idxs]
+            verdicts[np.asarray(idxs)] = self._verify_group(type_name, items)
+        return bool(verdicts.all()), verdicts
+
+    def _verify_group(self, type_name, items) -> np.ndarray:
+        if type_name == "ed25519" and len(items) >= _DEVICE_THRESHOLD:
+            from .cuda import verify as cuda_verify
+
+            return cuda_verify.verify_batch(
+                [pk.bytes() for pk, _, _ in items],
+                [m for _, m, _ in items],
+                [s for _, _, s in items],
+            )
+        # Host path: the per-key verify (OpenSSL strict accept, else the
+        # ZIP-215 oracle; crypto/ed25519.py).
+        return np.fromiter(
+            (len(s) == 64 and pk.verify_signature(m, s) for pk, m, s in items),
+            bool, count=len(items))

@@ -1,0 +1,507 @@
+"""Expanded validator sets: per-key comb tables kept on the device.
+
+In consensus the same validators sign every block, so the work that
+depends only on a public key A — its decompression and the multiples
+of -A — is done once per validator set and reused for every commit.
+For each key the table holds the signed-digit comb
+
+    T[v, w, j] = j * 16^w * (-A_v)      (w < 69, j <= 8)
+
+and a verify recodes its challenge to digits d_w in [-8, 8], gathers
+entry |d_w| per window and negates it by the digit's sign: [k](-A)
+costs 69 point adds and no doublings.
+
+Kernels (csrc/), each beside its plain PyTorch version:
+
+- K1 ``build_tables``: decompress every key and write its table
+  (reference: tendermint_tpu/crypto/tpu/expanded.py ``_builder``).
+- K2 ``assemble``: each lane's canonical vote sign bytes from commit
+  templates plus a per-lane timestamp patch, with the SHA-512 tail
+  (reference: ``assemble_core``).
+- K3 ``xverify``: verify lanes against the tables (reference:
+  ``_xcore``).
+
+Layout: the reference pads each 88-int entry to a 128-int TPU row
+(~318 KB per key). Here an entry is 4 coordinates x 10 int32 limbs,
+160 B, so a key's table is 69 * 9 * 160 B = 99,360 B: 1.02 GB for
+10,240 keys.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import threading
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ...device import default_device
+from . import edwards as ed
+from . import field as fe
+from . import kernels
+from . import scalar as sc
+from . import sha512 as sh
+from . import verify as tv
+
+logger = logging.getLogger("crypto.cuda.expanded")
+
+_WINDOWS = 69  # scalar.DIGITS_K: folded challenge < 2^271
+_ENTRIES = 9   # signed digits: |d| in 0..8
+TABLE_BYTES_PER_KEY = _WINDOWS * _ENTRIES * 4 * fe.NLIMB * 4
+# Expansion pays off only when the same set verifies repeatedly and the
+# batch is big enough for the device path.
+MIN_EXPAND = 128
+# Keys the CPU (plain-version) path expands at most — the reference's
+# CPU-backend policy (tendermint_tpu/crypto/tpu/expanded.py
+# _CPU_MAX_KEYS), so both route commits at the same points.
+_CPU_MAX_KEYS = 2048
+
+_PATCH_W = 24
+_PRE_W = 128
+_SUF_W = 64
+
+
+# -- K1: comb-table build ------------------------------------------------
+
+
+def build_tables_plain(akeys: torch.Tensor):
+    """Plain PyTorch version of K1 (csrc/build_tables.cu).
+    (V, 32) uint8 keys -> ((V, 69, 9, 4, 10) int32 tables, (V,) bool ok)."""
+    v = akeys.shape[0]
+    pt, ok = ed.decompress_bytes(akeys.to(torch.int64).T)
+    base = ed.neg(pt)
+    rows = []
+    for _ in range(_WINDOWS):
+        entries = [ed.identity(v, akeys.device), base]
+        for _j in range(_ENTRIES - 2):
+            entries.append(ed.add(entries[-1], base))
+        rows.append(torch.stack([torch.stack(list(e)) for e in entries]))
+        for _k in range(4):
+            base = ed.double(base)
+    tables = torch.stack(rows)  # (69, 9, 4, 10, V)
+    return tables.permute(4, 0, 1, 2, 3).to(torch.int32).contiguous(), ok
+
+
+def build_tables(akeys: torch.Tensor):
+    """K1 wrapper: plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (or KernelError). One launch for the whole set."""
+    if akeys.device.type == "cpu":
+        return build_tables_plain(akeys)
+    dev = akeys.device
+    v = akeys.shape[0]
+    kernels.require(akeys, "akeys", torch.uint8, (v, 32), dev)
+    tables = torch.empty((v, _WINDOWS, _ENTRIES, 4, fe.NLIMB),
+                         dtype=torch.int32, device=dev)
+    ok = torch.empty(v, dtype=torch.bool, device=dev)
+    rc = kernels.lib().tm_build_tables(akeys.data_ptr(), tables.data_ptr(),
+                                       ok.data_ptr(), v,
+                                       kernels.stream_ptr(dev))
+    kernels.check(rc, "build_tables")
+    build_tables.launches += 1
+    return tables, ok
+
+
+build_tables.launches = 0
+
+
+# -- K2: sign-bytes assembly ---------------------------------------------
+
+
+def assemble_plain(pre, pre_len, suf, suf_len, patch, split, patch_len,
+                   group, width: int):
+    """Plain PyTorch version of K2 (csrc/assemble.cu): (N, width) uint8
+    message rows (sign bytes + SHA-512 tail for a 64-byte prefix) and
+    (N,) int32 block counts."""
+    dev = patch.device
+    j = torch.arange(width, device=dev)[None, :]
+    g = group.to(torch.int64)
+    a = split.to(torch.int64)[:, None]
+    b = (patch_len.to(torch.int64) - split.to(torch.int64))[:, None]
+    c1 = a + pre_len.to(torch.int64)[g][:, None]
+    c2 = c1 + b
+    c3 = c2 + suf_len.to(torch.int64)[g][:, None]  # = mlen
+    pre_g = pre[g].to(torch.int64)
+    suf_g = suf[g].to(torch.int64)
+    patch_i = patch.to(torch.int64)
+
+    def gat(src, col):
+        return torch.gather(src, 1, col.clamp(0, src.shape[1] - 1)
+                            .expand(src.shape[0], width))
+
+    msg = torch.where(
+        j < a, gat(patch_i, j),
+        torch.where(j < c1, gat(pre_g, j - a),
+                    torch.where(j < c2, gat(patch_i, a + (j - c1)),
+                                torch.where(j < c3, gat(suf_g, j - c2),
+                                            torch.zeros_like(j)))))
+    msg = torch.where(j == c3, torch.full_like(msg, 0x80), msg)
+    nblocks = (64 + c3 + 17 + 127) // 128
+    bitlen = (64 + c3) * 8
+    k = 15 - (j - (nblocks * 128 - 16 - 64))
+    lenbyte = torch.where(k < 4, (bitlen >> (8 * k.clamp(0, 3))) & 0xFF,
+                          torch.zeros_like(k))
+    msg = torch.where((k >= 0) & (k < 16), lenbyte, msg)
+    return msg.to(torch.uint8), nblocks[:, 0].to(torch.int32)
+
+
+def assemble(pre, pre_len, suf, suf_len, patch, split, patch_len, group,
+             width: int):
+    """K2 wrapper: plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (or KernelError)."""
+    if patch.device.type == "cpu":
+        return assemble_plain(pre, pre_len, suf, suf_len, patch, split,
+                              patch_len, group, width)
+    dev = patch.device
+    n = patch.shape[0]
+    k = pre.shape[0]
+    kernels.require(pre, "pre", torch.uint8, (k, _PRE_W), dev)
+    kernels.require(pre_len, "pre_len", torch.int32, (k,), dev)
+    kernels.require(suf, "suf", torch.uint8, (k, _SUF_W), dev)
+    kernels.require(suf_len, "suf_len", torch.int32, (k,), dev)
+    kernels.require(patch, "patch", torch.uint8, (n, _PATCH_W), dev)
+    for name, t in (("split", split), ("patch_len", patch_len),
+                    ("group", group)):
+        kernels.require(t, name, torch.int32, (n,), dev)
+    msg = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    nblocks = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = kernels.lib().tm_assemble(
+        pre.data_ptr(), pre_len.data_ptr(), suf.data_ptr(),
+        suf_len.data_ptr(), patch.data_ptr(), split.data_ptr(),
+        patch_len.data_ptr(), group.data_ptr(), n, width, msg.data_ptr(),
+        nblocks.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "assemble")
+    assemble.launches += 1
+    return msg, nblocks
+
+
+assemble.launches = 0
+
+
+# -- K3: verify against the tables ---------------------------------------
+
+
+def xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
+                  btab) -> torch.Tensor:
+    """Plain PyTorch version of K3 (csrc/xverify.cu) -> (N,) bool."""
+    n = idx.shape[0]
+    dev = idx.device
+    ki = idx.to(torch.int64)
+    ab = akeys[ki]
+    full = torch.cat([sb[:, :32], ab, msg], dim=1)
+    digest = sh.compress_blocks(sh.bytes_to_words(full), nblocks)
+    digk = sc.recode_signed(sc.fold_digest(sh.digest_bytes_le(digest)).flip(0))
+    s_rows = sb.to(torch.int64).T
+    digs = sc.bytes_to_nibbles(s_rows[32:])
+    digs = torch.cat([digs, torch.zeros((_WINDOWS - 64, n), dtype=torch.int64,
+                                        device=dev)])
+    R, r_ok = ed.decompress_bytes(s_rows[:32])
+    neg_r = ed.neg(R)
+    acc_a = acc_b = ed.identity(n, dev)
+    for w in range(_WINDOWS):
+        e = tables[ki, w, digk[w].abs()].to(torch.int64).permute(1, 2, 0)
+        neg = (digk[w] < 0)[None]
+        qx = torch.where(neg, fe.neg(e[0]), e[0])
+        qt = torch.where(neg, fe.neg(e[3]), e[3])
+        acc_a = ed.add(acc_a, ed.Point(qx, e[1], e[2], qt))
+        acc_b = ed.add_z1(acc_b, *ed.select_const(btab[w], digs[w]))
+    v = ed.add(ed.add(acc_a, acc_b), neg_r)
+    for _ in range(3):
+        v = ed.double(v)
+    return ed.is_identity(v) & r_ok & s_ok & key_ok[ki]
+
+
+def xverify(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
+            btab) -> torch.Tensor:
+    """K3 wrapper: plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (or KernelError)."""
+    if idx.device.type == "cpu":
+        return xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok,
+                             tables, btab)
+    dev = idx.device
+    n, width = msg.shape
+    v = akeys.shape[0]
+    kernels.require(idx, "idx", torch.int32, (n,), dev)
+    kernels.require(akeys, "akeys", torch.uint8, (v, 32), dev)
+    kernels.require(sb, "sb", torch.uint8, (n, 64), dev)
+    kernels.require(msg, "msg", torch.uint8, (n, width), dev)
+    kernels.require(nblocks, "nblocks", torch.int32, (n,), dev)
+    kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
+    kernels.require(key_ok, "key_ok", torch.bool, (v,), dev)
+    kernels.require(tables, "tables", torch.int32,
+                    (v, _WINDOWS, _ENTRIES, 4, fe.NLIMB), dev)
+    kernels.require(btab, "btab", torch.int32, (_WINDOWS, 16, 3, fe.NLIMB), dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    rc = kernels.lib().tm_xverify(
+        idx.data_ptr(), akeys.data_ptr(), sb.data_ptr(), msg.data_ptr(),
+        width, nblocks.data_ptr(), s_ok.data_ptr(), key_ok.data_ptr(),
+        tables.data_ptr(), btab.data_ptr(), n, out.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "xverify")
+    xverify.launches += 1
+    return out
+
+
+xverify.launches = 0
+
+
+class ExpandedKeys:
+    """Device-resident comb tables for a fixed list of ed25519 pubkeys."""
+
+    # Message widths (bytes after the 64-byte R||A prefix) of the
+    # structured path: 2- and 4-block SHA inputs. Every realistic vote
+    # fits in 192 (mlen <= 175); 448 covers long chain ids.
+    _S_WIDTHS = (192, 448)
+    # Template groups per launch (types/sign_batch.py MAX_GROUPS).
+    _S_GROUPS = 32
+
+    def __init__(self, pubkeys: list[bytes], device=None):
+        self.pubkeys = tuple(bytes(p) for p in pubkeys)
+        if not all(len(p) == 32 for p in self.pubkeys):
+            raise ValueError("ed25519 pubkeys must be 32 bytes")
+        self.device = default_device() if device is None else torch.device(device)
+        a_raw = np.frombuffer(b"".join(self.pubkeys), np.uint8).reshape(-1, 32)
+        self.akeys = torch.from_numpy(a_raw.copy()).to(self.device)
+        self.tables, self.key_ok = build_tables(self.akeys)
+
+    @classmethod
+    def from_reference_arrays(cls, pubkeys, tables, key_ok, device=None):
+        """Carry a set built by the reference over: ``tables`` are its
+        (V*69*9, 128) int32 rows (22 twelve-bit limbs per coordinate,
+        88 payload ints then padding) and ``key_ok`` its (V,) flags.
+        Each entry is decoded mod p and re-encoded in this port's limbs."""
+        self = cls.__new__(cls)
+        self.pubkeys = tuple(bytes(p) for p in pubkeys)
+        v = len(self.pubkeys)
+        self.device = default_device() if device is None else torch.device(device)
+        rows = np.asarray(tables)
+        if rows.shape != (v * _WINDOWS * _ENTRIES, 128):
+            raise ValueError(f"reference tables shape {rows.shape}")
+        limbs = rows[:, :88].reshape(v, _WINDOWS, _ENTRIES, 4, 22)
+        conv = fe.from_radix12(limbs)  # (V, 69, 9, 4, 10) int32
+        a_raw = np.frombuffer(b"".join(self.pubkeys), np.uint8).reshape(-1, 32)
+        self.akeys = torch.from_numpy(a_raw.copy()).to(self.device)
+        self.tables = torch.from_numpy(conv).to(self.device)
+        self.key_ok = torch.from_numpy(
+            np.asarray(key_ok, bool).copy()).to(self.device)
+        return self
+
+    def __len__(self) -> int:
+        return len(self.pubkeys)
+
+    def _check_idx(self, indices, n_sigs) -> np.ndarray:
+        n = len(indices)
+        if n_sigs != n:
+            raise ValueError("one signature per lane")
+        idx = np.asarray(indices, np.int32)
+        if n > tv._MAX_BATCH:
+            raise ValueError("split huge batches at the call site")
+        if idx.min() < 0 or idx.max() >= len(self.pubkeys):
+            raise ValueError("key index out of range")
+        return idx
+
+    @staticmethod
+    def _sig_rows(sigs, pad: int) -> tuple[np.ndarray, np.ndarray]:
+        """(bucket, 64) signature rows + per-lane well-formedness.
+
+        Per-lane length check. An aggregate total-length shortcut
+        would be unsound: two adjacent malformed sigs of 63+65 bytes
+        cancel out and every following lane's bytes shift."""
+        n = len(sigs)
+        lens = np.fromiter(map(len, sigs), np.int64, count=n)
+        well_formed = lens == 64
+        if not well_formed.all():
+            sigs = [s if ok else b"\0" * 64
+                    for s, ok in zip(sigs, well_formed)]
+        joined = b"".join(sigs) + b"\0" * (64 * pad)
+        return (np.frombuffer(joined, np.uint8).reshape(n + pad, 64),
+                well_formed)
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """Powers of two up to 1024, then multiples of 1024 (a
+        10,240-lane commit runs at exactly 10,240)."""
+        if n <= 1024:
+            bucket = tv._MIN_BATCH
+            while bucket < n:
+                bucket <<= 1
+            return bucket
+        return (n + 1023) // 1024 * 1024
+
+    def _prepare(self, indices, msgs, sigs):
+        """Host side of verify: validate, pad to a bucket, pack bytes."""
+        n = len(indices)
+        if len(msgs) != n:
+            raise ValueError("one message per lane")
+        idx = self._check_idx(indices, len(sigs))
+        pad = self._bucket(n) - n
+        sig_raw, well_formed = self._sig_rows(sigs, pad)
+        if pad:
+            idx = np.concatenate([idx, np.zeros(pad, np.int32)])
+            msgs = list(msgs) + [b""] * pad
+        return idx, tv.pack_sig_msg(sig_raw, msgs), well_formed
+
+    def _launch(self, idx, packed) -> torch.Tensor:
+        t = tv.to_device(dict(packed, idx=idx), self.device)
+        return xverify(t["idx"], self.akeys, t["sb"], t["msg"], t["nblocks"],
+                       t["s_ok"], self.key_ok, self.tables, tv._btab(self.device))
+
+    def verify(self, indices, msgs, sigs) -> np.ndarray:
+        """Verify (self.pubkeys[indices[i]], msgs[i], sigs[i]) lanes in
+        one launch, padded to a bucket; verdicts identical to
+        verify.verify_batch on the same triples."""
+        n = len(indices)
+        if n == 0:
+            return np.zeros(0, bool)
+        idx, packed, well_formed = self._prepare(indices, msgs, sigs)
+        full = self._launch(idx, packed).cpu().numpy()
+        return full[:n] & well_formed
+
+    def _prepare_structured(self, indices, sbatch, sigs):
+        n = len(indices)
+        if len(sbatch) != n:
+            raise ValueError("one structured message per lane")
+        idx = self._check_idx(indices, len(sigs))
+        # Host self-check: lane 0's structured reassembly must equal its
+        # independently computed canonical sign bytes.
+        if sbatch.host_assemble(0) != sbatch.anchor_bytes():
+            raise ValueError("structured sign-bytes self-check failed")
+        max_len = sbatch.max_msg_len()
+        width = next((w for w in self._S_WIDTHS if max_len <= w - 17), None)
+        if width is None:
+            raise ValueError("sign bytes too long for structured path")
+        k, pw = sbatch.pre.shape
+        sw = sbatch.suf.shape[1]
+        kp = self._S_GROUPS
+        if k > kp or pw > _PRE_W or sw > _SUF_W:
+            raise ValueError("templates too large for structured path")
+        pad = self._bucket(n) - n
+        sig_raw, well_formed = self._sig_rows(sigs, pad)
+
+        def padded(a, rows):
+            return np.pad(a, ((0, rows),) + ((0, 0),) * (a.ndim - 1))
+
+        if pad:
+            idx = np.concatenate([idx, np.zeros(pad, np.int32)])
+        fields = dict(
+            sb=sig_raw,
+            s_ok=tv.s_range_ok(sig_raw),
+            pre=np.pad(sbatch.pre, ((0, kp - k), (0, _PRE_W - pw))),
+            pre_len=padded(sbatch.pre_len, kp - k),
+            suf=np.pad(sbatch.suf, ((0, kp - k), (0, _SUF_W - sw))),
+            suf_len=padded(sbatch.suf_len, kp - k),
+            patch=padded(sbatch.patch, pad),
+            split=padded(sbatch.split, pad),
+            patch_len=padded(sbatch.patch_len, pad),
+            group=padded(sbatch.group, pad),
+        )
+        return idx, fields, well_formed, width
+
+    def _launch_structured(self, idx, fields, width) -> torch.Tensor:
+        t = tv.to_device(dict(fields, idx=idx), self.device)
+        msg, nblocks = assemble(t["pre"], t["pre_len"], t["suf"],
+                                t["suf_len"], t["patch"], t["split"],
+                                t["patch_len"], t["group"], width)
+        return xverify(t["idx"], self.akeys, t["sb"], msg, nblocks,
+                       t["s_ok"], self.key_ok, self.tables,
+                       tv._btab(self.device))
+
+    def verify_structured(self, indices, sbatch, sigs) -> np.ndarray:
+        """verify() for commit votes in structured form: identical
+        verdicts to verify(indices, sbatch.materialize(), sigs), with
+        the sign bytes assembled on the device (K2) from the commit's
+        templates and per-lane timestamp patches."""
+        n = len(indices)
+        if n == 0:
+            return np.zeros(0, bool)
+        idx, fields, well_formed, width = self._prepare_structured(
+            indices, sbatch, sigs)
+        full = self._launch_structured(idx, fields, width).cpu().numpy()
+        return full[:n] & well_formed
+
+
+# -- process-wide LRU of expanded sets (one active + one in transition) --
+
+_CACHE: OrderedDict[tuple, ExpandedKeys] = OrderedDict()
+_CACHE_MAX = 2
+# _CACHE_LOCK guards only the dict. Builds are serialized per key via
+# _BUILDS events, so a background warm racing a commit verify never
+# builds the same table twice, and a cache hit for another set never
+# waits behind a build.
+_CACHE_LOCK = threading.Lock()
+_BUILDS: dict[tuple, threading.Event] = {}
+
+
+def max_keys() -> int:
+    """Largest validator set the expanded tables serve on the default
+    device. On a GPU: the _CACHE_MAX cached sets share half of the
+    card's memory (torch.cuda.mem_get_info), at TABLE_BYTES_PER_KEY
+    plus the key row each. On the CPU: the reference's CPU cap."""
+    dev = default_device()
+    if dev.type != "cuda":
+        return _CPU_MAX_KEYS
+    _free, total = torch.cuda.mem_get_info(dev)
+    return int(total // 2 // _CACHE_MAX // (TABLE_BYTES_PER_KEY + 33))
+
+
+def get_expanded(pubkeys: list[bytes]) -> ExpandedKeys:
+    dev = default_device()
+    key = (str(dev), hashlib.sha256(b"".join(pubkeys)).digest())
+    while True:
+        with _CACHE_LOCK:
+            exp = _CACHE.get(key)
+            if exp is not None:
+                _CACHE.move_to_end(key)
+                return exp
+            ev = _BUILDS.get(key)
+            if ev is None:
+                ev = threading.Event()
+                _BUILDS[key] = ev
+                break  # this thread builds
+        ev.wait()  # another thread builds this set: wait, then re-check
+    try:
+        exp = ExpandedKeys(pubkeys, device=dev)
+        with _CACHE_LOCK:
+            _CACHE[key] = exp
+            while len(_CACHE) > _CACHE_MAX:
+                _CACHE.popitem(last=False)
+        return exp
+    finally:
+        with _CACHE_LOCK:
+            _BUILDS.pop(key, None)
+        ev.set()
+
+
+class _Warm(threading.Thread):
+    """The warm thread. A failed build is logged, and join() re-raises
+    it, so a caller that waits for the tables sees the failure."""
+
+    def __init__(self, pubkeys: list[bytes]):
+        super().__init__(name="expanded-warm", daemon=True)
+        self._pubkeys = pubkeys
+        self.error: BaseException | None = None
+
+    def run(self) -> None:
+        try:
+            get_expanded(self._pubkeys)
+        except BaseException as e:  # noqa: BLE001 - kept for join()
+            self.error = e
+            logger.exception("background expanded-table warm failed "
+                             "(%d keys)", len(self._pubkeys))
+
+    def join(self, timeout: float | None = None) -> None:
+        super().join(timeout)
+        if self.error is not None:
+            raise self.error
+
+
+def warm_async(pubkeys: list[bytes]) -> threading.Thread:
+    """Build (or touch) a set's tables in a background thread, so the
+    first commit verify after a validator-set change does not pay the
+    table build inline. Returns the started thread, whose join()
+    re-raises a failed build; read the tables through get_expanded,
+    which waits for an in-flight build."""
+    t = _Warm(pubkeys)
+    t.start()
+    return t

@@ -1,0 +1,155 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``tendermint_tpu_torch/csrc`` are compiled by hand with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds rather than minutes). The build runs at first use, into
+``build/torch_kernels/<hash of the sources>/`` beside the package, one
+``nvcc -c`` per kernel source started together, then one link. Every
+C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into
+``KernelError``.
+
+Nothing here runs at import: the CPU tests import every module, and
+the CPU has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("build_tables.cu", "assemble.cu", "xverify.cu", "general_verify.cu")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures (pointers and the stream as void*, sizes as int).
+_SIGNATURES = {
+    "tm_build_tables": (_P, _P, _P, _I, _P),
+    "tm_assemble": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "tm_xverify": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
+    "tm_general_verify": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
+}
+
+# Filled by the build: wall seconds and each source's ptxas report.
+BUILD_INFO: dict = {}
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or launch, or was handed a tensor it
+    does not take. Never caught by the port: it propagates to the
+    caller of the entry point."""
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise KernelError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(ARCH.encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link the library; returns
+    its path. Reuses a library already built from identical sources."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / "libtm_kernels.so"
+    if lib_path.exists():
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("cached", True)
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in SOURCES:
+        obj = out_dir / (src[:-3] + ".o")
+        cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    ptxas, objs, failed = {}, [], []
+    for src, obj, proc in procs:
+        log, _ = proc.communicate()
+        ptxas[src] = log
+        objs.append(str(obj))
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+    if failed:
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out_dir / f"libtm_kernels.{os.getpid()}.so"
+    link = subprocess.run([nvcc, ARCH, "-shared", "-o", str(tmp), *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode != 0:
+        raise KernelError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, lib_path)  # atomic: concurrent builders agree
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
+                      ptxas=ptxas)
+    (out_dir / "ptxas.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in ptxas.items()))
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            handle.tm_error_string.argtypes = [ctypes.c_int]
+            handle.tm_error_string.restype = ctypes.c_char_p
+            _LIB = handle
+        return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().tm_error_string(rc).decode()
+        raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def require(t, name: str, dtype, shape: tuple, device) -> None:
+    """Wrapper-side argument check: a kernel takes contiguous tensors
+    of one dtype and shape on the launch device, nothing else."""
+    if t.device != device:
+        raise KernelError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise KernelError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise KernelError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise KernelError(f"{name}: not contiguous")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,239 @@
+"""Batched ZIP-215 ed25519 verification of lanes that each carry their
+own key: the general kernel (K4) and its host side.
+
+The host packs raw bytes (pubkeys, signatures, SHA-padded messages)
+and checks S < L; the kernel does everything else per lane — SHA-512
+of R||A||M, the fold of the challenge, ZIP-215 decompression of A and
+R, and the cofactored check
+
+    [8]([S]B - [k]A - R) == identity
+
+with [k](-A) by 69 four-bit windows (4 doublings and one per-lane
+table add each) and [S]B by the fixed-base comb ``b_comb_tables``.
+Semantics match crypto/ed25519_ref.py and the reference's
+tendermint_tpu/crypto/tpu/verify.py bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+
+import numpy as np
+import torch
+
+from .. import ed25519_ref as ref
+from ...device import default_device
+from . import edwards as ed
+from . import field as fe
+from . import kernels
+from . import scalar as sc
+from . import sha512 as sh
+
+_L = ref.L
+_MAX_BATCH = 1 << 15
+_MIN_BATCH = 1 << 7
+_DIGITS_K = sc.DIGITS_K  # windows in the scalar-multiplication loop
+
+# L as four little-endian uint64 words, for the vectorized S < L check.
+_L_WORDS = np.frombuffer(_L.to_bytes(32, "little"), np.uint64)
+
+
+@functools.cache
+def b_comb_tables() -> np.ndarray:
+    """(69, 16, 3, 10) int32: affine (x, y, x*y) of j * 16^w * B in
+    canonical limbs. Entry (w, 0) is the identity (0, 1, 0); windows
+    64..68 exist only to keep the 69-window loop uniform (S has 64
+    nibbles) and hold the identity throughout. Built once on the host
+    with the pure-Python oracle."""
+    tab = np.zeros((_DIGITS_K, 16, 3, fe.NLIMB), np.int32)
+    base = ref._B_PT
+    for w in range(64):
+        acc = ref.IDENTITY
+        for j in range(16):
+            if j == 0:
+                x, y = 0, 1
+            else:
+                acc = ref.pt_add(acc, base)
+                x, y = ref.from_extended(acc)
+            tab[w, j, 0] = fe.to_limbs(x)
+            tab[w, j, 1] = fe.to_limbs(y)
+            tab[w, j, 2] = fe.to_limbs((x * y) % ref.P)
+        for _ in range(4):
+            base = ref.pt_double(base)
+    tab[64:, :, 1, 0] = 1
+    tab.setflags(write=False)
+    return tab
+
+
+def b_comb_from_reference(btab22: np.ndarray) -> np.ndarray:
+    """The reference's (69, 16, 3, 22) comb table re-encoded in this
+    port's limbs (the same converter as ExpandedKeys.from_reference_arrays)."""
+    return fe.from_radix12(btab22)
+
+
+def pack_batch(pubs, msgs, sigs) -> dict[str, np.ndarray]:
+    """Host-side preparation: raw byte arrays + SHA padding + S < L."""
+    n = len(pubs)
+    a_raw = np.frombuffer(b"".join(pubs), np.uint8).reshape(n, 32)
+    sig_raw = np.frombuffer(b"".join(sigs), np.uint8).reshape(n, 64)
+    return dict(pack_sig_msg(sig_raw, msgs), ab=a_raw)
+
+
+def pack_sig_msg(sig_raw: np.ndarray, msgs) -> dict[str, np.ndarray]:
+    """Signature/message half of the pack: signature rows, messages
+    padded for a 64-byte R||A prefix (the width bucketed to a
+    power-of-two block count), per-lane block counts and S < L."""
+    msg_pad, nblocks = sh.pad_messages(list(msgs), prefix_len=64)
+    total_blocks = (msg_pad.shape[1] + 64) // 128
+    tb = 1
+    while tb < total_blocks:
+        tb <<= 1
+    if tb != total_blocks:
+        msg_pad = np.pad(msg_pad, ((0, 0), (0, (tb - total_blocks) * 128)))
+    return dict(sb=sig_raw, msg=msg_pad, nblocks=nblocks,
+                s_ok=s_range_ok(sig_raw))
+
+
+def s_range_ok(sig_raw: np.ndarray) -> np.ndarray:
+    """Per-lane S < L on (N, 64) signature rows (host-side; the kernel
+    takes the verdict as an input mask)."""
+    n = sig_raw.shape[0]
+    s_words = sig_raw[:, 32:].copy().view(np.uint64)  # (n, 4) LE words
+    lt = np.zeros(n, bool)
+    gt = np.zeros(n, bool)
+    for w in (3, 2, 1, 0):
+        lt |= ~gt & ~lt & (s_words[:, w] < _L_WORDS[w])
+        gt |= ~gt & ~lt & (s_words[:, w] > _L_WORDS[w])
+    return lt
+
+
+def to_device(packed: dict, device) -> dict:
+    """numpy host arrays -> contiguous tensors on the device."""
+    return {k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(device)
+            for k, v in packed.items()}
+
+
+def _btab(device) -> torch.Tensor:
+    return _btab_cached(str(device))
+
+
+@functools.cache
+def _btab_cached(device: str) -> torch.Tensor:
+    return torch.from_numpy(b_comb_tables().copy()).to(device)
+
+
+def general_verify_plain(ab, sb, msg, nblocks, s_ok, btab) -> torch.Tensor:
+    """Plain PyTorch version of K4 (csrc/general_verify.cu): the same
+    steps on int64 limb tensors. ab (N, 32) u8, sb (N, 64) u8,
+    msg (N, W) u8, nblocks (N,) i32, s_ok (N,) bool, btab
+    (69, 16, 3, 10) i32 -> (N,) bool."""
+    n = ab.shape[0]
+    full = torch.cat([sb[:, :32], ab, msg], dim=1)
+    digest = sh.compress_blocks(sh.bytes_to_words(full), nblocks)
+    digk = sc.fold_digest(sh.digest_bytes_le(digest))  # MSB-first
+    a_rows = ab.to(torch.int64).T
+    s_rows = sb.to(torch.int64).T
+    digs = sc.bytes_to_nibbles(s_rows[32:])
+    digs = torch.cat([digs, torch.zeros((_DIGITS_K - 64, n), dtype=torch.int64,
+                                        device=ab.device)])
+    A, a_ok = ed.decompress_bytes(a_rows)
+    R, r_ok = ed.decompress_bytes(s_rows[:32])
+    tbl = ed.build_window_table(ed.neg(A), 16)
+    neg_r = ed.neg(R)
+    acc_a = acc_b = ed.identity(n, ab.device)
+    for w in range(_DIGITS_K):
+        for _ in range(4):
+            acc_a = ed.double(acc_a)
+        acc_a = ed.add(acc_a, ed.select(tbl, digk[w]))
+        acc_b = ed.add_z1(acc_b, *ed.select_const(btab[w], digs[w]))
+    v = ed.add(ed.add(acc_a, acc_b), neg_r)
+    for _ in range(3):
+        v = ed.double(v)
+    return ed.is_identity(v) & a_ok & r_ok & s_ok
+
+
+def general_verify(ab, sb, msg, nblocks, s_ok, btab) -> torch.Tensor:
+    """K4 wrapper: the plain version for CPU tensors; the CUDA kernel
+    for CUDA tensors (or KernelError)."""
+    if ab.device.type == "cpu":
+        return general_verify_plain(ab, sb, msg, nblocks, s_ok, btab)
+    dev = ab.device
+    n, width = msg.shape
+    kernels.require(ab, "ab", torch.uint8, (n, 32), dev)
+    kernels.require(sb, "sb", torch.uint8, (n, 64), dev)
+    kernels.require(msg, "msg", torch.uint8, (n, width), dev)
+    kernels.require(nblocks, "nblocks", torch.int32, (n,), dev)
+    kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
+    kernels.require(btab, "btab", torch.int32, (_DIGITS_K, 16, 3, fe.NLIMB), dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    rc = kernels.lib().tm_general_verify(
+        ab.data_ptr(), sb.data_ptr(), msg.data_ptr(), width,
+        nblocks.data_ptr(), s_ok.data_ptr(), btab.data_ptr(), n,
+        out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "general_verify")
+    general_verify.launches += 1
+    return out
+
+
+general_verify.launches = 0
+
+
+@functools.cache
+def _dummy_triple() -> tuple[bytes, bytes, bytes]:
+    """A fixed valid (pub, msg, sig) used to pad batches to bucket sizes."""
+    seed = hashlib.sha256(b"tendermint_tpu batch pad").digest()
+    pub = ref.public_key_from_seed(seed)
+    msg = b"pad"
+    return (pub, msg, ref.sign(seed, msg))
+
+
+def _chunks(n: int) -> list[int]:
+    """One power-of-two bucket per launch whenever n fits in one; only
+    batches beyond _MAX_BATCH split, into _MAX_BATCH pieces plus one
+    padded tail."""
+    out = []
+    while n >= _MAX_BATCH:
+        out.append(_MAX_BATCH)
+        n -= _MAX_BATCH
+    if n:
+        up = _MIN_BATCH
+        while up < n:
+            up <<= 1
+        out.append(up)
+    return out
+
+
+def verify_batch(pubs, msgs, sigs, device=None) -> np.ndarray:
+    """Verify ed25519 (pub, msg, sig) triples on the device (default:
+    device.default_device()). Returns (N,) bool verdicts; ZIP-215
+    semantics identical to ed25519_ref.verify; malformed lengths fail
+    cleanly."""
+    n = len(pubs)
+    assert len(msgs) == n and len(sigs) == n
+    if n == 0:
+        return np.zeros(0, bool)
+    device = default_device() if device is None else torch.device(device)
+    well_formed = np.fromiter(
+        (len(p) == 32 and len(s) == 64 for p, s in zip(pubs, sigs)),
+        bool, count=n)
+    if not well_formed.all():
+        dp, dm, ds = _dummy_triple()
+        pubs = [p if ok else dp for p, ok in zip(pubs, well_formed)]
+        msgs = [m if ok else dm for m, ok in zip(msgs, well_formed)]
+        sigs = [s if ok else ds for s, ok in zip(sigs, well_formed)]
+    out = np.empty(n, bool)
+    start = 0
+    for size in _chunks(n):
+        end = min(start + size, n)
+        p, m, s = list(pubs[start:end]), list(msgs[start:end]), list(sigs[start:end])
+        if size > end - start:
+            dp, dm, ds = _dummy_triple()
+            pad = size - (end - start)
+            p, m, s = p + [dp] * pad, m + [dm] * pad, s + [ds] * pad
+        t = to_device(pack_batch(p, m, s), device)
+        res = general_verify(t["ab"], t["sb"], t["msg"], t["nblocks"],
+                             t["s_ok"], _btab(device))
+        out[start:end] = res.cpu().numpy()[: end - start]
+        start = end
+    return out & well_formed
