@@ -8,15 +8,25 @@ Phases, each printing one JSON line:
 1. device — the card's name and power limit (nvidia-smi);
 2. build — the CUDA kernels built from tendermint_tpu_torch/csrc;
 3. kernels — each of K1-K4 against its plain PyTorch version on an
-   adversarial batch (1,024 lanes over 256 keys): verdicts
-   bit-identical, tables and sign bytes identical;
+   adversarial batch (1,024 lanes over 256 keys), and K6/K7 on a
+   1,024-lane speculation arena holding the adversarial lanes and some
+   inactive ones: verdicts bit-identical, tables, sign bytes and the
+   seven spliced buffers identical;
 4. slice — a 10,240-validator set and a signed 10,240-signature commit
    through ValidatorSet.verify_commit, verify_commit_light and
    verify_commit_light_trusting (trust 1/3), a corrupted signature that
    must be named, and a 64-lane BatchVerifier; the launch counters are
-   zeroed just before and read just after, and every kernel must have
-   launched;
-5. timing — each kernel at the main path's shapes: CUDA-event time,
+   zeroed just before and read just after, and every kernel of the
+   path (K1-K4) must have launched;
+5. speculation — the same set and commit through the SpeculationPlane:
+   begin_height, the precommits observed in 10 bursts of 1,024 with a
+   flush_sync after each (one K6 splice and one K7 launch each, the
+   sentinel lane holding), then serve_commit, which must serve a full
+   hit with no verification launch; then a commit with one corrupted
+   signature, which must be rejected at its index after re-verifying
+   that lane alone. Counters zeroed before and read after; K6 (splice,
+   clear) and K7 must have launched;
+6. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
    plain version on those inputs.
 
@@ -52,18 +62,31 @@ DOUBLE = 4 * SQR + 4 * MUL        # dbl-2008-hwcd (ge_double)
 DECOMPRESS = 255 * SQR + 19 * MUL  # + MUL where x * sqrt(-1) is taken
 ENTRY_BYTES = 4 * 10 * 4          # one table entry: X, Y, Z, T x 10 int32
 
+SPEC_BURST = 1024                 # precommits per flush_sync
+# bytes a splice writes per row: sb, s_ok, patch, split, patch_len,
+# group, active (it reads the packed row, resident.ROW_BYTES)
+SPLICE_WRITE = 64 + 1 + 24 + 3 * 4 + 1
+
 REPLACES = {
     "build_tables": "tendermint_tpu/crypto/tpu/expanded.py:128",
     "assemble": "tendermint_tpu/crypto/tpu/expanded.py:318",
     "xverify": "tendermint_tpu/crypto/tpu/expanded.py:186",
     "general_verify": "tendermint_tpu/crypto/tpu/verify.py:173",
+    "splice": "tendermint_tpu/crypto/tpu/resident.py:65",
+    "clear": "tendermint_tpu/crypto/tpu/resident.py:87",
+    "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
 }
 SOURCES = {
     "build_tables": "tendermint_tpu_torch/csrc/build_tables.cu",
     "assemble": "tendermint_tpu_torch/csrc/assemble.cu",
     "xverify": "tendermint_tpu_torch/csrc/xverify.cu",
     "general_verify": "tendermint_tpu_torch/csrc/general_verify.cu",
+    "splice": "tendermint_tpu_torch/csrc/splice.cu",
+    "clear": "tendermint_tpu_torch/csrc/splice.cu",
+    "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
 }
+SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
+SPEC_KERNELS = ("splice", "clear", "arena_verify")
 
 
 def emit(obj) -> None:
@@ -78,12 +101,15 @@ def nvidia_smi() -> str:
 
 
 def wrappers():
-    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+    from tendermint_tpu_torch.crypto.cuda import expanded, resident, verify
 
     return {"build_tables": expanded.build_tables,
             "assemble": expanded.assemble,
             "xverify": expanded.xverify,
-            "general_verify": verify.general_verify}
+            "general_verify": verify.general_verify,
+            "splice": resident.splice,
+            "clear": resident.clear,
+            "arena_verify": resident.arena_verify}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -265,7 +291,9 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
                              == host["nblocks"]).all()))
     sv = sexp.verify_structured(lanes, sbatch, sigs)
     out["assemble"]["commit_verifies"] = bool(sv.all())
-    for name in ("build_tables", "xverify", "general_verify", "assemble"):
+    timed = arena_check(n_lanes, dev, out)
+    for name in ("build_tables", "xverify", "general_verify", "assemble",
+                 "splice", "clear", "arena_verify"):
         if not all(out[name].values()):
             raise AssertionError(f"{name} check failed: {out[name]}")
     for name, fn in wrappers().items():
@@ -277,7 +305,74 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
         out["general_verify"]["ms"] = cuda_ms(
             lambda: verify.general_verify(*gargs), 5)
         out["assemble"]["ms"] = cuda_ms(lambda: expanded.assemble(*aargs), 20)
+        for name, (fn, reps) in timed.items():
+            out[name]["ms"] = cuda_ms(fn, reps)
     return out
+
+
+def splice_args(arena, b, keep):
+    """The splice arguments of batch b's lanes `keep` (slot = lane + 1)
+    against the arena's group-1 template."""
+    import numpy as np
+
+    from tendermint_tpu_torch.types import sign_batch as sbm
+
+    ts = np.asarray([b["ts"][i] for i in keep], np.int64)
+    group = np.ones(len(keep), np.int32)
+    patch, split, patch_len = sbm._build_patches(
+        arena.pre_len.astype(np.int64), arena.suf_len, group, ts)
+    sig_rows = np.frombuffer(b"".join(b["sigs"][i] for i in keep),
+                             np.uint8).reshape(-1, 64)
+    return [i + 1 for i in keep], sig_rows, patch, split, patch_len, group
+
+
+def arena_check(n_lanes: int, dev, out: dict):
+    """K6 and K7 against their plain versions on an n_lanes arena: the
+    adversarial lanes with 64-byte signatures are spliced (every 50th
+    left out), so the arena also holds inactive lanes. Fills out's
+    splice/clear/arena_verify entries; returns the calls to time."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto import vectors
+    from tendermint_tpu_torch.crypto.cuda import resident
+
+    b = vectors.arena_batch(256, n_lanes - 1, seed=4)
+    arena = resident.ResidentArena(n_lanes, device=dev)
+    arena.install_keys([b["pubkeys"][k] for k in b["idx"]])
+    arena.set_template(1, b["pre"], b["suf"])
+    keep = [i for i, sig in enumerate(b["sigs"])
+            if len(sig) == 64 and i % 50 != 7]
+    args = splice_args(arena, b, keep)
+    packed = torch.from_numpy(arena.pack(*args)).to(dev)
+    ptrs = [t.data_ptr() for t in arena.buffers()]
+    plain = [t.clone() for t in arena.buffers()]
+    arena.splice(*args)
+    resident.splice_plain(*plain, packed)
+    out["splice"] = dict(
+        equal_plain=all(torch.equal(x, y)
+                        for x, y in zip(arena.buffers(), plain)),
+        in_place=ptrs == [t.data_ptr() for t in arena.buffers()])
+    largs = arena.launch_args()
+    v_k = resident.arena_verify(*largs)
+    v_p = resident.arena_verify_plain(*largs)
+    want = np.zeros(arena.capacity, bool)
+    want[0] = True
+    for i in keep:
+        want[i + 1] = b["expect"][i]
+    out["arena_verify"] = dict(
+        equal_plain=bool(torch.equal(v_k, v_p)),
+        equal_expect=bool((v_k.cpu().numpy() == want).all()),
+        active_lanes=arena.active_lanes)
+    act_k, act_p = arena._active.clone(), arena._active.clone()
+    resident.clear(act_k)
+    resident.clear_plain(act_p)
+    out["clear"] = dict(equal_plain=bool(torch.equal(act_k, act_p)),
+                        sentinel_only=int(act_k.sum().item()) == 1)
+    timed = {"splice": (lambda: resident.splice(*arena.buffers(), packed), 50),
+             "clear": (lambda: resident.clear(act_k), 50),
+             "arena_verify": (lambda: resident.arena_verify(*largs), 5)}
+    return timed
 
 
 # -- phase 4 -------------------------------------------------------------
@@ -368,7 +463,7 @@ def slice_phase(vs, commit, bid) -> dict:
     want[7] = False
     if all_ok or not (lanes == want).all():
         raise AssertionError("BatchVerifier verdicts")
-    launches = {name: fn.launches for name, fn in wrappers().items()}
+    launches = {name: kernels[name].launches for name in SLICE_KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel did not launch: {launches}")
     breakdown = commit_breakdown(vs, commit)
@@ -418,6 +513,117 @@ def commit_breakdown(vs, commit, reps: int = 7) -> dict:
 # -- phase 5 -------------------------------------------------------------
 
 
+def speculation_phase(vs, commit, bid):
+    """The verify-ahead path at full width: precommits observed in
+    bursts and flushed (K6 + K7 each), a commit served from the
+    speculated verdicts with no verification launch, and a corrupted
+    commit rejected after re-verifying its one bad lane. Returns the
+    phase's record and the plane's arena."""
+    import torch
+
+    from tendermint_tpu_torch.config import SpeculationConfig
+    from tendermint_tpu_torch.consensus import SpeculationPlane
+    from tendermint_tpu_torch.crypto.cuda.resident import ResidentArena
+    from tendermint_tpu_torch.types.validator_set import VerificationError
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    h, r = commit.height, commit.round
+    votes = [Vote(VoteType.PRECOMMIT, h, r, bid, cs.timestamp,
+                  cs.validator_address, i, cs.signature)
+             for i, cs in enumerate(commit.signatures)]
+    kernels = wrappers()
+    host_ms: dict[str, list] = {"splice": [], "launch": []}
+
+    def timed(name, fn):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            host_ms[name].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return run
+
+    orig = ResidentArena.splice, ResidentArena.launch
+    ResidentArena.splice = timed("splice", orig[0])
+    ResidentArena.launch = timed("launch", orig[1])
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        plane = SpeculationPlane(SpeculationConfig())
+        plane.begin_height(CHAIN, vs, h, r, bid)
+        flushes = []
+        for start in range(0, len(votes), SPEC_BURST):
+            for v in votes[start:start + SPEC_BURST]:
+                plane.observe_precommit(v)
+            k6, k7 = kernels["splice"].launches, kernels["arena_verify"].launches
+            t0 = time.perf_counter()
+            plane.flush_sync()  # raises if the sentinel lane fails
+            flush_ms = (time.perf_counter() - t0) * 1e3
+            if (kernels["splice"].launches - k6,
+                    kernels["arena_verify"].launches - k7) != (1, 1):
+                raise AssertionError("a flush did not launch K6 and K7 once")
+            flushes.append(dict(active_lanes=plane._arena.active_lanes,
+                                splice_ms=host_ms["splice"][-1],
+                                launch_ms=host_ms["launch"][-1],
+                                flush_ms=flush_ms))
+    finally:
+        ResidentArena.splice, ResidentArena.launch = orig
+    lanes = plane._heights[h].lanes
+    if len(lanes) != len(votes) or not all(ln.verdict for ln in lanes.values()):
+        raise AssertionError("a speculated lane did not verify")
+    verify_kernels = ("assemble", "xverify", "general_verify", "arena_verify")
+    before = {k: kernels[k].launches for k in verify_kernels}
+    t0 = time.perf_counter()
+    served = plane.serve_commit(vs, CHAIN, bid, h, commit)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    vs.hash()  # serve_commit matches the valset by its hash
+    valset_hash_ms = (time.perf_counter() - t0) * 1e3
+    during = {k: kernels[k].launches - before[k] for k in verify_kernels}
+    if not (served and plane.hits == 1 and not any(plane.misses.values())):
+        raise AssertionError(f"no full hit: {plane.hits} {plane.misses}")
+    if any(during.values()):
+        raise AssertionError(f"a hit launched verification: {during}")
+    # one corrupted signature: only its lane may re-verify
+    bad = len(votes) * 37 // 64
+    good_sig = commit.signatures[bad].signature
+    commit.signatures[bad].signature = good_sig[:50] + bytes(
+        [good_sig[50] ^ 8]) + good_sig[51:]
+    called = []
+
+    def spy(lanes_, msgs, sigs, _orig=vs._batch_verify_lanes):
+        called.append(list(lanes_))
+        return _orig(lanes_, msgs, sigs)
+
+    vs._batch_verify_lanes = spy
+    try:
+        plane.serve_commit(vs, CHAIN, bid, h, commit)
+    except VerificationError as e:
+        message = str(e)
+    else:
+        raise AssertionError("corrupted commit served")
+    finally:
+        del vs._batch_verify_lanes
+        commit.signatures[bad].signature = good_sig
+    if message != f"invalid signature(s) at index(es) [{bad}]" or \
+            called != [[bad]] or plane.misses["mismatch"] != 1:
+        raise AssertionError(f"wrong rejection: {message} {called}")
+    launches = {name: kernels[name].launches for name in SPEC_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    lane_verifies = sum(f["active_lanes"] - 1 for f in flushes)
+    return dict(flushes=flushes, serve_commit_ms=serve_ms,
+                valset_hash_ms=valset_hash_ms, serve_launches=during,
+                rejected=message, lane_verifies=lane_verifies,
+                launches=launches,
+                arena_bytes=plane._arena.arena_bytes(),
+                reupload_bytes=plane._arena.reupload_bytes), plane._arena
+
+
+# -- phase 6 -------------------------------------------------------------
+
+
 def timing_phase(vs, commit, dev) -> list[dict]:
     """Each kernel at the main path's shapes: time, plain time, bound,
     agreement with the plain version."""
@@ -435,14 +641,6 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     f = verify.to_device(dict(fields, idx=idx), dev)
     btab = verify._btab(dev)
     rows = []
-
-    def plain_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, (time.perf_counter() - t0) * 1e3
-
     # K1 at the set's size
     k1 = lambda: expanded.build_tables(exp.akeys)  # noqa: E731
     tab_k, ok_k = k1()
@@ -511,10 +709,25 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     g_k = verify.general_verify(*gargs)
     g_p, p_ms = plain_ms(lambda: verify.general_verify_plain(*gargs))
     err = max_abs_diff(g_k, g_p)
-    live = pk["s_ok"].bool()  # S >= L: the verdict is already false
-    ab, sb, m = pk["ab"][live], pk["sb"][live], int(live.sum().item())
-    dig_k, dig_s = lane_digits(ab, sb, pk["msg"][live], pk["nblocks"][live])
-    top = torch.where(dig_k != 0, torch.arange(69, device=dev)[:, None],
+    ops, nbytes = general_work(pk["ab"], pk["sb"], pk["msg"],
+                               pk["nblocks"], pk["s_ok"].bool())
+    nbytes += btab.numel() * 4
+    rows.append(entry("general_verify", err,
+                      cuda_ms(lambda: verify.general_verify(*gargs), 10),
+                      p_ms, ops, nbytes))
+    return rows
+
+
+def general_work(ab, sb, msg, nblocks, live) -> tuple[int, int]:
+    """K4's work on the lanes `live` (the others' verdicts are already
+    false): (int32 products, bytes read of keys, signatures, s_ok,
+    nblocks and the message blocks SHA-512 reads)."""
+    import torch
+
+    ab, sb, m = ab[live], sb[live], int(live.sum().item())
+    msg, nblocks = msg[live], nblocks[live]
+    dig_k, dig_s = lane_digits(ab, sb, msg, nblocks)
+    top = torch.where(dig_k != 0, torch.arange(69, device=ab.device)[:, None],
                       0).max(0).values  # doublings start after it
     # per lane: decompress A and R, the 16-entry table of -A (14 adds),
     # 4 doublings per window below k's top nonzero nibble, an add per
@@ -524,13 +737,96 @@ def timing_phase(vs, commit, dev) -> list[dict]:
            + m * 14 * ADD + int(top.sum().item()) * 4 * DOUBLE
            + adds_after_first(dig_k) * ADD + adds_after_first(dig_s) * ADD_Z1
            + m * (2 * ADD + 3 * DOUBLE))
-    msg_bytes = int((pk["nblocks"][live].to(torch.int64) * 128
-                     - 64).sum().item())
-    nbytes = m * (32 + 64 + 4 + 1) + msg_bytes + btab.numel() * 4
-    rows.append(entry("general_verify", err,
-                      cuda_ms(lambda: verify.general_verify(*gargs), 10),
-                      p_ms, ops, nbytes))
+    msg_bytes = int((nblocks.to(torch.int64) * 128 - 64).sum().item())
+    return ops, m * (32 + 64 + 4 + 1) + msg_bytes
+
+
+def arena_rows(arena, vs, commit, dev) -> list[dict]:
+    """K6 (splice of one 1,024-row burst, clear) and K7 at the
+    speculation phase's shapes, on the plane's arena as the phase left
+    it: time, plain time, bound, the library call's time for the
+    splice, and agreement with the plain version."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import expanded, resident
+
+    rows = []
+    n = arena.capacity
+    # K6 splice: the last burst's rows again, into copies of the buffers
+    b = dict(ts=[cs.timestamp for cs in commit.signatures],
+             sigs=[cs.signature for cs in commit.signatures])
+    keep = list(range(len(vs.validators) - SPEC_BURST, len(vs.validators)))
+    packed_np = arena.pack(*splice_args(arena, b, keep))
+    packed = torch.from_numpy(packed_np).to(dev)
+    bufs_k = [t.clone() for t in arena.buffers()]
+    bufs_p = [t.clone() for t in arena.buffers()]
+    resident.splice(*bufs_k, packed)
+    _, p_ms = plain_ms(lambda: resident.splice_plain(*bufs_p, packed))
+    err = max(max_abs_diff(x, y) for x, y in zip(bufs_k, bufs_p))
+    k = len(keep)
+    ints = packed[:16 * k].view(torch.int32).reshape(4, k)
+    rest = packed[16 * k:]
+    pos = ints[0].to(torch.int64)
+    d_sb = rest[:64 * k].reshape(k, 64)
+    d_patch = rest[64 * k:88 * k].reshape(k, 24)
+    d_sok = rest[88 * k:].to(torch.bool)
+    ones = torch.ones(k, dtype=torch.bool, device=dev)
+    sb, s_ok, patch, split, patch_len, group, active = bufs_p
+
+    def library():  # seven index_copy_ calls: the same splice
+        sb.index_copy_(0, pos, d_sb)
+        s_ok.index_copy_(0, pos, d_sok)
+        patch.index_copy_(0, pos, d_patch)
+        split.index_copy_(0, pos, ints[1])
+        patch_len.index_copy_(0, pos, ints[2])
+        group.index_copy_(0, pos, ints[3])
+        active.index_copy_(0, pos, ones)
+
+    row = entry("splice", err,
+                cuda_ms(lambda: resident.splice(*bufs_k, packed), 100), p_ms,
+                0, k * (resident.ROW_BYTES + SPLICE_WRITE))
+    row["library_ms"] = cuda_ms(library, 100)
+    rows.append(row)
+    # K6 clear at the arena's capacity
+    act_k, act_p = arena._active.clone(), arena._active.clone()
+    resident.clear(act_k)
+    _, p_ms = plain_ms(lambda: resident.clear_plain(act_p))
+    rows.append(entry("clear", max_abs_diff(act_k, act_p),
+                      cuda_ms(lambda: resident.clear(act_k), 100), p_ms, 0, n))
+    # K7 over the active lanes the last flush verified
+    largs = arena.launch_args()
+    v_k = resident.arena_verify(*largs)
+    v_p, p_ms = plain_ms(lambda: resident.arena_verify_plain(*largs))
+    err = max_abs_diff(v_k, v_p)
+    (ab, sbuf, s_okb, act, pre, pre_len, suf, suf_len, pat, spl, plen, grp,
+     btab) = largs
+    live = act.nonzero()[:, 0]
+    msg, nblocks = expanded.assemble_plain(pre, pre_len, suf, suf_len,
+                                           pat[live], spl[live], plen[live],
+                                           grp[live], arena.width)
+    ops, _ = general_work(ab[live], sbuf[live], msg, nblocks, s_okb[live])
+    # per active lane: key, signature, s_ok, patch, split, patch_len and
+    # group; every lane's active flag and verdict; templates and the comb
+    nbytes = (live.numel() * (32 + 64 + 1 + 24 + 3 * 4) + 2 * n
+              + sum(t.numel() * t.element_size()
+                    for t in (pre, pre_len, suf, suf_len))
+              + btab.numel() * 4)
+    rows.append(entry("arena_verify", err,
+                      cuda_ms(lambda: resident.arena_verify(*largs), 5), p_ms,
+                      ops, nbytes))
     return rows
+
+
+def plain_ms(fn):
+    """One call's result and host milliseconds, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
 
 
 def entry(name, err, ms, plain, ops, nbytes) -> dict:
@@ -575,9 +871,17 @@ def main() -> int:
     res = slice_phase(vs, commit, bid)
     emit(dict(phase="slice", validators=N_VALIDATORS, setup_s=setup_s,
               card=smi, **res))
+    t0 = time.perf_counter()
+    spec, arena = speculation_phase(vs, commit, bid)
+    emit(dict(phase="speculation", validators=N_VALIDATORS,
+              bursts=len(spec["flushes"]), burst=SPEC_BURST,
+              verify_commit_p50_ms=res["verify_commit_p50_ms"],
+              seconds=time.perf_counter() - t0, card=smi, **spec))
     rows = timing_phase(vs, commit, torch.device("cuda"))
+    rows += arena_rows(arena, vs, commit, torch.device("cuda"))
+    launches = dict(res["launches"], **spec["launches"])
     for r in rows:
-        r["launches"] = res["launches"][r["name"]]
+        r["launches"] = launches[r["name"]]
     emit({"phase": "timing", "card": smi,
           "tolerance": "exact: max_abs_err 0 against the plain version"})
     emit({"kernels": rows})

@@ -1,9 +1,12 @@
 """tendermint_tpu_torch — the PyTorch/CUDA port of tendermint_tpu.
 
-This slice carries the commit-verification main path: a
+Two paths are ported. Commit verification: a
 ``ValidatorSet.verify_commit*`` call over an ed25519 validator set is
-verified on an NVIDIA GPU by four hand-written CUDA kernels
-(``crypto/cuda/``, sources in ``csrc/``). The JAX package
+verified on an NVIDIA GPU by four hand-written CUDA kernels (K1–K4).
+Verify-ahead speculation: ``consensus.SpeculationPlane`` verifies
+precommits as they arrive in a resident arena on the GPU (K6 splice and
+clear, K7 arena verify) and serves the commit from those verdicts.
+Wrappers are in ``crypto/cuda/``, sources in ``csrc/``. The JAX package
 ``tendermint_tpu`` is the reference it is held against; nothing here
 imports it or JAX.
 

@@ -11,6 +11,9 @@ port has no breaker and no host degrade.
 
 from __future__ import annotations
 
+import functools
+import hashlib
+
 import numpy as np
 
 from . import PubKey
@@ -18,6 +21,26 @@ from . import PubKey
 # Below this many sigs, host verification beats a launch (the
 # reference's crossover, kept so both route at the same points).
 _DEVICE_THRESHOLD = 40
+
+
+@functools.cache
+def _ed_probe_triple() -> tuple[bytes, bytes, bytes]:
+    """A fixed known-answer (pub, msg, sig): the reference's breaker
+    probe triple, carried by the speculation arena's sentinel lane 0."""
+    from . import ed25519_ref as edr
+
+    seed = hashlib.sha256(b"tendermint_tpu ed25519 breaker probe").digest()
+    msg = b"breaker probe"
+    return edr.public_key_from_seed(seed), msg, edr.sign(seed, msg)
+
+
+def host_verify(items) -> np.ndarray:
+    """Per-lane verdicts of (pub_key, msg, sig) triples on the host: the
+    per-key verify (OpenSSL strict accept, else the ZIP-215 oracle;
+    crypto/ed25519.py)."""
+    return np.fromiter(
+        (len(s) == 64 and pk.verify_signature(m, s) for pk, m, s in items),
+        bool, count=len(items))
 
 
 class BatchVerifier:
@@ -61,8 +84,4 @@ class BatchVerifier:
                 [m for _, m, _ in items],
                 [s for _, _, s in items],
             )
-        # Host path: the per-key verify (OpenSSL strict accept, else the
-        # ZIP-215 oracle; crypto/ed25519.py).
-        return np.fromiter(
-            (len(s) == 64 and pk.verify_signature(m, s) for pk, m, s in items),
-            bool, count=len(items))
+        return host_verify(items)

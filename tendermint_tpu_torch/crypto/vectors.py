@@ -42,12 +42,13 @@ KINDS = {
 _SMALL_ORDER = bytes(32)  # y = 0: a point of order 4
 
 
-def adversarial_batch(n_keys: int, n_lanes: int, seed: int = 0) -> dict:
+def adversarial_batch(n_keys: int, n_lanes: int, seed: int = 0,
+                      msgs: list[bytes] | None = None) -> dict:
     """A batch over n_keys keys (key 0 undecodable, key 1 of small
     order, the rest valid) whose lanes cycle through KINDS, with
     messages of 0..300 random bytes from a numpy generator seeded by
-    `seed`. Returns pubkeys, idx (key per lane), msgs, sigs, kinds and
-    the expected verdicts."""
+    `seed` (or the given `msgs`, one per lane). Returns pubkeys, idx
+    (key per lane), msgs, sigs, kinds and the expected verdicts."""
     if n_keys < 3:
         raise ValueError("need at least 3 keys")
     rng = np.random.default_rng(seed)
@@ -56,11 +57,14 @@ def adversarial_batch(n_keys: int, n_lanes: int, seed: int = 0) -> dict:
     pubkeys = [undecodable_encoding(), _SMALL_ORDER] + [
         ref.public_key_from_seed(s) for s in seeds[2:]]
     names = list(KINDS)
-    idx, msgs, sigs, kinds = [], [], [], []
+    idx, lane_msgs, sigs, kinds = [], [], [], []
     for i in range(n_lanes):
         kind = names[i % len(names)]
-        msg = rng.integers(0, 256, int(rng.integers(0, 301)),
-                           dtype=np.uint8).tobytes()
+        if msgs is None:
+            msg = rng.integers(0, 256, int(rng.integers(0, 301)),
+                               dtype=np.uint8).tobytes()
+        else:
+            msg = msgs[i]
         if kind == "undecodable_key":
             key = 0
         elif kind == "small_order_key":
@@ -92,8 +96,33 @@ def adversarial_batch(n_keys: int, n_lanes: int, seed: int = 0) -> dict:
             elif kind == "long_sig":
                 sig = sig + b"\0"
         idx.append(key)
-        msgs.append(msg)
+        lane_msgs.append(msg)
         sigs.append(sig)
         kinds.append(kind)
-    return dict(pubkeys=pubkeys, idx=idx, msgs=msgs, sigs=sigs, kinds=kinds,
-                expect=np.array([KINDS[k] for k in kinds]))
+    return dict(pubkeys=pubkeys, idx=idx, msgs=lane_msgs, sigs=sigs,
+                kinds=kinds, expect=np.array([KINDS[k] for k in kinds]))
+
+
+def arena_batch(n_keys: int, n_lanes: int, seed: int = 0) -> dict:
+    """adversarial_batch over precommit sign bytes of one (height,
+    round, block id) with per-lane timestamps (edge values and random
+    ones from a numpy generator seeded by `seed`): the lanes a
+    speculation arena carries. Adds ts and the template halves pre/suf
+    (types/canonical.py vote_sign_parts)."""
+    from ..types import canonical
+    from ..types.block import BlockID, PartSetHeader
+    from ..types.vote import VoteType
+
+    chain, height, round_ = "arena-chain", 977, 1
+    bid = BlockID(bytes(range(32)), PartSetHeader(3, bytes(32)))
+    rng = np.random.default_rng(seed)
+    edge = [0, 1, 999_999_999, 1_000_000_000, (1 << 63) - 1]
+    ts = [edge[i] if i < len(edge)
+          else int(rng.integers(1, 1 << 62)) for i in range(n_lanes)]
+    vt = int(VoteType.PRECOMMIT)
+    msgs = [canonical.vote_sign_bytes(chain, vt, height, round_, bid, t)
+            for t in ts]
+    out = adversarial_batch(n_keys, n_lanes, seed, msgs=msgs)
+    pre, suf = canonical.vote_sign_parts(chain, vt, height, round_, bid)
+    out.update(ts=ts, pre=pre, suf=suf)
+    return out
