@@ -8,10 +8,13 @@ Phases, each printing one JSON line:
 1. device — the card's name and power limit (nvidia-smi);
 2. build — the CUDA kernels built from tendermint_tpu_torch/csrc;
 3. kernels — each of K1-K4 against its plain PyTorch version on an
-   adversarial batch (1,024 lanes over 256 keys), and K6/K7 on a
+   adversarial batch (1,024 lanes over 256 keys), K6/K7 on a
    1,024-lane speculation arena holding the adversarial lanes and some
-   inactive ones: verdicts bit-identical, tables, sign bytes and the
-   seven spliced buffers identical;
+   inactive ones, and K9 on a 1,024-lane sr25519 adversarial batch
+   (verdicts also equal to sr25519_ref.verify on every lane, and every
+   branch of the ristretto equality and square root taken): verdicts
+   bit-identical, tables, sign bytes and the seven spliced buffers
+   identical;
 4. slice — a 10,240-validator set and a signed 10,240-signature commit
    through ValidatorSet.verify_commit, verify_commit_light and
    verify_commit_light_trusting (trust 1/3), a corrupted signature that
@@ -26,7 +29,16 @@ Phases, each printing one JSON line:
    signature, which must be rejected at its index after re-verifying
    that lane alone. Counters zeroed before and read after; K6 (splice,
    clear) and K7 must have launched;
-6. timing — each kernel at the main path's shapes: CUDA-event time,
+6. mixed — a 10,240-validator set whose odd-numbered keys are sr25519
+   (signed with the bulk signer sr_sign_batch) and even-numbered ones
+   ed25519, and its signed commit through verify_commit (5 runs, p50,
+   and the stages of one run), verify_commit_light and
+   verify_commit_light_trusting: each call must launch K9 once for the
+   sr25519 lanes and K4 once for the ed25519 lanes, and K1, K2, K3
+   and K7 never; a corrupted sr25519 and a corrupted ed25519 signature
+   must each be named; one duplicate-vote evidence check on an sr25519
+   validator (valid, then with a bad signature);
+7. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
    plain version on those inputs.
 
@@ -60,6 +72,11 @@ ADD = 9 * MUL                     # add-2008-hwcd-3 (ge_add)
 ADD_Z1 = 8 * MUL                  # Z2 = 1: the comb add (ge_add_z1)
 DOUBLE = 4 * SQR + 4 * MUL        # dbl-2008-hwcd (ge_double)
 DECOMPRESS = 255 * SQR + 19 * MUL  # + MUL where x * sqrt(-1) is taken
+# ristretto decode: 257 squarings (pow_2_252_m3's 251 and six more) and
+# 24 multiplies (those by the constant u = 1 not counted), + MUL where
+# the root is multiplied by sqrt(-1)
+RS_DECODE = 257 * SQR + 24 * MUL
+RS_EQUAL = 4 * MUL
 ENTRY_BYTES = 4 * 10 * 4          # one table entry: X, Y, Z, T x 10 int32
 
 SPEC_BURST = 1024                 # precommits per flush_sync
@@ -75,6 +92,7 @@ REPLACES = {
     "splice": "tendermint_tpu/crypto/tpu/resident.py:65",
     "clear": "tendermint_tpu/crypto/tpu/resident.py:87",
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
+    "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
 }
 SOURCES = {
     "build_tables": "tendermint_tpu_torch/csrc/build_tables.cu",
@@ -84,9 +102,11 @@ SOURCES = {
     "splice": "tendermint_tpu_torch/csrc/splice.cu",
     "clear": "tendermint_tpu_torch/csrc/splice.cu",
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
+    "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
 }
 SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
 SPEC_KERNELS = ("splice", "clear", "arena_verify")
+MIXED_KERNELS = ("general_verify", "sr_verify")
 
 
 def emit(obj) -> None:
@@ -101,7 +121,8 @@ def nvidia_smi() -> str:
 
 
 def wrappers():
-    from tendermint_tpu_torch.crypto.cuda import expanded, resident, verify
+    from tendermint_tpu_torch.crypto.cuda import (expanded, resident,
+                                                  sr_verify, verify)
 
     return {"build_tables": expanded.build_tables,
             "assemble": expanded.assemble,
@@ -109,7 +130,8 @@ def wrappers():
             "general_verify": verify.general_verify,
             "splice": resident.splice,
             "clear": resident.clear,
-            "arena_verify": resident.arena_verify}
+            "arena_verify": resident.arena_verify,
+            "sr_verify": sr_verify.sr_verify}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -292,8 +314,9 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
     sv = sexp.verify_structured(lanes, sbatch, sigs)
     out["assemble"]["commit_verifies"] = bool(sv.all())
     timed = arena_check(n_lanes, dev, out)
+    timed.update(sr_check(n_lanes, dev, out))
     for name in ("build_tables", "xverify", "general_verify", "assemble",
-                 "splice", "clear", "arena_verify"):
+                 "splice", "clear", "arena_verify", "sr_verify"):
         if not all(out[name].values()):
             raise AssertionError(f"{name} check failed: {out[name]}")
     for name, fn in wrappers().items():
@@ -373,6 +396,66 @@ def arena_check(n_lanes: int, dev, out: dict):
              "clear": (lambda: resident.clear(act_k), 50),
              "arena_verify": (lambda: resident.arena_verify(*largs), 5)}
     return timed
+
+
+def sr_args(pubs, msgs, sigs, dev):
+    """K9's device arguments for these lanes, and the well-formed mask."""
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+    from tendermint_tpu_torch.crypto.cuda import verify
+
+    packed, wf = sv.pack_batch_sr(pubs, msgs, sigs)
+    t = verify.to_device(packed, dev)
+    return (t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"], t["r_pre"],
+            t["s_ok"], sv.comb_table(dev)), wf
+
+
+def sr_branches(args) -> dict:
+    """How many lanes take each branch of ristretto equality (V against
+    R, on lanes that decode and pass the byte checks) and how many
+    decodes of A and R (of encodings that pass the byte checks) take
+    each test of sqrt_ratio_m1, by the plain functions."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import ristretto as rs
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+
+    ab, rb, kdig, sdig, a_pre, r_pre, s_ok, btab = args
+    v, r, a_ok, r_ok = sv.sr_points_plain(ab, rb, kdig, sdig, a_pre, r_pre,
+                                          btab)
+    xy, yy = rs.equal_branches(v, r)
+    live = a_ok & r_ok & s_ok
+    pre = torch.cat([a_pre, r_pre])
+    c, f, fi = rs.decode_ratio_branches(sv.encoding_limbs(ab, rb))
+    count = lambda m: int(m.sum().item())  # noqa: E731
+    return {"equal_xy": count(xy & live), "equal_yy": count(yy & live),
+            "ratio_correct": count(c & pre), "ratio_flipped": count(f & pre),
+            "ratio_flipped_i": count(fi & pre)}
+
+
+def sr_check(n_lanes: int, dev, out: dict):
+    """K9 against its plain version and the oracle on an n_lanes sr25519
+    adversarial batch; every branch must be taken. Fills out's
+    sr_verify entry; returns the call to time."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import sr25519_ref as sr
+    from tendermint_tpu_torch.crypto import vectors
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+
+    b = vectors.sr_adversarial_batch(n_lanes, seed=5)
+    args, wf = sr_args(b["pubs"], b["msgs"], b["sigs"], dev)
+    v_k = sv.sr_verify(*args)
+    v_p = sv.sr_verify_plain(*args)
+    got = v_k.cpu().numpy() & wf
+    oracle = [sr.verify(p, m, s) for p, m, s in zip(b["pubs"], b["msgs"],
+                                                     b["sigs"])]
+    branches = sr_branches(args)
+    out["sr_verify"] = dict(equal_plain=bool(torch.equal(v_k, v_p)),
+                            equal_oracle=got.tolist() == oracle,
+                            equal_expect=bool((got == b["expect"]).all()),
+                            every_branch=min(branches.values()) > 0)
+    out["sr_branches"] = branches
+    return {"sr_verify": (lambda: sv.sr_verify(*args), 5)}
 
 
 # -- phase 4 -------------------------------------------------------------
@@ -622,6 +705,293 @@ def speculation_phase(vs, commit, bid):
 
 
 # -- phase 6 -------------------------------------------------------------
+
+
+def make_mixed_commit(n: int):
+    """n validators of equal power, key i sr25519 when i is odd and
+    ed25519 when even (the set sorts them by address), and a commit
+    signed by all of them: one block id, per-slot timestamps."""
+    from tendermint_tpu_torch.crypto import ed25519, sr25519, vectors
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto import sr25519_ref as sr
+    from tendermint_tpu_torch.types.block import (
+        BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader)
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    vals, secret_of = [], {}
+    for i in range(n):
+        if i % 2:
+            secret = hashlib.sha256(b"smoke-sr-%d" % i).digest()
+            pk = sr25519.Sr25519PubKey(sr.public_key_from_mini(secret))
+        else:
+            secret = hashlib.sha256(b"smoke-val-%d" % i).digest()
+            pk = ed25519.Ed25519PubKey(ref.public_key_from_seed(secret))
+        vals.append(Validator.new(pk, 10))
+        secret_of[pk.bytes()] = secret
+    vs = ValidatorSet(vals)
+    bid = BlockID(b"\xab" * 32, PartSetHeader(4, b"\xcd" * 32))
+    base_ts = 1_753_928_000_000_000_000
+    cs = [CommitSig(BlockIDFlag.COMMIT, v.address, base_ts + i * 1_000_003, b"")
+          for i, v in enumerate(vs.validators)]
+    commit = Commit(123457, 0, bid, cs)
+    sr_slots = []
+    for i, v in enumerate(vs.validators):
+        if v.pub_key.type_name == "sr25519":
+            sr_slots.append(i)
+        else:
+            cs[i].signature = ref.sign(secret_of[v.pub_key.bytes()],
+                                       commit.vote_sign_bytes(CHAIN, i))
+    sigs = vectors.sr_sign_batch(
+        [secret_of[vs.validators[i].pub_key.bytes()] for i in sr_slots],
+        [commit.vote_sign_bytes(CHAIN, i) for i in sr_slots])
+    for i, sig in zip(sr_slots, sigs):
+        cs[i].signature = sig
+    return vs, commit, bid, secret_of
+
+
+def mixed_phase(vs, commit, bid, secret_of, dev) -> dict:
+    """The mixed set's commit through the three entry points, launch
+    counts read around each call, two corrupted commits and the
+    duplicate-vote check."""
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+    from tendermint_tpu_torch.crypto.cuda import verify
+    from tendermint_tpu_torch.types.validator_set import VerificationError
+
+    h = commit.height
+    n_sr = sum(v.pub_key.type_name == "sr25519" for v in vs.validators)
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    if vs.warm_device_tables() is not None:
+        raise AssertionError("a mixed set took the expanded path")
+    groups = []
+    real = verify.verify_batch, sv.verify_batch_sr
+
+    def spy(name, fn):
+        return lambda *a, **k: groups.append((name, len(a[0]))) or fn(*a, **k)
+
+    def call(fn, *args) -> float:
+        before = {k: f.launches for k, f in kernels.items()}
+        groups.clear()
+        t0 = time.perf_counter()
+        fn(*args)
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: f.launches - before[k] for k, f in kernels.items()}
+        want = {k: int(k in MIXED_KERNELS) for k in kernels}
+        if delta != want:
+            raise AssertionError(f"{fn.__name__} launched {delta}")
+        return ms
+
+    verify.verify_batch = spy("ed25519", real[0])
+    sv.verify_batch_sr = spy("sr25519", real[1])
+    try:
+        runs = [call(vs.verify_commit, CHAIN, bid, h, commit)
+                for _ in range(5)]
+        if sorted(groups) != [("ed25519", len(vs) - n_sr), ("sr25519", n_sr)]:
+            raise AssertionError(f"verify_commit's groups: {groups}")
+        light_ms = call(vs.verify_commit_light, CHAIN, bid, h, commit)
+        light_groups = list(groups)
+        trusting_ms = call(vs.verify_commit_light_trusting, CHAIN, commit,
+                           1, 3)
+        trusting_groups = list(groups)
+        rejected = {}
+        for kind in ("sr25519", "ed25519"):
+            bad = next(i for i in range(len(vs) * 27 // 64, len(vs))
+                       if vs.validators[i].pub_key.type_name == kind)
+            good = commit.signatures[bad].signature
+            commit.signatures[bad].signature = good[:40] + bytes(
+                [good[40] ^ 4]) + good[41:]
+            try:
+                call(vs.verify_commit, CHAIN, bid, h, commit)
+            except VerificationError as e:
+                rejected[kind] = str(e)
+            else:
+                raise AssertionError(f"corrupted {kind} commit verified")
+            finally:
+                commit.signatures[bad].signature = good
+            if rejected[kind] != f"invalid signature(s) at index(es) [{bad}]":
+                raise AssertionError(f"wrong rejection: {rejected[kind]}")
+    finally:
+        verify.verify_batch, sv.verify_batch_sr = real
+    launches = {name: kernels[name].launches for name in MIXED_KERNELS}
+    evidence = duplicate_vote_check(vs, secret_of)
+    return dict(sr25519_lanes=n_sr, ed25519_lanes=len(vs) - n_sr,
+                verify_commit_ms=runs,
+                verify_commit_p50_ms=statistics.median(runs),
+                verify_commit_light_ms=light_ms,
+                light_groups=light_groups,
+                verify_commit_light_trusting_ms=trusting_ms,
+                trusting_groups=trusting_groups, rejected=rejected,
+                evidence=evidence, launches=launches,
+                breakdown=mixed_breakdown(vs, commit, dev))
+
+
+def duplicate_vote_check(vs, secret_of) -> dict:
+    """verify_duplicate_vote on an sr25519 validator's two precommits for
+    two block ids: accepted, then rejected with one signature broken."""
+    from tendermint_tpu_torch.crypto import sr25519_ref as sr
+    from tendermint_tpu_torch.evidence.verify import (EvidenceError,
+                                                      verify_duplicate_vote)
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    slot = next(i for i, v in enumerate(vs.validators)
+                if v.pub_key.type_name == "sr25519")
+    val = vs.validators[slot]
+    votes = []
+    for b in (0x61, 0x62):
+        bid = BlockID(bytes([b]) * 32, PartSetHeader(1, bytes([b]) * 32))
+        v = Vote(VoteType.PRECOMMIT, 99, 0, bid, 1_753_928_000_000_000_000,
+                 val.address, slot)
+        v.signature = sr.sign(secret_of[val.pub_key.bytes()],
+                              v.sign_bytes(CHAIN))
+        votes.append(v)
+    ev = DuplicateVoteEvidence.from_votes(votes[0], votes[1], 1_753_928_000,
+                                          vs)
+    ev.validate_basic()
+    t0 = time.perf_counter()
+    verify_duplicate_vote(ev, CHAIN, vs, 1_753_928_000)
+    ms = (time.perf_counter() - t0) * 1e3
+    good = ev.vote_b.signature
+    ev.vote_b.signature = good[:9] + bytes([good[9] ^ 1]) + good[10:]
+    try:
+        verify_duplicate_vote(ev, CHAIN, vs, 1_753_928_000)
+    except EvidenceError as e:
+        message = str(e)
+    else:
+        raise AssertionError("duplicate vote with a bad signature verified")
+    if message != "invalid signature on vote B":
+        raise AssertionError(f"wrong evidence error: {message}")
+    return dict(validator_index=slot, verify_ms=ms, rejected=message)
+
+
+def mixed_breakdown(vs, commit, dev) -> dict:
+    """Milliseconds of the stages of one mixed verify_commit, as its
+    code runs them: the slot loop and sign bytes, grouping by key type,
+    ed25519 packing and upload, K4 (CUDA events), the Merlin challenges,
+    sr25519 packing and upload, K9 (CUDA events), and the readback of
+    both verdicts. Its launches are outside the main-path run (the
+    caller has read the counters)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+    from tendermint_tpu_torch.crypto.cuda import verify
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t = [time.perf_counter()]
+    lanes, sigs = [], []
+    for idx, cs in enumerate(commit.signatures):
+        if not cs.is_absent():
+            lanes.append(idx)
+            sigs.append(cs.signature)
+    msgs = vs._commit_msgs(CHAIN, commit, lanes, lanes)
+    t.append(time.perf_counter())
+    by_type: dict[str, list[int]] = {}
+    for j, i in enumerate(lanes):
+        by_type.setdefault(vs.validators[i].pub_key.type_name, []).append(j)
+    ed_j, sr_j = by_type["ed25519"], by_type["sr25519"]
+    t.append(time.perf_counter())
+    size = verify._chunks(len(ed_j))[0]
+    dp, dm, ds = verify._dummy_triple()
+    pad = size - len(ed_j)
+    pk = verify.to_device(verify.pack_batch(
+        [vs.validators[lanes[j]].pub_key.bytes() for j in ed_j] + [dp] * pad,
+        [msgs[j] for j in ed_j] + [dm] * pad,
+        [sigs[j] for j in ed_j] + [ds] * pad), dev)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ev[0].record()
+    v_ed = verify.general_verify(pk["ab"], pk["sb"], pk["msg"], pk["nblocks"],
+                                 pk["s_ok"], verify._btab(dev))
+    ev[1].record()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    c = sv.check_bytes([vs.validators[lanes[j]].pub_key.bytes() for j in sr_j],
+                       [sigs[j] for j in sr_j])
+    t.append(time.perf_counter())
+    ks = sv.sr25519_challenges(c["ab"], [msgs[j] for j in sr_j], c["rb"])
+    t.append(time.perf_counter())
+    st = verify.to_device(dict(
+        ab=c["ab"], rb=c["rb"], kdig=sv._nibbles(ks, len(sr_j)),
+        sdig=sv._nibbles_of_bytes(c["s_raw"]), a_pre=c["a_pre"],
+        r_pre=c["r_pre"], s_ok=c["s_ok"]), dev)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ev[2].record()
+    v_sr = sv.sr_verify(st["ab"], st["rb"], st["kdig"], st["sdig"],
+                        st["a_pre"], st["r_pre"], st["s_ok"],
+                        sv.comb_table(dev))
+    ev[3].record()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ok = bool(v_ed.cpu().numpy()[:len(ed_j)].all()) and bool(
+        v_sr.cpu().numpy().all())
+    t.append(time.perf_counter())
+    if not ok:
+        raise AssertionError("the breakdown's verdicts reject the commit")
+    ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    return {"slot_loop_sign_bytes_ms": ms[0], "grouping_ms": ms[1],
+            "ed25519_pack_upload_ms": ms[2],
+            "k4_launch_sync_ms": ms[3],
+            "k4_events_ms": ev[0].elapsed_time(ev[1]),
+            "k4_lanes": size,
+            "sr25519_byte_checks_ms": ms[4], "merlin_ms": ms[5],
+            "sr25519_nibbles_upload_ms": ms[6],
+            "k9_launch_sync_ms": ms[7],
+            "k9_events_ms": ev[2].elapsed_time(ev[3]),
+            "readback_ms": ms[8]}
+
+
+def sr_work(args) -> tuple[int, int]:
+    """K9's work on lanes whose byte checks pass (the others' verdicts
+    are already false): (int32 products, bytes)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import ristretto as rs
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+
+    ab, rb, kdig, sdig, a_pre, r_pre, s_ok, btab = args
+    live = a_pre & r_pre & s_ok
+    m = int(live.sum().item())
+    c, f, fi = rs.decode_ratio_branches(sv.encoding_limbs(ab[live], rb[live]))
+    kd, sd = kdig[:, live], sdig[:, live]
+    top = torch.where(kd != 0, torch.arange(64, device=ab.device)[:, None],
+                      0).max(0).values  # doublings start after it
+    # per lane: decode A and R, the 16-entry table of -A (14 adds), 4
+    # doublings per window below k's top nonzero nibble, an add per
+    # nonzero nibble of k and of s, the final add, the equality
+    ops = (2 * m * RS_DECODE + int((f | fi).sum().item()) * MUL
+           + m * 14 * ADD + int(top.sum().item()) * 4 * DOUBLE
+           + adds_after_first(kd) * ADD + adds_after_first(sd) * ADD_Z1
+           + m * (ADD + RS_EQUAL))
+    # A, R, the two nibble rows, three flags and the verdict per lane,
+    # and the comb
+    nbytes = ab.shape[0] * (32 + 32 + 64 + 64 + 3 + 1) + btab.numel() * 4
+    return ops, nbytes
+
+
+def sr_row(vs, commit, dev) -> dict:
+    """K9 at the mixed commit's sr25519 lanes: time, plain time, bound
+    and agreement with the plain version."""
+    lanes = [i for i, v in enumerate(vs.validators)
+             if v.pub_key.type_name == "sr25519"]
+    args, _ = sr_args([vs.validators[i].pub_key.bytes() for i in lanes],
+                      [commit.vote_sign_bytes(CHAIN, i) for i in lanes],
+                      [commit.signatures[i].signature for i in lanes], dev)
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+
+    v_k = sv.sr_verify(*args)
+    v_p, p_ms = plain_ms(lambda: sv.sr_verify_plain(*args))
+    if not bool(v_k.all()):
+        raise AssertionError("K9 rejects the valid commit's lanes")
+    ops, nbytes = sr_work(args)
+    return entry("sr_verify", max_abs_diff(v_k, v_p),
+                 cuda_ms(lambda: sv.sr_verify(*args), 10), p_ms, ops, nbytes)
+
+
+# -- phase 7 -------------------------------------------------------------
 
 
 def timing_phase(vs, commit, dev) -> list[dict]:
@@ -877,11 +1247,24 @@ def main() -> int:
               bursts=len(spec["flushes"]), burst=SPEC_BURST,
               verify_commit_p50_ms=res["verify_commit_p50_ms"],
               seconds=time.perf_counter() - t0, card=smi, **spec))
+    t0 = time.perf_counter()
+    mvs, mcommit, mbid, secret_of = make_mixed_commit(N_VALIDATORS)
+    setup_s = time.perf_counter() - t0
+    mixed = mixed_phase(mvs, mcommit, mbid, secret_of, torch.device("cuda"))
+    emit(dict(phase="mixed", validators=N_VALIDATORS, setup_s=setup_s,
+              seconds=time.perf_counter() - t0, card=smi, **mixed))
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
-    launches = dict(res["launches"], **spec["launches"])
+    rows.append(sr_row(mvs, mcommit, torch.device("cuda")))
+    launches = {}
+    for path in (res, spec, mixed):  # each path's run, summed per kernel
+        for kernel, count in path["launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    ptxas = kernels.BUILD_INFO.get("ptxas", {})
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["ptxas"] = ptxas_summary(ptxas.get(r["source"].rsplit("/", 1)[1],
+                                             ""))
     emit({"phase": "timing", "card": smi,
           "tolerance": "exact: max_abs_err 0 against the plain version"})
     emit({"kernels": rows})

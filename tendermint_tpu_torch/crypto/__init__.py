@@ -4,7 +4,7 @@ Mirrors the reference's capability surface (crypto/crypto.go:23-43): a
 ``PubKey``/``PrivKey`` pair per scheme, address = first 20 bytes of
 SHA-256(pubkey). Batches of (pk, msg, sig) triples go through
 ``crypto.batch.BatchVerifier``, which runs wide ones on the GPU.
-Only ed25519 is registered in this slice of the port.
+The port registers ed25519 and sr25519 (no secp256k1 yet).
 """
 
 from __future__ import annotations
@@ -58,3 +58,19 @@ _PUBKEY_REGISTRY: dict[str, type] = {}
 
 def register_pubkey(type_name: str, cls: type) -> None:
     _PUBKEY_REGISTRY[type_name] = cls
+
+
+def pubkey_from_type_and_bytes(type_name: str, data: bytes) -> PubKey:
+    if type_name not in _PUBKEY_REGISTRY:
+        _ensure_registered()
+    try:
+        cls = _PUBKEY_REGISTRY[type_name]
+    except KeyError:
+        raise ValueError(f"unknown pubkey type {type_name!r}") from None
+    return cls(data)
+
+
+def _ensure_registered() -> None:
+    """Import every key-type module of the port so its register_pubkey
+    ran (the reference's set also has secp256k1, not ported yet)."""
+    from . import ed25519, sr25519  # noqa: F401

@@ -2,11 +2,14 @@
 as one wide batch with per-lane verdicts.
 
 Per-lane verdicts are load-bearing: evidence handling must know which
-signature failed, and one bad vote must not poison the others. Batches
-under ``_DEVICE_THRESHOLD`` signatures stay on the host (a launch is not
-worth it); larger ed25519 batches run the general kernel
-(crypto/cuda/verify.py). A device failure raises: this slice of the
-port has no breaker and no host degrade.
+signature failed, and one bad vote must not poison the others. Lanes
+are grouped by key type. An ed25519 group of ``_DEVICE_THRESHOLD`` or
+more runs the general kernel (K4, crypto/cuda/verify.py); an sr25519
+group of ``_DEVICE_THRESHOLD_SR`` or more runs the sr25519 group
+equation (K9, crypto/cuda/sr_verify.py) after the host's Merlin
+challenges; smaller groups verify on the host, key by key. A device
+failure raises: the port has no breaker and no host degrade yet (nor
+the reference's CPU-compiled sr25519 path that comes with them).
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ from . import PubKey
 # Below this many sigs, host verification beats a launch (the
 # reference's crossover, kept so both route at the same points).
 _DEVICE_THRESHOLD = 40
+# sr25519 has no OpenSSL fast path: the host oracle costs milliseconds
+# a signature, so its device crossover is a handful of lanes (the
+# reference's value).
+_DEVICE_THRESHOLD_SR = 4
 
 
 @functools.cache
@@ -36,8 +43,8 @@ def _ed_probe_triple() -> tuple[bytes, bytes, bytes]:
 
 def host_verify(items) -> np.ndarray:
     """Per-lane verdicts of (pub_key, msg, sig) triples on the host: the
-    per-key verify (OpenSSL strict accept, else the ZIP-215 oracle;
-    crypto/ed25519.py)."""
+    per-key verify (ed25519: OpenSSL strict accept, else the ZIP-215
+    oracle, crypto/ed25519.py; sr25519: the oracle, crypto/sr25519.py)."""
     return np.fromiter(
         (len(s) == 64 and pk.verify_signature(m, s) for pk, m, s in items),
         bool, count=len(items))
@@ -77,11 +84,11 @@ class BatchVerifier:
 
     def _verify_group(self, type_name, items) -> np.ndarray:
         if type_name == "ed25519" and len(items) >= _DEVICE_THRESHOLD:
-            from .cuda import verify as cuda_verify
-
-            return cuda_verify.verify_batch(
-                [pk.bytes() for pk, _, _ in items],
-                [m for _, m, _ in items],
-                [s for _, _, s in items],
-            )
-        return host_verify(items)
+            from .cuda.verify import verify_batch as device_verify
+        elif type_name == "sr25519" and len(items) >= _DEVICE_THRESHOLD_SR:
+            from .cuda.sr_verify import verify_batch_sr as device_verify
+        else:
+            return host_verify(items)
+        return device_verify([pk.bytes() for pk, _, _ in items],
+                             [m for _, m, _ in items],
+                             [s for _, _, s in items])

@@ -1,0 +1,233 @@
+"""Lane-vectorized Merlin transcripts (numpy) for sr25519 batches.
+
+The STROBE op schedule (which state bytes are touched, when the
+permutation runs) depends only on byte LENGTHS, never on values — so
+N transcripts whose appended messages have identical lengths evolve in
+lockstep and vectorize as one (N, 200) uint8 state with a batched
+Keccak-f[1600] over (N, 25) uint64 lanes. The sr25519 verify challenge
+appends fixed-length labels, the (variable) message, pk (32) and
+R (32): callers group lanes by message length and get one SIMD
+transcript run per group instead of one pure-Python Keccak
+transcript (crypto/merlin.py) per signature.
+
+A copy of the JAX package's crypto/merlin_batch.py. Semantics are
+pinned against the scalar implementation (itself pinned against the
+upstream merlin test vector) and against the JAX package's copy in
+tests/test_torch_sr25519.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_RC = np.array([
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+], dtype=np.uint64)
+
+# rho rotation for flat lane index x + 5y.
+_ROTC_FLAT = np.zeros(25, np.uint64)
+_rotc = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+for _x in range(5):
+    for _y in range(5):
+        _ROTC_FLAT[_x + 5 * _y] = _rotc[_x][_y]
+# pi as a gather: destination b[y + 5*((2x+3y)%5)] takes a[x + 5y],
+# so _PI_SRC[dst] = src flat index.
+_PI_SRC = np.zeros(25, np.int64)
+for _x in range(5):
+    for _y in range(5):
+        _PI_SRC[_y + 5 * ((2 * _x + 3 * _y) % 5)] = _x + 5 * _y
+
+
+def keccak_f1600_batch(a: np.ndarray) -> np.ndarray:
+    """(N, 25) uint64 -> (N, 25) uint64, the full 24-round permutation
+    applied to every row."""
+
+    def rotl(x, n):
+        n = np.uint64(n)
+        if n == 0:
+            return x
+        return (x << n) | (x >> np.uint64(64 - int(n)))
+
+    a = a.copy()
+    for rc in _RC:
+        c = a[:, 0:5] ^ a[:, 5:10] ^ a[:, 10:15] ^ a[:, 15:20] ^ a[:, 20:25]
+        d = np.empty_like(c)
+        for x in range(5):
+            d[:, x] = c[:, (x - 1) % 5] ^ rotl(c[:, (x + 1) % 5], 1)
+        a ^= np.tile(d, 5)
+        b = np.empty_like(a)
+        for i in range(25):
+            src = _PI_SRC[i]
+            b[:, i] = rotl(a[:, src], _ROTC_FLAT[src])
+        for y in range(5):
+            s = b[:, 5 * y: 5 * y + 5]
+            a[:, 5 * y: 5 * y + 5] = s ^ (~np.roll(s, -1, axis=1)
+                                          & np.roll(s, -2, axis=1))
+        a[:, 0] ^= rc
+    return a
+
+
+class BatchStrobe128:
+    """N STROBE-128 states evolving in lockstep (equal-length ops)."""
+
+    R = 166
+
+    FLAG_I = 1
+    FLAG_A = 2
+    FLAG_C = 4
+    FLAG_M = 16
+    FLAG_K = 32
+
+    def __init__(self, n: int, protocol_label: bytes):
+        st = np.zeros((n, 200), np.uint8)
+        st[:, 0:6] = np.frombuffer(bytes([1, self.R + 2, 1, 0, 1, 96]),
+                                   np.uint8)
+        st[:, 6:18] = np.frombuffer(b"STROBEv1.0.2", np.uint8)
+        self.state = self._permute(st)
+        self.pos = 0
+        self.pos_begin = 0
+        self.meta_ad(np.broadcast_to(
+            np.frombuffer(protocol_label, np.uint8),
+            (n, len(protocol_label))), False)
+
+    @staticmethod
+    def _permute(st: np.ndarray) -> np.ndarray:
+        lanes = st.view(np.uint64).reshape(st.shape[0], 25)
+        return keccak_f1600_batch(lanes).view(np.uint8).reshape(
+            st.shape[0], 200)
+
+    def _run_f(self) -> None:
+        self.state[:, self.pos] ^= self.pos_begin
+        self.state[:, self.pos + 1] ^= 0x04
+        self.state[:, self.R + 1] ^= 0x80
+        self.state = self._permute(self.state)
+        self.pos = 0
+        self.pos_begin = 0
+
+    def _absorb(self, data: np.ndarray) -> None:
+        """data: (N, k) uint8 — same k for every lane."""
+        k = data.shape[1]
+        i = 0
+        while i < k:
+            take = min(self.R - self.pos, k - i)
+            self.state[:, self.pos: self.pos + take] ^= data[:, i: i + take]
+            self.pos += take
+            i += take
+            if self.pos == self.R:
+                self._run_f()
+
+    def _squeeze(self, n: int) -> np.ndarray:
+        out = np.empty((self.state.shape[0], n), np.uint8)
+        i = 0
+        while i < n:
+            take = min(self.R - self.pos, n - i)
+            out[:, i: i + take] = self.state[:, self.pos: self.pos + take]
+            self.state[:, self.pos: self.pos + take] = 0
+            self.pos += take
+            i += take
+            if self.pos == self.R:
+                self._run_f()
+        return out
+
+    def _begin_op(self, flags: int, more: bool) -> None:
+        if more:
+            return
+        old_begin = self.pos_begin
+        self.pos_begin = self.pos + 1
+        hdr = np.array([old_begin, flags], np.uint8)
+        self._absorb(np.broadcast_to(hdr, (self.state.shape[0], 2)))
+        if flags & (self.FLAG_C | self.FLAG_K) and self.pos != 0:
+            self._run_f()
+
+    def meta_ad(self, data: np.ndarray, more: bool) -> None:
+        self._begin_op(self.FLAG_M | self.FLAG_A, more)
+        self._absorb(data)
+
+    def ad(self, data: np.ndarray, more: bool) -> None:
+        self._begin_op(self.FLAG_A, more)
+        self._absorb(data)
+
+    def prf(self, n: int, more: bool) -> np.ndarray:
+        self._begin_op(self.FLAG_I | self.FLAG_A | self.FLAG_C, more)
+        return self._squeeze(n)
+
+
+class BatchTranscript:
+    """Merlin transcript over N lanes; every append must carry the same
+    byte length in every lane."""
+
+    def __init__(self, n: int, label: bytes):
+        self._strobe = BatchStrobe128(n, b"Merlin v1.0")
+        self.append_same(b"dom-sep", label)
+
+    def _bcast(self, raw: bytes) -> np.ndarray:
+        return np.broadcast_to(np.frombuffer(raw, np.uint8),
+                               (self._strobe.state.shape[0], len(raw)))
+
+    def append_same(self, label: bytes, message: bytes) -> None:
+        """Append the SAME message to every lane."""
+        self.append_rows(label, self._bcast(message))
+
+    def append_rows(self, label: bytes, rows: np.ndarray) -> None:
+        """Append per-lane data (N, k) — equal length across lanes."""
+        self._strobe.meta_ad(self._bcast(label), False)
+        self._strobe.meta_ad(
+            self._bcast(len(rows[0]).to_bytes(4, "little")
+                        if rows.shape[1] else (0).to_bytes(4, "little")),
+            True)
+        self._strobe.ad(rows, False)
+
+    def challenge_bytes(self, label: bytes, n: int) -> np.ndarray:
+        self._strobe.meta_ad(self._bcast(label), False)
+        self._strobe.meta_ad(self._bcast(n.to_bytes(4, "little")), True)
+        return self._strobe.prf(n, False)
+
+
+def sr25519_challenges(pubs: np.ndarray, msgs: list[bytes],
+                       r_bytes: np.ndarray, ctx: bytes = b"") -> np.ndarray:
+    """Per-lane schnorrkel verify challenges k = "sign:c" mod L.
+
+    pubs: (N, 32) uint8; r_bytes: (N, 32) uint8; msgs grouped by length
+    internally (lanes with equal-length messages share one SIMD
+    transcript). Returns (N,) object array of python ints (mod L).
+    Layout matches sr25519_ref.verify exactly (SigningContext -> ctx ->
+    sign-bytes -> proto-name -> sign:pk -> sign:R -> sign:c).
+    """
+    from .ed25519_ref import L
+
+    n = len(msgs)
+    out = np.empty(n, object)
+    by_len: dict[int, list[int]] = {}
+    for i, m in enumerate(msgs):
+        by_len.setdefault(len(m), []).append(i)
+    for mlen, idxs in by_len.items():
+        ii = np.asarray(idxs)
+        t = BatchTranscript(len(ii), b"SigningContext")
+        t.append_same(b"", ctx)
+        if mlen:
+            rows = np.frombuffer(
+                b"".join(msgs[i] for i in idxs), np.uint8
+            ).reshape(len(ii), mlen)
+        else:
+            rows = np.empty((len(ii), 0), np.uint8)
+        t.append_rows(b"sign-bytes", rows)
+        t.append_same(b"proto-name", b"Schnorr-sig")
+        t.append_rows(b"sign:pk", pubs[ii])
+        t.append_rows(b"sign:R", r_bytes[ii])
+        chal = t.challenge_bytes(b"sign:c", 64)  # (n_i, 64)
+        for j, lane in enumerate(idxs):
+            out[lane] = int.from_bytes(chal[j].tobytes(), "little") % L
+    return out

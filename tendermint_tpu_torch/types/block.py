@@ -64,6 +64,19 @@ class BlockID:
         if self.part_set_header is not None:
             self.part_set_header.validate_basic()
 
+    def key(self) -> bytes:
+        """Unambiguous map key: length-framed so no two distinct BlockIDs
+        collide (an unframed concat would let a crafted 68-byte 'hash'
+        impersonate hash+part_set_header). 4-byte frame: peer-supplied
+        hashes can be oversized and must not crash the keyer."""
+        psh = self.part_set_header
+        out = len(self.hash).to_bytes(4, "big") + self.hash
+        if psh is not None:
+            if not 0 <= psh.total < 1 << 32:
+                raise ValueError("part set total out of range")
+            out += b"\x01" + psh.total.to_bytes(4, "big") + psh.hash
+        return out
+
     def __repr__(self) -> str:
         return f"BlockID({self.hash.hex()[:12]})" if self.hash else "BlockID(nil)"
 

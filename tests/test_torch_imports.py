@@ -1,6 +1,7 @@
 """The port stands alone: no module of tendermint_tpu_torch, and not
 chip_smoke.py, imports jax or anything of the JAX package; a CPU
-verify_commit in a fresh interpreter loads neither."""
+verify_commit and a CPU sr25519 batch verify in a fresh interpreter
+load neither."""
 
 import ast
 import os
@@ -30,6 +31,11 @@ def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "tendermint_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"tendermint_tpu_torch/{m}.py" for m in (
+        "crypto/merlin", "crypto/merlin_batch", "crypto/sr25519_ref",
+        "crypto/sr25519", "crypto/cuda/ristretto", "crypto/cuda/sr_verify",
+        "types/evidence", "evidence/verify")} <= names
     bad = {str(f.relative_to(ROOT)): sorted(n for n in _imported(f)
                                              if _forbidden(n))
            for f in files}
@@ -57,6 +63,15 @@ for i, v in enumerate(vs.validators):
     p = v.pub_key.bytes()
     cs[i].signature = ed25519_ref.sign(seed_of[p], commit.vote_sign_bytes("c", i))
 vs.verify_commit("c", bid, 9, commit)
+from tendermint_tpu_torch.crypto import sr25519_ref, vectors
+from tendermint_tpu_torch.crypto.cuda.sr_verify import verify_batch_sr
+minis = [hashlib.sha256(b"imp-sr%d" % i).digest() for i in range(4)]
+msgs = [b"sr %d" % i for i in range(4)]
+sr_sigs = vectors.sr_sign_batch(minis, msgs)
+sr_sigs[3] = sr_sigs[3][:63] + bytes([sr_sigs[3][63] & 0x7F])
+got = verify_batch_sr([sr25519_ref.public_key_from_mini(m) for m in minis],
+                      msgs, sr_sigs, device="cpu")
+assert got.tolist() == [True, True, True, False], got
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "tendermint_tpu"))
 print("LOADED", loaded)
