@@ -38,7 +38,22 @@ Phases, each printing one JSON line:
    and K7 never; a corrupted sr25519 and a corrupted ed25519 signature
    must each be named; one duplicate-vote evidence check on an sr25519
    validator (valid, then with a bad signature);
-7. timing — each kernel at the main path's shapes: CUDA-event time,
+7. fabric — the multi-device verify fabric on a mesh: every CUDA
+   device when there are at least two, else four logical shards of
+   cuda:0 (four table blocks, four lane sets, four launches on four
+   streams). K5 against its plain version, shard by shard, on the
+   adversarial batch (256 keys split over the shards) in both forms:
+   the message rows routed (bytes) and assembled in the kernel from the
+   templates (structured). Then, with the crossover at 5,120 keys, the
+   slice phase's set and commit: the sharded table build (one K1 launch
+   a key range), verify_commit (11 runs, p50), _light and _trusting,
+   each launching K5 once per shard and K2/K3 never with the slice
+   phase's outcome, the corrupted signature rejected at the same index;
+   the mixed phase's commit through verify_commit, each call launching
+   K4 and K9 once per shard with the mixed phase's outcomes and
+   rejections. Counters zeroed before, read after. Then, outside that
+   run, the sharded verdicts lane for lane against the one-card set's;
+8. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
    plain version on those inputs.
 
@@ -93,6 +108,7 @@ REPLACES = {
     "clear": "tendermint_tpu/crypto/tpu/resident.py:87",
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
     "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
+    "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
 }
 SOURCES = {
     "build_tables": "tendermint_tpu_torch/csrc/build_tables.cu",
@@ -103,10 +119,16 @@ SOURCES = {
     "clear": "tendermint_tpu_torch/csrc/splice.cu",
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
+    "shard_verify": "tendermint_tpu_torch/csrc/shard_verify.cu",
 }
 SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
 SPEC_KERNELS = ("splice", "clear", "arena_verify")
 MIXED_KERNELS = ("general_verify", "sr_verify")
+# The fabric phase's logical mesh when the machine has one card, and
+# the crossover that splits the 10,240-key set into 4 x 2,560 keys.
+LOGICAL_SHARDS = 4
+FABRIC_CROSSOVER = 5120
+FABRIC_RUNS = 11  # verify_commit runs on the mesh; the first is dropped
 
 
 def emit(obj) -> None:
@@ -131,7 +153,8 @@ def wrappers():
             "splice": resident.splice,
             "clear": resident.clear,
             "arena_verify": resident.arena_verify,
-            "sr_verify": sr_verify.sr_verify}
+            "sr_verify": sr_verify.sr_verify,
+            "shard_verify": expanded.shard_verify}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -320,7 +343,8 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
         if not all(out[name].values()):
             raise AssertionError(f"{name} check failed: {out[name]}")
     for name, fn in wrappers().items():
-        out[name]["launches"] = fn.launches - before[name]
+        if name in out:  # K5 is held in the fabric phase
+            out[name]["launches"] = fn.launches - before[name]
     if dev.type == "cuda":  # CUDA-event time at this phase's shapes
         out["build_tables"]["ms"] = cuda_ms(
             lambda: expanded.build_tables(akeys), 3)
@@ -994,12 +1018,309 @@ def sr_row(vs, commit, dev) -> dict:
 # -- phase 7 -------------------------------------------------------------
 
 
+def fabric_mesh() -> tuple[list[str], str]:
+    """Every CUDA device when there are at least two, else
+    LOGICAL_SHARDS logical shards of cuda:0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(n)], "physical"
+    return ["cuda:0"] * LOGICAL_SHARDS, "logical"
+
+
+def k5_check(dev) -> dict:
+    """K5 against its plain version, shard by shard, on the adversarial
+    batch as precommits (256 keys split over the mesh) in both forms,
+    and the routed verdicts against the expected ones."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import vectors
+    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+
+    b = vectors.arena_batch(256, 1024, seed=6)
+    expanded.set_shard_crossover(128)
+    try:
+        exp = expanded.ExpandedKeys(b["pubkeys"])
+    finally:
+        expanded.set_shard_crossover(FABRIC_CROSSOVER)
+    if not exp.sharded:
+        raise AssertionError("the adversarial set did not shard")
+    idx, packed, wf = exp._prepare(b["idx"], b["msgs"], b["sigs"])
+    sidx, fields, swf, width = exp._prepare_structured(
+        b["idx"], vectors.LaneSignBatch(b), b["sigs"])
+    tpl = verify.to_device({k: fields[k] for k in exp._S_REPL}, dev)
+    forms = {"bytes": (idx, packed, {}, wf),
+             "structured": (sidx, {k: v for k, v in fields.items()
+                                   if k not in exp._S_REPL},
+                            dict(templates=tuple(tpl[k] for k in exp._S_REPL),
+                                 width=width), swf)}
+    out = {"shards": exp.n_shards, "keys_per_shard": exp.keys_per_shard}
+    for name, (fidx, lanes, form, well_formed) in forms.items():
+        lidx, routed, slot = exp._route(fidx, lanes)
+        err, got = 0, []
+        for d, shard_dev in enumerate(exp.mesh):
+            with torch.cuda.device(shard_dev):
+                args, kw = exp._k5_args(d, shard_dev, lidx, routed, **form)
+                k = expanded.shard_verify(*args, **kw)
+                err = max(err, max_abs_diff(
+                    k, expanded.shard_verify_plain(*args, **kw)))
+            got.append(k.to(dev))
+        verdicts = torch.cat(got).cpu().numpy()[slot] & well_formed
+        out[name] = dict(max_abs_err=err, n_local=int(lidx.shape[1]),
+                         equal_expect=bool((verdicts == b["expect"]).all()))
+        if err or not out[name]["equal_expect"]:
+            raise AssertionError(f"K5 check ({name}) failed: {out[name]}")
+    return out
+
+
+def fabric_phase(vs, commit, bid, mvs, mcommit, mbid, rejected_mixed,
+                 dev):
+    """The fabric on a mesh (fabric_mesh): K5's check, then the sharded
+    ed25519 commit and the mixed commit through the entry points with
+    the counters zeroed before and read after, then, outside that run,
+    the sharded verdicts against the one-card set's, the per-shard lane
+    counts and K5's time per shard launch. Returns the phase's record
+    and K5's kernels row."""
+    from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.device import set_mesh
+
+    pubkeys = [v.pub_key.bytes() for v in vs.validators]
+    single = expanded.get_expanded(pubkeys)  # the slice phase's set
+    if single.mesh is not None:
+        raise AssertionError("the one-card set was built on a mesh")
+    mesh, kind = fabric_mesh()
+    set_mesh(mesh)
+    expanded.set_shard_crossover(FABRIC_CROSSOVER)
+    try:
+        return _fabric(vs, commit, bid, mvs, mcommit, mbid, rejected_mixed,
+                       single, mesh, kind, dev)
+    finally:
+        expanded.set_shard_crossover(None)
+        set_mesh(None)
+
+
+def _fabric(vs, commit, bid, mvs, mcommit, mbid, rejected_mixed, single,
+            mesh, kind, dev):
+    import numpy as np
+
+    from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
+    from tendermint_tpu_torch.types.validator_set import VerificationError
+
+    d_n = len(mesh)
+    out = {"mesh": mesh, "mesh_kind": kind, "k5_check": k5_check(dev)}
+    kernels = wrappers()
+
+    def call(fn, *args, want: dict):
+        """fn(*args): host ms and the VerificationError text, if any;
+        its launches must be `want`."""
+        before = {k: f.launches for k, f in kernels.items()}
+        message = None
+        t0 = time.perf_counter()
+        try:
+            fn(*args)
+        except VerificationError as e:
+            message = str(e)
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: f.launches - before[k] for k, f in kernels.items()}
+        if delta != {k: want.get(k, 0) for k in kernels}:
+            raise AssertionError(f"{fn.__name__} launched {delta}")
+        return ms, message
+
+    # the main path: counters zeroed just before, read just after
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    warm = vs.warm_device_tables()
+    if warm is None:
+        raise AssertionError("the set does not take the expanded path")
+    warm.join()
+    build_s = time.perf_counter() - t0
+    exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
+    if not (exp.sharded and exp.n_shards == d_n
+            and kernels["build_tables"].launches == d_n):
+        raise AssertionError(f"sharded build: {exp.sharded} {exp.n_shards} "
+                             f"{kernels['build_tables'].launches}")
+    h = commit.height
+    k5 = {"shard_verify": d_n}
+    runs = [call(vs.verify_commit, CHAIN, bid, h, commit, want=k5)
+            for _ in range(FABRIC_RUNS)]
+    light = call(vs.verify_commit_light, CHAIN, bid, h, commit, want=k5)
+    trusting = call(vs.verify_commit_light_trusting, CHAIN, commit, 1, 3,
+                    want=k5)
+    if any(m for _, m in runs + [light, trusting]):
+        raise AssertionError("the sharded path rejected the valid commit")
+    bad = len(vs.validators) * 27 // 64
+    good_sig = commit.signatures[bad].signature
+    commit.signatures[bad].signature = good_sig[:40] + bytes(
+        [good_sig[40] ^ 4]) + good_sig[41:]
+    try:
+        _, message = call(vs.verify_commit, CHAIN, bid, h, commit, want=k5)
+    finally:
+        commit.signatures[bad].signature = good_sig
+    if message != f"invalid signature(s) at index(es) [{bad}]":
+        raise AssertionError(f"wrong rejection: {message}")
+    mixed_want = {"general_verify": d_n, "sr_verify": d_n}
+    mixed_ms, mixed_msg = call(mvs.verify_commit, CHAIN, mbid, mcommit.height,
+                               mcommit, want=mixed_want)
+    if mixed_msg is not None:
+        raise AssertionError(f"the mesh rejected the mixed commit: {mixed_msg}")
+    mixed_rejected = {}
+    for key_type, want_msg in rejected_mixed.items():
+        i = int(want_msg.split("[")[1].rstrip("]"))
+        good = mcommit.signatures[i].signature
+        mcommit.signatures[i].signature = good[:40] + bytes(
+            [good[40] ^ 4]) + good[41:]
+        try:
+            _, mixed_rejected[key_type] = call(
+                mvs.verify_commit, CHAIN, mbid, mcommit.height, mcommit,
+                want=mixed_want)
+        finally:
+            mcommit.signatures[i].signature = good
+    if mixed_rejected != rejected_mixed:
+        raise AssertionError(f"mixed rejections on the mesh: {mixed_rejected}")
+    launches = {k: kernels[k].launches for k in
+                ("build_tables", "shard_verify", "general_verify",
+                 "sr_verify")}
+    # outside the main-path run: the sharded verdicts against the
+    # one-card set's, lane for lane, in both forms, on the commit with
+    # its corrupted signature
+    lanes = list(range(len(vs.validators)))
+    commit.signatures[bad].signature = good_sig[:40] + bytes(
+        [good_sig[40] ^ 4]) + good_sig[41:]
+    try:
+        sbatch = CommitSignBatch(CHAIN, commit, lanes)
+        sigs = [cs.signature for cs in commit.signatures]
+        msgs = sbatch.materialize()
+        v_sh = exp.verify_structured(lanes, sbatch, sigs)
+        v_one = single.verify_structured(lanes, sbatch, sigs)
+        b_sh = exp.verify(lanes, msgs, sigs)
+        b_one = single.verify(lanes, msgs, sigs)
+    finally:
+        commit.signatures[bad].signature = good_sig
+    want = np.ones(len(lanes), bool)
+    want[bad] = False
+    if not ((v_sh == v_one).all() and (b_sh == b_one).all()
+            and (v_sh == want).all()):
+        raise AssertionError("sharded verdicts differ from the one-card set's")
+    trusting_lanes = vs.plan_commit_trusting(CHAIN, commit, 1, 3).lanes
+    row, shard_ms = k5_row(exp, commit, lanes, dev)
+    out.update(
+        build_s=build_s, keys_per_shard=exp.keys_per_shard,
+        shard_lanes=shard_lanes(exp, lanes),
+        trusting_shard_lanes=shard_lanes(exp, trusting_lanes),
+        verify_commit_ms=[ms for ms, _ in runs[1:]],
+        verify_commit_p50_ms=statistics.median(ms for ms, _ in runs[1:]),
+        first_verify_commit_ms=runs[0][0],
+        verify_commit_light_ms=light[0],
+        verify_commit_light_trusting_ms=trusting[0], rejected=message,
+        verdicts_equal_one_card=True, mixed_verify_commit_ms=mixed_ms,
+        mixed_rejected=mixed_rejected, k5_ms=shard_ms,
+        device_call_ms=device_call_ms(exp, single, commit, lanes),
+        launches=launches)
+    return out, row
+
+
+def shard_lanes(exp, lanes) -> dict:
+    """Real lanes per shard and the common bucket n_local of a routed
+    launch over these lanes."""
+    import numpy as np
+
+    counts = np.bincount(np.asarray(lanes) // exp.keys_per_shard,
+                         minlength=exp.n_shards)
+    return {"real": counts.tolist(),
+            "n_local": exp._bucket(max(int(counts.max()), 1))}
+
+
+def device_call_ms(exp, single, commit, lanes, reps: int = 5) -> dict:
+    """Median host ms of the device call of one structured verify of the
+    commit (uploads, launches, verdict readback; and the sharded set's
+    routing) on the sharded set and on the one-card set, and of the
+    routing alone."""
+    import torch
+
+    from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
+
+    sbatch = CommitSignBatch(CHAIN, commit, lanes)
+    sigs = [cs.signature for cs in commit.signatures]
+    out = {}
+    for name, keys in (("sharded", exp), ("one_card", single)):
+        idx, fields, _wf, width = keys._prepare_structured(lanes, sbatch, sigs)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keys._launch_structured(idx, fields, width).cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    idx, fields, _wf, _width = exp._prepare_structured(lanes, sbatch, sigs)
+    per = {k: v for k, v in fields.items() if k not in exp._S_REPL}
+    times = []
+    for _ in range(reps):  # the host routing inside the sharded call
+        t0 = time.perf_counter()
+        exp._route(idx, per)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["sharded_route"] = statistics.median(times)
+    return out
+
+
+def k5_row(exp, commit, lanes, dev):
+    """K5 at the main path's shapes: each shard's launch on the valid
+    commit's routed lanes timed alone by CUDA events, then all of them
+    on their streams; shard 0's against its plain version, with its
+    bound. Returns the kernels row and the times."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+    from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
+
+    sbatch = CommitSignBatch(CHAIN, commit, lanes)
+    sigs = [cs.signature for cs in commit.signatures]
+    idx, fields, _wf, width = exp._prepare_structured(lanes, sbatch, sigs)
+    tpl = verify.to_device({k: fields[k] for k in exp._S_REPL}, dev)
+    templates = tuple(tpl[k] for k in exp._S_REPL)
+    lidx, routed, _slot = exp._route(idx, {k: v for k, v in fields.items()
+                                            if k not in exp._S_REPL})
+    shard_ms, calls = [], []
+    for d, shard_dev in enumerate(exp.mesh):
+        with torch.cuda.device(shard_dev):
+            args, kw = exp._k5_args(d, shard_dev, lidx, routed, templates,
+                                    width)
+            shard_ms.append(cuda_ms(
+                lambda: expanded.shard_verify(*args, **kw), 10))
+        calls.append((args, kw))
+    # all shards' launches as a sharded verify makes them, one stream
+    # each: the span from before the first to after the join
+    shard_ms.append(cuda_ms(lambda: verify.run_shards(
+        exp.mesh, lambda d, _dev: expanded.shard_verify(*calls[d][0],
+                                                        **calls[d][1])), 10))
+    args, kw = calls[0]
+    v_k = expanded.shard_verify(*args, **kw)
+    v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*args, **kw))
+    msg, nblocks = expanded.assemble(*kw["templates"], *kw["patches"], width)
+    s_idx, akeys, sb, s_ok, key_ok, _tables, btab = args
+    ops, lane_bytes, _msg_bytes, m = xverify_work(akeys, key_ok, s_idx, sb,
+                                                  s_ok, msg, nblocks)
+    # and per lane the patch, split, patch_len and group; the templates;
+    # the comb
+    nbytes = (lane_bytes + m * (24 + 3 * 4) + btab.numel() * 4
+              + sum(t.numel() * t.element_size() for t in kw["templates"]))
+    row = entry("shard_verify", max_abs_diff(v_k, v_p), shard_ms[0], p_ms,
+                ops, nbytes)
+    row["lanes"] = int(s_idx.shape[0])
+    return row, {"per_shard": shard_ms[:-1], "all_shards": shard_ms[-1]}
+
+
+# -- phase 8 -------------------------------------------------------------
+
+
 def timing_phase(vs, commit, dev) -> list[dict]:
     """Each kernel at the main path's shapes: time, plain time, bound,
     agreement with the plain version."""
     import torch
 
-    from tendermint_tpu_torch.crypto.cuda import expanded, scalar, verify
+    from tendermint_tpu_torch.crypto.cuda import expanded, verify
     from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
 
     exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
@@ -1047,25 +1368,10 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     err = max_abs_diff(v_k, v_p)
     if not bool(v_k[:n].all()):
         raise AssertionError("K3 rejects the valid commit")
-    ki = f["idx"].to(torch.int64)
-    # lanes whose verdict is not already false (padding, S >= L, a bad
-    # key): only these need the curve work
-    live = f["s_ok"].bool() & exp.key_ok[ki].bool()
-    m, ki, sb = int(live.sum().item()), ki[live], f["sb"][live]
-    dig_k, dig_s = lane_digits(exp.akeys[ki], sb, m_k[live], nb_k[live])
-    dig_k = scalar.recode_signed(dig_k)
-    # per lane: decompress R, a table add per nonzero signed digit, a
-    # comb add per nonzero S nibble, + the other sum, + (-R), x8
-    ops = (m * DECOMPRESS + sqrt_m1_branches(sb[:, :32]) * MUL
-           + adds_after_first(dig_k) * ADD + adds_after_first(dig_s) * ADD_Z1
-           + m * (2 * ADD + 3 * DOUBLE))
-    # idx, signature, s_ok, key_ok, nblocks and key per lane, the
-    # message bytes its SHA-512 reads, one table entry per nonzero
-    # digit, and the comb table
-    msg_bytes = int((nb_k[live].to(torch.int64) * 128 - 64).sum().item())
-    nbytes = (m * (4 + 64 + 1 + 1 + 4 + 32) + msg_bytes
-              + int((dig_k != 0).sum().item()) * ENTRY_BYTES
-              + btab.numel() * 4)
+    ops, lane_bytes, msg_bytes, m = xverify_work(
+        exp.akeys, exp.key_ok, f["idx"], f["sb"], f["s_ok"], m_k, nb_k)
+    # and nblocks per lane, the message bytes its SHA-512 reads, the comb
+    nbytes = lane_bytes + m * 4 + msg_bytes + btab.numel() * 4
     rows.append(entry("xverify", err,
                       cuda_ms(lambda: expanded.xverify(*xargs), 10),
                       p_ms, ops, nbytes))
@@ -1086,6 +1392,31 @@ def timing_phase(vs, commit, dev) -> list[dict]:
                       cuda_ms(lambda: verify.general_verify(*gargs), 10),
                       p_ms, ops, nbytes))
     return rows
+
+
+def xverify_work(akeys, key_ok, idx, sb, s_ok, msg, nblocks):
+    """K3's work (K5's too) on the lanes whose verdict is not already
+    false (padding, S >= L, a bad key): (int32 products; bytes of idx,
+    signature, s_ok, key_ok, key and the table entries read per lane;
+    the message bytes SHA-512 reads; live lanes)."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import scalar
+
+    ki = idx.to(torch.int64)
+    live = s_ok.bool() & key_ok[ki].bool()
+    m, ki, sb = int(live.sum().item()), ki[live], sb[live]
+    dig_k, dig_s = lane_digits(akeys[ki], sb, msg[live], nblocks[live])
+    dig_k = scalar.recode_signed(dig_k)
+    # per lane: decompress R, a table add per nonzero signed digit, a
+    # comb add per nonzero S nibble, + the other sum, + (-R), x8
+    ops = (m * DECOMPRESS + sqrt_m1_branches(sb[:, :32]) * MUL
+           + adds_after_first(dig_k) * ADD + adds_after_first(dig_s) * ADD_Z1
+           + m * (2 * ADD + 3 * DOUBLE))
+    msg_bytes = int((nblocks[live].to(torch.int64) * 128 - 64).sum().item())
+    lane_bytes = (m * (4 + 64 + 1 + 1 + 32)
+                  + int((dig_k != 0).sum().item()) * ENTRY_BYTES)
+    return ops, lane_bytes, msg_bytes, m
 
 
 def general_work(ab, sb, msg, nblocks, live) -> tuple[int, int]:
@@ -1253,11 +1584,19 @@ def main() -> int:
     mixed = mixed_phase(mvs, mcommit, mbid, secret_of, torch.device("cuda"))
     emit(dict(phase="mixed", validators=N_VALIDATORS, setup_s=setup_s,
               seconds=time.perf_counter() - t0, card=smi, **mixed))
+    t0 = time.perf_counter()
+    fabric, k5 = fabric_phase(vs, commit, bid, mvs, mcommit, mbid,
+                              mixed["rejected"], torch.device("cuda"))
+    emit(dict(phase="fabric", validators=N_VALIDATORS,
+              crossover=FABRIC_CROSSOVER,
+              one_card_verify_commit_p50_ms=res["verify_commit_p50_ms"],
+              seconds=time.perf_counter() - t0, card=smi, **fabric))
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
     rows.append(sr_row(mvs, mcommit, torch.device("cuda")))
+    rows.append(k5)
     launches = {}
-    for path in (res, spec, mixed):  # each path's run, summed per kernel
+    for path in (res, spec, mixed, fabric):  # each path's run, summed
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     ptxas = kernels.BUILD_INFO.get("ptxas", {})

@@ -38,3 +38,33 @@ class SpeculationConfig:
                 "speculation.max_heights_ahead must be positive")
         if self.flush_ms < 0:
             raise ValueError("negative speculation.flush_ms")
+
+
+@dataclass
+class MeshConfig:
+    """Multi-device verify fabric (crypto/cuda/{verify,expanded}.py):
+    how the device mesh is used by the verify paths. Performance knobs
+    only: verdicts are identical on any mesh."""
+
+    # Key-range sharding crossover for the expanded comb tables: sets of
+    # at most this many keys replicate their tables on every device
+    # (every table read local, no routing); larger sets split them by
+    # key range and route each lane to its key's device, which divides
+    # each device's table memory by the mesh size and multiplies the
+    # largest set by it. 0 = the default (the single-device budget:
+    # replicate while it fits, shard beyond). A set too large for one
+    # device shards whatever this says.
+    expanded_shard_crossover_keys: int = 0
+
+    def validate_basic(self) -> None:
+        if self.expanded_shard_crossover_keys < 0:
+            raise ValueError(
+                "negative mesh.expanded_shard_crossover_keys")
+
+
+def apply_mesh(cfg: MeshConfig) -> None:
+    """Apply a [mesh] section before anything builds expanded tables
+    (the reference applies it while assembling the node)."""
+    from .crypto.cuda import expanded
+
+    expanded.set_shard_crossover(cfg.expanded_shard_crossover_keys or None)

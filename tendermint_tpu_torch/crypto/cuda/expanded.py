@@ -20,6 +20,16 @@ Kernels (csrc/), each beside its plain PyTorch version:
   (reference: ``assemble_core``).
 - K3 ``xverify``: verify lanes against the tables (reference:
   ``_xcore``).
+- K5 ``shard_verify``: K3 (with K2's byte rule in front, in the
+  structured form) on one shard of key-range-sharded tables, launched
+  once per mesh entry on its device and stream (reference:
+  ``_xkernel_sharded``, ``_skernel_sharded``).
+
+On a mesh (verify.effective_mesh) a set's tables either replicate, and
+each launch splits its lanes evenly over the entries, or, above the
+shard crossover, split by key range: entry d holds the tables of keys
+[d*K, (d+1)*K), and each launch routes every lane to its key's home
+entry, so a lane's table reads stay on its device.
 
 Layout: the reference pads each 88-int entry to a 128-int TPU row
 (~318 KB per key). Here an entry is 4 coordinates x 10 int32 limbs,
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import threading
 from collections import OrderedDict
 
@@ -61,6 +72,55 @@ _CPU_MAX_KEYS = 2048
 _PATCH_W = 24
 _PRE_W = 128
 _SUF_W = 64
+
+# -- key-range sharding crossover -----------------------------------------
+#
+# Sets of at most this many keys replicate their tables over the mesh;
+# larger sets split them by key range. None: the single-device table
+# budget (replicate while a set fits one device, shard beyond). Set by
+# config.apply_mesh ([mesh] expanded_shard_crossover_keys) or
+# TM_TPU_SHARD_CROSSOVER.
+_SHARD_CROSSOVER: int | None = None
+
+
+def set_shard_crossover(n: int | None) -> None:
+    """Sets of at most n keys replicate their tables; larger ones shard
+    by key range. None or 0 restores the default (the single-device
+    budget)."""
+    global _SHARD_CROSSOVER
+    _SHARD_CROSSOVER = int(n) if n else None
+
+
+def _single_chip_max_keys() -> int:
+    """The largest set whose tables fit one device. On a GPU: the
+    _CACHE_MAX cached sets share half of the card's memory
+    (torch.cuda.mem_get_info), at TABLE_BYTES_PER_KEY plus the key row
+    each. On the CPU: the reference's CPU cap."""
+    dev = default_device()
+    if dev.type != "cuda":
+        return _CPU_MAX_KEYS
+    _free, total = torch.cuda.mem_get_info(dev)
+    return int(total // 2 // _CACHE_MAX // (TABLE_BYTES_PER_KEY + 33))
+
+
+def shard_crossover_keys() -> int:
+    """set_shard_crossover's value, else TM_TPU_SHARD_CROSSOVER's (a
+    malformed value is logged and ignored: the environment is the
+    lenient surface, the config the strict one), else the single-device
+    budget."""
+    if _SHARD_CROSSOVER is not None:
+        return _SHARD_CROSSOVER
+    env = os.environ.get("TM_TPU_SHARD_CROSSOVER")
+    if env:
+        try:
+            val = int(env)
+        except ValueError:
+            logger.warning("ignoring malformed TM_TPU_SHARD_CROSSOVER=%r",
+                           env)
+            val = 0
+        if val:  # 0 means the default here too, as in the config
+            return val
+    return _single_chip_max_keys()
 
 
 # -- K1: comb-table build ------------------------------------------------
@@ -246,8 +306,98 @@ def xverify(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
 xverify.launches = 0
 
 
+# -- K5: verify one shard of key-range-sharded tables ---------------------
+
+
+def shard_verify_plain(idx, akeys, sb, s_ok, key_ok, tables, btab, *,
+                       msg=None, nblocks=None, templates=None,
+                       patches=None, width: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K5 (csrc/shard_verify.cu) on one shard:
+    local key indices idx (n,) i32 into the shard's akeys (K, 32) u8,
+    key_ok (K,) bool and tables (K, 69, 9, 4, 10) i32, signature rows
+    sb (n, 64) u8, s_ok (n,) bool, the comb btab. The messages are
+    either msg (n, W) u8 rows with nblocks (n,) i32, or assembled from
+    templates (pre, pre_len, suf, suf_len) and per-lane patches
+    (patch, split, patch_len, group) at `width`: assemble_plain, then
+    xverify_plain. -> (n,) bool."""
+    if templates is not None:
+        msg, nblocks = assemble_plain(*templates, *patches, width)
+    return xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
+                         btab)
+
+
+def shard_verify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
+                 nblocks=None, templates=None, patches=None,
+                 width: int = 0) -> torch.Tensor:
+    """K5 wrapper (arguments as shard_verify_plain): the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors (or KernelError),
+    on the current device and stream."""
+    if (msg is None) == (templates is None):
+        raise ValueError("give msg and nblocks, or templates and patches")
+    if idx.device.type == "cpu":
+        return shard_verify_plain(idx, akeys, sb, s_ok, key_ok, tables, btab,
+                                  msg=msg, nblocks=nblocks,
+                                  templates=templates, patches=patches,
+                                  width=width)
+    dev = idx.device
+    n = idx.shape[0]
+    k = akeys.shape[0]
+    kernels.require(idx, "idx", torch.int32, (n,), dev)
+    kernels.require(akeys, "akeys", torch.uint8, (k, 32), dev)
+    kernels.require(sb, "sb", torch.uint8, (n, 64), dev)
+    kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
+    kernels.require(key_ok, "key_ok", torch.bool, (k,), dev)
+    kernels.require(tables, "tables", torch.int32,
+                    (k, _WINDOWS, _ENTRIES, 4, fe.NLIMB), dev)
+    kernels.require(btab, "btab", torch.int32, (_WINDOWS, 16, 3, fe.NLIMB),
+                    dev)
+    ptrs = [None] * 10
+    if msg is not None:
+        width = msg.shape[1]
+        kernels.require(msg, "msg", torch.uint8, (n, width), dev)
+        kernels.require(nblocks, "nblocks", torch.int32, (n,), dev)
+        ptrs[:2] = msg.data_ptr(), nblocks.data_ptr()
+    else:
+        pre, pre_len, suf, suf_len = templates
+        g = pre.shape[0]
+        kernels.require(pre, "pre", torch.uint8, (g, _PRE_W), dev)
+        kernels.require(pre_len, "pre_len", torch.int32, (g,), dev)
+        kernels.require(suf, "suf", torch.uint8, (g, _SUF_W), dev)
+        kernels.require(suf_len, "suf_len", torch.int32, (g,), dev)
+        patch, split, patch_len, group = patches
+        kernels.require(patch, "patch", torch.uint8, (n, _PATCH_W), dev)
+        for name, t in (("split", split), ("patch_len", patch_len),
+                        ("group", group)):
+            kernels.require(t, name, torch.int32, (n,), dev)
+        ptrs[2:] = [t.data_ptr() for t in (*templates, *patches)]
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    rc = kernels.lib().tm_shard_verify(
+        idx.data_ptr(), akeys.data_ptr(), sb.data_ptr(), s_ok.data_ptr(),
+        key_ok.data_ptr(), tables.data_ptr(), btab.data_ptr(), *ptrs, width,
+        n, out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "shard_verify")
+    shard_verify.launches += 1
+    return out
+
+
+shard_verify.launches = 0
+
+
 class ExpandedKeys:
-    """Device-resident comb tables for a fixed list of ed25519 pubkeys."""
+    """Device-resident comb tables for a fixed list of ed25519 pubkeys.
+
+    Three placements, chosen at build from the mesh (verify.effective_mesh)
+    and the set's size: no mesh — one copy on ``device``; a mesh and at
+    most shard_crossover_keys() keys (and no more than one device's
+    budget) — the tables replicate on every entry (``shards`` holds each
+    entry's (akeys, tables, key_ok); ``.to`` of a tensor onto the device
+    it is on returns it, so a logical mesh on one card holds one copy)
+    and a launch of _SHARD_MIN lanes or more splits its lanes evenly;
+    above that — the tables split by key range (``sharded``: entry d's
+    ``shards[d]`` holds keys [d*K, (d+1)*K), the set padded with zero
+    keys to D*K, whose key_ok is False) and a launch routes each lane to
+    its key's entry, one K5 launch per entry. Without a mesh, a set
+    beyond one device's budget is refused (ValueError)."""
 
     # Message widths (bytes after the 64-byte R||A prefix) of the
     # structured path: 2- and 4-block SHA inputs. Every realistic vote
@@ -255,6 +405,12 @@ class ExpandedKeys:
     _S_WIDTHS = (192, 448)
     # Template groups per launch (types/sign_batch.py MAX_GROUPS).
     _S_GROUPS = 32
+    # Fields of the structured form every entry gets whole.
+    _S_REPL = ("pre", "pre_len", "suf", "suf_len")
+    # One copy on one device until a build places it on a mesh.
+    mesh = None
+    shards = None
+    sharded = False
 
     def __init__(self, pubkeys: list[bytes], device=None):
         self.pubkeys = tuple(bytes(p) for p in pubkeys)
@@ -262,29 +418,103 @@ class ExpandedKeys:
             raise ValueError("ed25519 pubkeys must be 32 bytes")
         self.device = default_device() if device is None else torch.device(device)
         a_raw = np.frombuffer(b"".join(self.pubkeys), np.uint8).reshape(-1, 32)
+        v = len(self.pubkeys)
+        self.n_shards = 1
+        self.keys_per_shard = v
+        self.mesh = tv.effective_mesh()
+        if _splits(v, self.mesh):
+            self._build_sharded(a_raw)
+            return
+        budget = _single_chip_max_keys()
+        if v > budget:
+            raise ValueError(
+                f"{v}-key expanded build exceeds the single-chip table "
+                f"budget ({budget} keys) and no mesh is available for "
+                "key-range sharding")
         self.akeys = torch.from_numpy(a_raw.copy()).to(self.device)
         self.tables, self.key_ok = build_tables(self.akeys)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """``shards``: each mesh entry's copy of the tables, else the one
+        copy."""
+        self.shards = [(self.akeys.to(dev), self.tables.to(dev),
+                        self.key_ok.to(dev))
+                       for dev in self.mesh or (self.device,)]
+
+    def _build_sharded(self, a_raw: np.ndarray) -> None:
+        """Key-range-sharded build: pad the set to D*K keys and build each
+        K-key range with one K1 launch on its home entry."""
+        mesh = self.mesh
+        d_n = len(mesh)
+        v = a_raw.shape[0]
+        k = -(-v // d_n)
+        padded = np.zeros((d_n * k, 32), np.uint8)
+        padded[:v] = a_raw
+        real = (np.arange(d_n * k) < v).reshape(d_n, k)
+
+        def one(d, dev):
+            akeys = torch.from_numpy(padded[d * k:(d + 1) * k].copy()).to(dev)
+            return (akeys, *build_tables(akeys))
+
+        built = tv.run_shards(mesh, one)
+        # padding keys are never addressed (indices are checked against
+        # the set) and pad lanes are dropped by the slot map; their
+        # key_ok is False all the same
+        self._set_shards([(a, t, ok & torch.from_numpy(real[d]).to(ok.device))
+                          for d, (a, t, ok) in enumerate(built)], k)
+
+    def _set_shards(self, shards, k: int) -> None:
+        self.shards = shards
+        self.sharded = True
+        self.n_shards = len(shards)
+        self.keys_per_shard = k
+        self.akeys = self.tables = self.key_ok = None
 
     @classmethod
     def from_reference_arrays(cls, pubkeys, tables, key_ok, device=None):
-        """Carry a set built by the reference over: ``tables`` are its
+        """Carry a set built by the reference over. ``tables`` are its
         (V*69*9, 128) int32 rows (22 twelve-bit limbs per coordinate,
-        88 payload ints then padding) and ``key_ok`` its (V,) flags.
-        Each entry is decoded mod p and re-encoded in this port's limbs."""
+        88 payload ints then padding) and ``key_ok`` its (V,) flags; or,
+        from a key-range-sharded build, (D, K*69*9, 128) rows and (D, K)
+        flags, which become the per-shard blocks on this port's mesh
+        (it must have D entries). Each entry is decoded mod p and
+        re-encoded in this port's limbs."""
         self = cls.__new__(cls)
         self.pubkeys = tuple(bytes(p) for p in pubkeys)
         v = len(self.pubkeys)
         self.device = default_device() if device is None else torch.device(device)
         rows = np.asarray(tables)
-        if rows.shape != (v * _WINDOWS * _ENTRIES, 128):
-            raise ValueError(f"reference tables shape {rows.shape}")
-        limbs = rows[:, :88].reshape(v, _WINDOWS, _ENTRIES, 4, 22)
-        conv = fe.from_radix12(limbs)  # (V, 69, 9, 4, 10) int32
+        ok = np.asarray(key_ok, bool)
         a_raw = np.frombuffer(b"".join(self.pubkeys), np.uint8).reshape(-1, 32)
+        self.mesh = tv.effective_mesh()
+        per_key = _WINDOWS * _ENTRIES
+        if rows.ndim == 3:
+            d_n, k = ok.shape
+            if self.mesh is None or len(self.mesh) != d_n:
+                raise ValueError(f"a {d_n}-shard reference build needs a "
+                                 f"mesh of {d_n} entries")
+            if rows.shape != (d_n, k * per_key, 128) or d_n * k < v:
+                raise ValueError(f"reference tables shape {rows.shape}")
+            conv = fe.from_radix12(
+                rows[:, :, :88].reshape(d_n, k, _WINDOWS, _ENTRIES, 4, 22))
+            padded = np.zeros((d_n * k, 32), np.uint8)
+            padded[:v] = a_raw
+            self._set_shards([
+                (torch.from_numpy(padded[d * k:(d + 1) * k].copy()).to(dev),
+                 torch.from_numpy(conv[d]).to(dev),
+                 torch.from_numpy(ok[d].copy()).to(dev))
+                for d, dev in enumerate(self.mesh)], k)
+            return self
+        if rows.shape != (v * per_key, 128):
+            raise ValueError(f"reference tables shape {rows.shape}")
+        conv = fe.from_radix12(rows[:, :88].reshape(v, _WINDOWS, _ENTRIES, 4, 22))
+        self.n_shards = 1
+        self.keys_per_shard = v
         self.akeys = torch.from_numpy(a_raw.copy()).to(self.device)
         self.tables = torch.from_numpy(conv).to(self.device)
-        self.key_ok = torch.from_numpy(
-            np.asarray(key_ok, bool).copy()).to(self.device)
+        self.key_ok = torch.from_numpy(ok.copy()).to(self.device)
+        self._replicate()
         return self
 
     def __len__(self) -> int:
@@ -318,39 +548,124 @@ class ExpandedKeys:
         return (np.frombuffer(joined, np.uint8).reshape(n + pad, 64),
                 well_formed)
 
-    @staticmethod
-    def _bucket(n: int) -> int:
-        """Powers of two up to 1024, then multiples of 1024 (a
-        10,240-lane commit runs at exactly 10,240)."""
-        if n <= 1024:
-            bucket = tv._MIN_BATCH
-            while bucket < n:
-                bucket <<= 1
-            return bucket
-        return (n + 1023) // 1024 * 1024
+    _bucket = staticmethod(tv.lane_bucket)
 
     def _prepare(self, indices, msgs, sigs):
-        """Host side of verify: validate, pad to a bucket, pack bytes."""
+        """Host side of verify: validate, pad to a bucket, pack bytes.
+        Sharded tables take no padding here: _route buckets per entry
+        (pad lanes here would all home on entry 0 and inflate every
+        entry's bucket)."""
         n = len(indices)
         if len(msgs) != n:
             raise ValueError("one message per lane")
         idx = self._check_idx(indices, len(sigs))
-        pad = self._bucket(n) - n
+        pad = 0 if self.sharded else self._bucket(n) - n
         sig_raw, well_formed = self._sig_rows(sigs, pad)
         if pad:
             idx = np.concatenate([idx, np.zeros(pad, np.int32)])
             msgs = list(msgs) + [b""] * pad
         return idx, tv.pack_sig_msg(sig_raw, msgs), well_formed
 
+    def _shard_args(self, idx, fields, repl_keys=()):
+        """Lane sharding over replicated tables: when there is a mesh and
+        the bucket is at least _SHARD_MIN lanes, pad the per-lane fields
+        (not the `repl_keys` ones, which every entry gets whole) with
+        zero lanes (s_ok False; dropped by the caller's [:n]) to a
+        multiple of the mesh size. Returns (idx, fields, shard?)."""
+        bucket = idx.shape[0]
+        if self.mesh is None or bucket < tv._SHARD_MIN:
+            return idx, fields, False
+        pad = tv.mesh_lane_pad(bucket, self.mesh) - bucket
+        if pad:
+            idx = np.concatenate([idx, np.zeros(pad, np.int32)])
+            fields = {k: v if k in repl_keys else np.pad(
+                v, ((0, pad),) + ((0, 0),) * (v.ndim - 1))
+                for k, v in fields.items()}
+        return idx, fields, True
+
+    def _route(self, idx, per_lane: dict):
+        """Lane -> home entry routing (key-range-sharded tables):
+        stable-sort the lanes by their key's entry, pad every entry to a
+        common bucket n_local = _bucket(largest entry's count), and
+        rebase indices into the entry's key range. Returns the local
+        indices (D, n_local), the routed per-lane arrays (D, n_local,
+        ...) and the slot map that restores the original lane order
+        from the flat (D * n_local,) verdicts. Pad lanes carry local
+        index 0 and zero signatures (s_ok False). Commit lanes are
+        distinct validators, so an entry runs ~N/D lanes; a batch whose
+        lanes all fall in one range pads every entry to the whole
+        batch."""
+        d_n, k = self.n_shards, self.keys_per_shard
+        bucket = idx.shape[0]
+        home = idx // k
+        order = np.argsort(home, kind="stable")
+        counts = np.bincount(home, minlength=d_n)
+        n_local = self._bucket(max(int(counts.max()), 1))
+        local_idx = np.zeros((d_n, n_local), np.int32)
+        routed = {name: np.zeros((d_n, n_local) + a.shape[1:], a.dtype)
+                  for name, a in per_lane.items()}
+        slot = np.zeros(bucket, np.int64)
+        off = 0
+        for d in range(d_n):
+            sel = order[off:off + counts[d]]
+            local_idx[d, :counts[d]] = idx[sel] - d * k
+            for name, a in per_lane.items():
+                routed[name][d, :counts[d]] = a[sel]
+            slot[sel] = d * n_local + np.arange(counts[d])
+            off += counts[d]
+        tv.count_shard_lanes(self.mesh, n_local * d_n)
+        return local_idx, routed, slot
+
+    def _k5_args(self, d, dev, lidx, routed, templates=None, width=0):
+        """shard_verify's arguments for entry d of a routed launch: its
+        lanes uploaded to `dev`, its key range, and the message form
+        (the replicated `templates` and `width` of the structured form,
+        else the routed msg and nblocks)."""
+        t = tv.to_device({k: v[d] for k, v in routed.items()} |
+                         {"idx": lidx[d]}, dev)
+        akeys, tables, key_ok = self.shards[d]
+        if templates is None:
+            form = dict(msg=t["msg"], nblocks=t["nblocks"])
+        else:
+            form = dict(templates=tuple(x.to(dev) for x in templates),
+                        patches=(t["patch"], t["split"], t["patch_len"],
+                                 t["group"]), width=width)
+        return (t["idx"], akeys, t["sb"], t["s_ok"], key_ok, tables,
+                tv._btab(dev)), form
+
+    def _sharded_launch(self, idx, per_lane, templates=None,
+                        width=0) -> torch.Tensor:
+        """One K5 launch per entry over the routed lanes, on the entry's
+        device and stream; the verdicts back in lane order."""
+        lidx, routed, slot = self._route(idx, per_lane)
+
+        def one(d, dev):
+            args, form = self._k5_args(d, dev, lidx, routed, templates, width)
+            return shard_verify(*args, **form)
+
+        return _routed_verdicts(tv.run_shards(self.mesh, one), slot)
+
     def _launch(self, idx, packed) -> torch.Tensor:
-        t = tv.to_device(dict(packed, idx=idx), self.device)
-        return xverify(t["idx"], self.akeys, t["sb"], t["msg"], t["nblocks"],
-                       t["s_ok"], self.key_ok, self.tables, tv._btab(self.device))
+        if self.sharded:
+            return self._sharded_launch(idx, packed)
+        idx, packed, shard = self._shard_args(idx, packed)
+
+        def launch(d, t):
+            return self._xverify(d, t, t["msg"], t["nblocks"])
+
+        if shard:
+            return tv.launch_lanes(self.mesh, dict(packed, idx=idx), launch)
+        return launch(0, tv.to_device(dict(packed, idx=idx), self.device))
+
+    def _xverify(self, d, t, msg, nblocks) -> torch.Tensor:
+        """K3 over lanes `t` on entry d's copy of the tables."""
+        akeys, tables, key_ok = self.shards[d]
+        return xverify(t["idx"], akeys, t["sb"], msg, nblocks, t["s_ok"],
+                       key_ok, tables, tv._btab(t["idx"].device))
 
     def verify(self, indices, msgs, sigs) -> np.ndarray:
-        """Verify (self.pubkeys[indices[i]], msgs[i], sigs[i]) lanes in
-        one launch, padded to a bucket; verdicts identical to
-        verify.verify_batch on the same triples."""
+        """Verify (self.pubkeys[indices[i]], msgs[i], sigs[i]) lanes;
+        verdicts identical to verify.verify_batch on the same triples."""
         n = len(indices)
         if n == 0:
             return np.zeros(0, bool)
@@ -376,7 +691,7 @@ class ExpandedKeys:
         kp = self._S_GROUPS
         if k > kp or pw > _PRE_W or sw > _SUF_W:
             raise ValueError("templates too large for structured path")
-        pad = self._bucket(n) - n
+        pad = 0 if self.sharded else self._bucket(n) - n
         sig_raw, well_formed = self._sig_rows(sigs, pad)
 
         def padded(a, rows):
@@ -399,19 +714,33 @@ class ExpandedKeys:
         return idx, fields, well_formed, width
 
     def _launch_structured(self, idx, fields, width) -> torch.Tensor:
-        t = tv.to_device(dict(fields, idx=idx), self.device)
-        msg, nblocks = assemble(t["pre"], t["pre_len"], t["suf"],
-                                t["suf_len"], t["patch"], t["split"],
-                                t["patch_len"], t["group"], width)
-        return xverify(t["idx"], self.akeys, t["sb"], msg, nblocks,
-                       t["s_ok"], self.key_ok, self.tables,
-                       tv._btab(self.device))
+        dev0 = self.device if self.mesh is None else self.mesh[0]
+        tpl = tv.to_device({k: fields[k] for k in self._S_REPL}, dev0)
+        templates = tuple(tpl[k] for k in self._S_REPL)
+        per_lane = {k: v for k, v in fields.items() if k not in self._S_REPL}
+        if self.sharded:
+            return self._sharded_launch(idx, per_lane, templates=templates,
+                                        width=width)
+        idx, per_lane, shard = self._shard_args(idx, per_lane)
+
+        def assembled(d, t):
+            dev = t["idx"].device
+            msg, nblocks = assemble(*(x.to(dev) for x in templates),
+                                    t["patch"], t["split"], t["patch_len"],
+                                    t["group"], width)
+            return self._xverify(d, t, msg, nblocks)
+
+        if shard:
+            return tv.launch_lanes(self.mesh, dict(per_lane, idx=idx),
+                                   assembled)
+        return assembled(0, tv.to_device(dict(per_lane, idx=idx), self.device))
 
     def verify_structured(self, indices, sbatch, sigs) -> np.ndarray:
         """verify() for commit votes in structured form: identical
         verdicts to verify(indices, sbatch.materialize(), sigs), with
-        the sign bytes assembled on the device (K2) from the commit's
-        templates and per-lane timestamp patches."""
+        the sign bytes assembled on the device (K2, or inside K5 on
+        sharded tables) from the commit's templates and per-lane
+        timestamp patches."""
         n = len(indices)
         if n == 0:
             return np.zeros(0, bool)
@@ -419,6 +748,14 @@ class ExpandedKeys:
             indices, sbatch, sigs)
         full = self._launch_structured(idx, fields, width).cpu().numpy()
         return full[:n] & well_formed
+
+
+def _routed_verdicts(outs, slot: np.ndarray) -> torch.Tensor:
+    """The entries' (n_local,) verdicts of a routed launch, gathered and
+    put back in the caller's lane order by the slot map (the
+    reference's _RoutedVerdicts, gathered at once)."""
+    flat = tv.gather(outs)
+    return flat[torch.from_numpy(slot).to(flat.device)]
 
 
 # -- process-wide LRU of expanded sets (one active + one in transition) --
@@ -434,20 +771,41 @@ _BUILDS: dict[tuple, threading.Event] = {}
 
 
 def max_keys() -> int:
-    """Largest validator set the expanded tables serve on the default
-    device. On a GPU: the _CACHE_MAX cached sets share half of the
-    card's memory (torch.cuda.mem_get_info), at TABLE_BYTES_PER_KEY
-    plus the key row each. On the CPU: the reference's CPU cap."""
-    dev = default_device()
-    if dev.type != "cuda":
-        return _CPU_MAX_KEYS
-    _free, total = torch.cuda.mem_get_info(dev)
-    return int(total // 2 // _CACHE_MAX // (TABLE_BYTES_PER_KEY + 33))
+    """Largest validator set the expanded tables serve: the single-device
+    budget (_single_chip_max_keys) times the number of distinct devices
+    of the mesh, since above the crossover the tables split by key
+    range. A logical mesh (entries repeating one card) and a CPU mesh
+    give no lift: their shards share one memory."""
+    base = _single_chip_max_keys()
+    mesh = tv._mesh()
+    if mesh is None or default_device().type != "cuda":
+        return base
+    return base * len(set(mesh))
+
+
+def _splits(n_keys: int, mesh) -> bool:
+    """Whether a set of n_keys keys built on `mesh` splits by key range:
+    above the crossover, or above one device's budget whatever the
+    crossover says (a crossover set past the budget must not refuse
+    every commit)."""
+    return mesh is not None and n_keys > min(shard_crossover_keys(),
+                                             _single_chip_max_keys())
+
+
+def _placement(n_keys: int) -> tuple:
+    """What an ExpandedKeys of n_keys keys built now is placed on: the
+    default device, the mesh, and whether it splits. A set cached under
+    another placement is built anew (the reference reshards a built set
+    in place; that comes with the breaker)."""
+    mesh = tv.effective_mesh()
+    return (str(default_device()),
+            None if mesh is None else tuple(map(str, mesh)),
+            _splits(n_keys, mesh))
 
 
 def get_expanded(pubkeys: list[bytes]) -> ExpandedKeys:
     dev = default_device()
-    key = (str(dev), hashlib.sha256(b"".join(pubkeys)).digest())
+    key = (_placement(len(pubkeys)), hashlib.sha256(b"".join(pubkeys)).digest())
     while True:
         with _CACHE_LOCK:
             exp = _CACHE.get(key)

@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("build_tables.cu", "assemble.cu", "xverify.cu", "general_verify.cu",
-           "splice.cu", "arena_verify.cu", "sr_verify.cu")
+           "splice.cu", "arena_verify.cu", "sr_verify.cu",
+           "shard_verify.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -45,6 +46,7 @@ _SIGNATURES = {
     "tm_arena_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _P, _P),
     "tm_sr_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+    "tm_shard_verify": (_P,) * 17 + (_I, _I, _P, _P),
 }
 
 # Filled by the build: wall seconds and each source's ptxas report.

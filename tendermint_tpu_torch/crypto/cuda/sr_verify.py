@@ -176,17 +176,33 @@ sr_verify.launches = 0
 def verify_batch_sr(pubs, msgs, sigs, ctx: bytes = b"",
                     device=None) -> np.ndarray:
     """Verify sr25519 (pub, msg, sig) triples with the group equation on
-    the device (default: device.default_device(); "cpu" runs the plain
-    version, the counterpart of the reference's cpu=True). Returns
-    (N,) bool verdicts with sr25519_ref.verify's semantics; malformed
-    lengths and unmarked signatures fail cleanly."""
+    the device. Returns (N,) bool verdicts with sr25519_ref.verify's
+    semantics; malformed lengths and unmarked signatures fail cleanly.
+    With no `device`, a lane bucket of verify._SHARD_MIN or more splits
+    over the mesh when there is one (padded with inert zero lanes to a
+    multiple of its size), one K9 launch per entry; otherwise, and
+    always when a `device` is given ("cpu" runs the plain version, the
+    counterpart of the reference's cpu=True, which bypasses the mesh),
+    one launch on that device (default: device.default_device())."""
     n = len(pubs)
     assert len(msgs) == n and len(sigs) == n
     if n == 0:
         return np.zeros(0, bool)
+    mesh = tv.effective_mesh() if device is None else None
     device = default_device() if device is None else torch.device(device)
     packed, well_formed = pack_batch_sr(pubs, msgs, sigs, ctx)
-    t = tv.to_device(packed, device)
-    out = sr_verify(t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"],
-                    t["r_pre"], t["s_ok"], comb_table(device))
-    return out.cpu().numpy() & well_formed
+    bucket = tv.lane_bucket(n)
+    if mesh is None or bucket < tv._SHARD_MIN:
+        t = tv.to_device(packed, device)
+        out = sr_verify(t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"],
+                        t["r_pre"], t["s_ok"], comb_table(device))
+        return out.cpu().numpy() & well_formed
+    pad = tv.mesh_lane_pad(bucket, mesh) - n
+    nibbles = {"kdig": 1, "sdig": 1}
+    packed = {k: np.pad(v, [(0, 0), (0, pad)] if k in nibbles else
+                        [(0, pad)] + [(0, 0)] * (v.ndim - 1))
+              for k, v in packed.items()}
+    out = tv.launch_lanes(mesh, packed, lambda d, t: sr_verify(
+        t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"], t["r_pre"],
+        t["s_ok"], comb_table(t["ab"].device)), lane_axis=nibbles)
+    return out.cpu().numpy()[:n] & well_formed

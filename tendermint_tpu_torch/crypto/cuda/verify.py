@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import ed25519_ref as ref
+from ... import device as _device
 from ...device import default_device
 from . import edwards as ed
 from . import field as fe
@@ -33,6 +34,9 @@ from . import sha512 as sh
 _L = ref.L
 _MAX_BATCH = 1 << 15
 _MIN_BATCH = 1 << 7
+# Shard over the mesh only from this bucket size up: a tiny batch is not
+# worth one launch per device (the reference's value).
+_SHARD_MIN = 1 << 11
 _DIGITS_K = sc.DIGITS_K  # windows in the scalar-multiplication loop
 
 # L as four little-endian uint64 words, for the vectorized S < L check.
@@ -120,7 +124,10 @@ def _btab(device) -> torch.Tensor:
 
 @functools.cache
 def _btab_cached(device: str) -> torch.Tensor:
-    return torch.from_numpy(b_comb_tables().copy()).to(device)
+    tab = torch.from_numpy(b_comb_tables().copy()).to(device)
+    if tab.is_cuda:  # cached for every stream's use: let the copy land
+        torch.cuda.synchronize(tab.device)
+    return tab
 
 
 def general_verify_plain(ab, sb, msg, nblocks, s_ok, btab) -> torch.Tensor:
@@ -179,6 +186,107 @@ def general_verify(ab, sb, msg, nblocks, s_ok, btab) -> torch.Tensor:
 general_verify.launches = 0
 
 
+# -- the mesh ------------------------------------------------------------
+
+
+def _mesh() -> tuple[torch.device, ...] | None:
+    """The devices the multi-device paths shard over (device.set_mesh,
+    or every CUDA device when there are at least two), or None when
+    fewer than two entries: the single-device path needs no mesh."""
+    mesh = _device.mesh_devices()
+    return mesh if mesh is not None and len(mesh) >= 2 else None
+
+
+def effective_mesh() -> tuple[torch.device, ...] | None:
+    """The mesh the next launch rides. The reference drops the devices
+    its per-device breakers evicted; the port has no breaker yet
+    (ROADMAP Queue A item 3), so this is the mesh."""
+    return _mesh()
+
+
+def mesh_lane_pad(bucket: int, mesh) -> int:
+    """Round a lane bucket up to the next multiple of the mesh size, so
+    an odd bucket rides the mesh on padded lanes."""
+    d = len(mesh)
+    return -(-bucket // d) * d
+
+
+# Lanes (padding included: a device runs them either way) launched per
+# mesh entry, by entry index, over the process's lifetime.
+SHARD_LANES: dict[str, int] = {}
+
+
+def count_shard_lanes(mesh, lanes: int) -> None:
+    """Count `lanes` split evenly over the mesh into SHARD_LANES."""
+    per = lanes // len(mesh)
+    for i in range(len(mesh)):
+        SHARD_LANES[str(i)] = SHARD_LANES.get(str(i), 0) + per
+
+
+_STREAMS: dict[tuple[int, str], torch.cuda.Stream] = {}
+
+
+def _shard_stream(i: int, dev: torch.device) -> torch.cuda.Stream:
+    key = (i, str(dev))
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS.setdefault(key, torch.cuda.Stream(device=dev))
+    return stream
+
+
+def run_shards(mesh, launch) -> list:
+    """Call launch(d, device) once for every mesh entry d: a CUDA entry
+    on its device and its own stream, which first waits for the work
+    already queued on the device (uploads, table builds), a CPU entry
+    inline. Then each device's current stream waits on the shards'
+    events, so whatever reads the results next sees them finished.
+    Returns the launches' results in mesh order."""
+    outs, joins = [], []
+    for d, dev in enumerate(mesh):
+        if dev.type != "cuda":
+            outs.append(launch(d, dev))
+            continue
+        stream = _shard_stream(d, dev)
+        with torch.cuda.device(dev):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                outs.append(launch(d, dev))
+            done = torch.cuda.Event()
+            done.record(stream)
+        joins.append((dev, done))
+    for dev, done in joins:
+        torch.cuda.current_stream(dev).wait_event(done)
+    return outs
+
+
+def gather(outs) -> torch.Tensor:
+    """The shards' verdicts, concatenated in mesh order on the first
+    entry's device (call after run_shards)."""
+    dev = outs[0].device
+    return torch.cat([o.to(dev) for o in outs])
+
+
+def launch_lanes(mesh, arrays: dict[str, np.ndarray], launch,
+                 lane_axis: dict[str, int] | None = None) -> torch.Tensor:
+    """Lane-sharded launch: split the per-lane host arrays evenly over
+    the mesh (their lane count is a multiple of its size), upload each
+    share to its entry's device and run launch(d, tensors) there, then
+    gather the verdicts in lane order. Arrays named in `lane_axis` keep
+    their lanes on that axis (default 0)."""
+    axis = lane_axis or {}
+    lanes = next(v.shape[axis.get(k, 0)] for k, v in arrays.items())
+    per = lanes // len(mesh)
+
+    def one(d, dev):
+        part = {k: np.take(v, np.arange(d * per, (d + 1) * per),
+                           axis=axis.get(k, 0))
+                for k, v in arrays.items()}
+        return launch(d, to_device(part, dev))
+
+    count_shard_lanes(mesh, lanes)
+    return gather(run_shards(mesh, one))
+
+
 @functools.cache
 def _dummy_triple() -> tuple[bytes, bytes, bytes]:
     """A fixed valid (pub, msg, sig) used to pad batches to bucket sizes."""
@@ -186,6 +294,18 @@ def _dummy_triple() -> tuple[bytes, bytes, bytes]:
     pub = ref.public_key_from_seed(seed)
     msg = b"pad"
     return (pub, msg, ref.sign(seed, msg))
+
+
+def lane_bucket(n: int) -> int:
+    """A launch's lane bucket: powers of two from _MIN_BATCH up to 1024,
+    then multiples of 1024 (a 10,240-lane commit runs at exactly
+    10,240)."""
+    if n <= 1024:
+        bucket = _MIN_BATCH
+        while bucket < n:
+            bucket <<= 1
+        return bucket
+    return (n + 1023) // 1024 * 1024
 
 
 def _chunks(n: int) -> list[int]:
@@ -205,14 +325,19 @@ def _chunks(n: int) -> list[int]:
 
 
 def verify_batch(pubs, msgs, sigs, device=None) -> np.ndarray:
-    """Verify ed25519 (pub, msg, sig) triples on the device (default:
-    device.default_device()). Returns (N,) bool verdicts; ZIP-215
-    semantics identical to ed25519_ref.verify; malformed lengths fail
-    cleanly."""
+    """Verify ed25519 (pub, msg, sig) triples on the device. Returns
+    (N,) bool verdicts; ZIP-215 semantics identical to
+    ed25519_ref.verify; malformed lengths fail cleanly. With no
+    `device`, a bucket of _SHARD_MIN lanes or more splits over the mesh
+    when there is one (padded to a multiple of its size with the dummy
+    triple), one K4 launch per entry; otherwise, and always when a
+    `device` is given, one launch on that device (default:
+    device.default_device())."""
     n = len(pubs)
     assert len(msgs) == n and len(sigs) == n
     if n == 0:
         return np.zeros(0, bool)
+    mesh = effective_mesh() if device is None else None
     device = default_device() if device is None else torch.device(device)
     well_formed = np.fromiter(
         (len(p) == 32 and len(s) == 64 for p, s in zip(pubs, sigs)),
@@ -226,14 +351,23 @@ def verify_batch(pubs, msgs, sigs, device=None) -> np.ndarray:
     start = 0
     for size in _chunks(n):
         end = min(start + size, n)
+        shard = mesh is not None and size >= _SHARD_MIN
+        if shard:
+            size = mesh_lane_pad(size, mesh)
         p, m, s = list(pubs[start:end]), list(msgs[start:end]), list(sigs[start:end])
         if size > end - start:
             dp, dm, ds = _dummy_triple()
             pad = size - (end - start)
             p, m, s = p + [dp] * pad, m + [dm] * pad, s + [ds] * pad
-        t = to_device(pack_batch(p, m, s), device)
-        res = general_verify(t["ab"], t["sb"], t["msg"], t["nblocks"],
-                             t["s_ok"], _btab(device))
+        packed = pack_batch(p, m, s)
+        if shard:
+            res = launch_lanes(mesh, packed, lambda d, t: general_verify(
+                t["ab"], t["sb"], t["msg"], t["nblocks"], t["s_ok"],
+                _btab(t["ab"].device)))
+        else:
+            t = to_device(packed, device)
+            res = general_verify(t["ab"], t["sb"], t["msg"], t["nblocks"],
+                                 t["s_ok"], _btab(device))
         out[start:end] = res.cpu().numpy()[: end - start]
         start = end
     return out & well_formed

@@ -11,6 +11,7 @@ import hashlib
 import numpy as np
 
 from . import ed25519_ref as ref
+from ..types.sign_batch import StructuredSignBytes
 
 
 def _challenge(r_enc: bytes, pub: bytes, msg: bytes) -> int:
@@ -103,6 +104,26 @@ def adversarial_batch(n_keys: int, n_lanes: int, seed: int = 0,
         kinds.append(kind)
     return dict(pubkeys=pubkeys, idx=idx, msgs=lane_msgs, sigs=sigs,
                 kinds=kinds, expect=np.array([KINDS[k] for k in kinds]))
+
+
+class LaneSignBatch(StructuredSignBytes):
+    """arena_batch's lanes as a structured batch (one template group,
+    per-lane timestamp patches): the form ExpandedKeys.verify_structured
+    takes."""
+
+    def __init__(self, b: dict):
+        self._msgs = list(b["msgs"])
+        self._finish([(b["pre"], b["suf"])], np.zeros(len(self._msgs), np.int32),
+                     np.asarray(b["ts"], np.int64))
+
+    def __len__(self) -> int:
+        return len(self._msgs)
+
+    def anchor_bytes(self) -> bytes:
+        return self._msgs[0]
+
+    def materialize(self) -> list[bytes]:
+        return list(self._msgs)
 
 
 def arena_batch(n_keys: int, n_lanes: int, seed: int = 0) -> dict:

@@ -18,12 +18,9 @@
 // also adds zero digits and squares with fe_mul. Bytes: the table
 // entries it gathers, up to 69 * 160 B = 11 KB per lane (113 MB at
 // 10,240 lanes, ~34 us at 3.35 TB/s), plus the message.
-// Design: one thread per lane, the 69 entries read straight from the
-// table in device memory (no staging), field multiplies out of line.
-#include "common.cuh"
-#include "edwards.cuh"
-#include "scalar.cuh"
-#include "sha512.cuh"
+// Design: one thread per lane running the per-lane body of
+// xverify_lane.cuh, which K5 shares; field multiplies out of line.
+#include "xverify_lane.cuh"
 
 __global__ void k_xverify(const int32_t* __restrict__ idx,
                           const uint8_t* __restrict__ akeys,
@@ -38,40 +35,11 @@ __global__ void k_xverify(const int32_t* __restrict__ idx,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int key = idx[i];
-  const uint8_t* sig = sb + 64 * (long)i;
-  int nb = nblocks[i];
-  const int maxb = (64 + width) / 128;
-  if (nb > maxb) nb = maxb;
-  uint8_t dig[64];
-  sha512_lane(sig, akeys + 32 * (long)key, msg + (long)width * i, nb, dig);
-  int8_t d[69];
-  fold_digest(dig, d);
-  recode_signed(d);
-  ge r;
-  const bool r_ok = ge_decompress(r, sig);
-  ge_neg(r, r);
-  ge acc_a, acc_b, e;
-  ge_identity(acc_a);
-  ge_identity(acc_b);
-  const int32_t* tab = tables + (long)key * TM_WINDOWS * TM_ENTRIES * TM_ENTRY_INTS;
-#pragma unroll 1
-  for (int w = 0; w < TM_WINDOWS; ++w) {
-    const int dw = d[w];
-    const int mag = dw < 0 ? -dw : dw;
-    ge_load(e, tab + (w * TM_ENTRIES + mag) * TM_ENTRY_INTS);
-    if (dw < 0) {
-      fe_neg(e.X, e.X);
-      fe_neg(e.T, e.T);
-    }
-    ge_add(acc_a, acc_a, e);
-    ge_add_comb(acc_b, btab, w, s_nibble(sig + 32, w));
-  }
-  ge_add(acc_a, acc_a, acc_b);
-  ge_add(acc_a, acc_a, r);
-  ge_double(acc_a, acc_a);
-  ge_double(acc_a, acc_a);
-  ge_double(acc_a, acc_a);
-  out[i] = (ge_is_identity(acc_a) && r_ok && s_ok[i] && key_ok[key]) ? 1 : 0;
+  const bool ok = tm_xverify_lane(
+      akeys + 32 * (long)key, sb + 64 * (long)i, msg + (long)width * i, width,
+      nblocks[i], tables + (long)key * TM_WINDOWS * TM_ENTRIES * TM_ENTRY_INTS,
+      btab);
+  out[i] = (ok && s_ok[i] && key_ok[key]) ? 1 : 0;
 }
 
 extern "C" int tm_xverify(const void* idx, const void* akeys, const void* sb,
