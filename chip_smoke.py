@@ -53,13 +53,36 @@ Phases, each printing one JSON line:
    K4 and K9 once per shard with the mixed phase's outcomes and
    rejections. Counters zeroed before, read after. Then, outside that
    run, the sharded verdicts lane for lane against the one-card set's;
-8. timing — each kernel at the main path's shapes: CUDA-event time,
+8. healing — the self-healing fabric on the fabric phase's mesh, with
+   the port's clock advanced past each cooldown: K8 (the per-shard
+   arena: K6's splice and K7's verify once per device over its block
+   of shards, and tm_mesh_clear) against its plain versions on a
+   1,024-lane adversarial arena through the (D, per, ...) view; then,
+   counters zeroed before and read after, the speculation phase's
+   commit through a SpeculationPlane on a MeshResidentArena (10 bursts
+   of 1,024, one K6 and one K7 launch a device a flush, counted as
+   K8's mesh_splice and mesh_arena_verify, a full hit,
+   the per-shard upload bound), a lying shard (its sentinel signature
+   flipped on the card: only its entry evicted, one host recheck, the
+   commit still served), live reshards of the arena and of the cached
+   sharded set 4 -> 3 (K5 three times a call, the slice phase's
+   outcomes and rejection, verdicts equal to the one-card set's lane
+   for lane), the device.shard_fail failpoint evicting a second entry
+   (-> 2), re-admission by half-open probes (-> 4), the backend
+   breaker under a 64-lane BatchVerifier and the degraded sr25519
+   route; the fallback counters must move by exactly what was
+   injected. The comparisons in that run (one-card verdicts, the
+   timed probe, the on-device K4 and K9 references) have their
+   launches taken back out of the counts;
+9. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
    plain version on those inputs.
 
-Then the kernels line, the nvidia-smi line and, last,
-{"ok": true, "device": {...}}. Any failure raises (exit code 1); no
-phase is caught. Without a CUDA device it exits 2 and prints no result.
+Every phase but healing must end with all breakers closed and the host
+fallbacks, rechecks and evictions unchanged. Then the kernels line,
+the nvidia-smi line and, last, {"ok": true, "device": {...}}. Any
+failure raises (exit code 1); no phase is caught. Without a CUDA
+device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -70,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 N_VALIDATORS = 10_240
 CHAIN = "smoke-chain"
@@ -109,6 +133,9 @@ REPLACES = {
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
     "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
+    "mesh_splice": "tendermint_tpu/crypto/tpu/resident.py:99",
+    "mesh_clear": "tendermint_tpu/crypto/tpu/resident.py:126",
+    "mesh_arena_verify": "tendermint_tpu/crypto/tpu/resident.py:138",
 }
 SOURCES = {
     "build_tables": "tendermint_tpu_torch/csrc/build_tables.cu",
@@ -120,7 +147,14 @@ SOURCES = {
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/shard_verify.cu",
+    "mesh_splice": "tendermint_tpu_torch/csrc/splice.cu",
+    "mesh_clear": "tendermint_tpu_torch/csrc/splice.cu",
+    "mesh_arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
 }
+# The __global__ function of each row (K8's splice and verify are K6's
+# and K7's kernels).
+GLOBALS = {name: "k_" + name for name in SOURCES}
+GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify")
 SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
 SPEC_KERNELS = ("splice", "clear", "arena_verify")
 MIXED_KERNELS = ("general_verify", "sr_verify")
@@ -154,7 +188,10 @@ def wrappers():
             "clear": resident.clear,
             "arena_verify": resident.arena_verify,
             "sr_verify": sr_verify.sr_verify,
-            "shard_verify": expanded.shard_verify}
+            "shard_verify": expanded.shard_verify,
+            "mesh_splice": resident.mesh_splice,
+            "mesh_clear": resident.mesh_clear,
+            "mesh_arena_verify": resident.mesh_arena_verify}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -173,17 +210,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ptxas_summary(log: str) -> dict:
-    """The kernel's own lines of an `nvcc -Xptxas -v` report: registers,
-    stack frame and spills of the __global__ function."""
+def ptxas_summary(log: str, fn: str) -> dict:
+    """The lines of an `nvcc -Xptxas -v` report for the __global__
+    function `fn` (a source may hold several): its registers, stack
+    frame and spills. Its mangled name holds len(fn) then fn."""
+    tag = f"{len(fn)}{fn}"
     lines = [ln.strip() for ln in log.splitlines()]
-    out = {}
+    out, inside = {}, False
     for i, ln in enumerate(lines):
-        if "Function properties for" in ln and "k_" in ln and i + 1 < len(lines):
+        if "Compiling entry function" in ln:
+            inside = tag in ln
+        if not inside:
+            continue
+        if "Function properties for" in ln and tag in ln and i + 1 < len(lines):
             out["frame"] = lines[i + 1]
         if ln.startswith("ptxas info") and "Used" in ln and "registers" in ln:
             out["registers"] = ln.split(":", 1)[1].strip()
     return out
+
+
+def kernel_ptxas(name: str) -> dict:
+    """ptxas_summary of the kernels line's row `name`."""
+    from tendermint_tpu_torch.crypto.cuda import kernels
+
+    log = kernels.BUILD_INFO.get("ptxas", {}).get(
+        SOURCES[name].rsplit("/", 1)[1], "")
+    return ptxas_summary(log, GLOBALS[name])
 
 
 def max_abs_diff(a, b) -> int:
@@ -487,7 +539,8 @@ def sr_check(n_lanes: int, dev, out: dict):
 
 def make_commit(n: int):
     """n validators of equal power and a commit signed by all of them
-    (bench.py's shape: one block id, per-slot timestamps)."""
+    (bench.py's shape: one block id, per-slot timestamps), and each
+    key's seed."""
     from tendermint_tpu_torch.crypto import ed25519
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
     from tendermint_tpu_torch.types.block import (
@@ -509,7 +562,7 @@ def make_commit(n: int):
         pub = v.pub_key.bytes()
         cs[i].signature = ref.sign(seed_of[pub],
                                    commit.vote_sign_bytes(CHAIN, i))
-    return vs, commit, bid
+    return vs, commit, bid, seed_of
 
 
 def slice_phase(vs, commit, bid) -> dict:
@@ -1315,6 +1368,582 @@ def k5_row(exp, commit, lanes, dev):
 # -- phase 8 -------------------------------------------------------------
 
 
+class PhaseClock:
+    """The port's clock (libs/clock.py) while the healing phase runs: it
+    stands still but where the phase passes the breakers' cooldowns, so
+    an evicted entry stays out however long the host takes, and comes
+    back exactly when the phase says."""
+
+    def __init__(self):
+        self.t = time.monotonic()
+
+    def monotonic(self) -> float:
+        return self.t
+
+    def pass_cooldowns(self) -> None:
+        from tendermint_tpu_torch.crypto import batch as cbatch
+
+        brs = list(cbatch._BREAKERS.values()) + list(
+            cbatch._DEVICE_BREAKERS.values())
+        self.t += max(b.cooldown_remaining() for b in brs) + 1.0
+
+
+def fallback_state() -> dict:
+    """The breakers' states and the fallback counters, to compare a
+    phase's end with its start."""
+    import copy
+
+    from tendermint_tpu_torch.crypto import batch as cbatch
+
+    return {"breakers": cbatch.breaker_states(),
+            "device_breakers": cbatch.device_breaker_states(),
+            "metrics": copy.deepcopy(cbatch.METRICS)}
+
+
+def no_fallback(phase: str, before: dict) -> None:
+    """A phase other than healing must leave every breaker closed and
+    the host fallbacks, rechecks and evictions as they were."""
+    after = fallback_state()
+    closed = (all(v == "closed" for v in after["breakers"].values())
+              and all(v == "closed"
+                      for v in after["device_breakers"].values()))
+    if not closed or after["metrics"] != before["metrics"]:
+        raise AssertionError(f"{phase}: a fallback was taken: {before} -> "
+                             f"{after}")
+
+
+def shard_deltas(arena, slots, sig_rows, patch, split, patch_len, group):
+    """The splice's delta rows routed by the round-robin rule on its own
+    (slot s -> shard (s-1) % D, local slot (s-1) // D + 1; a slot given
+    twice keeps its last row): D packed deltas at local slots, for the
+    plain version, and per device block one at block lanes, for K8."""
+    import numpy as np
+
+    from tendermint_tpu_torch.crypto.cuda import resident, verify
+
+    d_n, per = arena.n_shards, arena.shard_capacity
+    last = {s: j for j, s in enumerate(slots)}
+    rows = sorted((s, j) for s, j in last.items())
+    by_shard = [[(s, j) for s, j in rows if (s - 1) % d_n == d]
+                for d in range(d_n)]
+
+    def pack(pairs, pos):
+        j = np.asarray([j for _, j in pairs], np.int64)
+        return resident.pack_delta(
+            pos, sig_rows[j], verify.s_range_ok(sig_rows[j]), patch[j],
+            split[j], patch_len[j], group[j])
+
+    local = [pack(p, [(s - 1) // d_n + 1 for s, _ in p]) for p in by_shard]
+    blocks = []
+    for blk in arena._blocks:
+        pairs, pos = [], []
+        for e, d in enumerate(blk["shards"]):
+            pairs += by_shard[d]
+            pos += [e * per + (s - 1) // d_n + 1 for s, _ in by_shard[d]]
+        blocks.append(pack(pairs, pos))
+    return local, blocks
+
+
+def k8_check(dev) -> dict:
+    """K8 against its plain versions on a 1,024-lane adversarial arena
+    over the mesh: the splice (duplicate slots, inactive lanes) byte for
+    byte through the (D, per, ...) view, the verdicts and every shard's
+    sentinel exactly, then the clear."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto import vectors
+    from tendermint_tpu_torch.crypto.cuda import resident, verify
+
+    b = vectors.arena_batch(256, 1023, seed=7)
+    arena = resident.MeshResidentArena(1024)
+    arena.install_keys([b["pubkeys"][k] for k in b["idx"]])
+    arena.set_template(1, b["pre"], b["suf"])
+    keep = [i for i, sig in enumerate(b["sigs"])
+            if len(sig) == 64 and i % 50 != 7]
+    keep += keep[:40:4]  # slots given twice, with the same rows
+    slots, *rows = splice_args(arena, b, keep)
+    local, _ = shard_deltas(arena, slots, *rows)
+    names = ("sb", "s_ok", "patch", "split", "patch_len", "group", "active")
+    plain = [arena.view(n, dev) for n in names]
+    arena.splice(slots, *rows)
+    resident.mesh_splice_plain(plain, [torch.from_numpy(p).to(dev)
+                                       for p in local])
+    out = {"shards": arena.n_shards, "per": arena.shard_capacity,
+           "blocks": len(arena._blocks)}
+    out["mesh_splice"] = max(max_abs_diff(arena.view(n, dev), p)
+                             for n, p in zip(names, plain))
+    verd = arena.launch()
+    v = {n: arena.view(n, dev) for n in ("ab", "sb", "s_ok", "active",
+                                         "patch", "split", "patch_len",
+                                         "group")}
+    tpl = arena.launch_args(0)[4:8]
+    o_plain = resident.mesh_arena_verify_plain(
+        v["ab"], v["sb"], v["s_ok"], v["active"], *tpl, v["patch"],
+        v["split"], v["patch_len"], v["group"], verify._btab(dev)).cpu()
+    o_kernel = torch.from_numpy(np.stack([verd[1 + d::arena.n_shards]
+                                          for d in range(arena.n_shards)]))
+    sent = torch.tensor(arena.sentinel_ok)
+    out["mesh_arena_verify"] = max(
+        max_abs_diff(o_kernel, o_plain[:, 1:]),
+        max_abs_diff(sent, o_plain[:, 0]))
+    want = np.zeros(arena.capacity, bool)
+    want[0] = True
+    for i in keep:
+        want[i + 1] = b["expect"][i]
+    out["equal_expect"] = bool((verd == want).all())
+    out["sentinels"] = arena.sentinel_ok
+    act = arena.view("active", dev)
+    resident.mesh_clear_plain(act)
+    arena.deactivate_all()
+    out["mesh_clear"] = max_abs_diff(arena.view("active", dev), act)
+    if (out["mesh_splice"] or out["mesh_arena_verify"] or out["mesh_clear"]
+            or not out["equal_expect"] or not all(arena.sentinel_ok)):
+        raise AssertionError(f"K8 check failed: {out}")
+    return out
+
+
+def healing_phase(vs, commit, bid, seed_of, mvs, mcommit, spec, dev):
+    """The self-healing fabric on the fabric phase's mesh (fabric_mesh),
+    with the port's clock replaced by PhaseClock: K8's check, then,
+    with the counters zeroed before and read after, the speculation
+    plane on a MeshResidentArena, a lying shard, live reshards 4 -> 3 ->
+    2 -> 4 of the cached sharded set and of the arena, the shard_fail
+    failpoint, re-admission by half-open probes, the backend breaker and
+    the degraded sr25519 route; every fallback counter must move by
+    exactly what the phase injected. Returns the phase's record and
+    K8's kernels rows."""
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.device import set_mesh
+    from tendermint_tpu_torch.libs import clock, failpoints
+
+    pubkeys = [v.pub_key.bytes() for v in vs.validators]
+    single = expanded.get_expanded(pubkeys)  # the slice phase's set
+    mesh, kind = fabric_mesh()
+    set_mesh(mesh)
+    phase_clock = PhaseClock()
+    clock.install(phase_clock)
+    try:
+        return _healing(vs, commit, bid, seed_of, mvs, mcommit, spec, dev,
+                        single, mesh, kind, phase_clock)
+    finally:
+        cbatch.reset_breakers()
+        failpoints.disarm_all()
+        clock.uninstall()
+        expanded.set_shard_crossover(None)
+        set_mesh(None)
+
+
+def _healing(vs, commit, bid, seed_of, mvs, mcommit, spec, dev, single,
+             mesh, kind, phase_clock):
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.config import SpeculationConfig
+    from tendermint_tpu_torch.consensus import SpeculationPlane
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto.batch import BatchVerifier
+    from tendermint_tpu_torch.crypto.cuda import expanded, resident
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+    from tendermint_tpu_torch.libs import failpoints
+    from tendermint_tpu_torch.types.block import (BlockID, BlockIDFlag,
+                                                  Commit, CommitSig,
+                                                  PartSetHeader)
+    from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
+    from tendermint_tpu_torch.types.validator_set import VerificationError
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    pubkeys = [v.pub_key.bytes() for v in vs.validators]
+    names = tv._mesh().names
+    d_n = len(mesh)
+    n_dev = len(set(mesh))
+    out = {"mesh": mesh, "mesh_kind": kind, "entries": list(names),
+           "k8_check": k8_check(dev)}
+    kernels = wrappers()
+    before_state = fallback_state()
+    m0 = before_state["metrics"]
+
+    def launched(fn, *args, counted=True, **kw):
+        """fn's result and host ms, and the launches it made. A call
+        outside the healing path's run (a comparison, a timing:
+        counted=False) has its launches taken back out of the counts,
+        so that they hold the path's own launches alone."""
+        before = {k: f.launches for k, f in kernels.items()}
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: f.launches - before[k] for k, f in kernels.items()
+                 if f.launches != before[k]}
+        if not counted:
+            for k, f in kernels.items():
+                f.launches = before[k]
+        return res, ms, delta
+
+    def expect(delta, want, what):
+        if delta != want:
+            raise AssertionError(f"{what} launched {delta}, not {want}")
+
+    # the healing path: counters zeroed just before, read just after
+    for fn in kernels.values():
+        fn.launches = 0
+    # 2. speculation on the mesh: 10 bursts of 1,024 and a full hit
+    h, r = commit.height, commit.round
+    votes = [Vote(VoteType.PRECOMMIT, h, r, bid, cs.timestamp,
+                  cs.validator_address, i, cs.signature)
+             for i, cs in enumerate(commit.signatures)]
+    plane = SpeculationPlane(SpeculationConfig())
+    plane.begin_height(CHAIN, vs, h, r, bid)
+    flush_ms = []
+    per_flush = {"mesh_splice": n_dev, "mesh_arena_verify": n_dev}
+    for start in range(0, len(votes), SPEC_BURST):
+        for v in votes[start:start + SPEC_BURST]:
+            plane.observe_precommit(v)
+        _, ms, delta = launched(plane.flush_sync)
+        if start == 0:  # the first flush also clears the new arena
+            delta.pop("mesh_clear", None)
+        expect(delta, per_flush, "a flush")
+        flush_ms.append(ms)
+    arena = plane._arena
+    if not isinstance(arena, resident.MeshResidentArena) or \
+            arena.n_shards != d_n or not all(arena.sentinel_ok):
+        raise AssertionError("the plane's arena is not the mesh arena")
+    served, serve_ms, delta = launched(plane.serve_commit, vs, CHAIN, bid, h,
+                                       commit)
+    if not served or plane.hits != 1 or delta:
+        raise AssertionError(f"no full hit on the mesh: {delta}")
+    template_bytes = sum(a.nbytes for a in (arena.pre, arena.pre_len,
+                                            arena.suf, arena.suf_len))
+    upload = arena.shard_reupload_bytes()
+    if max(upload) > spec["reupload_bytes"] / d_n + template_bytes:
+        raise AssertionError(f"per-shard upload {upload} over the bound")
+    snapshot = [tuple(t.clone() for t in arena.launch_args(b))
+                for b in range(len(arena._blocks))]
+    last = list(range(len(votes) - SPEC_BURST, len(votes)))
+    out.update(flush_ms=flush_ms, flush_p50_ms=statistics.median(flush_ms),
+               serve_commit_ms=serve_ms, shard_reupload_bytes=upload,
+               single_reupload_bytes=spec["reupload_bytes"],
+               template_bytes=template_bytes)
+    # 3. a lying shard: shard 2's resident sentinel signature flipped on
+    # the card; the next flush (height h+1's first burst) must name it
+    h2 = h + 1
+    bid2 = BlockID(b"\xba" * 32, PartSetHeader(4, b"\xdc" * 32))
+    cs2 = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                     1_753_928_100_000_000_000 + i * 1_000_003, b"")
+           for i, v in enumerate(vs.validators)]
+    commit2 = Commit(h2, 0, bid2, cs2)
+    votes2 = []
+    for i in range(3 * 256):
+        pub = vs.validators[i].pub_key.bytes()
+        votes2.append(Vote(VoteType.PRECOMMIT, h2, 0, bid2, cs2[i].timestamp,
+                           cs2[i].validator_address, i,
+                           ref.sign(seed_of[pub],
+                                    commit2.vote_sign_bytes(CHAIN, i))))
+    blk = arena._blocks[arena._block_of[2]]
+    blk["bufs"]["sb"][int(arena._off_of[2]), 0] ^= 1
+    plane.begin_height(CHAIN, vs, h2, 0, bid2)
+    for v in votes2[:256]:
+        plane.observe_precommit(v)
+    _, lie_ms, delta = launched(plane.flush_sync)
+    expect(delta, dict(per_flush, mesh_clear=n_dev), "the lying flush")
+    if arena.sentinel_ok != [d != 2 for d in range(d_n)] or \
+            cbatch.breaker_states()["ed25519"] != "closed" or \
+            cbatch.device_breaker_states() != {names[2]: "open"}:
+        raise AssertionError(f"the lying shard: {arena.sentinel_ok} "
+                             f"{cbatch.device_breaker_states()}")
+    lanes2 = plane._heights[h2].lanes
+    if not all(lanes2[i].verdict for i in range(256)):
+        raise AssertionError("the host recheck lost a verdict")
+    served, _, delta = launched(plane.serve_commit, vs, CHAIN, bid, h,
+                                commit)
+    if not served or plane.hits != 2 or delta:
+        raise AssertionError("the commit no longer serves")
+    # 4. live reshard 4 -> 3: the arena at the next flush ...
+    for v in votes2[256:512]:
+        plane.observe_precommit(v)
+    _, _, delta = launched(plane.flush_sync)
+    if plane._arena is not arena or arena.n_shards != d_n - 1 or \
+            not all(arena.sentinel_ok) or names[2] in arena.names:
+        raise AssertionError(f"the arena did not reshard: {arena.names}")
+    expect(delta, per_flush, "the resharded flush")
+    arena_reshard_s = {"4->3": arena.last_reshard_s}
+    # ... and the cached sharded set at the next dispatch
+    expanded.set_shard_crossover(FABRIC_CROSSOVER)
+    exp = expanded.get_expanded(pubkeys)
+    bad = len(vs.validators) * 27 // 64
+    table_reshard_s = {}
+
+    def entry_points(n_entries, first=None):
+        """verify_commit, _light and _trusting on the slice commit, then
+        the corrupted commit; K5 once an entry a call (the first call
+        also `first`'s launches: a reshard's K1, the probes' K4)."""
+        calls = [(vs.verify_commit, (CHAIN, bid, h, commit)),
+                 (vs.verify_commit_light, (CHAIN, bid, h, commit)),
+                 (vs.verify_commit_light_trusting, (CHAIN, commit, 1, 3))]
+        for j, (fn, args) in enumerate(calls):
+            _, _, delta = launched(fn, *args)
+            want = {"shard_verify": n_entries}
+            if j == 0 and first:
+                want.update(first)
+            expect(delta, want, fn.__name__)
+        good_sig = commit.signatures[bad].signature
+        commit.signatures[bad].signature = good_sig[:40] + bytes(
+            [good_sig[40] ^ 4]) + good_sig[41:]
+        try:
+            vs.verify_commit(CHAIN, bid, h, commit)
+        except VerificationError as e:
+            message = str(e)
+        else:
+            raise AssertionError("corrupted commit verified")
+        finally:
+            commit.signatures[bad].signature = good_sig
+        if message != f"invalid signature(s) at index(es) [{bad}]":
+            raise AssertionError(f"wrong rejection: {message}")
+        if expanded.get_expanded(pubkeys) is not exp or \
+                exp.n_shards != n_entries:
+            raise AssertionError("the cached set was not resharded in place")
+        return message
+
+    def lane_for_lane():
+        """The cached set's verdicts against the one-card set's, lane
+        for lane (a comparison: its launches are not the path's)."""
+        lanes = list(range(len(vs.validators)))
+        commit.signatures[bad].signature = bytes(64)
+        try:
+            sbatch = CommitSignBatch(CHAIN, commit, lanes)
+            sigs = [cs.signature for cs in commit.signatures]
+            v_sh = exp.verify_structured(lanes, sbatch, sigs)
+            v_one = single.verify_structured(lanes, sbatch, sigs)
+        finally:
+            commit.signatures[bad].signature = votes[bad].signature
+        if not (v_sh == v_one).all() or v_sh.sum() != len(lanes) - 1:
+            raise AssertionError("resharded verdicts differ from one card's")
+        return len(lanes)
+
+    rejected = entry_points(d_n - 1, {"build_tables": d_n - 1})
+    table_reshard_s["4->3"] = exp.last_reshard_s
+    launched(lane_for_lane, counted=False)
+    # 5. device.shard_fail on a second entry: evicted at the dispatch's
+    # entry, and the same dispatch rides the two survivors
+    failpoints.arm("device.shard_fail", "corrupt", nth=2)
+    try:
+        entry_points(d_n - 2, {"build_tables": d_n - 2})
+    finally:
+        failpoints.disarm_all()
+    table_reshard_s["3->2"] = exp.last_reshard_s
+    if cbatch.evicted_devices() != sorted([names[1], names[2]]):
+        raise AssertionError(f"evicted: {cbatch.evicted_devices()}")
+    # 6. re-admission: past the cooldowns the next dispatch runs both
+    # due probes (an 8-lane K4 launch each, on the entry's device),
+    # closes the breakers and reshards back to every entry
+    phase_clock.pass_cooldowns()
+    entry_points(d_n, {"general_verify": 2, "build_tables": d_n})
+    table_reshard_s["2->4"] = exp.last_reshard_s
+    if cbatch.device_breaker_states() != {names[1]: "closed",
+                                          names[2]: "closed"}:
+        raise AssertionError("the probes did not re-admit the entries")
+    launched(lane_for_lane, counted=False)
+    for v in votes2[512:]:
+        plane.observe_precommit(v)
+    _, _, delta = launched(plane.flush_sync)
+    expect(delta, per_flush, "the re-admitted flush")
+    if arena.n_shards != d_n or not all(arena.sentinel_ok):
+        raise AssertionError("the arena did not reshard back")
+    arena_reshard_s["3->4"] = arena.last_reshard_s
+    if not all(ln.verdict for ln in plane._heights[h2].lanes.values()):
+        raise AssertionError("a height h+1 lane did not verify")
+    _, probe_ms, delta = launched(cbatch._probe_ed25519, device=mesh[0],
+                                  counted=False)
+    expect(delta, {"general_verify": 1}, "a probe")
+    # 7. the backend breaker: device.verify raises once under a 64-lane
+    # BatchVerifier; the host's verdicts equal the device's
+    def bv_64():
+        bv = BatchVerifier()
+        for i in range(64):
+            sig = commit.signatures[i].signature
+            if i == 7:
+                sig = sig[:33] + bytes([sig[33] ^ 1]) + sig[34:]
+            bv.add(vs.validators[i].pub_key, commit.vote_sign_bytes(CHAIN, i),
+                   sig)
+        return bv.verify()[1]
+
+    on_device, _, delta = launched(bv_64, counted=False)
+    expect(delta, {"general_verify": 1}, "the 64-lane batch")
+    failpoints.arm("device.verify", "error", count=1)
+    on_host, _, delta = launched(bv_64)
+    expect(delta, {}, "the failed batch")
+    if on_host.tolist() != on_device.tolist() or \
+            cbatch.breaker_states()["ed25519"] != "open":
+        raise AssertionError("the backend breaker did not take the host")
+    phase_clock.pass_cooldowns()
+    again, _, delta = launched(bv_64)  # the due probe, then the batch
+    expect(delta, {"general_verify": 2}, "the re-admitted batch")
+    if again.tolist() != on_device.tolist() or \
+            cbatch.breaker_states()["ed25519"] != "closed":
+        raise AssertionError("the probe did not close the backend breaker")
+    # 8. sr25519 degraded: with its breaker open, 64 sr25519 lanes take
+    # verify_batch_sr(device="cpu"); the verdicts equal K9's
+    sr = [i for i, v in enumerate(mvs.validators)
+          if v.pub_key.type_name == "sr25519"][:64]
+    items = [(mvs.validators[i].pub_key, mcommit.vote_sign_bytes(CHAIN, i),
+              mcommit.signatures[i].signature) for i in sr]
+    pk, m, s = items[5]
+    items[5] = (pk, m, s[:40] + bytes([s[40] ^ 4]) + s[41:])
+    k9, _, delta = launched(sv.verify_batch_sr, [p.bytes() for p, _, _ in items],
+                            [m for _, m, _ in items], [s for _, _, s in items],
+                            counted=False)
+    expect(delta, {"sr_verify": 1}, "K9 on 64 lanes")
+    cbatch.mark_device_failed("sr25519")
+    bv = BatchVerifier()
+    for it in items:
+        bv.add(*it)
+    (_, degraded), sr_cpu_ms, delta = launched(bv.verify)
+    expect(delta, {}, "the degraded sr25519 batch")
+    if degraded.tolist() != k9.tolist() or degraded.sum() != 63:
+        raise AssertionError("degraded sr25519 verdicts differ from K9's")
+    launches = {k: kernels[k].launches for k in kernels}  # the path's alone
+    # the counters moved by exactly what the phase injected
+    m1 = cbatch.METRICS
+    moved = {"host_fallbacks": m1["host_fallbacks"] - m0["host_fallbacks"],
+             "host_rechecks": m1["host_rechecks"] - m0["host_rechecks"],
+             "evictions": {f"{k[0]} {k[1]}": v - m0["evictions"].get(k, 0)
+                           for k, v in m1["evictions"].items()
+                           if v != m0["evictions"].get(k, 0)},
+             "probes": {f"{k[0]} {k[1]}": v - m0["probes"].get(k, 0)
+                        for k, v in m1["probes"].items()
+                        if v != m0["probes"].get(k, 0)}}
+    injected = {"host_fallbacks": 3, "host_rechecks": 1,
+                "evictions": {f"{names[2]} sentinel": 1,
+                              f"{names[1]} failpoint": 1},
+                "probes": {"ed25519 ok": 3}}
+    if moved != injected:
+        raise AssertionError(f"counters moved {moved}, injected {injected}")
+    rows = mesh_arena_rows(arena, snapshot, commit, last, dev)
+    out.update(lie_flush_ms=lie_ms, rejected=rejected,
+               table_reshard_s=table_reshard_s,
+               arena_reshard_s=arena_reshard_s, probe_ms=probe_ms,
+               sr_cpu_ms=sr_cpu_ms, counters_moved=moved,
+               launches={k: v for k, v in launches.items() if v},
+               k7_ms_per_flush=rows[-1]["ms"])
+    return out, rows
+
+
+def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
+    """K8 at the healing phase's main-path shapes, on the block buffers
+    the plane's arena held after its tenth flush (`snapshot`, one
+    launch_args tuple a device): the splice of the last burst, the
+    clear, and the verify of every active lane (all devices' launches
+    on their streams), each against its plain version over the
+    (D, per, ...) view; with their bounds and, for the splice, the
+    library call's time."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import expanded, resident, verify
+
+    d_n, per = arena.n_shards, arena.shard_capacity
+    blocks = arena._blocks
+
+    def view(b_args, i):
+        """(D, per, ...) of the snapshot's i-th launch argument."""
+        return torch.stack([
+            b_args[arena._block_of[d]][i][arena._off_of[d]:
+                                           arena._off_of[d] + per]
+            for d in range(d_n)])
+
+    # the splice of the last burst into copies of the blocks
+    b = dict(ts=[cs.timestamp for cs in commit.signatures],
+             sigs=[cs.signature for cs in commit.signatures])
+    lengths = types.SimpleNamespace(pre_len=snapshot[0][5].cpu().numpy(),
+                                    suf_len=snapshot[0][7].cpu().numpy())
+    slots, *rows = splice_args(lengths, b, last)
+    local, per_block = shard_deltas(arena, slots, *rows)
+    spliced = (1, 2, 8, 9, 10, 11, 3)  # sb s_ok patch split plen group active
+    bufs_k = [[snap[i].clone() for i in spliced] for snap in snapshot]
+    packed = [torch.from_numpy(p).to(dev) for p in per_block]
+
+    def k_splice():
+        for bk, pk in zip(bufs_k, packed):
+            resident.mesh_splice(*bk, pk)
+
+    k_splice()
+    plain = [view(snapshot, i).clone() for i in spliced]
+    lp = [torch.from_numpy(p).to(dev) for p in local]
+    _, p_ms = plain_ms(lambda: resident.mesh_splice_plain(plain, lp))
+    got = [torch.stack([bufs_k[arena._block_of[d]][j][
+        arena._off_of[d]:arena._off_of[d] + per] for d in range(d_n)])
+        for j in range(7)]
+    err = max(max_abs_diff(x, y) for x, y in zip(got, plain))
+    k = len(last)
+    row = entry("mesh_splice", err, cuda_ms(k_splice, 100), p_ms, 0,
+                k * (resident.ROW_BYTES + SPLICE_WRITE))
+    lib = [index_copy_splice([t.clone() for t in bk], pk)
+           for bk, pk in zip(bufs_k, packed)]
+    row["library_ms"] = cuda_ms(lambda: [f() for f in lib], 100)
+    out = [row]
+    # the clear of every block
+    acts = [snap[3].clone() for snap in snapshot]
+
+    def k_clear():
+        for a in acts:
+            resident.mesh_clear(a, per)
+
+    k_clear()
+    act_p = view(snapshot, 3).clone()
+    _, p_ms = plain_ms(lambda: resident.mesh_clear_plain(act_p))
+    got = torch.stack([acts[arena._block_of[d]][arena._off_of[d]:
+                                                arena._off_of[d] + per]
+                       for d in range(d_n)])
+    out.append(entry("mesh_clear", max_abs_diff(got, act_p),
+                     cuda_ms(k_clear, 100), p_ms, 0, d_n * per))
+    # the verify of every active lane, on every device's stream
+    devices = [blk["device"] for blk in blocks]
+
+    def k_verify():
+        return verify.run_shards(devices, lambda j, _d: resident.mesh_arena_verify(
+            *snapshot[j], width=arena.width))
+
+    outs = k_verify()
+    o_k = torch.stack([outs[arena._block_of[d]].to(dev)[
+        arena._off_of[d]:arena._off_of[d] + per] for d in range(d_n)])
+    tpl = snapshot[0][4:8]
+    v = {n: view(snapshot, i) for n, i in (("ab", 0), ("sb", 1), ("s_ok", 2),
+                                            ("active", 3), ("patch", 8),
+                                            ("split", 9), ("patch_len", 10),
+                                            ("group", 11))}
+    o_p, p_ms = plain_ms(lambda: resident.mesh_arena_verify_plain(
+        v["ab"], v["sb"], v["s_ok"], v["active"], *tpl, v["patch"],
+        v["split"], v["patch_len"], v["group"], snapshot[0][12],
+        arena.width))
+    err = max_abs_diff(o_k, o_p)
+    flat = {n: t.reshape(d_n * per, *t.shape[2:]) for n, t in v.items()}
+    live = flat["active"].nonzero()[:, 0]
+    msg, nblocks = expanded.assemble_plain(*tpl, flat["patch"][live],
+                                           flat["split"][live],
+                                           flat["patch_len"][live],
+                                           flat["group"][live], arena.width)
+    ops, _ = general_work(flat["ab"][live], flat["sb"][live], msg, nblocks,
+                          flat["s_ok"][live])
+    # as K7's: per active lane its key, signature, s_ok, patch and three
+    # ints; every lane's active flag and verdict; templates, the comb
+    nbytes = (live.numel() * (32 + 64 + 1 + 24 + 3 * 4) + 2 * d_n * per
+              + sum(t.numel() * t.element_size() for t in tpl)
+              + snapshot[0][12].numel() * 4)
+    row = entry("mesh_arena_verify", err, cuda_ms(k_verify, 5), p_ms, ops,
+                nbytes)
+    row["active_lanes"] = int(live.numel())
+    out.append(row)
+    if not bool(np.all(o_k[:, 0].cpu().numpy())):
+        raise AssertionError("a snapshot sentinel failed")
+    return out
+
+
+# -- phase 9 -------------------------------------------------------------
+
+
 def timing_phase(vs, commit, dev) -> list[dict]:
     """Each kernel at the main path's shapes: time, plain time, bound,
     agreement with the plain version."""
@@ -1466,28 +2095,10 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
     _, p_ms = plain_ms(lambda: resident.splice_plain(*bufs_p, packed))
     err = max(max_abs_diff(x, y) for x, y in zip(bufs_k, bufs_p))
     k = len(keep)
-    ints = packed[:16 * k].view(torch.int32).reshape(4, k)
-    rest = packed[16 * k:]
-    pos = ints[0].to(torch.int64)
-    d_sb = rest[:64 * k].reshape(k, 64)
-    d_patch = rest[64 * k:88 * k].reshape(k, 24)
-    d_sok = rest[88 * k:].to(torch.bool)
-    ones = torch.ones(k, dtype=torch.bool, device=dev)
-    sb, s_ok, patch, split, patch_len, group, active = bufs_p
-
-    def library():  # seven index_copy_ calls: the same splice
-        sb.index_copy_(0, pos, d_sb)
-        s_ok.index_copy_(0, pos, d_sok)
-        patch.index_copy_(0, pos, d_patch)
-        split.index_copy_(0, pos, ints[1])
-        patch_len.index_copy_(0, pos, ints[2])
-        group.index_copy_(0, pos, ints[3])
-        active.index_copy_(0, pos, ones)
-
     row = entry("splice", err,
                 cuda_ms(lambda: resident.splice(*bufs_k, packed), 100), p_ms,
                 0, k * (resident.ROW_BYTES + SPLICE_WRITE))
-    row["library_ms"] = cuda_ms(library, 100)
+    row["library_ms"] = cuda_ms(index_copy_splice(bufs_p, packed), 100)
     rows.append(row)
     # K6 clear at the arena's capacity
     act_k, act_p = arena._active.clone(), arena._active.clone()
@@ -1517,6 +2128,36 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
                       cuda_ms(lambda: resident.arena_verify(*largs), 5), p_ms,
                       ops, nbytes))
     return rows
+
+
+def index_copy_splice(bufs, packed):
+    """The splice of the packed delta rows into the seven buffers (K6's
+    order) by seven index_copy_ calls: the library yardstick. Returns
+    the call."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import resident
+
+    k = packed.numel() // resident.ROW_BYTES
+    ints = packed[:16 * k].view(torch.int32).reshape(4, k)
+    rest = packed[16 * k:]
+    pos = ints[0].to(torch.int64)
+    d_sb = rest[:64 * k].reshape(k, 64)
+    d_patch = rest[64 * k:88 * k].reshape(k, 24)
+    d_sok = rest[88 * k:].to(torch.bool)
+    ones = torch.ones(k, dtype=torch.bool, device=packed.device)
+    sb, s_ok, patch, split, patch_len, group, active = bufs
+
+    def library():
+        sb.index_copy_(0, pos, d_sb)
+        s_ok.index_copy_(0, pos, d_sok)
+        patch.index_copy_(0, pos, d_patch)
+        split.index_copy_(0, pos, ints[1])
+        patch_len.index_copy_(0, pos, ints[2])
+        group.index_copy_(0, pos, ints[3])
+        active.index_copy_(0, pos, ones)
+
+    return library
 
 
 def plain_ms(fn):
@@ -1553,27 +2194,35 @@ def main() -> int:
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
+    from tendermint_tpu_torch.crypto import ed25519
+
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
           "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host_openssl": ed25519._HAVE_OPENSSL})
     t0 = time.perf_counter()
     kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kernels.BUILD_INFO.get("seconds"),
-          "ptxas": {k: ptxas_summary(v)
-                    for k, v in kernels.BUILD_INFO.get("ptxas", {}).items()}})
+          "ptxas": {k: kernel_ptxas(k) for k in SOURCES}})
     t0 = time.perf_counter()
+    state = fallback_state()
     checks = kernel_phase(256, 1024, torch.device("cuda"))
+    no_fallback("kernels", state)
     emit({"phase": "kernels", "lanes": 1024, "keys": 256, "checks": checks,
           "seconds": time.perf_counter() - t0, "card": smi})
     t0 = time.perf_counter()
-    vs, commit, bid = make_commit(N_VALIDATORS)
+    vs, commit, bid, seed_of = make_commit(N_VALIDATORS)
     setup_s = time.perf_counter() - t0
+    state = fallback_state()
     res = slice_phase(vs, commit, bid)
+    no_fallback("slice", state)
     emit(dict(phase="slice", validators=N_VALIDATORS, setup_s=setup_s,
               card=smi, **res))
     t0 = time.perf_counter()
+    state = fallback_state()
     spec, arena = speculation_phase(vs, commit, bid)
+    no_fallback("speculation", state)
     emit(dict(phase="speculation", validators=N_VALIDATORS,
               bursts=len(spec["flushes"]), burst=SPEC_BURST,
               verify_commit_p50_ms=res["verify_commit_p50_ms"],
@@ -1581,29 +2230,39 @@ def main() -> int:
     t0 = time.perf_counter()
     mvs, mcommit, mbid, secret_of = make_mixed_commit(N_VALIDATORS)
     setup_s = time.perf_counter() - t0
+    state = fallback_state()
     mixed = mixed_phase(mvs, mcommit, mbid, secret_of, torch.device("cuda"))
+    no_fallback("mixed", state)
     emit(dict(phase="mixed", validators=N_VALIDATORS, setup_s=setup_s,
               seconds=time.perf_counter() - t0, card=smi, **mixed))
     t0 = time.perf_counter()
+    state = fallback_state()
     fabric, k5 = fabric_phase(vs, commit, bid, mvs, mcommit, mbid,
                               mixed["rejected"], torch.device("cuda"))
+    no_fallback("fabric", state)
     emit(dict(phase="fabric", validators=N_VALIDATORS,
               crossover=FABRIC_CROSSOVER,
               one_card_verify_commit_p50_ms=res["verify_commit_p50_ms"],
               seconds=time.perf_counter() - t0, card=smi, **fabric))
+    t0 = time.perf_counter()
+    healing, k8 = healing_phase(vs, commit, bid, seed_of, mvs, mcommit, spec,
+                                torch.device("cuda"))
+    emit(dict(phase="healing", validators=N_VALIDATORS,
+              seconds=time.perf_counter() - t0, card=smi, **healing))
+    state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
     rows.append(sr_row(mvs, mcommit, torch.device("cuda")))
     rows.append(k5)
+    rows += k8
+    no_fallback("timing", state)
     launches = {}
-    for path in (res, spec, mixed, fabric):  # each path's run, summed
+    for path in (res, spec, mixed, fabric, healing):  # each path's run
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
-    ptxas = kernels.BUILD_INFO.get("ptxas", {})
     for r in rows:
         r["launches"] = launches[r["name"]]
-        r["ptxas"] = ptxas_summary(ptxas.get(r["source"].rsplit("/", 1)[1],
-                                             ""))
+        r["ptxas"] = kernel_ptxas(r["name"])
     emit({"phase": "timing", "card": smi,
           "tolerance": "exact: max_abs_err 0 against the plain version"})
     emit({"kernels": rows})

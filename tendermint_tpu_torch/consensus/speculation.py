@@ -25,13 +25,17 @@ takes it off that path by starting it before the commit is needed:
      a full hit launches no verification at commit time; a miss costs
      exactly the lanes that missed.
 
+The device path is breaker-aware (crypto/batch.py): a launch that
+raises opens the ed25519 breaker and the batch re-verifies on the
+host; a launch whose known-answer sentinel reads false does the same,
+and on a MeshResidentArena (one sentinel a shard) only the lying
+entries' breakers open, so the arena reshards over the survivors
+(``ensure_mesh``) at the next launch and keeps serving on the device.
+
 Reference: tendermint_tpu/consensus/speculation.py. Not in this slice
 of the port: the asyncio flusher (drive ``flush_sync``), the
 ``consensus.speculate`` failpoint, tracing spans and metrics, and the
-/status hook. Where the reference degrades to the host after a device
-failure (its breaker), the port raises: a KernelError from K6 or K7,
-and a launch whose sentinel lane reads false, propagate out of
-``flush_sync``.
+/status hook.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from collections import deque
 
 import numpy as np
 
-from ..crypto.cuda.kernels import KernelError
+from ..libs import failpoints
 from ..types import canonical
 from ..types.vote import VoteType
 
@@ -234,28 +238,48 @@ class SpeculationPlane:
                 lane.verdict = bool(ok)
 
     def _verify_lanes(self, entry, kept):
-        """Per-lane verdicts for a speculative batch: the GPU arena when
-        the batch clears the crossover and the arena can carry it, the
-        host otherwise. Returns None only when verification could not
-        run at all (lanes stay verdict-less)."""
+        """Per-lane verdicts for a speculative batch: the GPU arena
+        (sentinel-checked, breaker-aware) when the batch clears the
+        crossover and the arena can carry it, the host otherwise.
+        Returns None only when verification could not run at all
+        (lanes stay verdict-less)."""
+        from ..crypto import batch as cbatch
+
         n = len(kept)
         if n == 0:
             return []
-        if n >= self.device_min and \
-                all(0 <= ts < 1 << 63 for _, ts, _ in kept):
-            out = self._device_verify(entry, kept)
-            if out is not None:
-                return out
+        want_dev = n >= self.device_min and \
+            all(0 <= ts < 1 << 63 for _, ts, _ in kept)
+        if want_dev and cbatch.breaker("ed25519").acquire():
+            try:
+                out = self._device_verify(entry, kept)
+                if out is not None:
+                    return out
+                # None: the arena cannot carry this batch by its inputs
+                # — a healthy device, so not a host fallback
+            except cbatch.UNCAUGHT:
+                raise
+            except Exception:
+                cbatch.mark_device_failed("ed25519")
+                logger.exception(
+                    "speculative device launch failed (%d lanes); "
+                    "breaker open %.1fs, degrading to host", n,
+                    cbatch.breaker("ed25519").cooldown_remaining())
+                cbatch.count("host_fallbacks")
+        elif want_dev:
+            # the device wanted but the breaker refused (open/probing)
+            cbatch.count("host_fallbacks")
         return self._host_verify(entry, kept)
 
     def _host_verify(self, entry, kept):
-        from ..crypto.batch import host_verify
+        from ..crypto.batch import BatchVerifier
 
         try:
-            return host_verify([
-                (entry.valset.validators[idx].pub_key,
-                 self._lane_sign_bytes(entry, ts), sig)
-                for idx, ts, sig in kept])
+            bv = BatchVerifier(use_device=False)
+            for idx, ts, sig in kept:
+                bv.add(entry.valset.validators[idx].pub_key,
+                       self._lane_sign_bytes(entry, ts), sig)
+            return bv.verify()[1]
         except Exception:
             logger.exception("speculative host verify failed "
                              "(%d lanes)", len(kept))
@@ -267,11 +291,13 @@ class SpeculationPlane:
             entry.round, entry.block_id, ts)
 
     def _device_verify(self, entry, kept):
-        """One K6 splice of the batch's lanes and one K7 launch over the
-        arena. Returns verdicts aligned with `kept`, or None when the
-        arena cannot carry this batch by its inputs (templates too big,
-        valset over capacity, a key that is not ed25519, a signature
-        that is not 64 bytes)."""
+        """One splice of the batch's lanes and one launch over the arena
+        (K6 + K7; on a mesh arena K8: one of each a device). Returns
+        verdicts aligned with `kept` — the host's, re-verified, when a
+        sentinel failed — or None when the arena cannot carry this
+        batch by its inputs (templates too big, valset over capacity, a
+        key that is not ed25519, a signature that is not 64 bytes)."""
+        from ..crypto import batch as cbatch
         from ..types import sign_batch as sbm
 
         if any(len(sig) != 64 for _, _, sig in kept):
@@ -301,17 +327,31 @@ class SpeculationPlane:
                 raise ValueError(
                     "speculative structured sign-bytes self-check "
                     "failed")
+            failpoints.hit("device.verify")
             arena.splice([idx + 1 for idx, _, _ in kept],
                          np.frombuffer(b"".join(s for _, _, s in kept),
                                        np.uint8).reshape(n, 64),
                          patch, split, patch_len, group)
             out = arena.launch()
             if not out[0]:
-                # the reference opens its breaker and re-verifies on
-                # the host; the port has no breaker yet, so it raises
-                raise KernelError(
-                    f"speculative launch ({n} lanes) failed its "
-                    "known-answer sentinel")
+                # a wrong-verdict device: open a breaker and re-verify
+                # on the host rather than keep garbage verdicts. A mesh
+                # arena names the shards whose sentinel broke, and only
+                # those entries are evicted; a single arena cannot
+                # attribute, so the backend breaker opens.
+                failed = getattr(arena, "failed_shards", lambda: [])()
+                names = [name for _, name in failed]
+                cbatch.mark_device_failed("ed25519", device=names or None,
+                                          reason="sentinel")
+                logger.error(
+                    "speculative launch (%d lanes) failed its known-answer "
+                    "sentinel%s; re-verifying on the host", n,
+                    " on " + ", ".join(f"shard {i} ({name})"
+                                       for i, name in failed)
+                    if failed else "")
+                cbatch.count("host_rechecks")
+                cbatch.count("host_fallbacks")
+                return self._host_verify(entry, kept)
             return [bool(out[idx + 1]) for idx, _, _ in kept]
 
     def _ensure_arena(self, entry: _HeightSpec):
@@ -326,7 +366,16 @@ class SpeculationPlane:
             # the arena kernel is ed25519-only; mixed sets go host-side
             return None
         if self._arena is None:
+            # arena shards over the mesh when there is one: each splice
+            # uploads a device's ~1/D of the deltas, and every shard
+            # carries its own known-answer sentinel
             self._arena = make_arena(self.arena_lanes)
+        elif getattr(self._arena, "ensure_mesh", None) is not None:
+            # an entry was evicted (or re-admitted): the arena rebuilds
+            # over the effective mesh, its keys replayed and templates
+            # kept; this batch's lanes splice in below as they do at
+            # every launch
+            self._arena.ensure_mesh()
         if len(entry.valset.validators) + 1 > self._arena.capacity:
             return None
         if self._arena_keys_hash != entry.valset_hash:

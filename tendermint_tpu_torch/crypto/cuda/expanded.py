@@ -43,6 +43,7 @@ import hashlib
 import logging
 import os
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -421,6 +422,10 @@ class ExpandedKeys:
         v = len(self.pubkeys)
         self.n_shards = 1
         self.keys_per_shard = v
+        self._reshard_lock = threading.Lock()
+        # Built over the EFFECTIVE mesh (the base mesh minus evicted
+        # entries): a build while degraded places over the survivors,
+        # and _maybe_reshard() moves it when that set changes.
         self.mesh = tv.effective_mesh()
         if _splits(v, self.mesh):
             self._build_sharded(a_raw)
@@ -471,6 +476,44 @@ class ExpandedKeys:
         self.keys_per_shard = k
         self.akeys = self.tables = self.key_ok = None
 
+    def _maybe_reshard(self) -> None:
+        """Live reshard: when the effective mesh no longer matches the
+        mesh this set is placed on — an entry was just evicted, or a
+        half-open probe re-admitted one — move the placement onto the
+        surviving entries in place. Key-range-sharded tables rebuild
+        D -> D' ranges from the kept key bytes (one K1 launch a new
+        range); replicated tables are re-placed. Verdicts do not change:
+        same keys, same kernels. (The reference also releases the old
+        placement's bytes from its HBM registry; the port has none.)
+        The identity check is the lock-free fast path."""
+        if self.mesh is None:
+            return
+        want = tv.effective_mesh()
+        if want is self.mesh:
+            return
+        with self._reshard_lock:
+            want = tv.effective_mesh()
+            if want is self.mesh:
+                return
+            if want is None:
+                # fewer than two survivors: keep the placement; the
+                # escalation (every entry out) is mark_device_failed's
+                return
+            if want.names == self.mesh.names:
+                self.mesh = want  # the same entries, another object
+                return
+            t0 = time.perf_counter()
+            self.mesh = want
+            if self.sharded:
+                self._build_sharded(np.frombuffer(
+                    b"".join(self.pubkeys), np.uint8).reshape(-1, 32))
+            else:
+                self._replicate()
+            self.last_reshard_s = time.perf_counter() - t0
+            logger.warning("live reshard: %d-key tables placed over %d "
+                           "entries in %.3fs", len(self.pubkeys),
+                           len(want), self.last_reshard_s)
+
     @classmethod
     def from_reference_arrays(cls, pubkeys, tables, key_ok, device=None):
         """Carry a set built by the reference over. ``tables`` are its
@@ -482,6 +525,7 @@ class ExpandedKeys:
         re-encoded in this port's limbs."""
         self = cls.__new__(cls)
         self.pubkeys = tuple(bytes(p) for p in pubkeys)
+        self._reshard_lock = threading.Lock()
         v = len(self.pubkeys)
         self.device = default_device() if device is None else torch.device(device)
         rows = np.asarray(tables)
@@ -669,6 +713,7 @@ class ExpandedKeys:
         n = len(indices)
         if n == 0:
             return np.zeros(0, bool)
+        self._maybe_reshard()
         idx, packed, well_formed = self._prepare(indices, msgs, sigs)
         full = self._launch(idx, packed).cpu().numpy()
         return full[:n] & well_formed
@@ -744,6 +789,7 @@ class ExpandedKeys:
         n = len(indices)
         if n == 0:
             return np.zeros(0, bool)
+        self._maybe_reshard()
         idx, fields, well_formed, width = self._prepare_structured(
             indices, sbatch, sigs)
         full = self._launch_structured(idx, fields, width).cpu().numpy()
@@ -793,13 +839,15 @@ def _splits(n_keys: int, mesh) -> bool:
 
 
 def _placement(n_keys: int) -> tuple:
-    """What an ExpandedKeys of n_keys keys built now is placed on: the
-    default device, the mesh, and whether it splits. A set cached under
-    another placement is built anew (the reference reshards a built set
-    in place; that comes with the breaker)."""
-    mesh = tv.effective_mesh()
+    """The BASE placement of a set of n_keys keys: the default device,
+    the base mesh (verify._mesh, not the effective one) and whether it
+    splits on it. A set's cache key holds this and its keys only, so an
+    eviction or a re-admission reshards the cached object in place
+    (_maybe_reshard) instead of building it anew; another mesh or
+    crossover regime set by the caller is another placement."""
+    mesh = tv._mesh()
     return (str(default_device()),
-            None if mesh is None else tuple(map(str, mesh)),
+            None if mesh is None else mesh.names,
             _splits(n_keys, mesh))
 
 

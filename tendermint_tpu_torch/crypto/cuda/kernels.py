@@ -43,6 +43,7 @@ _SIGNATURES = {
     "tm_general_verify": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     "tm_splice": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "tm_clear": (_P, _I, _P),
+    "tm_mesh_clear": (_P, _I, _I, _P),
     "tm_arena_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _P, _P),
     "tm_sr_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
@@ -58,8 +59,9 @@ _LIB = None
 
 class KernelError(RuntimeError):
     """A kernel failed to build or launch, or was handed a tensor it
-    does not take. Never caught by the port: it propagates to the
-    caller of the entry point."""
+    does not take. No breaker catches it (crypto/batch.py UNCAUGHT): it
+    is a fault of the port, not a device to degrade around, and it
+    propagates to the caller of the entry point."""
 
 
 def _nvcc() -> str:

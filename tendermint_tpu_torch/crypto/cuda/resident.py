@@ -32,12 +32,21 @@ Kernels (csrc/), each beside its plain PyTorch version:
   tendermint_tpu/crypto/tpu/resident.py ``_splice_fn``, ``_clear_fn``.
 - K7 ``arena_verify`` (csrc/arena_verify.cu): reference
   ``_arena_kernel``.
+- K8 ``mesh_splice``, ``mesh_clear`` and ``mesh_arena_verify``: the
+  per-shard arena over a mesh (MeshResidentArena), reference
+  ``_mesh_splice_fn``, ``_mesh_clear_fn`` and ``_mesh_arena_kernel``:
+  K6's splice and K7's verify launched once per device over its block
+  of shards, and ``tm_mesh_clear`` (csrc/splice.cu).
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors (or raises KernelError).
 """
 
 from __future__ import annotations
+
+import contextlib
+import logging
+import time
 
 import numpy as np
 import torch
@@ -48,6 +57,8 @@ from .. import batch as cbatch
 from . import expanded as ex
 from . import kernels
 from . import verify as tv
+
+logger = logging.getLogger("crypto.cuda.resident")
 
 # Template rows per arena (group 0 = sentinel); widths match the
 # structured-path guards of expanded.py: every legal canonical vote fits.
@@ -112,6 +123,17 @@ def splice(sb, s_ok, patch, split, patch_len, group, active,
         splice_plain(sb, s_ok, patch, split, patch_len, group, active,
                      packed)
         return
+    _splice_launch(sb, s_ok, patch, split, patch_len, group, active, packed)
+    splice.launches += 1
+
+
+splice.launches = 0
+
+
+def _splice_launch(sb, s_ok, patch, split, patch_len, group, active,
+                   packed) -> None:
+    """One tm_splice launch on CUDA tensors (K6's and K8's splice; each
+    wrapper counts its own launches)."""
     dev = sb.device
     n = sb.shape[0]
     k = _delta_rows(packed)
@@ -128,10 +150,6 @@ def splice(sb, s_ok, patch, split, patch_len, group, active,
         patch.data_ptr(), split.data_ptr(), patch_len.data_ptr(),
         group.data_ptr(), active.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(rc, "splice")
-    splice.launches += 1
-
-
-splice.launches = 0
 
 
 def clear_plain(active) -> None:
@@ -189,6 +207,21 @@ def arena_verify(ab, sb, s_ok, active, pre, pre_len, suf, suf_len, patch,
         return arena_verify_plain(ab, sb, s_ok, active, pre, pre_len, suf,
                                   suf_len, patch, split, patch_len, group,
                                   btab, width)
+    out = _arena_verify_launch(ab, sb, s_ok, active, pre, pre_len, suf,
+                               suf_len, patch, split, patch_len, group, btab,
+                               width)
+    arena_verify.launches += 1
+    return out
+
+
+arena_verify.launches = 0
+
+
+def _arena_verify_launch(ab, sb, s_ok, active, pre, pre_len, suf, suf_len,
+                         patch, split, patch_len, group, btab,
+                         width) -> torch.Tensor:
+    """One tm_arena_verify launch on CUDA tensors (K7's and K8's verify;
+    each wrapper counts its own launches)."""
     dev = ab.device
     n = ab.shape[0]
     g = pre.shape[0]
@@ -216,11 +249,7 @@ def arena_verify(ab, sb, s_ok, active, pre, pre_len, suf, suf_len, patch,
         patch_len.data_ptr(), group.data_ptr(), btab.data_ptr(), n, width,
         out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(rc, "arena_verify")
-    arena_verify.launches += 1
     return out
-
-
-arena_verify.launches = 0
 
 
 # -- the arena -----------------------------------------------------------
@@ -382,7 +411,441 @@ class ResidentArena:
         return getattr(self, f"_{name}").data_ptr()
 
 
-def make_arena(lanes: int, width: int = WIDTH) -> ResidentArena:
-    """The speculation plane's arena factory: one device, one arena (the
-    reference's per-device mesh shards come with the multi-GPU port)."""
+# -- K8: the per-shard arena over a mesh ---------------------------------
+#
+# The reference's three mesh programs are K6 and K7 vmapped over a
+# leading device axis, (D, per, ...) arrays sharded one shard a device.
+# Here a device's shards are ONE contiguous block of its buffers — shard
+# e of the device at lanes [e*per, (e+1)*per), its sentinel at e*per —
+# so a splice is one packed upload and one K6 launch per device, a
+# launch one K7 launch per device over its whole block, and a clear one
+# tm_mesh_clear launch per device. The plain versions below are the
+# reference's programs over the (D, per, ...) view; the tests and
+# chip_smoke.py hold the blocks against them.
+
+
+def mesh_splice_plain(bufs, packed) -> None:
+    """Plain version of K8's splice (_mesh_splice_fn): `bufs` are the
+    seven (D, per, ...) buffers in K6's order, `packed` D packed deltas
+    (pack_delta rows with local slots); shard d's rows go into row d of
+    every buffer, in place."""
+    for d, p in enumerate(packed):
+        if p.numel():
+            splice_plain(*(b[d] for b in bufs), p)
+
+
+def mesh_clear_plain(active) -> None:
+    """Plain version of K8's clear (_mesh_clear_fn) on the (D, per)
+    active view: every lane inactive but each shard's sentinel."""
+    active.zero_()
+    active[:, 0] = True
+
+
+def mesh_arena_verify_plain(ab, sb, s_ok, active, pre, pre_len, suf,
+                            suf_len, patch, split, patch_len, group, btab,
+                            width: int = WIDTH) -> torch.Tensor:
+    """Plain version of K8's verify (_mesh_arena_kernel): K7's plain
+    version on each shard of the (D, per, ...) buffers -> (D, per)
+    bool."""
+    return torch.stack([
+        arena_verify_plain(ab[d], sb[d], s_ok[d], active[d], pre, pre_len,
+                           suf, suf_len, patch[d], split[d], patch_len[d],
+                           group[d], btab, width)
+        for d in range(ab.shape[0])])
+
+
+def mesh_splice(sb, s_ok, patch, split, patch_len, group, active,
+                packed) -> None:
+    """K8's splice on one device: its packed delta rows (block lane
+    positions) into its shard block in place — one launch of K6's
+    kernel, counted here and not under K6 (the plain version for CPU
+    tensors)."""
+    if sb.device.type == "cpu":
+        splice_plain(sb, s_ok, patch, split, patch_len, group, active,
+                     packed)
+        return
+    _splice_launch(sb, s_ok, patch, split, patch_len, group, active, packed)
+    mesh_splice.launches += 1
+
+
+mesh_splice.launches = 0
+
+
+def mesh_clear(active, per: int) -> None:
+    """K8's clear on one device's block of shards of `per` lanes: the
+    plain version for a CPU tensor, one tm_mesh_clear launch for a CUDA
+    tensor (or KernelError)."""
+    n = active.shape[0]
+    if per <= 0 or n % per:
+        raise kernels.KernelError(f"mesh_clear: {n} lanes in shards of {per}")
+    if active.device.type == "cpu":
+        mesh_clear_plain(active.view(-1, per))
+        return
+    dev = active.device
+    kernels.require(active, "active", torch.bool, (n,), dev)
+    rc = kernels.lib().tm_mesh_clear(active.data_ptr(), per, n,
+                                     kernels.stream_ptr(dev))
+    kernels.check(rc, "mesh_clear")
+    mesh_clear.launches += 1
+
+
+mesh_clear.launches = 0
+
+
+def mesh_arena_verify(*args, width: int = WIDTH) -> torch.Tensor:
+    """K8's verify on one device: one launch of K7's kernel over its
+    whole shard block, counted here and not under K7 (the plain version
+    for CPU tensors), arguments as arena_verify's."""
+    if args[0].device.type == "cpu":
+        return arena_verify_plain(*args, width=width)
+    out = _arena_verify_launch(*args, width=width)
+    mesh_arena_verify.launches += 1
+    return out
+
+
+mesh_arena_verify.launches = 0
+
+
+def _on(dev):
+    """Launch context of a device: raw-stream launches must run with it
+    current."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+_BUF_NAMES = ("ab", "sb", "s_ok", "patch", "split", "patch_len", "group",
+              "active")
+_SPLICED = _BUF_NAMES[1:]  # K6's argument order
+
+
+class MeshResidentArena:
+    """Arena shards over the mesh (reference: MeshResidentArena), one
+    shard a mesh entry, each with its own known-answer sentinel.
+
+    Global app slots (1..capacity-1, the SpeculationPlane's
+    validator_index + 1) round-robin over the shards: slot s lives on
+    shard (s-1) % D at local slot (s-1) // D + 1, so a commit's
+    precommits spread evenly and each shard's splice carries ~1/D of
+    the delta rows. A device holds its shards as one contiguous block
+    (see above). ``launch`` returns verdicts in global slot order;
+    ``sentinel_ok`` holds each shard's known-answer result, so a
+    wrong-verdict entry is named (``failed_shards``) instead of the
+    whole mesh; slot 0 of the verdicts is the AND of every sentinel."""
+
+    def __init__(self, lanes: int, width: int = WIDTH, mesh=None):
+        if width > WIDTH or (64 + width) % 128:
+            raise ValueError(f"arena width {width}")
+        mesh = tv.effective_mesh() if mesh is None else mesh
+        assert mesh is not None, "MeshResidentArena needs a device mesh"
+        self.mesh = mesh
+        self.names = list(mesh.names)
+        self.width = width
+        self._req_lanes = lanes
+        # global slot -> key bytes: ensure_mesh replays them into the
+        # new layout when the shard set changes
+        self._keys_host: dict[int, bytes] = {}
+        d_n = self.n_shards = len(mesh)
+        per = ex.ExpandedKeys._bucket(
+            max(-(-(max(lanes, 2) - 1) // d_n) + 1, 2))
+        self.shard_capacity = per
+        self.capacity = 1 + d_n * (per - 1)
+        self.sentinel_ok: list[bool] | None = None
+        spub, smsg, ssig = cbatch._ed_probe_triple()
+        assert len(smsg) <= PRE_W
+        by_dev: dict[str, list[int]] = {}
+        for d, dev in enumerate(mesh):
+            by_dev.setdefault(str(dev), []).append(d)
+        # entry -> its block and the lane offset of its shard there
+        self._block_of = np.zeros(d_n, np.int64)
+        self._off_of = np.zeros(d_n, np.int64)
+        self._blocks = []
+        for b, shards in enumerate(by_dev.values()):
+            n = len(shards) * per
+            ab = np.zeros((n, 32), np.uint8)
+            sb = np.zeros((n, 64), np.uint8)
+            ab[::per] = np.frombuffer(spub, np.uint8)
+            sb[::per] = np.frombuffer(ssig, np.uint8)
+            active = np.zeros(n, bool)
+            active[::per] = True
+            host = dict(ab=ab, sb=sb, s_ok=tv.s_range_ok(sb),
+                        patch=np.zeros((n, PATCH_W), np.uint8),
+                        split=np.zeros(n, np.int32),
+                        patch_len=np.zeros(n, np.int32),
+                        group=np.zeros(n, np.int32), active=active)
+            dev = mesh[shards[0]]
+            with _on(dev):
+                bufs = {k: torch.from_numpy(v).to(dev)
+                        for k, v in host.items()}
+            self._blocks.append(dict(device=dev, shards=shards, bufs=bufs,
+                                     ab_host=ab, templates=None))
+            for e, d in enumerate(shards):
+                self._block_of[d] = b
+                self._off_of[d] = e * per
+        self.pre = np.zeros((GROUPS, PRE_W), np.uint8)
+        self.pre_len = np.zeros(GROUPS, np.int32)
+        self.suf = np.zeros((GROUPS, SUF_W), np.uint8)
+        self.suf_len = np.zeros(GROUPS, np.int32)
+        self.pre[0, :len(smsg)] = np.frombuffer(smsg, np.uint8)
+        self.pre_len[0] = len(smsg)
+        # host mirror of `active`, (D, per) (the kernels never read it
+        # back)
+        self._live = np.zeros((d_n, per), bool)
+        self._live[:, 0] = True
+        self.reupload_bytes = 0
+        self._shard_reupload = np.zeros(d_n, np.int64)
+        self.last_reshard_s: float | None = None
+
+    # -- sizes and views ------------------------------------------------
+
+    def arena_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for blk in self._blocks for t in blk["bufs"].values())
+
+    @property
+    def active_lanes(self) -> int:
+        """Active lanes, every shard's sentinel included."""
+        return int(self._live.sum())
+
+    def shard_reupload_bytes(self) -> list[int]:
+        """Bytes uploaded for each shard: its own delta rows, and the
+        templates each time its device received them — the accounting
+        the reference's bound reads (single-arena bytes / D + the
+        template bytes)."""
+        return [int(x) for x in self._shard_reupload]
+
+    def view(self, name: str, device="cpu") -> torch.Tensor:
+        """The (D, per, ...) view of a resident buffer, in the
+        reference's layout, gathered on `device`."""
+        per = self.shard_capacity
+        return torch.stack([
+            self._blocks[self._block_of[d]]["bufs"][name][
+                self._off_of[d]:self._off_of[d] + per].to(device)
+            for d in range(self.n_shards)])
+
+    def buffer_pointer(self, name: str = "sb", shard: int = 0) -> int:
+        """data_ptr() of one shard's slice of a resident buffer: a splice
+        leaves it as it was."""
+        buf = self._blocks[self._block_of[shard]]["bufs"][name]
+        return buf[self._off_of[shard]:].data_ptr()
+
+    # -- slow-path installs (valset / height changes) -------------------
+
+    def install_keys(self, pubkeys: list[bytes], start: int = 1) -> None:
+        """Upload pubkey rows for global slots start.. — once per
+        validator-set change, each to its home shard."""
+        assert start >= 1, "slot 0 is the sentinel"
+        assert start + len(pubkeys) <= self.capacity
+        assert all(len(p) == 32 for p in pubkeys)
+        for off, p in enumerate(pubkeys):
+            self._keys_host[start + off] = bytes(p)
+        i = np.arange(start - 1, start - 1 + len(pubkeys))
+        home = i % self.n_shards
+        pos = self._off_of[home] + i // self.n_shards + 1
+        rows = np.frombuffer(b"".join(pubkeys), np.uint8).reshape(-1, 32)
+        for b, blk in enumerate(self._blocks):
+            sel = self._block_of[home] == b
+            if sel.any():
+                blk["ab_host"][pos[sel]] = rows[sel]
+                with _on(blk["device"]):
+                    blk["bufs"]["ab"].copy_(torch.from_numpy(blk["ab_host"]))
+
+    def set_template(self, group: int, pre: bytes, suf: bytes) -> None:
+        """Stage a (pre, suf) template row (group 0 is the sentinels');
+        every device gets the templates at its next launch."""
+        assert 1 <= group < GROUPS
+        assert len(pre) <= PRE_W and len(suf) <= SUF_W
+        self.pre[group] = 0
+        self.suf[group] = 0
+        self.pre[group, :len(pre)] = np.frombuffer(pre, np.uint8)
+        self.suf[group, :len(suf)] = np.frombuffer(suf, np.uint8)
+        self.pre_len[group] = len(pre)
+        self.suf_len[group] = len(suf)
+        for blk in self._blocks:
+            blk["templates"] = None
+
+    def deactivate_all(self) -> None:
+        """New height: every lane but the shards' sentinels goes
+        inactive (one K8 clear a device)."""
+        for blk in self._blocks:
+            with _on(blk["device"]):
+                mesh_clear(blk["bufs"]["active"], self.shard_capacity)
+        self._live[:, 1:] = False
+
+    def ensure_mesh(self) -> bool:
+        """Rebuild the arena over the current effective mesh when its
+        entries changed (an eviction, or a re-admission): the installed
+        keys replay into the new round-robin layout and the templates
+        and reupload_bytes are kept; the splice state is not — lanes
+        come back inactive, the deactivate_all contract, and the
+        caller's next splice repopulates them. Returns whether it
+        rebuilt."""
+        want = tv.effective_mesh()
+        if want is None or want is self.mesh:
+            return False
+        if want.names == self.mesh.names:
+            self.mesh = want  # the same entries, another object
+            return False
+        t0 = time.perf_counter()
+        templates = self.pre, self.pre_len, self.suf, self.suf_len
+        keys = dict(self._keys_host)
+        reup = self.reupload_bytes
+        self.__init__(self._req_lanes, self.width, mesh=want)
+        self.pre, self.pre_len, self.suf, self.suf_len = templates
+        self.reupload_bytes = reup
+        # replay in contiguous runs; slots past the new capacity are
+        # dropped, as by a fresh arena of the requested lanes
+        slots = sorted(s for s in keys if s < self.capacity)
+        run: list[bytes] = []
+        for j, s in enumerate(slots):
+            run.append(keys[s])
+            if j + 1 == len(slots) or slots[j + 1] != s + 1:
+                self.install_keys(run, start=s + 1 - len(run))
+                run = []
+        self.last_reshard_s = time.perf_counter() - t0
+        logger.warning("live arena reshard: %d-lane arena rebuilt over %d "
+                       "shards in %.3fs", self._req_lanes, self.n_shards,
+                       self.last_reshard_s)
+        return True
+
+    # -- the steady-state hot path --------------------------------------
+
+    def splice(self, slots, sig_rows: np.ndarray, patch: np.ndarray,
+               split: np.ndarray, patch_len: np.ndarray,
+               group: np.ndarray) -> None:
+        """Route each arriving lane to its home shard and splice it: per
+        device ONE upload of its rows (105 B each, block positions) and
+        one K6 launch; a device with no rows launches nothing. A slot
+        given twice keeps its last row, as the reference's scatter
+        does."""
+        k = len(slots)
+        if k == 0:
+            return
+        pos = np.asarray(slots, np.int64)
+        assert pos.min() >= 1 and pos.max() < self.capacity, \
+            "slot 0 is the sentinel; slots must fit the arena"
+        rows = [np.asarray(sig_rows, np.uint8).reshape(k, 64),
+                np.asarray(patch, np.uint8).reshape(k, PATCH_W),
+                np.asarray(split, np.int32).reshape(k),
+                np.asarray(patch_len, np.int32).reshape(k),
+                np.asarray(group, np.int32).reshape(k)]
+        last = k - 1 - np.unique(pos[::-1], return_index=True)[1]
+        if len(last) < k:
+            pos = pos[last]
+            rows = [a[last] for a in rows]
+        sig_rows, patch, split, patch_len, group = rows
+        s_ok = tv.s_range_ok(sig_rows)
+        d_n = self.n_shards
+        home = (pos - 1) % d_n
+        local = (pos - 1) // d_n + 1
+        self._live[home, local] = True
+        np.add.at(self._shard_reupload, home, ROW_BYTES)
+        for b, blk in enumerate(self._blocks):
+            sel = np.flatnonzero(self._block_of[home] == b)
+            if not sel.size:
+                continue
+            packed = pack_delta(self._off_of[home[sel]] + local[sel],
+                                sig_rows[sel], s_ok[sel], patch[sel],
+                                split[sel], patch_len[sel], group[sel])
+            self.reupload_bytes += packed.nbytes
+            dev = blk["device"]
+            with _on(dev):
+                mesh_splice(*(blk["bufs"][n] for n in _SPLICED),
+                            torch.from_numpy(packed).to(dev))
+
+    def launch_args(self, b: int) -> tuple:
+        """K7's arguments over block b's buffers (the templates uploaded
+        to its device first if they changed)."""
+        blk = self._blocks[b]
+        if blk["templates"] is None:
+            host = (self.pre, self.pre_len, self.suf, self.suf_len)
+            with _on(blk["device"]):
+                blk["templates"] = tuple(
+                    torch.from_numpy(a.copy()).to(blk["device"])
+                    for a in host)
+            nbytes = sum(a.nbytes for a in host)
+            self.reupload_bytes += nbytes
+            for d in blk["shards"]:
+                self._shard_reupload[d] += nbytes
+        bufs = blk["bufs"]
+        pre, pre_len, suf, suf_len = blk["templates"]
+        return (bufs["ab"], bufs["sb"], bufs["s_ok"], bufs["active"], pre,
+                pre_len, suf, suf_len, bufs["patch"], bufs["split"],
+                bufs["patch_len"], bufs["group"], tv._btab(blk["device"]))
+
+    def launch(self) -> np.ndarray:
+        """Verify every active lane of every shard: one K8 verify (K7
+        over the device's block) per device, each on its device and
+        stream, joined. Returns (capacity,) verdicts in global slot
+        order; slot 0 is the AND of the shards' sentinels, which
+        ``sentinel_ok`` holds one by one."""
+        args = [self.launch_args(b) for b in range(len(self._blocks))]
+        outs = tv.run_shards(
+            [blk["device"] for blk in self._blocks],
+            lambda b, _dev: mesh_arena_verify(*args[b], width=self.width))
+        d_n, per = self.n_shards, self.shard_capacity
+        blocks = [o.cpu().numpy().reshape(-1, per) for o in outs]
+        o = np.stack([blocks[self._block_of[d]][self._off_of[d] // per]
+                      for d in range(d_n)])
+        self.sentinel_ok = [bool(o[d, 0]) for d in range(d_n)]
+        verd = np.zeros(self.capacity, bool)
+        verd[0] = all(self.sentinel_ok)
+        for d in range(d_n):
+            verd[1 + d::d_n] = o[d, 1:]
+        return verd
+
+    def failed_shards(self) -> list[tuple[int, str]]:
+        """(shard index, entry name) of every sentinel that failed on
+        the last launch: the per-entry breaker attribution."""
+        if self.sentinel_ok is None:
+            return []
+        return [(i, self.names[i])
+                for i, ok in enumerate(self.sentinel_ok) if not ok]
+
+    @classmethod
+    def from_reference_arrays(cls, arrays: dict, templates=None, keys=None,
+                              width: int = WIDTH, mesh=None):
+        """Carry a reference arena's state over: ``arrays`` holds its
+        (D, per, ...) numpy buffers by name (ab, sb, s_ok, patch,
+        split, patch_len, group, active), ``templates`` its (pre,
+        pre_len, suf, suf_len) and ``keys`` its installed keys (global
+        slot -> bytes; else read from the non-zero key rows). The
+        port's mesh (default: the effective one) must have D entries."""
+        d_n, per = np.asarray(arrays["active"]).shape
+        mesh = tv.effective_mesh() if mesh is None else mesh
+        if mesh is None or len(mesh) != d_n:
+            raise ValueError(f"a {d_n}-shard reference arena needs a mesh "
+                             f"of {d_n} entries")
+        self = cls(1 + d_n * (per - 1), width, mesh=mesh)
+        if self.shard_capacity != per:
+            raise ValueError(f"shard capacity {per} is not a lane bucket")
+        for name in _BUF_NAMES:
+            a = np.asarray(arrays[name])
+            for d in range(d_n):
+                blk = self._blocks[self._block_of[d]]
+                off = self._off_of[d]
+                with _on(blk["device"]):
+                    blk["bufs"][name][off:off + per].copy_(
+                        torch.from_numpy(np.ascontiguousarray(a[d])))
+                if name == "ab":
+                    blk["ab_host"][off:off + per] = a[d]
+        self._live = np.asarray(arrays["active"], bool).copy()
+        if templates is not None:
+            self.pre, self.pre_len, self.suf, self.suf_len = (
+                np.asarray(t).copy() for t in templates)
+        if keys is None:
+            ab = np.asarray(arrays["ab"])
+            keys = {1 + (j - 1) * d_n + d: bytes(ab[d, j])
+                    for d in range(d_n) for j in range(1, per)
+                    if ab[d, j].any()}
+        self._keys_host = {int(s): bytes(k) for s, k in keys.items()}
+        return self
+
+
+def make_arena(lanes: int, width: int = WIDTH):
+    """The speculation plane's arena factory: arena shards over the
+    effective mesh when there is one, else one ResidentArena on the
+    default device."""
+    mesh = tv.effective_mesh()
+    if mesh is not None:
+        return MeshResidentArena(lanes, width, mesh=mesh)
     return ResidentArena(lanes, width)

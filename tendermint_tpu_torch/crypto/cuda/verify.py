@@ -189,19 +189,102 @@ general_verify.launches = 0
 # -- the mesh ------------------------------------------------------------
 
 
-def _mesh() -> tuple[torch.device, ...] | None:
-    """The devices the multi-device paths shard over (device.set_mesh,
+class Mesh(tuple):
+    """A mesh: its torch devices in entry order, and ``names``, one per
+    entry, unique within the base mesh — the device string when the
+    device appears once, ``"<device>/<index in the base mesh>"`` when it
+    repeats (``["cuda:0"] * 4`` is ``cuda:0/0`` .. ``cuda:0/3``). The
+    per-entry breakers, evictions, the ``device.shard_fail`` payload and
+    SHARD_LANES all go by these names, so evicting one logical shard of
+    a card leaves its other shards serving. A degraded mesh keeps the
+    names of the entries that survive."""
+
+    names: tuple[str, ...]
+
+    def __new__(cls, devices, names=None):
+        self = super().__new__(cls, devices)
+        self.names = tuple(names) if names is not None else entry_names(self)
+        return self
+
+
+def entry_names(devices) -> tuple[str, ...]:
+    """Each entry's name in a base mesh (see Mesh)."""
+    strs = [str(d) for d in devices]
+    return tuple(s if strs.count(s) == 1 else f"{s}/{i}"
+                 for i, s in enumerate(strs))
+
+
+# base meshes by their device tuple, so that _mesh() returns one object
+# for one mesh and `want is self.mesh` stays the placement fast path
+_BASE_MESHES: dict[tuple, Mesh] = {}
+# degraded meshes keyed by (base devices, evicted names); tiny (bounded
+# by the distinct eviction sets a process sees)
+_DEGRADED_MESHES: dict[tuple, Mesh] = {}
+
+
+def _mesh() -> Mesh | None:
+    """The base mesh the multi-device paths shard over (device.set_mesh,
     or every CUDA device when there are at least two), or None when
     fewer than two entries: the single-device path needs no mesh."""
-    mesh = _device.mesh_devices()
-    return mesh if mesh is not None and len(mesh) >= 2 else None
+    devs = _device.mesh_devices()
+    if devs is None or len(devs) < 2:
+        return None
+    mesh = _BASE_MESHES.get(devs)
+    if mesh is None:
+        mesh = _BASE_MESHES.setdefault(devs, Mesh(devs))
+    return mesh
 
 
-def effective_mesh() -> tuple[torch.device, ...] | None:
-    """The mesh the next launch rides. The reference drops the devices
-    its per-device breakers evicted; the port has no breaker yet
-    (ROADMAP Queue A item 3), so this is the mesh."""
-    return _mesh()
+def _shard_failpoints(mesh: Mesh) -> None:
+    """The `device.shard_fail` point, evaluated once per entry per
+    dispatch in mesh order (so `nth=K` selects the K-th entry of the
+    first dispatch). The payload is the entry's name: `error` models a
+    raising device, `corrupt` a wrong-verdict one (the payload comes
+    back mangled); either evicts ONLY that entry."""
+    from ...libs import failpoints
+
+    if not failpoints.any_armed():
+        return
+    from .. import batch as cbatch
+
+    for name in mesh.names:
+        payload = name.encode()
+        try:
+            back = failpoints.hit("device.shard_fail", payload)
+        except failpoints.FailpointError:
+            cbatch.mark_device_failed("ed25519", device=name,
+                                      reason="failpoint")
+            continue
+        if back is not None and bytes(back) != payload:
+            cbatch.mark_device_failed("ed25519", device=name,
+                                      reason="failpoint")
+
+
+def effective_mesh(probe: bool = True) -> Mesh | None:
+    """The mesh the next launch rides: the base mesh minus the entries
+    the per-entry breakers evicted (crypto/batch.py). probe=True (a
+    dispatch) also runs the due half-open probes, so a passing probe
+    re-admits its entry and this very call returns the wider mesh.
+    None when fewer than two entries survive."""
+    base = _mesh()
+    if base is None:
+        return None
+    _shard_failpoints(base)
+    from .. import batch as cbatch
+
+    evicted = tuple(cbatch.evicted_devices("ed25519", probe=probe))
+    if not evicted:
+        return base
+    gone = set(evicted)
+    keep = [i for i, name in enumerate(base.names) if name not in gone]
+    if len(keep) < 2:
+        return None
+    key = (tuple(base), evicted)
+    mesh = _DEGRADED_MESHES.get(key)
+    if mesh is None:
+        mesh = _DEGRADED_MESHES.setdefault(key, Mesh(
+            [base[i] for i in keep], [base.names[i] for i in keep]))
+    return mesh
 
 
 def mesh_lane_pad(bucket: int, mesh) -> int:
@@ -212,15 +295,15 @@ def mesh_lane_pad(bucket: int, mesh) -> int:
 
 
 # Lanes (padding included: a device runs them either way) launched per
-# mesh entry, by entry index, over the process's lifetime.
+# mesh entry, by entry name, over the process's lifetime.
 SHARD_LANES: dict[str, int] = {}
 
 
-def count_shard_lanes(mesh, lanes: int) -> None:
+def count_shard_lanes(mesh: Mesh, lanes: int) -> None:
     """Count `lanes` split evenly over the mesh into SHARD_LANES."""
     per = lanes // len(mesh)
-    for i in range(len(mesh)):
-        SHARD_LANES[str(i)] = SHARD_LANES.get(str(i), 0) + per
+    for name in mesh.names:
+        SHARD_LANES[name] = SHARD_LANES.get(name, 0) + per
 
 
 _STREAMS: dict[tuple[int, str], torch.cuda.Stream] = {}

@@ -7,7 +7,10 @@
 // s_ok, timestamp patches (patch, split, patch_len) and template group —
 // with the shared templates (pre, pre_len, suf, suf_len) and the
 // fixed-base comb btab, masked by `active`. Plain PyTorch version:
-// crypto/cuda/resident.py arena_verify_plain.
+// crypto/cuda/resident.py arena_verify_plain. It is also K8's verify
+// (resident.py mesh_arena_verify, replacing _mesh_arena_kernel): one
+// launch per device over its contiguous block of arena shards, each
+// shard's known-answer sentinel an ordinary active lane of the block.
 //
 // One thread per lane, fused: a lane assembles its sign bytes with
 // K2's byte rule (sign_bytes.cuh) into a `width`-byte array of its own,

@@ -6,7 +6,9 @@
 // _clear_fn (active = 0 but the sentinel lane 0). Donation becomes
 // in-place writes here: the resident buffers keep their addresses.
 // Plain PyTorch versions: crypto/cuda/resident.py splice_plain and
-// clear_plain.
+// clear_plain. tm_splice is also K8's splice (resident.py mesh_splice:
+// once per device, into its contiguous block of arena shards, at block
+// positions), and k_mesh_clear below is K8's clear.
 //
 // The k delta rows arrive as ONE packed byte buffer (one host-to-device
 // copy), 105 bytes a row, laid out as sections:
@@ -68,6 +70,18 @@ __global__ void k_clear(uint8_t* __restrict__ active, int n) {
   if (i < n) active[i] = i == 0 ? 1 : 0;
 }
 
+// K8's clear (replaces resident.py _mesh_clear_fn: every shard's lanes
+// inactive but its own sentinel). A device's arena shards lie in one
+// contiguous block of `per` lanes a shard, each shard's sentinel at its
+// first lane, so a lane stays active iff i % per == 0. Launched once per
+// device over its whole block. Plain version: crypto/cuda/resident.py
+// mesh_clear_plain. Bound: bytes (one byte written a lane); launch
+// latency dominates at arena sizes.
+__global__ void k_mesh_clear(uint8_t* __restrict__ active, int per, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) active[i] = i % per == 0 ? 1 : 0;
+}
+
 extern "C" int tm_splice(const void* packed, int k, int n, void* sb, void* s_ok,
                          void* patch, void* split, void* patch_len, void* group,
                          void* active, void* stream) {
@@ -84,5 +98,12 @@ extern "C" int tm_clear(void* active, int n, void* stream) {
   if (n <= 0) return 0;
   k_clear<<<tm_blocks(n), TM_THREADS, 0, (cudaStream_t)stream>>>(
       (uint8_t*)active, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_mesh_clear(void* active, int per, int n, void* stream) {
+  if (n <= 0 || per <= 0) return 0;
+  k_mesh_clear<<<tm_blocks(n), TM_THREADS, 0, (cudaStream_t)stream>>>(
+      (uint8_t*)active, per, n);
   return (int)cudaGetLastError();
 }

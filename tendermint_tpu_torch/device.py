@@ -21,6 +21,12 @@ _DEFAULT: torch.device | None = None
 _MESH: tuple[torch.device, ...] | None = None
 
 
+class NoDeviceError(RuntimeError):
+    """No CUDA device and no ``set_default_device("cpu")``: a
+    configuration error, never a device failure, so the breakers of
+    crypto/batch.py let it through to the caller."""
+
+
 def set_default_device(name: str | torch.device | None) -> None:
     """Pin the device for the port's entry points ("cpu" or "cuda");
     None restores the CUDA default."""
@@ -32,7 +38,7 @@ def default_device() -> torch.device:
     if _DEFAULT is not None:
         return _DEFAULT
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoDeviceError(
             "no CUDA device available; call "
             "tendermint_tpu_torch.device.set_default_device('cpu') to "
             "run the plain PyTorch versions on the CPU")

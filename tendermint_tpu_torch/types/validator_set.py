@@ -5,9 +5,10 @@ Every verify_commit* variant collects its exact verification set first
 and executes it as ONE device batch with per-lane verdicts. Large
 all-ed25519 sets route through crypto/cuda/expanded.py: per-validator
 comb tables cached on the GPU across heights, with the sign bytes
-assembled on the device. Routing follows the input only (lane count,
-key types, set size); a device failure raises — this slice of the
-port has no breaker and no host degrade."""
+assembled on the device. A device failure on that path (a build or
+launch that raises) opens the ed25519 breaker (crypto/batch.py) and
+the batch degrades to the BatchVerifier, which itself degrades device
+-> host; a commit verify never fails for a device's sake."""
 
 from __future__ import annotations
 
@@ -171,12 +172,25 @@ class ValidatorSet:
 
     def _use_expanded(self, lanes: list[int]) -> bool:
         """Will _batch_verify_lanes take the expanded device path?"""
-        from ..crypto.cuda import expanded
+        from ..crypto import batch as _batch
         from ..crypto.cuda import verify as tv
 
-        if not _EXPAND_MIN <= len(lanes) <= tv._MAX_BATCH:
+        if not (_EXPAND_MIN <= len(lanes) <= tv._MAX_BATCH
+                and _batch.device_available("ed25519")):
             return False
-        return (len(self.validators) <= expanded.max_keys()
+        try:
+            from ..crypto.cuda import expanded
+
+            cap = expanded.max_keys()
+        except _batch.UNCAUGHT:
+            raise
+        except Exception:
+            # a broken device runtime degrades to the general path
+            # (with the breaker's cooldown), not a failed commit verify
+            _batch.mark_device_failed("ed25519")
+            logger.exception("device probe for the expanded path failed")
+            return False
+        return (len(self.validators) <= cap
                 and all(self.validators[i].pub_key.type_name == "ed25519"
                         for i in lanes))
 
@@ -239,25 +253,42 @@ class ValidatorSet:
         # structured implies _use_expanded held when the batch was
         # built (_commit_msgs) — don't repeat the O(n) key-type scan.
         if structured or self._use_expanded(lanes):
+            from ..crypto import batch as _batch
             from ..crypto.cuda import expanded
+            from ..libs import failpoints
 
-            exp = expanded.get_expanded(
-                [v.pub_key.bytes() for v in self.validators])
-            if structured:
-                try:
-                    verdicts = exp.verify_structured(lanes, msgs, sigs)
-                except ValueError:
-                    # structural limit (oversized templates / sign
-                    # bytes), an input property: the same kernels on
-                    # the full bytes. Logged loudly — if the lane-0
-                    # self-check fired, a template bug must surface.
-                    logger.exception(
-                        "structured commit verify rejected the batch "
-                        "(%d lanes); using full-bytes form", len(lanes))
-                    verdicts = exp.verify(lanes, msgs.materialize(), sigs)
-            else:
-                verdicts = exp.verify(lanes, msgs, sigs)
-            return bool(verdicts.all()), verdicts
+            try:
+                failpoints.hit("device.verify")
+                exp = expanded.get_expanded(
+                    [v.pub_key.bytes() for v in self.validators])
+                if structured:
+                    try:
+                        verdicts = exp.verify_structured(lanes, msgs, sigs)
+                    except ValueError:
+                        # structural limit (oversized templates / sign
+                        # bytes), an input property: the same kernels
+                        # on the full bytes. Logged loudly — if the
+                        # lane-0 self-check fired, a template bug must
+                        # surface.
+                        logger.exception(
+                            "structured commit verify rejected the batch "
+                            "(%d lanes); using full-bytes form",
+                            len(lanes))
+                        verdicts = exp.verify(lanes, msgs.materialize(),
+                                              sigs)
+                else:
+                    verdicts = exp.verify(lanes, msgs, sigs)
+                return bool(verdicts.all()), verdicts
+            except _batch.UNCAUGHT:
+                raise
+            except Exception:
+                # a device that fails mid-verify (a kernel's own
+                # fault is UNCAUGHT and raises): the BatchVerifier
+                # (which itself degrades device -> host) instead of a
+                # failed commit verify
+                _batch.mark_device_failed("ed25519")
+                logger.exception("expanded-valset verify failed (%d "
+                                 "lanes); degrading", len(lanes))
         if structured:
             msgs = msgs.materialize()
         bv = BatchVerifier()

@@ -444,7 +444,8 @@ def test_lane_sharded_verify_batch_matches_reference(monkeypatch):
     before = dict(tv.SHARD_LANES)
     got = tv.verify_batch(pubs, b["msgs"], b["sigs"])
     assert {k: tv.SHARD_LANES[k] - before.get(k, 0)
-            for k in ("0", "1", "2")} == {"0": 43, "1": 43, "2": 43}
+            for k in ("cpu/0", "cpu/1", "cpu/2")} == {
+                "cpu/0": 43, "cpu/1": 43, "cpu/2": 43}
     assert got.tolist() == b["expect"].tolist()
     assert got.tolist() == [jref.verify(p, m, s) for p, m, s in
                             zip(pubs, b["msgs"], b["sigs"])]
@@ -479,7 +480,8 @@ def test_lane_sharded_verify_batch_sr_matches_reference(monkeypatch):
     before = dict(tv.SHARD_LANES)
     got = sv.verify_batch_sr(b["pubs"], b["msgs"], b["sigs"])
     assert {k: tv.SHARD_LANES[k] - before.get(k, 0)
-            for k in ("0", "1", "2")} == {"0": 43, "1": 43, "2": 43}
+            for k in ("cpu/0", "cpu/1", "cpu/2")} == {
+                "cpu/0": 43, "cpu/1": 43, "cpu/2": 43}
     assert got.tolist() == b["expect"].tolist()
     assert got.tolist() == [jsr.verify(p, m, s) for p, m, s in
                             zip(b["pubs"], b["msgs"], b["sigs"])]

@@ -265,8 +265,13 @@ def test_device_path_fallbacks_by_input():
 
 
 def test_failed_sentinel_raises(monkeypatch):
-    """Where the reference opens its breaker and re-verifies on the
-    host, the port raises: a launch whose sentinel reads false."""
+    """A launch whose sentinel reads false no longer raises out of
+    flush_sync (the name is kept from when it did): as in the
+    reference, the single arena cannot attribute it, so the backend
+    ed25519 breaker opens, the burst re-verifies on the host (one host
+    recheck) and the lanes keep correct verdicts."""
+    from tendermint_tpu_torch.crypto import batch as cbatch
+
     w = World("port")
     plane = w.plane()
     plane.begin_height(CHAIN, w.vs, H, 0, w.bid)
@@ -280,8 +285,16 @@ def test_failed_sentinel_raises(monkeypatch):
         return out
 
     monkeypatch.setattr(resident, "arena_verify", broken)
-    with pytest.raises(resident.kernels.KernelError, match="sentinel"):
+    rechecks = cbatch.METRICS["host_rechecks"]
+    try:
         plane.flush_sync()
+        assert cbatch.breaker_states()["ed25519"] == "open"
+        assert cbatch.device_breaker_states() == {}
+        assert cbatch.METRICS["host_rechecks"] == rechecks + 1
+    finally:
+        cbatch.reset_breakers()
+    lanes = plane._heights[H].lanes
+    assert [lanes[i].verdict for i in range(N)] == [True] * N
 
 
 def test_config_and_vote_basics():
