@@ -76,19 +76,37 @@ Phases, each printing one JSON line:
    launches taken back out of the counts;
 9. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
-   plain version on those inputs.
+   plain version on those inputs;
+10. fault — in a child (`--phase fault`; a sticky fault poisons the
+   context): a test-only kernel built from FAULT_SOURCE, never part of
+   the port's library, stores through a bad address just before K4
+   inside a BatchVerifier; the ladder must raise KernelError with a
+   kernel-fault code (700), every breaker closed, no counter moved;
+11. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+   <digests>`; the field is chosen at import): the f32 library built
+   (every source with -DTM_FIELD_F32); the kernels check again, K1,
+   K3, K4, K5, K7 and K9 against their f32 plain versions, their
+   verdicts against the digests of the i32 build's (kernels and fabric
+   phases) that the parent passes; the slice and mixed phases again at
+   10,240 validators, with the i32 phases' launches, outcomes and
+   rejections; the f32 p50s and kernel times beside the i32 ones, and
+   the f32 kernels' rows (`<name>_f32`) in the kernels line.
 
-Every phase but healing must end with all breakers closed and the host
-fallbacks, rechecks and evictions unchanged. Then the kernels line,
-the nvidia-smi line and, last, {"ok": true, "device": {...}}. Any
-failure raises (exit code 1); no phase is caught. Without a CUDA
-device it exits 2 and prints no result.
+Each child's lines are relayed as {"phase": <child>, "step": ...}; a
+child that fails or outruns its time limit fails the run. Every phase
+but healing must end with all breakers closed and the host fallbacks,
+rechecks and evictions unchanged. Then the kernels line, the
+nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
+raises (exit code 1); no phase is caught. Without a CUDA device it
+exits 2 and prints no result; with TM_TPU_FIELD set to anything but
+i32 it refuses to run (its f32 phase sets the variable for its child).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -97,16 +115,26 @@ import types
 
 N_VALIDATORS = 10_240
 CHAIN = "smoke-chain"
+# The field this process's kernels use (crypto/cuda/fieldsel.py reads
+# the same variable): i32 here, f32 in the f32 phase's child.
+FIELD = os.environ.get("TM_TPU_FIELD", "i32")
 # H100 SXM published peaks (NVIDIA H100 datasheet for HBM3 bandwidth;
-# Hopper white paper for the int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz).
+# Hopper white paper for the int32 rate, 132 SMs x 64 INT32 lanes x 1.98
+# GHz, and the FP32 FMA rate, 132 SMs x 128 FP32 lanes x 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# The operation bound counts the int32 x int32 -> int64 products of the
-# field multiplies the function needs, in radix 2^25.5 (ten limbs): 100
-# for a multiply, 55 for a squaring (the kernels' fe_sqr reuses fe_mul
-# and so does 100). Point ops use the reference's formulas; SHA-512, the
-# fold, additions and carries are not counted, so the bound is a floor.
-MUL, SQR = 100, 55
+FP32_FMA_PER_S = 132 * 128 * 1.98e9
+# The operation bound counts the products of the field multiplies the
+# function needs: in the i32 field int32 x int32 -> int64 products in
+# radix 2^25.5 (ten limbs), 100 for a multiply, 55 for a squaring (the
+# kernels' fe_sqr reuses fe_mul and so does 100), against the int32
+# rate; in the f32 field FP32 FMAs over 32 limbs, 1,024 for a multiply,
+# 528 for a squaring, against the FMA rate. Point ops use the
+# reference's formulas; SHA-512, the fold, additions and carries are not
+# counted, so the bound is a floor.
+MUL, SQR, NLIMB, OPS_PER_S = {
+    "f32": (1024, 528, 32, FP32_FMA_PER_S)}.get(
+        FIELD, (100, 55, 10, INT32_OPS_PER_S))
 ADD = 9 * MUL                     # add-2008-hwcd-3 (ge_add)
 ADD_Z1 = 8 * MUL                  # Z2 = 1: the comb add (ge_add_z1)
 DOUBLE = 4 * SQR + 4 * MUL        # dbl-2008-hwcd (ge_double)
@@ -116,7 +144,7 @@ DECOMPRESS = 255 * SQR + 19 * MUL  # + MUL where x * sqrt(-1) is taken
 # the root is multiplied by sqrt(-1)
 RS_DECODE = 257 * SQR + 24 * MUL
 RS_EQUAL = 4 * MUL
-ENTRY_BYTES = 4 * 10 * 4          # one table entry: X, Y, Z, T x 10 int32
+ENTRY_BYTES = 4 * NLIMB * 4       # one table entry: X, Y, Z, T, 4-byte limbs
 
 SPEC_BURST = 1024                 # precommits per flush_sync
 # bytes a splice writes per row: sb, s_ok, patch, split, patch_len,
@@ -163,6 +191,9 @@ MIXED_KERNELS = ("general_verify", "sr_verify")
 LOGICAL_SHARDS = 4
 FABRIC_CROSSOVER = 5120
 FABRIC_RUNS = 11  # verify_commit runs on the mesh; the first is dropped
+# Objects a later step of the same process reads: the kernels check's
+# arena (the f32 phase times K7 on it).
+KEEP: dict = {}
 
 
 def emit(obj) -> None:
@@ -311,7 +342,8 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
     import torch
 
     from tendermint_tpu_torch.crypto import vectors
-    from tendermint_tpu_torch.crypto.cuda import expanded, field, verify
+    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+    from tendermint_tpu_torch.crypto.cuda.fieldsel import F as fe
     from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
 
     out = {}
@@ -324,13 +356,18 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
     ).to(dev)
     tab_k, ok_k = expanded.build_tables(akeys)
     tab_p, ok_p = expanded.build_tables_plain(akeys)
+    canon_k = fe.canonical(tab_k.reshape(-1, fe.NLIMB).T.to(fe.DTYPE))
     canon_eq = bool(torch.equal(
-        field.canonical(tab_k.reshape(-1, 10).T.to(torch.int64)),
-        field.canonical(tab_p.reshape(-1, 10).T.to(torch.int64))))
+        canon_k, fe.canonical(tab_p.reshape(-1, fe.NLIMB).T.to(fe.DTYPE))))
     out["build_tables"] = dict(
         limbs_equal=bool(torch.equal(tab_k, tab_p)), canonical_equal=canon_eq,
         ok_equal=bool(torch.equal(ok_k, ok_p)),
         key_ok_0_1=ok_k.cpu().tolist()[:2])
+    # what the other field's build must reproduce: the key flags, and the
+    # canonical values of the first 8 keys' tables
+    first = fe.from_limbs(canon_k[:, :8 * 69 * 9 * 4])
+    digests = {"build_tables": digest(ok_k), "build_tables_canonical": digest(
+        b"".join(v.to_bytes(32, "little") for v in first))}
     if not (out["build_tables"]["limbs_equal"] and canon_eq
             and out["build_tables"]["ok_equal"]):
         raise AssertionError(f"K1 differs from its plain version: {out}")
@@ -347,6 +384,7 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
     got = v_k.cpu().numpy()[:n_lanes] & wf
     out["xverify"] = dict(equal_plain=bool(torch.equal(v_k, v_p)),
                           equal_expect=bool((got == expect).all()))
+    digests["xverify"] = digest(v_k)
     # K4 on the same lanes with per-lane keys.
     pubs = [b["pubkeys"][k] for k in b["idx"]]
     g = verify.verify_batch(pubs, b["msgs"], b["sigs"], device=dev)
@@ -360,10 +398,11 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
         [b["sigs"][i] for i in keep] + [ds] * pad), dev)
     gargs = (pk["ab"], pk["sb"], pk["msg"], pk["nblocks"], pk["s_ok"],
              verify._btab(dev))
+    g_k = verify.general_verify(*gargs)
     out["general_verify"] = dict(
-        equal_plain=bool(torch.equal(verify.general_verify(*gargs),
-                                     verify.general_verify_plain(*gargs))),
+        equal_plain=bool(torch.equal(g_k, verify.general_verify_plain(*gargs))),
         equal_expect=bool((g == expect).all()))
+    digests["general_verify"] = digest(g_k)
     # K2: sign bytes of a structured commit, against the plain version
     # and against the host's own padding of the materialized bytes.
     spubs, commit = structured_commit(n_lanes, seed=2)
@@ -388,8 +427,8 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
                              == host["nblocks"]).all()))
     sv = sexp.verify_structured(lanes, sbatch, sigs)
     out["assemble"]["commit_verifies"] = bool(sv.all())
-    timed = arena_check(n_lanes, dev, out)
-    timed.update(sr_check(n_lanes, dev, out))
+    timed = arena_check(n_lanes, dev, out, digests)
+    timed.update(sr_check(n_lanes, dev, out, digests))
     for name in ("build_tables", "xverify", "general_verify", "assemble",
                  "splice", "clear", "arena_verify", "sr_verify"):
         if not all(out[name].values()):
@@ -406,7 +445,16 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
         out["assemble"]["ms"] = cuda_ms(lambda: expanded.assemble(*aargs), 20)
         for name, (fn, reps) in timed.items():
             out[name]["ms"] = cuda_ms(fn, reps)
+    out["verdicts"] = digests
     return out
+
+
+def digest(x) -> str:
+    """A short digest of a tensor's bytes (or of bytes), to hold one
+    field's build against the other's across processes."""
+    if not isinstance(x, bytes):
+        x = x.cpu().numpy().tobytes()
+    return hashlib.sha256(x).hexdigest()[:16]
 
 
 def splice_args(arena, b, keep):
@@ -425,11 +473,12 @@ def splice_args(arena, b, keep):
     return [i + 1 for i in keep], sig_rows, patch, split, patch_len, group
 
 
-def arena_check(n_lanes: int, dev, out: dict):
+def arena_check(n_lanes: int, dev, out: dict, digests: dict):
     """K6 and K7 against their plain versions on an n_lanes arena: the
     adversarial lanes with 64-byte signatures are spliced (every 50th
     left out), so the arena also holds inactive lanes. Fills out's
-    splice/clear/arena_verify entries; returns the calls to time."""
+    splice/clear/arena_verify entries and K7's verdict digest; returns
+    the calls to time (and the arena, under "arena")."""
     import numpy as np
     import torch
 
@@ -463,6 +512,7 @@ def arena_check(n_lanes: int, dev, out: dict):
         equal_plain=bool(torch.equal(v_k, v_p)),
         equal_expect=bool((v_k.cpu().numpy() == want).all()),
         active_lanes=arena.active_lanes)
+    digests["arena_verify"] = digest(v_k)
     act_k, act_p = arena._active.clone(), arena._active.clone()
     resident.clear(act_k)
     resident.clear_plain(act_p)
@@ -471,6 +521,7 @@ def arena_check(n_lanes: int, dev, out: dict):
     timed = {"splice": (lambda: resident.splice(*arena.buffers(), packed), 50),
              "clear": (lambda: resident.clear(act_k), 50),
              "arena_verify": (lambda: resident.arena_verify(*largs), 5)}
+    KEEP["arena"] = arena
     return timed
 
 
@@ -508,10 +559,10 @@ def sr_branches(args) -> dict:
             "ratio_flipped_i": count(fi & pre)}
 
 
-def sr_check(n_lanes: int, dev, out: dict):
+def sr_check(n_lanes: int, dev, out: dict, digests: dict):
     """K9 against its plain version and the oracle on an n_lanes sr25519
     adversarial batch; every branch must be taken. Fills out's
-    sr_verify entry; returns the call to time."""
+    sr_verify entry and its verdict digest; returns the call to time."""
     import torch
 
     from tendermint_tpu_torch.crypto import sr25519_ref as sr
@@ -531,6 +582,7 @@ def sr_check(n_lanes: int, dev, out: dict):
                             equal_expect=bool((got == b["expect"]).all()),
                             every_branch=min(branches.values()) > 0)
     out["sr_branches"] = branches
+    digests["sr_verify"] = digest(v_k)
     return {"sr_verify": (lambda: sv.sr_verify(*args), 5)}
 
 
@@ -1108,7 +1160,8 @@ def k5_check(dev) -> dict:
                                    if k not in exp._S_REPL},
                             dict(templates=tuple(tpl[k] for k in exp._S_REPL),
                                  width=width), swf)}
-    out = {"shards": exp.n_shards, "keys_per_shard": exp.keys_per_shard}
+    out = {"shards": exp.n_shards, "keys_per_shard": exp.keys_per_shard,
+           "verdicts": {}}
     for name, (fidx, lanes, form, well_formed) in forms.items():
         lidx, routed, slot = exp._route(fidx, lanes)
         err, got = 0, []
@@ -1119,12 +1172,34 @@ def k5_check(dev) -> dict:
                 err = max(err, max_abs_diff(
                     k, expanded.shard_verify_plain(*args, **kw)))
             got.append(k.to(dev))
+            if d == 0 and name == "bytes":
+                KEEP["k5_shard0"] = (args, kw)
         verdicts = torch.cat(got).cpu().numpy()[slot] & well_formed
+        out["verdicts"][f"shard_verify_{name}"] = digest(verdicts.tobytes())
         out[name] = dict(max_abs_err=err, n_local=int(lidx.shape[1]),
                          equal_expect=bool((verdicts == b["expect"]).all()))
         if err or not out[name]["equal_expect"]:
             raise AssertionError(f"K5 check ({name}) failed: {out[name]}")
     return out
+
+
+def k5_check_row() -> dict:
+    """K5 on shard 0 of k5_check's bytes form (the adversarial batch):
+    time, plain time, bound and agreement with the plain version."""
+    from tendermint_tpu_torch.crypto.cuda import expanded
+
+    args, kw = KEEP["k5_shard0"]
+    v_k = expanded.shard_verify(*args, **kw)
+    v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*args, **kw))
+    s_idx, akeys, sb, s_ok, key_ok, _tables, btab = args
+    ops, lane_bytes, msg_bytes, m = xverify_work(
+        akeys, key_ok, s_idx, sb, s_ok, kw["msg"], kw["nblocks"])
+    nbytes = lane_bytes + m * 4 + msg_bytes + btab.numel() * 4
+    row = entry("shard_verify", max_abs_diff(v_k, v_p),
+                cuda_ms(lambda: expanded.shard_verify(*args, **kw), 10), p_ms,
+                ops, nbytes)
+    row["lanes"] = int(s_idx.shape[0])
+    return row
 
 
 def fabric_phase(vs, commit, bid, mvs, mcommit, mbid, rejected_mixed,
@@ -2076,10 +2151,9 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
     speculation phase's shapes, on the plane's arena as the phase left
     it: time, plain time, bound, the library call's time for the
     splice, and agreement with the plain version."""
-    import numpy as np
     import torch
 
-    from tendermint_tpu_torch.crypto.cuda import expanded, resident
+    from tendermint_tpu_torch.crypto.cuda import resident
 
     rows = []
     n = arena.capacity
@@ -2106,7 +2180,16 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
     _, p_ms = plain_ms(lambda: resident.clear_plain(act_p))
     rows.append(entry("clear", max_abs_diff(act_k, act_p),
                       cuda_ms(lambda: resident.clear(act_k), 100), p_ms, 0, n))
-    # K7 over the active lanes the last flush verified
+    rows.append(k7_row(arena))  # over the active lanes the last flush verified
+    return rows
+
+
+def k7_row(arena) -> dict:
+    """K7 over the arena's active lanes: time, plain time, bound and
+    agreement with the plain version."""
+    from tendermint_tpu_torch.crypto.cuda import expanded, resident
+
+    n = arena.capacity
     largs = arena.launch_args()
     v_k = resident.arena_verify(*largs)
     v_p, p_ms = plain_ms(lambda: resident.arena_verify_plain(*largs))
@@ -2124,10 +2207,9 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
               + sum(t.numel() * t.element_size()
                     for t in (pre, pre_len, suf, suf_len))
               + btab.numel() * 4)
-    rows.append(entry("arena_verify", err,
-                      cuda_ms(lambda: resident.arena_verify(*largs), 5), p_ms,
-                      ops, nbytes))
-    return rows
+    return entry("arena_verify", err,
+                 cuda_ms(lambda: resident.arena_verify(*largs), 5), p_ms,
+                 ops, nbytes)
 
 
 def index_copy_splice(bufs, packed):
@@ -2172,7 +2254,7 @@ def plain_ms(fn):
 
 
 def entry(name, err, ms, plain, ops, nbytes) -> dict:
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if err != 0:
         raise AssertionError(f"{name} differs from its plain version: {err}")
@@ -2184,11 +2266,258 @@ def entry(name, err, ms, plain, ops, nbytes) -> dict:
             "library_ms": None}
 
 
+# -- the f32 phase and the fault check: child processes ------------------
+
+# The f32 build's kernels (every field-bearing kernel; K2 and K6 do no
+# field arithmetic and are the same code in both builds). K5 and K7 are
+# held in the kernels check only: the f32 path (slice, mixed) does not
+# run the fabric or the speculation plane.
+F32_KERNELS = ("build_tables", "xverify", "general_verify", "shard_verify",
+               "arena_verify", "sr_verify")
+F32_CHECK_ONLY = ("shard_verify", "arena_verify")
+CHILD_TIMEOUT_S = {"f32": 700, "fault": 240}
+
+# A test-only kernel that stores through an address no allocation owns:
+# its launch succeeds and it faults while it runs
+# (cudaErrorIllegalAddress). Built by the fault check alone, never into
+# the port's library.
+FAULT_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void k_fault(int* p) { p[threadIdx.x] = 1; }
+extern "C" int tm_fault(void* stream) {
+  k_fault<<<1, 32, 0, (cudaStream_t)stream>>>((int*)16);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def run_child(phase: str, *args) -> list[dict]:
+    """Run `python3 chip_smoke.py --phase <phase> args...` (the f32 child
+    with TM_TPU_FIELD=f32), relay each JSON line it prints as
+    {"phase": phase, "step": <its phase>, ...}, and return the lines.
+    A non-zero exit or the time limit fails the parent; the child is
+    killed on the way out."""
+    import threading
+
+    env = dict(os.environ)
+    if phase == "f32":
+        env["TM_TPU_FIELD"] = "f32"
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase", phase, *args],
+        stdout=subprocess.PIPE, text=True, env=env)
+    timer = threading.Timer(CHILD_TIMEOUT_S[phase], proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            obj = json.loads(line)
+            lines.append(obj)
+            if "kernels" not in obj:
+                emit({"phase": phase, "step": obj.get("phase"),
+                      **{k: v for k, v in obj.items() if k != "phase"}})
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the {phase} child exited {rc}")
+    return lines
+
+
+def fault_child() -> int:
+    """The fault check's child: a test-only kernel that faults is
+    launched just before K4 inside a BatchVerifier's device call (after
+    a clean call, so every buffer is already allocated). The fault
+    shows at the launch's or the readback's CUDA check and must raise
+    KernelError through the breaker ladder, with every breaker closed
+    and no counter moved. A sticky fault poisons the context, hence a
+    process of its own."""
+    import ctypes
+
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto.cuda import kernels, verify
+
+    out_dir = kernels.BUILD_ROOT.parent / "fault_check"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "fault.cu").write_text(FAULT_SOURCE)
+    so = out_dir / f"libfault.{os.getpid()}.so"
+    subprocess.run([kernels._nvcc(), kernels.ARCH, "-shared", "-Xcompiler",
+                    "-fPIC", "-o", str(so), str(out_dir / "fault.cu")],
+                   check=True)
+    fault = ctypes.CDLL(str(so))
+    fault.tm_fault.argtypes = [ctypes.c_void_p]
+    fault.tm_fault.restype = ctypes.c_int
+    seeds = [hashlib.sha256(b"fault-%d" % i).digest() for i in range(64)]
+    lanes = [(ed25519.Ed25519PubKey(ref.public_key_from_seed(s)),
+              b"fault lane %d" % i) for i, s in enumerate(seeds)]
+    sigs = [ref.sign(s, m) for s, (_, m) in zip(seeds, lanes)]
+
+    def verify_all():
+        bv = cbatch.BatchVerifier()
+        for (pk, m), sig in zip(lanes, sigs):
+            bv.add(pk, m, sig)
+        return bv.verify()
+
+    if not verify_all()[0]:
+        raise AssertionError("the clean call rejected its lanes")
+    real = verify.general_verify
+
+    def faulting(*a):
+        rc = fault.tm_fault(kernels.stream_ptr(a[0].device))
+        if rc:
+            raise AssertionError(f"the faulting launch was refused: {rc}")
+        return real(*a)
+
+    faulting.launches = 0  # real() counts on the module's name
+    state = fallback_state()
+    verify.general_verify = faulting
+    try:
+        verify_all()
+    except kernels.KernelError as e:
+        message = str(e)
+    else:
+        raise AssertionError("a kernel fault did not raise KernelError")
+    finally:
+        verify.general_verify = real
+    no_fallback("fault", state)
+    code = int(message.split("CUDA error ")[1].split()[0])
+    if code not in kernels.KERNEL_FAULTS:
+        raise AssertionError(f"not a kernel fault: {message}")
+    emit({"phase": "fault", "raised": "KernelError", "code": code,
+          "message": message})
+    return 0
+
+
+def f32_child(i32: dict) -> int:
+    """The f32 phase's child (TM_TPU_FIELD=f32): the f32 library built;
+    the kernels check (K1, K3, K4, K7, K9 and K5, each against its f32
+    plain version) with its verdicts held against the i32 build's
+    digests `i32`; the slice and mixed paths at full width through the
+    entry points, launches and outcomes as in the i32 phases; then each
+    f32 kernel's time, plain time and bound (K1-K4 and K9 at the main
+    path's shapes, K5 and K7 at the kernels check's). No fallback: the
+    library, the kernels and the checks are the f32 build's or the
+    child fails."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import expanded, kernels
+    from tendermint_tpu_torch.crypto.cuda.fieldsel import F as fe
+    from tendermint_tpu_torch.device import set_mesh
+
+    if kernels.FIELD != "f32" or fe.NLIMB != 32 or FIELD != "f32":
+        raise AssertionError("the f32 child runs without the f32 field")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib_path = kernels.build()
+    emit({"phase": "build", "library": str(lib_path.relative_to(
+        kernels.BUILD_ROOT.parent.parent)),
+        "seconds": time.perf_counter() - t0,
+        "nvcc_seconds": kernels.BUILD_INFO.get("seconds"),
+        "ptxas": {k: kernel_ptxas(k) for k in F32_KERNELS}})
+    t0 = time.perf_counter()
+    state = fallback_state()
+    checks = kernel_phase(256, 1024, dev)
+    mesh, _kind = fabric_mesh()
+    set_mesh(mesh)
+    expanded.set_shard_crossover(FABRIC_CROSSOVER)
+    try:
+        k5 = k5_check(dev)
+        k5_row = k5_check_row()
+    finally:
+        expanded.set_shard_crossover(None)
+        set_mesh(None)
+    no_fallback("f32 kernels", state)
+    verdicts = dict(checks.pop("verdicts"), **k5.pop("verdicts"))
+    differ = sorted(k for k in set(i32) | set(verdicts)
+                    if i32.get(k) != verdicts.get(k))
+    if differ:
+        raise AssertionError(f"f32 verdicts differ from the i32 build's: "
+                             f"{differ}")
+    emit({"phase": "kernels", "lanes": 1024, "keys": 256, "checks": checks,
+          "k5_check": k5, "verdicts_equal_i32": sorted(verdicts),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    vs, commit, bid, _seed_of = make_commit(N_VALIDATORS)
+    setup_s = time.perf_counter() - t0
+    state = fallback_state()
+    res = slice_phase(vs, commit, bid)
+    no_fallback("f32 slice", state)
+    emit(dict(phase="slice", validators=N_VALIDATORS, setup_s=setup_s, **res))
+    t0 = time.perf_counter()
+    mvs, mcommit, mbid, secret_of = make_mixed_commit(N_VALIDATORS)
+    setup_s = time.perf_counter() - t0
+    state = fallback_state()
+    mixed = mixed_phase(mvs, mcommit, mbid, secret_of, dev)
+    no_fallback("f32 mixed", state)
+    emit(dict(phase="mixed", validators=N_VALIDATORS, setup_s=setup_s,
+              seconds=time.perf_counter() - t0, **mixed))
+    state = fallback_state()
+    rows = timing_phase(vs, commit, dev)
+    rows = [r for r in rows if r["name"] != "assemble"]  # no field: K2
+    rows += [sr_row(mvs, mcommit, dev), k5_row, k7_row(KEEP["arena"])]
+    no_fallback("f32 timing", state)
+    launches = {}
+    for path in (res, mixed):
+        for kernel, count in path["launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    for r in rows:
+        r["launches"] = launches.get(r["name"], 0)
+        r["ptxas"] = kernel_ptxas(r["name"])
+        r["on_f32_path"] = r["name"] not in F32_CHECK_ONLY
+        r["name"] += "_f32"
+    emit({"kernels": rows})
+    return 0
+
+
+def f32_phase(i32_digests: dict, res: dict, mixed: dict, rows: list) -> list:
+    """Run the f32 child, relay its lines, hold its outcomes to the i32
+    phases', print the two fields' p50s and kernel times side by side,
+    and return its kernels rows."""
+    lines = run_child("f32", "--i32", json.dumps(i32_digests))
+    step = {o.get("phase"): o for o in lines}
+    f32_rows = next(o["kernels"] for o in lines if "kernels" in o)
+    for name, i32_res in (("slice", res), ("mixed", mixed)):
+        for key in ("rejected", "launches"):
+            if step[name][key] != i32_res[key]:
+                raise AssertionError(f"f32 {name} {key}: {step[name][key]} "
+                                     f"against i32 {i32_res[key]}")
+    i32_ms = {r["name"]: r["ms"] for r in rows}
+    emit({"phase": "f32", "step": "compare",
+          "verify_commit_p50_ms": {
+              "i32": res["verify_commit_p50_ms"],
+              "f32": step["slice"]["verify_commit_p50_ms"]},
+          "mixed_verify_commit_p50_ms": {
+              "i32": mixed["verify_commit_p50_ms"],
+              "f32": step["mixed"]["verify_commit_p50_ms"]},
+          "kernel_ms": {r["name"]: {"f32": r["ms"],
+                                    "i32": i32_ms.get(r["name"][:-4])}
+                        for r in f32_rows}})
+    return f32_rows
+
+
 def main() -> int:
     import torch
 
+    if "--phase" in sys.argv:
+        phase = sys.argv[sys.argv.index("--phase") + 1]
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 2
+        if phase == "fault":
+            rc = fault_child()
+            sys.stdout.flush()
+            os._exit(rc)  # the poisoned context is not torn down
+        return f32_child(json.loads(sys.argv[sys.argv.index("--i32") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if FIELD != "i32":
+        print("chip_smoke: run it without TM_TPU_FIELD (its f32 phase sets "
+              "the variable for its own child)", file=sys.stderr)
         return 2
     from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -2256,6 +2585,16 @@ def main() -> int:
     rows.append(k5)
     rows += k8
     no_fallback("timing", state)
+    t0 = time.perf_counter()
+    run_child("fault")
+    emit({"phase": "fault", "seconds": time.perf_counter() - t0, "card": smi})
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the child needs 3.3 GB of f32 tables
+    f32_rows = f32_phase(dict(checks["verdicts"],
+                              **fabric["k5_check"]["verdicts"]),
+                         res, mixed, rows)
+    emit({"phase": "f32", "step": "done", "card": smi,
+          "seconds": time.perf_counter() - t0})
     launches = {}
     for path in (res, spec, mixed, fabric, healing):  # each path's run
         for kernel, count in path["launches"].items():
@@ -2265,7 +2604,7 @@ def main() -> int:
         r["ptxas"] = kernel_ptxas(r["name"])
     emit({"phase": "timing", "card": smi,
           "tolerance": "exact: max_abs_err 0 against the plain version"})
-    emit({"kernels": rows})
+    emit({"kernels": rows + f32_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

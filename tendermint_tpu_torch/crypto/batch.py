@@ -23,11 +23,15 @@ batch first — on the entry's own device for a DeviceBreaker — and a
 passing probe closes the breaker. Two errors are never caught here
 (``UNCAUGHT``): ``NoDeviceError`` (no GPU and no
 ``set_default_device("cpu")``), a configuration error, and
-``KernelError`` (a kernel that fails to build, to launch or to take its
-tensors), a fault of the port. What degrades is a device that raises
-anything else (an injected ``device.verify`` failpoint, a CUDA runtime
-error outside the port's kernels) or that returns a wrong known-answer
-verdict.
+``KernelError``, a fault of the port: a kernel that fails to build, to
+launch or to take its tensors, or that faults while it runs. Every
+CUDA error code is classified by crypto/cuda/kernels.py, whether the
+launch returned it or the synchronisation before a readback did: an
+illegal or misaligned address, an illegal instruction, an assert or a
+trap is KernelError. What degrades is a device that raises anything
+else (an injected ``device.verify`` failpoint, a device-health code
+such as an uncorrectable ECC error or a lost device) or that returns a
+wrong known-answer verdict.
 
 Counters: ``METRICS`` — host_fallbacks, evictions by (entry, reason),
 probes by (backend, result), host_rechecks (a plain dict; the

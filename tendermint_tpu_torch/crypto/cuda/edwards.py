@@ -1,7 +1,8 @@
 """Batched edwards25519 point arithmetic — the plain PyTorch version of
 ``csrc/edwards.cuh``.
 
-Points are (X, Y, Z, T) tuples of (10, N) limb tensors, extended
+Points are (X, Y, Z, T) tuples of (NLIMB, N) limb tensors of the
+selected field (crypto/cuda/fieldsel.py), extended
 coordinates with x = X/Z, y = Y/Z, T = XY/Z. The formulas are the
 reference's exactly (tendermint_tpu/crypto/tpu/edwards.py: complete
 add-2008-hwcd-3 and dbl-2008-hwcd for a = -1), so every intermediate
@@ -19,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import field as fe
+from .fieldsel import F as fe
 
 
 class Point(NamedTuple):
@@ -86,7 +87,7 @@ def is_identity(p: Point) -> torch.Tensor:
 
 
 def decompress(y: torch.Tensor, sign: torch.Tensor) -> tuple[Point, torch.Tensor]:
-    """ZIP-215 decompression. y: (10, N) exact limbs of the low 255
+    """ZIP-215 decompression. y: (NLIMB, N) exact limbs of the low 255
     bits; sign: (N,) int64 top bit. Returns (Point with Z = 1, ok)."""
     n, dev = y.shape[-1], y.device
     one = fe.const(1, n, dev)
@@ -117,21 +118,22 @@ def decompress_bytes(rows: torch.Tensor) -> tuple[Point, torch.Tensor]:
 
 
 def select(table: torch.Tensor, digit: torch.Tensor) -> Point:
-    """Per-lane lookup. table: (W, 4, 10, N); digit: (N,) in [0, W)."""
+    """Per-lane lookup. table: (W, 4, NLIMB, N); digit: (N,) in [0, W)."""
     lanes = torch.arange(table.shape[-1], device=table.device)
-    sel = table[digit, :, :, lanes].permute(1, 2, 0)  # (4, 10, N)
+    sel = table[digit, :, :, lanes].permute(1, 2, 0)  # (4, NLIMB, N)
     return Point(sel[0], sel[1], sel[2], sel[3])
 
 
 def select_const(table: torch.Tensor, digit: torch.Tensor):
-    """Shared-table lookup. table: (W, 3, 10) (x, y, xy with Z = 1);
-    digit: (N,) -> (x, y, t) as (10, N) int64."""
-    sel = table[digit].to(torch.int64).permute(1, 2, 0)  # (3, 10, N)
+    """Shared-table lookup. table: (W, 3, NLIMB) (x, y, xy with Z = 1)
+    in the table dtype; digit: (N,) -> (x, y, t) as (NLIMB, N) limbs."""
+    sel = table[digit].to(fe.DTYPE).permute(1, 2, 0)  # (3, NLIMB, N)
     return sel[0], sel[1], sel[2]
 
 
 def build_window_table(p: Point, width: int = 16) -> torch.Tensor:
-    """[0..width-1] * P as a (width, 4, 10, N) tensor (entry 0 = identity)."""
+    """[0..width-1] * P as a (width, 4, NLIMB, N) tensor (entry 0 =
+    identity)."""
     n = p.x.shape[-1]
     entries = [identity(n, p.x.device), p]
     for _ in range(width - 2):

@@ -31,10 +31,11 @@ shard crossover, split by key range: entry d holds the tables of keys
 [d*K, (d+1)*K), and each launch routes every lane to its key's home
 entry, so a lane's table reads stay on its device.
 
-Layout: the reference pads each 88-int entry to a 128-int TPU row
-(~318 KB per key). Here an entry is 4 coordinates x 10 int32 limbs,
-160 B, so a key's table is 69 * 9 * 160 B = 99,360 B: 1.02 GB for
-10,240 keys.
+Layout: an entry is 4 coordinates x the selected field's limbs
+(crypto/cuda/fieldsel.py): 10 int32 (160 B, 99,360 B a key, 1.02 GB
+for 10,240 keys) or, under TM_TPU_FIELD=f32, 32 float32 (512 B,
+317,952 B a key, 3.26 GB for 10,240 keys). The reference pads its
+88-int i32 entry to a 128-int TPU row; its f32 entry fills the row.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ import torch
 
 from ...device import default_device
 from . import edwards as ed
-from . import field as fe
+from .fieldsel import F as fe
 from . import kernels
 from . import scalar as sc
 from . import sha512 as sh
@@ -61,7 +62,7 @@ logger = logging.getLogger("crypto.cuda.expanded")
 
 _WINDOWS = 69  # scalar.DIGITS_K: folded challenge < 2^271
 _ENTRIES = 9   # signed digits: |d| in 0..8
-TABLE_BYTES_PER_KEY = _WINDOWS * _ENTRIES * 4 * fe.NLIMB * 4
+TABLE_BYTES_PER_KEY = _WINDOWS * _ENTRIES * 4 * fe.NLIMB * 4  # 4-byte limbs
 # Expansion pays off only when the same set verifies repeatedly and the
 # batch is big enough for the device path.
 MIN_EXPAND = 128
@@ -129,7 +130,8 @@ def shard_crossover_keys() -> int:
 
 def build_tables_plain(akeys: torch.Tensor):
     """Plain PyTorch version of K1 (csrc/build_tables.cu).
-    (V, 32) uint8 keys -> ((V, 69, 9, 4, 10) int32 tables, (V,) bool ok)."""
+    (V, 32) uint8 keys -> ((V, 69, 9, 4, NLIMB) tables in the table
+    dtype, (V,) bool ok)."""
     v = akeys.shape[0]
     pt, ok = ed.decompress_bytes(akeys.to(torch.int64).T)
     base = ed.neg(pt)
@@ -141,8 +143,8 @@ def build_tables_plain(akeys: torch.Tensor):
         rows.append(torch.stack([torch.stack(list(e)) for e in entries]))
         for _k in range(4):
             base = ed.double(base)
-    tables = torch.stack(rows)  # (69, 9, 4, 10, V)
-    return tables.permute(4, 0, 1, 2, 3).to(torch.int32).contiguous(), ok
+    tables = torch.stack(rows)  # (69, 9, 4, NLIMB, V)
+    return tables.permute(4, 0, 1, 2, 3).to(fe.TABLE_DTYPE).contiguous(), ok
 
 
 def build_tables(akeys: torch.Tensor):
@@ -154,7 +156,7 @@ def build_tables(akeys: torch.Tensor):
     v = akeys.shape[0]
     kernels.require(akeys, "akeys", torch.uint8, (v, 32), dev)
     tables = torch.empty((v, _WINDOWS, _ENTRIES, 4, fe.NLIMB),
-                         dtype=torch.int32, device=dev)
+                         dtype=fe.TABLE_DTYPE, device=dev)
     ok = torch.empty(v, dtype=torch.bool, device=dev)
     rc = kernels.lib().tm_build_tables(akeys.data_ptr(), tables.data_ptr(),
                                        ok.data_ptr(), v,
@@ -261,7 +263,7 @@ def xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
     neg_r = ed.neg(R)
     acc_a = acc_b = ed.identity(n, dev)
     for w in range(_WINDOWS):
-        e = tables[ki, w, digk[w].abs()].to(torch.int64).permute(1, 2, 0)
+        e = tables[ki, w, digk[w].abs()].to(fe.DTYPE).permute(1, 2, 0)
         neg = (digk[w] < 0)[None]
         qx = torch.where(neg, fe.neg(e[0]), e[0])
         qt = torch.where(neg, fe.neg(e[3]), e[3])
@@ -290,9 +292,10 @@ def xverify(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
     kernels.require(nblocks, "nblocks", torch.int32, (n,), dev)
     kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
     kernels.require(key_ok, "key_ok", torch.bool, (v,), dev)
-    kernels.require(tables, "tables", torch.int32,
+    kernels.require(tables, "tables", fe.TABLE_DTYPE,
                     (v, _WINDOWS, _ENTRIES, 4, fe.NLIMB), dev)
-    kernels.require(btab, "btab", torch.int32, (_WINDOWS, 16, 3, fe.NLIMB), dev)
+    kernels.require(btab, "btab", fe.TABLE_DTYPE, (_WINDOWS, 16, 3, fe.NLIMB),
+                    dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     rc = kernels.lib().tm_xverify(
         idx.data_ptr(), akeys.data_ptr(), sb.data_ptr(), msg.data_ptr(),
@@ -315,7 +318,7 @@ def shard_verify_plain(idx, akeys, sb, s_ok, key_ok, tables, btab, *,
                        patches=None, width: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K5 (csrc/shard_verify.cu) on one shard:
     local key indices idx (n,) i32 into the shard's akeys (K, 32) u8,
-    key_ok (K,) bool and tables (K, 69, 9, 4, 10) i32, signature rows
+    key_ok (K,) bool and tables (K, 69, 9, 4, NLIMB), signature rows
     sb (n, 64) u8, s_ok (n,) bool, the comb btab. The messages are
     either msg (n, W) u8 rows with nblocks (n,) i32, or assembled from
     templates (pre, pre_len, suf, suf_len) and per-lane patches
@@ -348,9 +351,9 @@ def shard_verify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
     kernels.require(sb, "sb", torch.uint8, (n, 64), dev)
     kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
     kernels.require(key_ok, "key_ok", torch.bool, (k,), dev)
-    kernels.require(tables, "tables", torch.int32,
+    kernels.require(tables, "tables", fe.TABLE_DTYPE,
                     (k, _WINDOWS, _ENTRIES, 4, fe.NLIMB), dev)
-    kernels.require(btab, "btab", torch.int32, (_WINDOWS, 16, 3, fe.NLIMB),
+    kernels.require(btab, "btab", fe.TABLE_DTYPE, (_WINDOWS, 16, 3, fe.NLIMB),
                     dev)
     ptrs = [None] * 10
     if msg is not None:
@@ -516,13 +519,15 @@ class ExpandedKeys:
 
     @classmethod
     def from_reference_arrays(cls, pubkeys, tables, key_ok, device=None):
-        """Carry a set built by the reference over. ``tables`` are its
-        (V*69*9, 128) int32 rows (22 twelve-bit limbs per coordinate,
-        88 payload ints then padding) and ``key_ok`` its (V,) flags; or,
-        from a key-range-sharded build, (D, K*69*9, 128) rows and (D, K)
-        flags, which become the per-shard blocks on this port's mesh
-        (it must have D entries). Each entry is decoded mod p and
-        re-encoded in this port's limbs."""
+        """Carry a set built by the reference (under the same
+        TM_TPU_FIELD) over. ``tables`` are its (V*69*9, 128) rows (4
+        coordinates of REF_NLIMB limbs, then padding: 22 twelve-bit
+        int32 limbs, or 32 float32 limbs, the port's own under f32) and
+        ``key_ok`` its (V,) flags; or, from a key-range-sharded build,
+        (D, K*69*9, 128) rows and (D, K) flags, which become the
+        per-shard blocks on this port's mesh (it must have D entries).
+        Each entry is re-encoded in this port's limbs
+        (fe.from_reference)."""
         self = cls.__new__(cls)
         self.pubkeys = tuple(bytes(p) for p in pubkeys)
         self._reshard_lock = threading.Lock()
@@ -533,6 +538,7 @@ class ExpandedKeys:
         a_raw = np.frombuffer(b"".join(self.pubkeys), np.uint8).reshape(-1, 32)
         self.mesh = tv.effective_mesh()
         per_key = _WINDOWS * _ENTRIES
+        payload = 4 * fe.REF_NLIMB
         if rows.ndim == 3:
             d_n, k = ok.shape
             if self.mesh is None or len(self.mesh) != d_n:
@@ -540,8 +546,8 @@ class ExpandedKeys:
                                  f"mesh of {d_n} entries")
             if rows.shape != (d_n, k * per_key, 128) or d_n * k < v:
                 raise ValueError(f"reference tables shape {rows.shape}")
-            conv = fe.from_radix12(
-                rows[:, :, :88].reshape(d_n, k, _WINDOWS, _ENTRIES, 4, 22))
+            conv = fe.from_reference(rows[:, :, :payload].reshape(
+                d_n, k, _WINDOWS, _ENTRIES, 4, fe.REF_NLIMB))
             padded = np.zeros((d_n * k, 32), np.uint8)
             padded[:v] = a_raw
             self._set_shards([
@@ -552,7 +558,8 @@ class ExpandedKeys:
             return self
         if rows.shape != (v * per_key, 128):
             raise ValueError(f"reference tables shape {rows.shape}")
-        conv = fe.from_radix12(rows[:, :88].reshape(v, _WINDOWS, _ENTRIES, 4, 22))
+        conv = fe.from_reference(rows[:, :payload].reshape(
+            v, _WINDOWS, _ENTRIES, 4, fe.REF_NLIMB))
         self.n_shards = 1
         self.keys_per_shard = v
         self.akeys = torch.from_numpy(a_raw.copy()).to(self.device)
@@ -715,7 +722,7 @@ class ExpandedKeys:
             return np.zeros(0, bool)
         self._maybe_reshard()
         idx, packed, well_formed = self._prepare(indices, msgs, sigs)
-        full = self._launch(idx, packed).cpu().numpy()
+        full = kernels.readback(self._launch(idx, packed))
         return full[:n] & well_formed
 
     def _prepare_structured(self, indices, sbatch, sigs):
@@ -792,7 +799,7 @@ class ExpandedKeys:
         self._maybe_reshard()
         idx, fields, well_formed, width = self._prepare_structured(
             indices, sbatch, sigs)
-        full = self._launch_structured(idx, fields, width).cpu().numpy()
+        full = kernels.readback(self._launch_structured(idx, fields, width))
         return full[:n] & well_formed
 
 

@@ -32,6 +32,12 @@ P = 2**255 - 19
 NLIMB = 10
 WIDTHS = (26, 25, 26, 25, 26, 25, 26, 25, 26, 25)
 OFFS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
+# The limbs of the plain version and of a table in device memory.
+DTYPE = torch.int64
+TABLE_DTYPE = torch.int32
+# Limbs per coordinate of the reference's tables (its default field,
+# 22 twelve-bit limbs), which from_reference re-encodes.
+REF_NLIMB = 22
 
 D = (-121665 * pow(121666, P - 2, P)) % P
 D2 = (2 * D) % P
@@ -239,3 +245,6 @@ def from_radix12(limbs: np.ndarray) -> np.ndarray:
     out[0] += 19 * hi
     canon = canonical(torch.from_numpy(out)).numpy()
     return canon.T.reshape(shape + (NLIMB,)).astype(np.int32)
+
+
+from_reference = from_radix12

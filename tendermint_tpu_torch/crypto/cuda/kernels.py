@@ -4,11 +4,20 @@ The sources in ``tendermint_tpu_torch/csrc`` are compiled by hand with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds rather than minutes). The build runs at first use, into
-``build/torch_kernels/<hash of the sources>/`` beside the package, one
-``nvcc -c`` per kernel source started together, then one link. Every
-C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` turns a non-zero code into
-``KernelError``.
+``build/torch_kernels/<field>-<hash>/`` beside the package, one
+``nvcc -c`` per kernel source started together, then one link. The
+field is the one crypto/cuda/fieldsel.py selected: ``i32``, or ``f32``
+(every source compiled with ``-DTM_FIELD_F32``, so the field-bearing
+kernels take csrc/field_f32.cuh); the hash covers the sources, the
+target and the field, so the two builds never share a directory.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` classifies a non-zero code. A fault
+inside a running kernel surfaces later, at a synchronisation:
+``sync`` (``tm_sync``, cudaStreamSynchronize) runs before every
+readback of a kernel's result (``readback``) and classifies the code
+it returns the same way (``error``): by the code, not by where it was
+seen.
 
 Nothing here runs at import: the CPU tests import every module, and
 the CPU has no ``nvcc``.
@@ -25,6 +34,8 @@ import threading
 import time
 from pathlib import Path
 
+from .fieldsel import CHOICE as FIELD
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
@@ -32,6 +43,7 @@ SOURCES = ("build_tables.cu", "assemble.cu", "xverify.cu", "general_verify.cu",
            "splice.cu", "arena_verify.cu", "sr_verify.cu",
            "shard_verify.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FIELD_FLAGS = {"i32": [], "f32": ["-DTM_FIELD_F32"]}[FIELD]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,7 +60,31 @@ _SIGNATURES = {
                         _I, _I, _P, _P),
     "tm_sr_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     "tm_shard_verify": (_P,) * 17 + (_I, _I, _P, _P),
+    "tm_sync": (_P,),
 }
+
+# CUDA runtime error codes (enum cudaError of the CUDA headers), by what
+# they say. A fault inside one of the port's kernels raises
+# KernelError, which no breaker catches (crypto/batch.py UNCAUGHT):
+KERNEL_FAULTS = {
+    700: "cudaErrorIllegalAddress",      # out-of-bounds load or store
+    710: "cudaErrorAssert",              # device-side assert or trap
+    714: "cudaErrorHardwareStackError",  # stack overflow or corruption
+    715: "cudaErrorIllegalInstruction",
+    716: "cudaErrorMisalignedAddress",
+    718: "cudaErrorInvalidPc",
+    719: "cudaErrorLaunchFailure",       # any other fault in a kernel
+}
+# The device's health, not the port's code: an ordinary RuntimeError,
+# which the breakers catch and degrade around.
+DEVICE_HEALTH = {
+    46: "cudaErrorDevicesUnavailable",
+    100: "cudaErrorNoDevice",
+    214: "cudaErrorECCUncorrectable",
+    702: "cudaErrorLaunchTimeout",       # a kernel outran the watchdog
+}
+# Any other code is the port's fault too (a launch refused for its
+# configuration or arguments, say) and raises KernelError.
 
 # Filled by the build: wall seconds and each source's ptxas report.
 BUILD_INFO: dict = {}
@@ -58,10 +94,11 @@ _LIB = None
 
 
 class KernelError(RuntimeError):
-    """A kernel failed to build or launch, or was handed a tensor it
-    does not take. No breaker catches it (crypto/batch.py UNCAUGHT): it
-    is a fault of the port, not a device to degrade around, and it
-    propagates to the caller of the entry point."""
+    """A kernel failed to build, to launch or to run (a CUDA code that
+    is not in DEVICE_HEALTH), or was handed a tensor it does not take.
+    No breaker catches it (crypto/batch.py UNCAUGHT): it is a fault of
+    the port, not a device to degrade around, and it propagates to the
+    caller of the entry point."""
 
 
 def _nvcc() -> str:
@@ -73,7 +110,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(ARCH.encode())
+    h = hashlib.sha256(" ".join([ARCH, *FIELD_FLAGS]).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
@@ -84,7 +121,7 @@ def _digest() -> str:
 def build() -> Path:
     """Compile every source in parallel and link the library; returns
     its path. Reuses a library already built from identical sources."""
-    out_dir = BUILD_ROOT / _digest()
+    out_dir = BUILD_ROOT / f"{FIELD}-{_digest()}"
     lib_path = out_dir / "libtm_kernels.so"
     if lib_path.exists():
         BUILD_INFO.setdefault("seconds", 0.0)
@@ -96,8 +133,9 @@ def build() -> Path:
     procs = []
     for src in SOURCES:
         obj = out_dir / (src[:-3] + ".o")
-        cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-c", str(CSRC / src), "-o", str(obj)]
+        cmd = [nvcc, ARCH, *FIELD_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-c", str(CSRC / src), "-o",
+               str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -140,10 +178,43 @@ def lib() -> ctypes.CDLL:
         return _LIB
 
 
+def error(rc: int, what: str) -> RuntimeError:
+    """The exception for CUDA error code rc: a plain RuntimeError for a
+    DEVICE_HEALTH code, else KernelError."""
+    name = (KERNEL_FAULTS.get(rc) or DEVICE_HEALTH.get(rc)
+            or lib().tm_error_string(rc).decode())
+    msg = f"{what}: CUDA error {rc} ({name})"
+    return RuntimeError(msg) if rc in DEVICE_HEALTH else KernelError(msg)
+
+
 def check(rc: int, name: str) -> None:
+    """Raise for the code an entry point returned after its launch."""
     if rc != 0:
-        msg = lib().tm_error_string(rc).decode()
-        raise KernelError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise error(rc, f"{name} launch failed")
+
+
+def _stream_sync(device, stream) -> int:
+    """cudaStreamSynchronize's code for `stream` (default: the device's
+    current stream); 0 for a CPU device, which runs plain versions."""
+    if device.type != "cuda":
+        return 0
+    ptr = stream.cuda_stream if stream is not None else stream_ptr(device)
+    return lib().tm_sync(ptr)
+
+
+def sync(device, stream=None) -> None:
+    """Wait for the kernels queued on `stream` and raise, classified by
+    ``error``, a CUDA error it reports: a fault inside a kernel shows
+    here, before a readback would raise it as torch's RuntimeError."""
+    rc = _stream_sync(device, stream)
+    if rc != 0:
+        raise error(rc, f"kernel on {device}")
+
+
+def readback(t):
+    """A kernel's result on the host, as numpy, after ``sync``."""
+    sync(t.device)
+    return t.cpu().numpy()
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> None:

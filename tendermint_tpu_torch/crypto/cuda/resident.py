@@ -239,8 +239,8 @@ def _arena_verify_launch(ab, sb, s_ok, active, pre, pre_len, suf, suf_len,
     for name, t in (("split", split), ("patch_len", patch_len),
                     ("group", group)):
         kernels.require(t, name, torch.int32, (n,), dev)
-    kernels.require(btab, "btab", torch.int32, tuple(tv.b_comb_tables().shape),
-                    dev)
+    kernels.require(btab, "btab", tv.fe.TABLE_DTYPE,
+                    tuple(tv.b_comb_tables().shape), dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     rc = kernels.lib().tm_arena_verify(
         ab.data_ptr(), sb.data_ptr(), s_ok.data_ptr(), active.data_ptr(),
@@ -403,7 +403,8 @@ class ResidentArena:
         launch. Returns (capacity,) verdicts — inactive lanes read
         False; callers check verdict[0] (the sentinel) before trusting
         the rest."""
-        return arena_verify(*self.launch_args(), width=self.width).cpu().numpy()
+        return kernels.readback(arena_verify(*self.launch_args(),
+                                             width=self.width))
 
     def buffer_pointer(self, name: str = "sb") -> int:
         """data_ptr() of a resident buffer: a splice leaves it as it
@@ -783,6 +784,7 @@ class MeshResidentArena:
             [blk["device"] for blk in self._blocks],
             lambda b, _dev: mesh_arena_verify(*args[b], width=self.width))
         d_n, per = self.n_shards, self.shard_capacity
+        tv.sync_shards(outs)
         blocks = [o.cpu().numpy().reshape(-1, per) for o in outs]
         o = np.stack([blocks[self._block_of[d]][self._off_of[d] // per]
                       for d in range(d_n)])

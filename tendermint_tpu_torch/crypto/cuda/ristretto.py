@@ -3,7 +3,7 @@ PyTorch version of ``csrc/ristretto.cuh``.
 
 Replaces the reference's tendermint_tpu/crypto/tpu/ristretto.py
 (``sqrt_ratio_m1:30``, ``decode:48``, ``equal:77``, ``_abs``) on the
-port's ten-limb field (crypto/cuda/field.py). Decode costs one
+selected field (crypto/cuda/fieldsel.py). Decode costs one
 sqrt-ratio exponentiation per lane, the same pow_2_252_m3 chain as
 edwards decompression. Encoding never runs on the device: sr25519
 verification needs only "encode(V) == R_bytes", which over the
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import edwards as ed
-from . import field as fe
+from .fieldsel import F as fe
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -32,7 +32,7 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def sqrt_ratio_m1_branches(u: torch.Tensor, v: torch.Tensor):
-    """RFC 9496 §4.2's candidate root of u/v over (10, N) limbs and its
+    """RFC 9496 §4.2's candidate root of u/v over (NLIMB, N) limbs and its
     three tests: (r, correct, flipped, flipped_i), where v * r^2 is u,
     -u and -u * sqrt(-1) respectively."""
     n, dev = u.shape[-1], u.device
@@ -49,7 +49,7 @@ def sqrt_ratio_m1_branches(u: torch.Tensor, v: torch.Tensor):
 
 def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
     """RFC 9496 §4.2 SQRT_RATIO_M1: (was_square (N,) bool, the
-    non-negative root (10, N))."""
+    non-negative root (NLIMB, N))."""
     n, dev = u.shape[-1], u.device
     r, correct, flipped, flipped_i = sqrt_ratio_m1_branches(u, v)
     r = torch.where((flipped | flipped_i)[None],
@@ -72,13 +72,13 @@ def _decode_terms(s: torch.Tensor):
 
 def decode_ratio_branches(s: torch.Tensor):
     """The (correct, flipped, flipped_i) tests of decode's square root
-    for (10, N) encodings s."""
+    for (NLIMB, N) encodings s."""
     one, _u1, _u2, v, u2s = _decode_terms(s)
     return sqrt_ratio_m1_branches(one, fe.mul(v, u2s))[1:]
 
 
 def decode(s: torch.Tensor, pre_ok: torch.Tensor):
-    """RFC 9496 §4.3.1 DECODE of (10, N) limbs of the encodings.
+    """RFC 9496 §4.3.1 DECODE of (NLIMB, N) limbs of the encodings.
     Returns (Point with Z = 1, ok); a failed lane is the identity."""
     one, u1, u2, v, u2s = _decode_terms(s)
     was_square, invsqrt = sqrt_ratio_m1(one, fe.mul(v, u2s))

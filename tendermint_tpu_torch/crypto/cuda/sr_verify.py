@@ -28,7 +28,7 @@ from .. import ed25519_ref as ref
 from ..merlin_batch import sr25519_challenges
 from ...device import default_device
 from . import edwards as ed
-from . import field as fe
+from .fieldsel import F as fe
 from . import kernels
 from . import ristretto as rs
 from . import verify as tv
@@ -105,13 +105,13 @@ def pack_batch_sr(pubs, msgs, sigs, ctx: bytes = b""):
 
 
 def comb_table(device) -> torch.Tensor:
-    """The comb's first 64 windows on the device, (64, 16, 3, 10)
-    int32 (a contiguous view of verify's cached table)."""
+    """The comb's first 64 windows on the device, (64, 16, 3, NLIMB) in
+    the table dtype (a contiguous view of verify's cached table)."""
     return tv._btab(device)[:WINDOWS]
 
 
 def encoding_limbs(ab, rb) -> torch.Tensor:
-    """(N, 32) u8 encodings of A and R -> (10, 2N) limbs of their low
+    """(N, 32) u8 encodings of A and R -> (NLIMB, 2N) limbs of their low
     255 bits, A's lanes first (the kernel's fe_frombytes; bit 255 is
     left to the byte checks)."""
     rows = torch.cat([ab, rb]).to(torch.int64).T  # (32, 2N)
@@ -139,7 +139,8 @@ def sr_points_plain(ab, rb, kdig, sdig, a_pre, r_pre, btab):
 def sr_verify_plain(ab, rb, kdig, sdig, a_pre, r_pre, s_ok, btab):
     """Plain PyTorch version of K9 (csrc/sr_verify.cu). ab, rb (N, 32)
     u8; kdig, sdig (64, N) u8 nibbles LSB first; a_pre, r_pre, s_ok
-    (N,) bool; btab (64, 16, 3, 10) i32 -> (N,) bool."""
+    (N,) bool; btab (64, 16, 3, NLIMB) in the table dtype -> (N,)
+    bool."""
     v, r, a_ok, r_ok = sr_points_plain(ab, rb, kdig, sdig, a_pre, r_pre,
                                        btab)
     return rs.equal(v, r) & a_ok & r_ok & s_ok
@@ -158,8 +159,8 @@ def sr_verify(ab, rb, kdig, sdig, a_pre, r_pre, s_ok, btab):
     kernels.require(sdig, "sdig", torch.uint8, (WINDOWS, n), dev)
     for name, t in (("a_pre", a_pre), ("r_pre", r_pre), ("s_ok", s_ok)):
         kernels.require(t, name, torch.bool, (n,), dev)
-    kernels.require(btab, "btab", torch.int32, (WINDOWS, 16, 3, fe.NLIMB),
-                    dev)
+    kernels.require(btab, "btab", fe.TABLE_DTYPE,
+                    (WINDOWS, 16, 3, fe.NLIMB), dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     rc = kernels.lib().tm_sr_verify(
         ab.data_ptr(), rb.data_ptr(), kdig.data_ptr(), sdig.data_ptr(),
@@ -196,7 +197,7 @@ def verify_batch_sr(pubs, msgs, sigs, ctx: bytes = b"",
         t = tv.to_device(packed, device)
         out = sr_verify(t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"],
                         t["r_pre"], t["s_ok"], comb_table(device))
-        return out.cpu().numpy() & well_formed
+        return kernels.readback(out) & well_formed
     pad = tv.mesh_lane_pad(bucket, mesh) - n
     nibbles = {"kdig": 1, "sdig": 1}
     packed = {k: np.pad(v, [(0, 0), (0, pad)] if k in nibbles else
@@ -205,4 +206,4 @@ def verify_batch_sr(pubs, msgs, sigs, ctx: bytes = b"",
     out = tv.launch_lanes(mesh, packed, lambda d, t: sr_verify(
         t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"], t["r_pre"],
         t["s_ok"], comb_table(t["ab"].device)), lane_axis=nibbles)
-    return out.cpu().numpy()[:n] & well_formed
+    return kernels.readback(out)[:n] & well_formed

@@ -26,7 +26,7 @@ from .. import ed25519_ref as ref
 from ... import device as _device
 from ...device import default_device
 from . import edwards as ed
-from . import field as fe
+from .fieldsel import F as fe
 from . import kernels
 from . import scalar as sc
 from . import sha512 as sh
@@ -45,12 +45,14 @@ _L_WORDS = np.frombuffer(_L.to_bytes(32, "little"), np.uint64)
 
 @functools.cache
 def b_comb_tables() -> np.ndarray:
-    """(69, 16, 3, 10) int32: affine (x, y, x*y) of j * 16^w * B in
-    canonical limbs. Entry (w, 0) is the identity (0, 1, 0); windows
-    64..68 exist only to keep the 69-window loop uniform (S has 64
-    nibbles) and hold the identity throughout. Built once on the host
-    with the pure-Python oracle."""
-    tab = np.zeros((_DIGITS_K, 16, 3, fe.NLIMB), np.int32)
+    """(69, 16, 3, NLIMB): affine (x, y, x*y) of j * 16^w * B in the
+    selected field's canonical limbs, in its table dtype (int32 or
+    float32). Entry (w, 0) is the identity (0, 1, 0); windows 64..68
+    exist only to keep the 69-window loop uniform (S has 64 nibbles)
+    and hold the identity throughout. Built once on the host with the
+    pure-Python oracle."""
+    tab = torch.zeros((_DIGITS_K, 16, 3, fe.NLIMB),
+                      dtype=fe.TABLE_DTYPE).numpy()
     base = ref._B_PT
     for w in range(64):
         acc = ref.IDENTITY
@@ -71,9 +73,10 @@ def b_comb_tables() -> np.ndarray:
 
 
 def b_comb_from_reference(btab22: np.ndarray) -> np.ndarray:
-    """The reference's (69, 16, 3, 22) comb table re-encoded in this
-    port's limbs (the same converter as ExpandedKeys.from_reference_arrays)."""
-    return fe.from_radix12(btab22)
+    """The reference's (69, 16, 3, REF_NLIMB) comb table (built under the
+    same TM_TPU_FIELD) in this port's limbs (the same converter as
+    ExpandedKeys.from_reference_arrays)."""
+    return fe.from_reference(btab22)
 
 
 def pack_batch(pubs, msgs, sigs) -> dict[str, np.ndarray]:
@@ -132,9 +135,9 @@ def _btab_cached(device: str) -> torch.Tensor:
 
 def general_verify_plain(ab, sb, msg, nblocks, s_ok, btab) -> torch.Tensor:
     """Plain PyTorch version of K4 (csrc/general_verify.cu): the same
-    steps on int64 limb tensors. ab (N, 32) u8, sb (N, 64) u8,
-    msg (N, W) u8, nblocks (N,) i32, s_ok (N,) bool, btab
-    (69, 16, 3, 10) i32 -> (N,) bool."""
+    steps on the selected field's limb tensors. ab (N, 32) u8, sb
+    (N, 64) u8, msg (N, W) u8, nblocks (N,) i32, s_ok (N,) bool, btab
+    (69, 16, 3, NLIMB) in the table dtype -> (N,) bool."""
     n = ab.shape[0]
     full = torch.cat([sb[:, :32], ab, msg], dim=1)
     digest = sh.compress_blocks(sh.bytes_to_words(full), nblocks)
@@ -172,7 +175,8 @@ def general_verify(ab, sb, msg, nblocks, s_ok, btab) -> torch.Tensor:
     kernels.require(msg, "msg", torch.uint8, (n, width), dev)
     kernels.require(nblocks, "nblocks", torch.int32, (n,), dev)
     kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
-    kernels.require(btab, "btab", torch.int32, (_DIGITS_K, 16, 3, fe.NLIMB), dev)
+    kernels.require(btab, "btab", fe.TABLE_DTYPE, (_DIGITS_K, 16, 3, fe.NLIMB),
+                    dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     rc = kernels.lib().tm_general_verify(
         ab.data_ptr(), sb.data_ptr(), msg.data_ptr(), width,
@@ -342,9 +346,18 @@ def run_shards(mesh, launch) -> list:
     return outs
 
 
+def sync_shards(outs) -> None:
+    """kernels.sync on the stream of each shard of a run_shards call,
+    before its results are read: a fault in a shard's kernel raises
+    there, classified by its CUDA code."""
+    for d, o in enumerate(outs):
+        kernels.sync(o.device, _STREAMS.get((d, str(o.device))))
+
+
 def gather(outs) -> torch.Tensor:
     """The shards' verdicts, concatenated in mesh order on the first
-    entry's device (call after run_shards)."""
+    entry's device (call after run_shards; syncs the shards first)."""
+    sync_shards(outs)
     dev = outs[0].device
     return torch.cat([o.to(dev) for o in outs])
 
@@ -451,6 +464,6 @@ def verify_batch(pubs, msgs, sigs, device=None) -> np.ndarray:
             t = to_device(packed, device)
             res = general_verify(t["ab"], t["sb"], t["msg"], t["nblocks"],
                                  t["s_ok"], _btab(device))
-        out[start:end] = res.cpu().numpy()[: end - start]
+        out[start:end] = kernels.readback(res)[: end - start]
         start = end
     return out & well_formed

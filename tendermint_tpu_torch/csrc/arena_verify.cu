@@ -25,6 +25,10 @@
 // top nibble, an add per nonzero nibble of k and of S, the tail),
 // ~3.2e5 int32 products a lane. Bytes per lane are ~140 (key,
 // signature, patch, three ints, two flags), far below that.
+// The f32 build (-DTM_FIELD_F32, TM_TPU_FIELD=f32) compiles this source
+// on field_f32.cuh: the same steps, bound by FP32 FMAs (1,024 a
+// multiply, 528 a squaring) in place of the int32 products, with
+// a per-lane table of 16 x 512 B.
 #include "general_lane.cuh"
 #include "sign_bytes.cuh"
 
@@ -42,7 +46,7 @@ __global__ void k_arena_verify(const uint8_t* __restrict__ ab,
                                const int32_t* __restrict__ split,
                                const int32_t* __restrict__ patch_len,
                                const int32_t* __restrict__ group,
-                               const int32_t* __restrict__ btab, int n,
+                               const fe_limb* __restrict__ btab, int n,
                                int width, uint8_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -80,6 +84,6 @@ extern "C" int tm_arena_verify(const void* ab, const void* sb, const void* s_ok,
       (const uint8_t*)active, (const uint8_t*)pre, (const int32_t*)pre_len,
       (const uint8_t*)suf, (const int32_t*)suf_len, (const uint8_t*)patch,
       (const int32_t*)split, (const int32_t*)patch_len, (const int32_t*)group,
-      (const int32_t*)btab, n, width, (uint8_t*)out);
+      (const fe_limb*)btab, n, width, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -20,11 +20,16 @@
 // make 1.0 GB of tables, and 80 GB leaves no reason to chunk. Low
 // occupancy (10,240 threads) and register spills are expected here and
 // recorded, not fixed.
+// The f32 build (-DTM_FIELD_F32, TM_TPU_FIELD=f32) compiles this source
+// on field_f32.cuh: the same steps, bound by FP32 FMAs (1,024 a
+// multiply, 528 a squaring) in place of the int32 products, with
+// entries of 4 x 32 float32 limbs (512 B, 318 KB a key, 3.26 GB at
+// 10,240 keys).
 #include "common.cuh"
 #include "edwards.cuh"
 
 __global__ void k_build_tables(const uint8_t* __restrict__ akeys,
-                               int32_t* __restrict__ tables,
+                               fe_limb* __restrict__ tables,
                                uint8_t* __restrict__ ok, int nkeys) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= nkeys) return;
@@ -32,10 +37,10 @@ __global__ void k_build_tables(const uint8_t* __restrict__ akeys,
   const bool okv = ge_decompress(a, akeys + 32 * (long)v);
   ge base, e;
   ge_neg(base, a);
-  int32_t* out = tables + (long)v * TM_WINDOWS * TM_ENTRIES * TM_ENTRY_INTS;
+  fe_limb* out = tables + (long)v * TM_WINDOWS * TM_ENTRIES * TM_ENTRY_INTS;
 #pragma unroll 1
   for (int w = 0; w < TM_WINDOWS; ++w) {
-    int32_t* row = out + w * TM_ENTRIES * TM_ENTRY_INTS;
+    fe_limb* row = out + w * TM_ENTRIES * TM_ENTRY_INTS;
     ge_identity(e);
     ge_store(row, e);
     e = base;
@@ -55,10 +60,17 @@ extern "C" int tm_build_tables(const void* akeys, void* tables, void* ok,
                                int nkeys, void* stream) {
   if (nkeys <= 0) return 0;
   k_build_tables<<<tm_blocks(nkeys), TM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)akeys, (int32_t*)tables, (uint8_t*)ok, nkeys);
+      (const uint8_t*)akeys, (fe_limb*)tables, (uint8_t*)ok, nkeys);
   return (int)cudaGetLastError();
 }
 
 extern "C" const char* tm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Wait for the stream; its code names a fault inside a kernel queued on
+// it (or an earlier one: such errors are sticky), which the launch's
+// own cudaGetLastError() cannot see. crypto/cuda/kernels.py classifies.
+extern "C" int tm_sync(void* stream) {
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
 }

@@ -13,4 +13,6 @@ static inline unsigned tm_blocks(long n) {
 
 #define TM_WINDOWS 69
 #define TM_ENTRIES 9
-#define TM_ENTRY_INTS 40  // 4 coordinates x 10 limbs
+// One table entry: 4 coordinates x FE_NLIMB limbs of type fe_limb (the
+// field header's: 10 int32, or 32 float under -DTM_FIELD_F32).
+#define TM_ENTRY_INTS (4 * FE_NLIMB)

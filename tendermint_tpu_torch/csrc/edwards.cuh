@@ -1,4 +1,6 @@
-// edwards25519 point arithmetic, one point per thread (B4 of the port).
+// edwards25519 point arithmetic, one point per thread (B4 of the port),
+// on the field the build selects: field_f32.cuh under -DTM_FIELD_F32
+// (TM_TPU_FIELD=f32, crypto/cuda/kernels.py), else field.cuh.
 //
 // Replaces tendermint_tpu/crypto/tpu/edwards.py (add, add_z1, double,
 // decompress, select/select_const, build_window_table). The plain
@@ -8,7 +10,11 @@
 // coordinate by coordinate. Every op may write its result over an
 // input: inputs are read in full before the first output limb.
 #pragma once
+#ifdef TM_FIELD_F32
+#include "field_f32.cuh"
+#else
 #include "field.cuh"
+#endif
 
 struct ge {
   fe X, Y, Z, T;
@@ -145,29 +151,29 @@ static __device__ __noinline__ bool ge_decompress(ge& r, const uint8_t* s) {
   return ok;
 }
 
-// One table entry of 4 coordinates x 10 limbs.
-static __device__ __forceinline__ void ge_load(ge& p, const int32_t* src) {
+// One table entry of 4 coordinates x FE_NLIMB limbs.
+static __device__ __forceinline__ void ge_load(ge& p, const fe_limb* src) {
   fe_load(p.X, src);
-  fe_load(p.Y, src + 10);
-  fe_load(p.Z, src + 20);
-  fe_load(p.T, src + 30);
+  fe_load(p.Y, src + FE_NLIMB);
+  fe_load(p.Z, src + 2 * FE_NLIMB);
+  fe_load(p.T, src + 3 * FE_NLIMB);
 }
 
-static __device__ __forceinline__ void ge_store(int32_t* dst, const ge& p) {
+static __device__ __forceinline__ void ge_store(fe_limb* dst, const ge& p) {
   fe_store(dst, p.X);
-  fe_store(dst + 10, p.Y);
-  fe_store(dst + 20, p.Z);
-  fe_store(dst + 30, p.T);
+  fe_store(dst + FE_NLIMB, p.Y);
+  fe_store(dst + 2 * FE_NLIMB, p.Z);
+  fe_store(dst + 3 * FE_NLIMB, p.T);
 }
 
 // acc += the fixed-base comb entry btab[w][digit] (x, y, xy; Z = 1),
-// btab laid out (69, 16, 3, 10).
-static __device__ __forceinline__ void ge_add_comb(ge& acc, const int32_t* btab, int w,
+// btab laid out (69, 16, 3, FE_NLIMB).
+static __device__ __forceinline__ void ge_add_comb(ge& acc, const fe_limb* btab, int w,
                                             int digit) {
-  const int32_t* e = btab + (w * 16 + digit) * 30;
+  const fe_limb* e = btab + (w * 16 + digit) * 3 * FE_NLIMB;
   fe bx, by, bt;
   fe_load(bx, e);
-  fe_load(by, e + 10);
-  fe_load(bt, e + 20);
+  fe_load(by, e + FE_NLIMB);
+  fe_load(bt, e + 2 * FE_NLIMB);
   ge_add_z1(acc, acc, bx, by, bt);
 }

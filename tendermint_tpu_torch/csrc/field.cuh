@@ -15,6 +15,10 @@
 #pragma once
 #include <stdint.h>
 
+// The layout the tables take (common.cuh TM_ENTRY_INTS, edwards.cuh).
+#define FE_NLIMB 10
+typedef int32_t fe_limb;
+
 struct fe {
   int32_t v[10];
 };
@@ -159,41 +163,6 @@ static __device__ __forceinline__ int fe_parity(const fe& a) {
   return c.v[0] & 1;
 }
 
-static __device__ __forceinline__ void fe_nsquare(fe& out, const fe& a, int n) {
-  out = a;
-#pragma unroll 1
-  for (int i = 0; i < n; ++i) fe_sqr(out, out);
-}
-
-// z^(2^252 - 3): the reference's addition chain.
-static __device__ __noinline__ void fe_pow22523(fe& out, const fe& z) {
-  fe z2, z9, z11, z_5_0, z_10_0, z_20_0, z_40_0, z_50_0, z_100_0, z_200_0,
-      z_250_0, t;
-  fe_sqr(z2, z);
-  fe_sqr(t, z2);
-  fe_sqr(t, t);
-  fe_mul(z9, t, z);
-  fe_mul(z11, z9, z2);
-  fe_sqr(t, z11);
-  fe_mul(z_5_0, t, z9);
-  fe_nsquare(t, z_5_0, 5);
-  fe_mul(z_10_0, t, z_5_0);
-  fe_nsquare(t, z_10_0, 10);
-  fe_mul(z_20_0, t, z_10_0);
-  fe_nsquare(t, z_20_0, 20);
-  fe_mul(z_40_0, t, z_20_0);
-  fe_nsquare(t, z_40_0, 10);
-  fe_mul(z_50_0, t, z_10_0);
-  fe_nsquare(t, z_50_0, 50);
-  fe_mul(z_100_0, t, z_50_0);
-  fe_nsquare(t, z_100_0, 100);
-  fe_mul(z_200_0, t, z_100_0);
-  fe_nsquare(t, z_200_0, 50);
-  fe_mul(z_250_0, t, z_50_0);
-  fe_nsquare(t, z_250_0, 2);
-  fe_mul(out, t, z);
-}
-
 // Exact limbs of the low 255 bits of a 32-byte little-endian encoding
 // (the top bit is the caller's sign bit and is masked off here).
 static __device__ __forceinline__ void fe_frombytes(fe& out, const uint8_t* s) {
@@ -214,12 +183,12 @@ static __device__ __forceinline__ void fe_frombytes(fe& out, const uint8_t* s) {
   }
 }
 
-static __device__ __forceinline__ void fe_load(fe& out, const int32_t* src) {
+static __device__ __forceinline__ void fe_load(fe& out, const fe_limb* src) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) out.v[i] = src[i];
 }
 
-static __device__ __forceinline__ void fe_store(int32_t* dst, const fe& a) {
+static __device__ __forceinline__ void fe_store(fe_limb* dst, const fe& a) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) dst[i] = a.v[i];
 }
@@ -242,3 +211,5 @@ static __device__ __forceinline__ void fe_const_sqrtm1(fe& out) {
                          33281959, 41962654, 31548777, 326685, 11406482};
   fe_set(out, c);
 }
+
+#include "fe_pow.cuh"

@@ -19,7 +19,7 @@
 // message row of `width` bytes (any address space) with nb blocks.
 static __device__ __forceinline__ bool tm_verify_lane(
     const uint8_t* pub, const uint8_t* sig, const uint8_t* msg, int width,
-    int nb, bool s_ok, const int32_t* __restrict__ btab) {
+    int nb, bool s_ok, const fe_limb* __restrict__ btab) {
   const int maxb = (64 + width) / 128;
   if (nb > maxb) nb = maxb;
   uint8_t dig[64];

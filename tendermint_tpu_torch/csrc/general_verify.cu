@@ -16,6 +16,10 @@
 // Bytes per lane are ~300 (key, signature, message), far below the
 // operation time. Design: one thread per lane running the per-lane body
 // of general_lane.cuh, which K7 shares.
+// The f32 build (-DTM_FIELD_F32, TM_TPU_FIELD=f32) compiles this source
+// on field_f32.cuh: the same steps, bound by FP32 FMAs (1,024 a
+// multiply, 528 a squaring) in place of the int32 products, with
+// a per-lane table of 16 x 512 B.
 #include "general_lane.cuh"
 
 __global__ void k_general_verify(const uint8_t* __restrict__ ab,
@@ -23,7 +27,7 @@ __global__ void k_general_verify(const uint8_t* __restrict__ ab,
                                  const uint8_t* __restrict__ msg, int width,
                                  const int32_t* __restrict__ nblocks,
                                  const uint8_t* __restrict__ s_ok,
-                                 const int32_t* __restrict__ btab, int n,
+                                 const fe_limb* __restrict__ btab, int n,
                                  uint8_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -41,7 +45,7 @@ extern "C" int tm_general_verify(const void* ab, const void* sb, const void* msg
   if (n <= 0) return 0;
   k_general_verify<<<tm_blocks(n), TM_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)ab, (const uint8_t*)sb, (const uint8_t*)msg, width,
-      (const int32_t*)nblocks, (const uint8_t*)s_ok, (const int32_t*)btab, n,
+      (const int32_t*)nblocks, (const uint8_t*)s_ok, (const fe_limb*)btab, n,
       (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 // (B10 of the port).
 //
 // Replaces tendermint_tpu/crypto/tpu/ristretto.py (sqrt_ratio_m1:30,
-// decode:48, equal:77, _abs) on the fe/ge types of field.cuh and
-// edwards.cuh. Plain PyTorch version: crypto/cuda/ristretto.py, the
-// same steps in the same order, so a lane's limbs match it exactly.
+// decode:48, equal:77, _abs) on the fe/ge types of edwards.cuh and
+// the field header it selects (field.cuh, or field_f32.cuh). Plain
+// PyTorch version: crypto/cuda/ristretto.py, the same steps in the same
+// order, so a lane's limbs match it exactly.
 // Encoding never runs here: sr25519 verification needs only ristretto
 // equality of V and decode(R), X1*Y2 == Y1*X2 or Y1*Y2 == X1*X2.
 //

@@ -23,6 +23,10 @@
 // per nonzero nibble of S, two adds and three doublings (~1.3e5 int32
 // products). Bytes: the table entries a lane gathers (up to 69 * 160 B)
 // and ~100 B of lane data. Design: one thread per lane, as K3.
+// The f32 build (-DTM_FIELD_F32, TM_TPU_FIELD=f32) compiles this source
+// on field_f32.cuh: the same steps, bound by FP32 FMAs (1,024 a
+// multiply, 528 a squaring) in place of the int32 products, with
+// table entries of 512 B.
 #include "sign_bytes.cuh"
 #include "xverify_lane.cuh"
 
@@ -31,8 +35,8 @@
 __global__ void k_shard_verify(
     const int32_t* __restrict__ idx, const uint8_t* __restrict__ akeys,
     const uint8_t* __restrict__ sb, const uint8_t* __restrict__ s_ok,
-    const uint8_t* __restrict__ key_ok, const int32_t* __restrict__ tables,
-    const int32_t* __restrict__ btab, const uint8_t* __restrict__ msg,
+    const uint8_t* __restrict__ key_ok, const fe_limb* __restrict__ tables,
+    const fe_limb* __restrict__ btab, const uint8_t* __restrict__ msg,
     const int32_t* __restrict__ nblocks, const uint8_t* __restrict__ pre,
     const int32_t* __restrict__ pre_len, const uint8_t* __restrict__ suf,
     const int32_t* __restrict__ suf_len, const uint8_t* __restrict__ patch,
@@ -86,8 +90,8 @@ extern "C" int tm_shard_verify(
     return (int)cudaErrorInvalidValue;
   k_shard_verify<<<tm_blocks(n), TM_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)idx, (const uint8_t*)akeys, (const uint8_t*)sb,
-      (const uint8_t*)s_ok, (const uint8_t*)key_ok, (const int32_t*)tables,
-      (const int32_t*)btab, (const uint8_t*)msg, (const int32_t*)nblocks,
+      (const uint8_t*)s_ok, (const uint8_t*)key_ok, (const fe_limb*)tables,
+      (const fe_limb*)btab, (const uint8_t*)msg, (const int32_t*)nblocks,
       (const uint8_t*)pre, (const int32_t*)pre_len, (const uint8_t*)suf,
       (const int32_t*)suf_len, (const uint8_t*)patch, (const int32_t*)split,
       (const int32_t*)patch_len, (const int32_t*)group, width, n,

@@ -21,6 +21,10 @@
 // per-lane shape of K4, sharing its __device__ functions; the digits
 // arrive as (64, N) nibble rows so neighbouring threads read
 // neighbouring bytes.
+// The f32 build (-DTM_FIELD_F32, TM_TPU_FIELD=f32) compiles this source
+// on field_f32.cuh: the same steps, bound by FP32 FMAs (1,024 a
+// multiply, 528 a squaring) in place of the int32 products, with
+// a per-lane table of 16 x 512 B.
 #include "common.cuh"
 #include "ristretto.cuh"
 
@@ -33,7 +37,7 @@ __global__ void k_sr_verify(const uint8_t* __restrict__ ab,
                             const uint8_t* __restrict__ a_pre,
                             const uint8_t* __restrict__ r_pre,
                             const uint8_t* __restrict__ s_ok,
-                            const int32_t* __restrict__ btab, int n,
+                            const fe_limb* __restrict__ btab, int n,
                             uint8_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -70,6 +74,6 @@ extern "C" int tm_sr_verify(const void* ab, const void* rb, const void* kdig,
   k_sr_verify<<<tm_blocks(n), TM_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)ab, (const uint8_t*)rb, (const uint8_t*)kdig,
       (const uint8_t*)sdig, (const uint8_t*)a_pre, (const uint8_t*)r_pre,
-      (const uint8_t*)s_ok, (const int32_t*)btab, n, (uint8_t*)out);
+      (const uint8_t*)s_ok, (const fe_limb*)btab, n, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,10 @@
 // 10,240 lanes, ~34 us at 3.35 TB/s), plus the message.
 // Design: one thread per lane running the per-lane body of
 // xverify_lane.cuh, which K5 shares; field multiplies out of line.
+// The f32 build (-DTM_FIELD_F32, TM_TPU_FIELD=f32) compiles this source
+// on field_f32.cuh: the same steps, bound by FP32 FMAs (1,024 a
+// multiply, 528 a squaring) in place of the int32 products, with
+// table entries of 512 B (up to 35 KB gathered a lane).
 #include "xverify_lane.cuh"
 
 __global__ void k_xverify(const int32_t* __restrict__ idx,
@@ -29,8 +33,8 @@ __global__ void k_xverify(const int32_t* __restrict__ idx,
                           const int32_t* __restrict__ nblocks,
                           const uint8_t* __restrict__ s_ok,
                           const uint8_t* __restrict__ key_ok,
-                          const int32_t* __restrict__ tables,
-                          const int32_t* __restrict__ btab, int n,
+                          const fe_limb* __restrict__ tables,
+                          const fe_limb* __restrict__ btab, int n,
                           uint8_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -51,7 +55,7 @@ extern "C" int tm_xverify(const void* idx, const void* akeys, const void* sb,
   k_xverify<<<tm_blocks(n), TM_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)idx, (const uint8_t*)akeys, (const uint8_t*)sb,
       (const uint8_t*)msg, width, (const int32_t*)nblocks,
-      (const uint8_t*)s_ok, (const uint8_t*)key_ok, (const int32_t*)tables,
-      (const int32_t*)btab, n, (uint8_t*)out);
+      (const uint8_t*)s_ok, (const uint8_t*)key_ok, (const fe_limb*)tables,
+      (const fe_limb*)btab, n, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

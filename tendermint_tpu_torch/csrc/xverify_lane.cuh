@@ -20,8 +20,8 @@
 // [8]([S]B - [k]A - R) is the identity; the caller ANDs s_ok and key_ok.
 static __device__ __forceinline__ bool tm_xverify_lane(
     const uint8_t* pub, const uint8_t* sig, const uint8_t* msg, int width,
-    int nb, const int32_t* __restrict__ tab,
-    const int32_t* __restrict__ btab) {
+    int nb, const fe_limb* __restrict__ tab,
+    const fe_limb* __restrict__ btab) {
   const int maxb = (64 + width) / 128;
   if (nb > maxb) nb = maxb;
   uint8_t dig[64];

@@ -5,10 +5,13 @@ Every verify_commit* variant collects its exact verification set first
 and executes it as ONE device batch with per-lane verdicts. Large
 all-ed25519 sets route through crypto/cuda/expanded.py: per-validator
 comb tables cached on the GPU across heights, with the sign bytes
-assembled on the device. A device failure on that path (a build or
-launch that raises) opens the ed25519 breaker (crypto/batch.py) and
-the batch degrades to the BatchVerifier, which itself degrades device
--> host; a commit verify never fails for a device's sake."""
+assembled on the device. A device failure on that path (an error the
+breakers catch: a device-health CUDA code, or any error that is not
+the port's own, crypto/batch.py) opens the ed25519 breaker and the
+batch degrades to the BatchVerifier, which itself degrades device ->
+host; a commit verify never fails for a device's sake. A fault of the
+port's kernels (KernelError: a build, a launch, or a CUDA code such as
+an illegal address seen at the sync before the readback) raises."""
 
 from __future__ import annotations
 

@@ -482,3 +482,64 @@ def test_kernel_error_is_never_swallowed(monkeypatch, ed_lanes, ladder):
     assert cbatch.breaker_states() == states
     assert cbatch.device_breaker_states() == {}
     assert cbatch.METRICS == before
+
+
+@pytest.mark.parametrize("code", [700, 214])
+@pytest.mark.parametrize("ladder", ["batch_verifier", "expanded",
+                                    "speculation"])
+def test_kernel_fault_at_the_sync_is_classified_by_its_code(
+        monkeypatch, ed_lanes, ladder, code):
+    """A fault inside a running kernel shows at the synchronisation
+    before its result is read back (kernels.sync, which every readback
+    and every shard gather runs first), not at its launch. The CUDA
+    code decides, wherever it is seen: an illegal address (700) raises
+    KernelError through every ladder — the BatchVerifier's,
+    _batch_verify_lanes' expanded route, the speculation plane's flush
+    on a mesh arena — with the breakers closed and the counters
+    untouched; an uncorrectable ECC error (214), the device's health,
+    is an ordinary error that opens the ed25519 breaker and degrades to
+    the host, one host fallback."""
+    from tendermint_tpu_torch.types.validator_set import VerificationError
+
+    import test_torch_speculation as tts
+
+    monkeypatch.setattr(kernels, "_stream_sync", lambda device, stream: code)
+    before = {k: (dict(v) if isinstance(v, dict) else v)
+              for k, v in cbatch.METRICS.items()}
+    fault = code in kernels.KERNEL_FAULTS
+    assert fault != (code in kernels.DEVICE_HEALTH)
+    pubs, msgs, sigs, expect = ed_lanes
+    if ladder == "batch_verifier":
+        if fault:
+            with pytest.raises(kernels.KernelError, match="CUDA error 700"):
+                _bv(cbatch, ped25519, pubs, msgs, sigs)
+        else:
+            assert _bv(cbatch, ped25519, pubs, msgs,
+                       sigs)[1].tolist() == expect.tolist()
+    elif ladder == "expanded":
+        _, vs, bid, commit = _expanded_commit()
+        assert vs._use_expanded(list(range(len(vs.validators))))
+        with pytest.raises(kernels.KernelError if fault
+                           else VerificationError):
+            vs.verify_commit("c", bid, 9, commit)
+    else:
+        world = tts.World("port")
+        plane = world.plane()
+        plane.begin_height(tts.CHAIN, world.vs, tts.H, 0, world.bid)
+        for i in range(3):
+            plane.observe_precommit(world.vote(i, tts._ts(i)))
+        if fault:
+            with pytest.raises(kernels.KernelError):
+                plane.flush_sync()
+        else:
+            plane.flush_sync()
+            lanes = plane._heights[tts.H].lanes
+            assert [lanes[i].verdict for i in range(3)] == [True] * 3
+    if fault:
+        assert cbatch.breaker_states() == {"ed25519": "closed",
+                                           "sr25519": "closed"}
+        assert cbatch.device_breaker_states() == {}
+        assert cbatch.METRICS == before
+    else:
+        assert cbatch.breaker_states()["ed25519"] == "open"
+        assert cbatch.METRICS["host_fallbacks"] == before["host_fallbacks"] + 1

@@ -34,6 +34,7 @@ def test_port_sources_import_no_jax_and_no_reference():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {f"tendermint_tpu_torch/{m}.py" for m in (
         "crypto/merlin", "crypto/merlin_batch", "crypto/sr25519_ref",
+        "crypto/cuda/fieldsel", "crypto/cuda/field_f32",
         "crypto/sr25519", "crypto/cuda/ristretto", "crypto/cuda/sr_verify",
         "types/evidence", "evidence/verify", "libs/__init__", "libs/clock",
         "libs/net", "libs/failpoints")} <= names

@@ -264,12 +264,11 @@ def test_device_path_fallbacks_by_input():
     assert plane._arena is None
 
 
-def test_failed_sentinel_raises(monkeypatch):
-    """A launch whose sentinel reads false no longer raises out of
-    flush_sync (the name is kept from when it did): as in the
-    reference, the single arena cannot attribute it, so the backend
-    ed25519 breaker opens, the burst re-verifies on the host (one host
-    recheck) and the lanes keep correct verdicts."""
+def test_failed_sentinel_opens_breaker_and_rechecks_on_host(monkeypatch):
+    """A launch whose sentinel reads false does not raise out of
+    flush_sync: as in the reference, the single arena cannot attribute
+    it, so the backend ed25519 breaker opens, the burst re-verifies on
+    the host (one host recheck) and the lanes keep correct verdicts."""
     from tendermint_tpu_torch.crypto import batch as cbatch
 
     w = World("port")
