@@ -76,7 +76,12 @@ Phases, each printing one JSON line:
    launches taken back out of the counts;
 9. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
-   plain version on those inputs;
+   plain version on those inputs; for the kernels that spread a key or
+   a lane over many threads (K1, K3, K5, in both fields) the launch
+   shapes (grid, block, dynamic shared memory, resident warps an SM
+   from cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and
+   stack) and the ptxas spills: each launch must run at least 4
+   threads a key or lane, with no spills;
 10. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
@@ -107,6 +112,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,9 +132,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FP32_FMA_PER_S = 132 * 128 * 1.98e9
 # The operation bound counts the products of the field multiplies the
 # function needs: in the i32 field int32 x int32 -> int64 products in
-# radix 2^25.5 (ten limbs), 100 for a multiply, 55 for a squaring (the
-# kernels' fe_sqr reuses fe_mul and so does 100), against the int32
-# rate; in the f32 field FP32 FMAs over 32 limbs, 1,024 for a multiply,
+# radix 2^25.5 (ten limbs), 100 for a multiply, 55 for a squaring (as
+# the kernels' fe_sqr forms them), against the int32 rate; in the f32 field FP32 FMAs over 32 limbs, 1,024 for a multiply,
 # 528 for a squaring, against the FMA rate. Point ops use the
 # reference's formulas; SHA-512, the fold, additions and carries are not
 # counted, so the bound is a floor.
@@ -180,9 +185,18 @@ SOURCES = {
     "mesh_arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
 }
 # The __global__ function of each row (K8's splice and verify are K6's
-# and K7's kernels).
+# and K7's kernels; K1 is two launches, the chain's and the rows').
 GLOBALS = {name: "k_" + name for name in SOURCES}
-GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify")
+GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify",
+               build_tables=("k_build_chain", "k_build_rows"))
+# The kernels spread over many threads a key or lane (K1, K3, K5): the
+# shape export of each and its number of launches
+# (kernels.launch_shapes). Each launch must run at least
+# MIN_THREADS_PER_ITEM threads a key or lane, with no spills.
+SHAPE_EXPORTS = {"build_tables": ("tm_build_tables_shape", 2),
+                 "xverify": ("tm_xverify_shape", 1),
+                 "shard_verify": ("tm_shard_verify_shape", 1)}
+MIN_THREADS_PER_ITEM = 4
 SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
 SPEC_KERNELS = ("splice", "clear", "arena_verify")
 MIXED_KERNELS = ("general_verify", "sr_verify")
@@ -261,12 +275,47 @@ def ptxas_summary(log: str, fn: str) -> dict:
 
 
 def kernel_ptxas(name: str) -> dict:
-    """ptxas_summary of the kernels line's row `name`."""
+    """ptxas_summary of the kernels line's row `name` (of each of its
+    __global__ functions, by name, where it has several)."""
     from tendermint_tpu_torch.crypto.cuda import kernels
 
     log = kernels.BUILD_INFO.get("ptxas", {}).get(
         SOURCES[name].rsplit("/", 1)[1], "")
-    return ptxas_summary(log, GLOBALS[name])
+    fns = GLOBALS[name]
+    if isinstance(fns, tuple):
+        return {fn: ptxas_summary(log, fn) for fn in fns}
+    return ptxas_summary(log, fns)
+
+
+def spill_bytes(summary: dict) -> int:
+    """Spill stores plus loads in a kernel_ptxas report."""
+    subs = (list(summary.values()) if summary and all(
+        isinstance(v, dict) for v in summary.values()) else [summary])
+    return sum(int(x) for sub in subs
+               for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                   sub.get("frame", "")))
+
+
+def launch_info(name: str, n: int, *form) -> dict:
+    """How a redesigned kernel (SHAPE_EXPORTS) launches for n keys or
+    lanes on this card: each launch's grid, block, dynamic shared bytes,
+    resident warps an SM, registers and stack (the runtime's), the
+    threads a key or lane, and the ptxas spills. Fails unless every
+    launch runs at least MIN_THREADS_PER_ITEM threads a key or lane and
+    nothing spills."""
+    from tendermint_tpu_torch.crypto.cuda import kernels
+
+    export, count = SHAPE_EXPORTS[name]
+    shapes = kernels.launch_shapes(export, n, *form, launches=count)
+    for s in shapes:
+        s["threads_per_item"] = s["blocks"] * s["threads"] / n
+    ptxas = kernel_ptxas(name)
+    out = {"served": n, "launches": shapes, "ptxas": ptxas,
+           "spill_bytes": spill_bytes(ptxas)}
+    if (min(s["threads_per_item"] for s in shapes) < MIN_THREADS_PER_ITEM
+            or out["spill_bytes"] or not ptxas):
+        raise AssertionError(f"{name} launch shape: {out}")
+    return out
 
 
 def max_abs_diff(a, b) -> int:
@@ -1199,6 +1248,7 @@ def k5_check_row() -> dict:
                 cuda_ms(lambda: expanded.shard_verify(*args, **kw), 10), p_ms,
                 ops, nbytes)
     row["lanes"] = int(s_idx.shape[0])
+    row["launch"] = launch_info("shard_verify", row["lanes"], 0)
     return row
 
 
@@ -1437,6 +1487,7 @@ def k5_row(exp, commit, lanes, dev):
     row = entry("shard_verify", max_abs_diff(v_k, v_p), shard_ms[0], p_ms,
                 ops, nbytes)
     row["lanes"] = int(s_idx.shape[0])
+    row["launch"] = launch_info("shard_verify", row["lanes"], 1)
     return row, {"per_shard": shard_ms[:-1], "all_shards": shard_ms[-1]}
 
 
@@ -2050,6 +2101,7 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     nbytes = n * 32 + tab_k.numel() * 4 + n
     del tab_k
     rows.append(entry("build_tables", err, cuda_ms(k1, 3), p_ms, ops, nbytes))
+    rows[-1]["launch"] = launch_info("build_tables", n)
     torch.cuda.empty_cache()
     # K2 at the commit's shape
     aargs = (f["pre"], f["pre_len"], f["suf"], f["suf_len"], f["patch"],
@@ -2079,6 +2131,7 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     rows.append(entry("xverify", err,
                       cuda_ms(lambda: expanded.xverify(*xargs), 10),
                       p_ms, ops, nbytes))
+    rows[-1]["launch"] = launch_info("xverify", int(f["idx"].shape[0]))
     # K4 at BatchVerifier's 64-lane shape (one 128-lane bucket)
     pubs = [vs.validators[i].pub_key.bytes() for i in range(64)]
     msgs = [commit.vote_sign_bytes(CHAIN, i) for i in range(64)]
@@ -2603,7 +2656,9 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         r["ptxas"] = kernel_ptxas(r["name"])
     emit({"phase": "timing", "card": smi,
-          "tolerance": "exact: max_abs_err 0 against the plain version"})
+          "tolerance": "exact: max_abs_err 0 against the plain version",
+          "launch": {r["name"]: r["launch"] for r in rows + f32_rows
+                     if "launch" in r}})
     emit({"kernels": rows + f32_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

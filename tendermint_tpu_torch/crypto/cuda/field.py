@@ -52,6 +52,13 @@ _GIDX = np.array([[(k - i) % NLIMB for k in range(NLIMB)]
 _COEF = np.array([[(2 if (i & 1 and j & 1) else 1) * (19 if i + j >= NLIMB else 1)
                    for j in (_GIDX[i, k] for k in range(NLIMB))]
                   for i in range(NLIMB)], np.int64)
+# sqr: the same columns with each cross product a_i * a_j (i < j) taken
+# once and doubled (csrc/field.cuh fe_sqr): 55 terms (i, j, column,
+# coefficient), the column sums the same integers as mul(a, a)'s.
+_SQ_I, _SQ_J, _SQ_COL, _SQ_COEF = (np.array(c, np.int64) for c in zip(*[
+    (i, j, (i + j) % NLIMB, (2 if i < j else 1) * (2 if i & 1 and j & 1 else 1)
+     * (19 if i + j >= NLIMB else 1))
+    for i in range(NLIMB) for j in range(i, NLIMB)]))
 
 
 def to_limbs(x: int) -> np.ndarray:
@@ -73,6 +80,12 @@ def from_limbs(limbs) -> list[int] | int:
 @functools.cache
 def _const_limbs(device: str, x: int) -> torch.Tensor:
     return torch.as_tensor(to_limbs(x % P), device=device)
+
+
+@functools.cache
+def _sqr_tables(device: str) -> tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in (_SQ_I, _SQ_J, _SQ_COL, _SQ_COEF))
 
 
 @functools.cache
@@ -128,8 +141,13 @@ def mul(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return carry(h)
 
 
-def sqr(a):
-    return mul(a, a)
+def sqr(a: torch.Tensor) -> torch.Tensor:
+    """Square of a LOOSE input with symmetric column sums (55 products,
+    csrc/field.cuh fe_sqr), then ``carry``: the limbs of mul(a, a)."""
+    si, sj, col, coef = _sqr_tables(str(a.device))
+    terms = a.index_select(0, si) * a.index_select(0, sj) * coef[:, None]
+    h = torch.zeros_like(a).index_add_(0, col, terms)
+    return carry(h)
 
 
 def _pass(h: list) -> list:

@@ -61,7 +61,17 @@ _SIGNATURES = {
     "tm_sr_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     "tm_shard_verify": (_P,) * 17 + (_I, _I, _P, _P),
     "tm_sync": (_P,),
+    "tm_build_tables_shape": (_I, _P),
+    "tm_xverify_shape": (_I, _P),
+    "tm_shard_verify_shape": (_I, _I, _P),
 }
+# What a *_shape export reports for each launch (csrc/common.cuh
+# tm_shape): the grid, the block, the dynamic shared bytes, the blocks
+# cudaOccupancyMaxActiveBlocksPerMultiprocessor keeps resident on an
+# SM, and cudaFuncGetAttributes' registers, local (stack) bytes and
+# static shared bytes.
+SHAPE_KEYS = ("blocks", "threads", "dynamic_shared_bytes", "blocks_per_sm",
+              "registers", "stack_bytes", "static_shared_bytes")
 
 # CUDA runtime error codes (enum cudaError of the CUDA headers), by what
 # they say. A fault inside one of the port's kernels raises
@@ -109,8 +119,8 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join([ARCH, *FIELD_FLAGS]).encode())
+def _digest(flags: tuple) -> str:
+    h = hashlib.sha256(" ".join([ARCH, *flags]).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
@@ -118,14 +128,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(defines: tuple = ()) -> Path:
     """Compile every source in parallel and link the library; returns
-    its path. Reuses a library already built from identical sources."""
-    out_dir = BUILD_ROOT / f"{FIELD}-{_digest()}"
+    its path. Reuses a library already built from identical sources.
+    `defines` ("NAME=VALUE", ...) are extra -D flags, for a build that
+    overrides a compile-time launch shape (sweep_warps.py); the
+    library lib() loads takes none."""
+    flags = (*FIELD_FLAGS, *(f"-D{d}" for d in defines))
+    out_dir = BUILD_ROOT / f"{FIELD}-{_digest(flags)}"
     lib_path = out_dir / "libtm_kernels.so"
     if lib_path.exists():
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("cached", True)
+        log = out_dir / "ptxas.log"
+        if "ptxas" not in BUILD_INFO and log.exists():
+            BUILD_INFO["ptxas"] = dict(
+                part.split("\n", 1) for part in
+                log.read_text().split("== ")[1:])
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -133,7 +152,7 @@ def build() -> Path:
     procs = []
     for src in SOURCES:
         obj = out_dir / (src[:-3] + ".o")
-        cmd = [nvcc, ARCH, *FIELD_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+        cmd = [nvcc, ARCH, *flags, "-std=c++17", "-O3", "-Xcompiler",
                "-fPIC", "-Xptxas", "-v", "-c", str(CSRC / src), "-o",
                str(obj)]
         procs.append((src, obj, subprocess.Popen(
@@ -162,20 +181,50 @@ def build() -> Path:
     return lib_path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The library at `path` with its C signatures set."""
+    handle = ctypes.CDLL(str(path))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    handle.tm_error_string.argtypes = [ctypes.c_int]
+    handle.tm_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
-            handle.tm_error_string.argtypes = [ctypes.c_int]
-            handle.tm_error_string.restype = ctypes.c_char_p
-            _LIB = handle
+            _LIB = load(build())
         return _LIB
+
+
+def use_library(path: Path | None) -> None:
+    """Make lib() return the library at `path` (a build with defines),
+    or, for None, the default build again."""
+    global _LIB
+    with _LOCK:
+        _LIB = None if path is None else load(path)
+
+
+def launch_shapes(export: str, *args, launches: int = 1) -> list[dict]:
+    """The shape of each launch a kernel makes, from its *_shape export
+    (``tm_build_tables_shape`` nkeys: K1's two launches;
+    ``tm_xverify_shape`` n; ``tm_shard_verify_shape`` n, structured),
+    on the current CUDA device: SHAPE_KEYS and the resident warps an
+    SM."""
+    buf = (ctypes.c_int * (len(SHAPE_KEYS) * launches))()
+    check(getattr(lib(), export)(*args, buf), export)
+    out = []
+    for k in range(launches):
+        d = dict(zip(SHAPE_KEYS, buf[k * len(SHAPE_KEYS):
+                                     (k + 1) * len(SHAPE_KEYS)]))
+        d["warps_per_sm"] = d["blocks_per_sm"] * d["threads"] // 32
+        out.append(d)
+    return out
 
 
 def error(rc: int, what: str) -> RuntimeError:

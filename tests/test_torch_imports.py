@@ -1,5 +1,5 @@
-"""The port stands alone: no module of tendermint_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package; a CPU
+"""The port stands alone: no module of tendermint_tpu_torch, and neither
+chip_smoke.py nor sweep_warps.py, imports jax or anything of the JAX package; a CPU
 verify_commit and a CPU sr25519 batch verify in a fresh interpreter
 load neither."""
 
@@ -29,7 +29,7 @@ def _forbidden(name: str) -> bool:
 
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "tendermint_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "sweep_warps.py"]
     assert len(files) > 20
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {f"tendermint_tpu_torch/{m}.py" for m in (
