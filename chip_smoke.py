@@ -14,7 +14,7 @@ Phases, each printing one JSON line:
    (verdicts also equal to sr25519_ref.verify on every lane, and every
    branch of the ristretto equality and square root taken): verdicts
    bit-identical, tables, sign bytes and the seven spliced buffers
-   identical;
+   identical; K4's and K9's verdict digests equal to VERDICT_DIGESTS;
 4. slice — a 10,240-validator set and a signed 10,240-signature commit
    through ValidatorSet.verify_commit, verify_commit_light and
    verify_commit_light_trusting (trust 1/3), a corrupted signature that
@@ -76,12 +76,15 @@ Phases, each printing one JSON line:
    launches taken back out of the counts;
 9. timing — each kernel at the main path's shapes: CUDA-event time,
    the plain version's time, its bound, and its agreement with the
-   plain version on those inputs; for the kernels that spread a key or
-   a lane over many threads (K1, K3, K5, in both fields) the launch
-   shapes (grid, block, dynamic shared memory, resident warps an SM
-   from cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and
-   stack) and the ptxas spills: each launch must run at least 4
-   threads a key or lane, with no spills;
+   plain version on those inputs (K4 at the 64-lane BatchVerifier's
+   128-lane bucket and, as general_verify_mixed, at the mixed
+   commit's 8,192-lane bucket; K9 at its 5,120 lanes); for the kernels
+   that spread a key or a lane over many threads (K1, K3, K4, K5, K9,
+   in both fields) the launch shapes (grid, block, dynamic shared
+   memory, resident warps an SM from
+   cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
+   and the ptxas spills: each launch must run at least 4 threads a key
+   or lane, with no spills;
 10. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
@@ -165,6 +168,7 @@ REPLACES = {
     "clear": "tendermint_tpu/crypto/tpu/resident.py:87",
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
     "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
+    "general_verify_mixed": "tendermint_tpu/crypto/tpu/verify.py:173",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
     "mesh_splice": "tendermint_tpu/crypto/tpu/resident.py:99",
     "mesh_clear": "tendermint_tpu/crypto/tpu/resident.py:126",
@@ -179,23 +183,35 @@ SOURCES = {
     "clear": "tendermint_tpu_torch/csrc/splice.cu",
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
+    "general_verify_mixed": "tendermint_tpu_torch/csrc/general_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/shard_verify.cu",
     "mesh_splice": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_clear": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
 }
 # The __global__ function of each row (K8's splice and verify are K6's
-# and K7's kernels; K1 is two launches, the chain's and the rows').
+# and K7's kernels; K1 is two launches, the chain's and the rows'; the
+# general_verify_mixed row is K4 at the mixed commit's shape).
 GLOBALS = {name: "k_" + name for name in SOURCES}
 GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify",
-               build_tables=("k_build_chain", "k_build_rows"))
-# The kernels spread over many threads a key or lane (K1, K3, K5): the
-# shape export of each and its number of launches
+               build_tables=("k_build_chain", "k_build_rows"),
+               general_verify_mixed="k_general_verify")
+# The kernel whose launches a row counts, where it is not the row's own.
+ROW_KERNEL = {"general_verify_mixed": "general_verify"}
+# The kernels spread over many threads a key or lane (K1, K3, K4, K5,
+# K9): the shape export of each and its number of launches
 # (kernels.launch_shapes). Each launch must run at least
 # MIN_THREADS_PER_ITEM threads a key or lane, with no spills.
 SHAPE_EXPORTS = {"build_tables": ("tm_build_tables_shape", 2),
                  "xverify": ("tm_xverify_shape", 1),
-                 "shard_verify": ("tm_shard_verify_shape", 1)}
+                 "shard_verify": ("tm_shard_verify_shape", 1),
+                 "general_verify": ("tm_general_verify_shape", 1),
+                 "sr_verify": ("tm_sr_verify_shape", 1)}
+# K4's and K9's verdict digests on the kernels check's adversarial
+# batches, as the one-thread-a-lane kernels gave them in both fields:
+# the four-thread-a-lane bodies must reproduce them.
+VERDICT_DIGESTS = {"general_verify": "a106af0ce1da1c4b",
+                   "sr_verify": "f73a94992d6667f6"}
 MIN_THREADS_PER_ITEM = 4
 SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
 SPEC_KERNELS = ("splice", "clear", "arena_verify")
@@ -305,7 +321,7 @@ def launch_info(name: str, n: int, *form) -> dict:
     nothing spills."""
     from tendermint_tpu_torch.crypto.cuda import kernels
 
-    export, count = SHAPE_EXPORTS[name]
+    export, count = SHAPE_EXPORTS[ROW_KERNEL.get(name, name)]
     shapes = kernels.launch_shapes(export, n, *form, launches=count)
     for s in shapes:
         s["threads_per_item"] = s["blocks"] * s["threads"] / n
@@ -494,6 +510,11 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
         out["assemble"]["ms"] = cuda_ms(lambda: expanded.assemble(*aargs), 20)
         for name, (fn, reps) in timed.items():
             out[name]["ms"] = cuda_ms(fn, reps)
+    moved = {k: digests[k] for k, v in VERDICT_DIGESTS.items()
+             if digests[k] != v}
+    if moved:
+        raise AssertionError(f"verdict digests moved: {moved}, expected "
+                             f"{VERDICT_DIGESTS}")
     out["verdicts"] = digests
     return out
 
@@ -572,6 +593,23 @@ def arena_check(n_lanes: int, dev, out: dict, digests: dict):
              "arena_verify": (lambda: resident.arena_verify(*largs), 5)}
     KEEP["arena"] = arena
     return timed
+
+
+def k4_args(vs, commit, lanes, dev):
+    """K4's device arguments for these validators' lanes of the commit,
+    packed as the entry points pack them: one bucket, padded with the
+    dummy triple."""
+    from tendermint_tpu_torch.crypto.cuda import verify
+
+    size = verify._chunks(len(lanes))[0]
+    dp, dm, ds = verify._dummy_triple()
+    pad = size - len(lanes)
+    pk = verify.to_device(verify.pack_batch(
+        [vs.validators[i].pub_key.bytes() for i in lanes] + [dp] * pad,
+        [commit.vote_sign_bytes(CHAIN, i) for i in lanes] + [dm] * pad,
+        [commit.signatures[i].signature for i in lanes] + [ds] * pad), dev)
+    return (pk["ab"], pk["sb"], pk["msg"], pk["nblocks"], pk["s_ok"],
+            verify._btab(dev))
 
 
 def sr_args(pubs, msgs, sigs, dev):
@@ -1165,8 +1203,39 @@ def sr_row(vs, commit, dev) -> dict:
     if not bool(v_k.all()):
         raise AssertionError("K9 rejects the valid commit's lanes")
     ops, nbytes = sr_work(args)
-    return entry("sr_verify", max_abs_diff(v_k, v_p),
-                 cuda_ms(lambda: sv.sr_verify(*args), 10), p_ms, ops, nbytes)
+    row = entry("sr_verify", max_abs_diff(v_k, v_p),
+                cuda_ms(lambda: sv.sr_verify(*args), 10), p_ms, ops, nbytes)
+    row["lanes"] = len(lanes)
+    row["launch"] = launch_info("sr_verify", len(lanes))
+    return row
+
+
+def k4_mixed_row(vs, commit, dev) -> dict:
+    """K4 at the mixed commit's ed25519 lanes (one 8,192-lane bucket)."""
+    lanes = [i for i, v in enumerate(vs.validators)
+             if v.pub_key.type_name == "ed25519"]
+    return k4_row("general_verify_mixed", k4_args(vs, commit, lanes, dev),
+                  len(lanes))
+
+
+def k4_row(name, gargs, live: int) -> dict:
+    """K4 on gargs, whose first `live` lanes are a valid commit's: time,
+    plain time, bound, launch shape and agreement with the plain
+    version."""
+    from tendermint_tpu_torch.crypto.cuda import verify
+
+    ab, sb, msg, nblocks, s_ok, btab = gargs
+    v_k = verify.general_verify(*gargs)
+    v_p, p_ms = plain_ms(lambda: verify.general_verify_plain(*gargs))
+    if not bool(v_k[:live].all()):
+        raise AssertionError("K4 rejects the valid commit's lanes")
+    ops, nbytes = general_work(ab, sb, msg, nblocks, s_ok.bool())
+    row = entry(name, max_abs_diff(v_k, v_p),
+                cuda_ms(lambda: verify.general_verify(*gargs), 10), p_ms,
+                ops, nbytes + btab.numel() * 4)
+    row["lanes"], row["live_lanes"] = int(ab.shape[0]), live
+    row["launch"] = launch_info(name, row["lanes"])
+    return row
 
 
 # -- phase 7 -------------------------------------------------------------
@@ -2133,21 +2202,8 @@ def timing_phase(vs, commit, dev) -> list[dict]:
                       p_ms, ops, nbytes))
     rows[-1]["launch"] = launch_info("xverify", int(f["idx"].shape[0]))
     # K4 at BatchVerifier's 64-lane shape (one 128-lane bucket)
-    pubs = [vs.validators[i].pub_key.bytes() for i in range(64)]
-    msgs = [commit.vote_sign_bytes(CHAIN, i) for i in range(64)]
-    dp, dm, ds = verify._dummy_triple()
-    pk = verify.to_device(verify.pack_batch(
-        pubs + [dp] * 64, msgs + [dm] * 64, sigs[:64] + [ds] * 64), dev)
-    gargs = (pk["ab"], pk["sb"], pk["msg"], pk["nblocks"], pk["s_ok"], btab)
-    g_k = verify.general_verify(*gargs)
-    g_p, p_ms = plain_ms(lambda: verify.general_verify_plain(*gargs))
-    err = max_abs_diff(g_k, g_p)
-    ops, nbytes = general_work(pk["ab"], pk["sb"], pk["msg"],
-                               pk["nblocks"], pk["s_ok"].bool())
-    nbytes += btab.numel() * 4
-    rows.append(entry("general_verify", err,
-                      cuda_ms(lambda: verify.general_verify(*gargs), 10),
-                      p_ms, ops, nbytes))
+    rows.append(k4_row("general_verify", k4_args(vs, commit, range(64),
+                                                 dev), 64))
     return rows
 
 
@@ -2511,14 +2567,15 @@ def f32_child(i32: dict) -> int:
     state = fallback_state()
     rows = timing_phase(vs, commit, dev)
     rows = [r for r in rows if r["name"] != "assemble"]  # no field: K2
-    rows += [sr_row(mvs, mcommit, dev), k5_row, k7_row(KEEP["arena"])]
+    rows += [sr_row(mvs, mcommit, dev), k4_mixed_row(mvs, mcommit, dev),
+             k5_row, k7_row(KEEP["arena"])]
     no_fallback("f32 timing", state)
     launches = {}
     for path in (res, mixed):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
+        r["launches"] = launches.get(ROW_KERNEL.get(r["name"], r["name"]), 0)
         r["ptxas"] = kernel_ptxas(r["name"])
         r["on_f32_path"] = r["name"] not in F32_CHECK_ONLY
         r["name"] += "_f32"
@@ -2635,6 +2692,7 @@ def main() -> int:
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
     rows.append(sr_row(mvs, mcommit, torch.device("cuda")))
+    rows.append(k4_mixed_row(mvs, mcommit, torch.device("cuda")))
     rows.append(k5)
     rows += k8
     no_fallback("timing", state)
@@ -2653,7 +2711,7 @@ def main() -> int:
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[ROW_KERNEL.get(r["name"], r["name"])]
         r["ptxas"] = kernel_ptxas(r["name"])
     emit({"phase": "timing", "card": smi,
           "tolerance": "exact: max_abs_err 0 against the plain version",

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
-"""Time K3 and K5 at each candidate warp count, to choose TM_XV_WARPS.
+"""Time K3/K5 and K4/K9 at each candidate launch shape, to choose
+TM_XV_WARPS, TM_X4_LANES and TM_X4_WARPS.
 
-    python3 sweep_warps.py
+    python3 sweep_warps.py [xv | x4]
+
+With no argument both families are swept; `xv` sweeps K3 and K5 only,
+`x4` K4 and K9 only.
 
 TM_XV_WARPS (tendermint_tpu_torch/csrc/common.cuh) is the number of
 warps a block of K3 (xverify.cu) and K5 (shard_verify.cu) runs for its
@@ -22,6 +26,17 @@ threads a block) and, on chip_smoke.py's 10,240-validator commit:
   CUDA-event times, the launch shapes (resident warps an SM) and the
   ptxas lines.
 
+TM_X4_LANES and TM_X4_WARPS (common.cuh) are the lanes and warps a
+block of K4 (general_verify.cu) and K9 (sr_verify.cu) runs: TM_X4_LANES
+/ 8 chain warps, the digits and R warps, and comb warps. For each
+candidate (lanes, warps) (X4_CANDIDATES; under f32 at most 8 warps) the
+child builds the library with both defines and, on chip_smoke.py's
+10,240-validator mixed commit: K4 on 64 of its ed25519 lanes (the
+64-lane BatchVerifier's 128-lane bucket) and on all 5,120 (one
+8,192-lane bucket), K9 on its 5,120 sr25519 lanes; every verdict
+against the plain version; the CUDA-event times, the launch shapes and
+the ptxas lines.
+
 Each child prints one JSON line per measurement, relayed with its
 field; then the card's name and power limit. Needs one CUDA device;
 exits 2 without one, 1 on any disagreement.
@@ -38,6 +53,9 @@ import threading
 import chip_smoke as cs
 
 CANDIDATES = {"i32": (4, 8, 16), "f32": (4, 8)}
+X4_CANDIDATES = {"i32": ((8, 4), (16, 6), (32, 7), (32, 8)),
+                 "f32": ((8, 4), (16, 6), (32, 8))}
+FAMILIES = ("xv", "x4")
 CHILD_TIMEOUT_S = 600
 
 
@@ -65,7 +83,16 @@ def device_ms(fn) -> dict:
     return out
 
 
-def child(field: str) -> int:
+def child(field: str, families) -> int:
+    rc = 0
+    if "xv" in families:
+        rc |= xv_child(field)
+    if "x4" in families:
+        rc |= x4_child(field)
+    return rc
+
+
+def xv_child(field: str) -> int:
     import torch
 
     from tendermint_tpu_torch.crypto.cuda import expanded, kernels, verify
@@ -159,18 +186,68 @@ def _sweep(field, dev, keys, lanes, sigs, sbatch, xargs, want3) -> int:
     return rc
 
 
+def x4_child(field: str) -> int:
+    """K4 and K9 at each X4_CANDIDATES shape on the mixed commit."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import kernels, verify
+    from tendermint_tpu_torch.crypto.cuda import sr_verify as sv
+
+    if kernels.FIELD != field:
+        raise AssertionError(f"the {field} child runs the {kernels.FIELD} field")
+    dev = torch.device("cuda")
+    vs, commit, _bid, _secret_of = cs.make_mixed_commit(cs.N_VALIDATORS)
+    by_type = {"ed25519": [], "sr25519": []}
+    for i, v in enumerate(vs.validators):
+        by_type[v.pub_key.type_name].append(i)
+    ed, sr = by_type["ed25519"], by_type["sr25519"]
+    calls = {
+        "general_verify_128": (verify.general_verify,
+                               cs.k4_args(vs, commit, ed[:64], dev)),
+        "general_verify_8192": (verify.general_verify,
+                                cs.k4_args(vs, commit, ed, dev)),
+        "sr_verify_5120": (sv.sr_verify, cs.sr_args(
+            [vs.validators[i].pub_key.bytes() for i in sr],
+            [commit.vote_sign_bytes(cs.CHAIN, i) for i in sr],
+            [commit.signatures[i].signature for i in sr], dev)[0])}
+    plain = {"general_verify": verify.general_verify_plain,
+             "sr_verify": sv.sr_verify_plain}
+    want = {k: plain[fn.__name__](*args) for k, (fn, args) in calls.items()}
+    rc = 0
+    for lanes, warps in X4_CANDIDATES[field]:
+        kernels.use_library(kernels.build(
+            defines=(f"TM_X4_LANES={lanes}", f"TM_X4_WARPS={warps}")))
+        equal = all(torch.equal(fn(*args), want[k])
+                    for k, (fn, args) in calls.items())
+        cs.emit({
+            "lanes_a_block": lanes, "warps": warps,
+            "verdicts_equal_plain": equal,
+            "ms": {k: cs.cuda_ms(lambda: fn(*args), 10)
+                   for k, (fn, args) in calls.items()},
+            "launch": {k: kernels.launch_shapes(
+                f"tm_{fn.__name__}_shape", int(args[0].shape[0]))
+                for k, (fn, args) in calls.items()},
+            "ptxas": {k: cs.kernel_ptxas(k)
+                      for k in ("general_verify", "sr_verify")}})
+        rc |= not equal
+    kernels.use_library(None)
+    return rc
+
+
 def main() -> int:
     import torch
 
     if "--field" in sys.argv:
-        return child(sys.argv[sys.argv.index("--field") + 1])
+        return child(sys.argv[sys.argv.index("--field") + 1], sys.argv[1:])
+    families = [a for a in sys.argv[1:] if a in FAMILIES] or list(FAMILIES)
     if not torch.cuda.is_available():
         print("sweep_warps: no CUDA device", file=sys.stderr)
         return 2
     rc = 0
     for field in CANDIDATES:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--field", field],
+            [sys.executable, os.path.abspath(__file__), *families,
+             "--field", field],
             stdout=subprocess.PIPE, text=True,
             env=dict(os.environ, TM_TPU_FIELD=field))
         timer = threading.Timer(CHILD_TIMEOUT_S, proc.kill)

@@ -55,46 +55,8 @@
 // multiply, 528 a squaring) in place of the int32 products, with
 // entries of 4 x 32 float32 limbs (512 B, 318 KB a key, 3.26 GB at
 // 10,240 keys).
+#include "chain_x4.cuh"
 #include "common.cuh"
-#include "edwards.cuh"
-
-static __device__ __forceinline__ void fe_shfl(fe& out, const fe& x, int src) {
-#pragma unroll
-  for (int i = 0; i < FE_NLIMB; ++i) out.v[i] = __shfl_sync(0xffffffffu, x.v[i], src);
-}
-
-// out = c ? a : b, limb by limb (no divergence, no local copy).
-static __device__ __forceinline__ void fe_pick(fe& out, bool c, const fe& a, const fe& b) {
-#pragma unroll
-  for (int i = 0; i < FE_NLIMB; ++i) out.v[i] = c ? a.v[i] : b.v[i];
-}
-
-// The four threads of a key each hold one coordinate (q = 0..3: X, Y,
-// Z, T) of P; afterwards of 2P. dbl-2008-hwcd as ge_double writes it.
-static __device__ __forceinline__ void ge_double_x4(fe& mine, int q, int lead) {
-  fe x, y, op, r;
-  fe_shfl(x, mine, lead);
-  fe_shfl(y, mine, lead + 1);
-  fe_add(op, x, y);
-  fe_pick(op, q < 3, mine, op);
-  fe_sqr(r, op);  // X^2, Y^2, Z^2, (X + Y)^2
-  fe a, b, t, u, c, h, e, g, f;
-  fe_shfl(a, r, lead);
-  fe_shfl(b, r, lead + 1);
-  fe_shfl(t, r, lead + 2);
-  fe_shfl(u, r, lead + 3);
-  fe_add(c, t, t);
-  fe_add(h, a, b);
-  fe_sub(e, h, u);
-  fe_sub(g, a, b);
-  fe_add(f, c, g);
-  fe m1, m2;
-  fe_pick(m1, q == 1, g, f);
-  fe_pick(m1, q == 0 || q == 3, e, m1);
-  fe_pick(m2, q == 2, g, h);
-  fe_pick(m2, q == 0, f, m2);
-  fe_mul(mine, m1, m2);  // X = e f, Y = g h, Z = f g, T = e h
-}
 
 __global__ void __launch_bounds__(TM_K1_THREADS)
     k_build_chain(const uint8_t* __restrict__ akeys, fe_limb* __restrict__ tables,

@@ -1,17 +1,21 @@
 // Launch helpers and launch shapes shared by the kernel sources.
 //
 // Design: the kernels that are not redesigned run one thread per lane
-// (or key) in blocks of TM_THREADS. K1 and K3/K5 spread each key and
-// each lane over many threads:
+// (or key) in blocks of TM_THREADS. K1, K3/K5 and K4/K9 spread each key
+// and each lane over many threads:
 // - K1 (build_tables.cu): a chain launch of TM_K1_PER_KEY threads a key
 //   (the four products of a doubling on four threads of one warp), then
 //   a row launch of one thread a (key, window) pair, both in blocks of
 //   TM_K1_THREADS;
 // - K3/K5 (xverify_lane.cuh): a block of TM_XV_WARPS warps serves
 //   TM_XV_LANES lanes, one lane a thread of each warp; the warps split
-//   the lane's windows and reduce their partial sums in shared memory.
-// TM_XV_WARPS is the field's: at most 256 threads a block under f32,
-// whose build uses 254-255 registers a thread (65,536 a block at most).
+//   the lane's windows and reduce their partial sums in shared memory;
+// - K4/K9 (verify_x4.cuh): a block of TM_X4_WARPS warps serves
+//   TM_X4_LANES lanes, [k](-A) on four threads a lane, the digits, R
+//   and the comb windows of [S]B on other warps, one thread a lane.
+// TM_XV_WARPS and TM_X4_WARPS are the field's: at most 256 threads a
+// block under f32, whose build uses 254-255 registers a thread (65,536
+// a block at most).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +57,28 @@ static inline unsigned tm_blocks(long n) {
 #define TM_XV_MIN_BLOCKS (16 / TM_XV_WARPS > 0 ? 16 / TM_XV_WARPS : 1)
 #endif
 #define TM_XV_THREADS (TM_XV_WARPS * 32)
+
+// K4/K9 (verify_x4.cuh): lanes a block and warps a block. The warps
+// of a block: TM_X4_CHAIN_WARPS chain warps (four threads a lane, eight
+// lanes a warp), the digits warp, the R warp, and the comb warps (one
+// lane a thread of each). The defaults were chosen by CUDA-event time
+// at the main path's shapes (K4 at 128 and 8,192 lanes, K9 at 5,120):
+// PERF.md section 6.
+#ifndef TM_X4_LANES
+#define TM_X4_LANES 32
+#endif
+#ifndef TM_X4_WARPS
+#define TM_X4_WARPS 8
+#endif
+#define TM_X4_CHAIN_WARPS (TM_X4_LANES / 8)
+#define TM_X4_COMB_WARPS (TM_X4_WARPS - TM_X4_CHAIN_WARPS - 2)
+#define TM_X4_THREADS (TM_X4_WARPS * 32)
+#ifdef TM_FIELD_F32
+#define TM_X4_MIN_BLOCKS 1
+#else
+// 16 resident warps an SM at most 128 registers a thread
+#define TM_X4_MIN_BLOCKS (16 / TM_X4_WARPS > 0 ? 16 / TM_X4_WARPS : 1)
+#endif
 
 // The shape of a launch, as the *_shape exports report it: blocks,
 // threads a block, dynamic shared bytes, resident blocks an SM

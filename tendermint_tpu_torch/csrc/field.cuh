@@ -83,10 +83,8 @@ static __device__ __forceinline__ void fe_neg(fe& out, const fe& a) {
 }
 
 // Schoolbook product: f_i * g_j lands in column (i + j) % 10, doubled
-// when i and j are both odd, times 19 when i + j >= 10. Kept out of
-// line: it is called from every point op, and inlining it everywhere
-// multiplies the build time.
-static __device__ __noinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
+// when i and j are both odd, times 19 when i + j >= 10.
+static __device__ __forceinline__ void fe_mul_inline(fe& out, const fe& f, const fe& g) {
   int64_t h[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) h[k] = 0;
@@ -108,7 +106,7 @@ static __device__ __noinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
 // fe_mul's. Operands stay in int32: the left one carries the factors
 // 2 (cross) and 2 (odd * odd), at most 4 * 2^26; the right one the 19
 // of a wrapped column, below 19 * 2^26 < 2^31.
-static __device__ __noinline__ void fe_sqr(fe& out, const fe& f) {
+static __device__ __forceinline__ void fe_sqr_inline(fe& out, const fe& f) {
   int64_t h[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) h[k] = 0;
@@ -124,6 +122,17 @@ static __device__ __noinline__ void fe_sqr(fe& out, const fe& f) {
   }
   fe_carry(out, h);
 }
+
+// fe_mul and fe_sqr: the bodies above, out of line (they are called
+// from every point op, and inlining them everywhere multiplies the
+// build time). The 4-thread chains of K4 and K9 (chain_x4.cuh) call
+// the inline bodies, so that their one coordinate a thread stays in
+// registers.
+static __device__ __noinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
+  fe_mul_inline(out, f, g);
+}
+
+static __device__ __noinline__ void fe_sqr(fe& out, const fe& a) { fe_sqr_inline(out, a); }
 
 // One exact floor-carry pass with the top fold (canonical's step).
 static __device__ __forceinline__ void fe_pass(int64_t h[10]) {

@@ -127,9 +127,8 @@ static __device__ __forceinline__ void fe_reduce63(fe& out, const float h[63]) {
   for (int i = 0; i < 32; ++i) out.v[i] = d[i];
 }
 
-// 32 x 32 schoolbook, 1,024 FMAs into 63 column accumulators. Out of
-// line, as field.cuh's: it is called from every point op.
-static __device__ __noinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
+// 32 x 32 schoolbook, 1,024 FMAs into 63 column accumulators.
+static __device__ __forceinline__ void fe_mul_inline(fe& out, const fe& f, const fe& g) {
   float h[63];
 #pragma unroll
   for (int k = 0; k < 63; ++k) h[k] = 0.f;
@@ -144,7 +143,7 @@ static __device__ __noinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
 
 // Squaring with doubled cross terms: 528 FMAs, the same columns (exact
 // integers) as fe_mul(out, a, a), so the same limbs.
-static __device__ __noinline__ void fe_sqr(fe& out, const fe& a) {
+static __device__ __forceinline__ void fe_sqr_inline(fe& out, const fe& a) {
   float h[63];
 #pragma unroll
   for (int k = 0; k < 63; ++k) h[k] = 0.f;
@@ -158,6 +157,15 @@ static __device__ __noinline__ void fe_sqr(fe& out, const fe& a) {
   }
   fe_reduce63(out, h);
 }
+
+// fe_mul and fe_sqr: the bodies above, out of line, as field.cuh's
+// (called from every point op); K4's and K9's chains call the inline
+// bodies.
+static __device__ __noinline__ void fe_mul(fe& out, const fe& f, const fe& g) {
+  fe_mul_inline(out, f, g);
+}
+
+static __device__ __noinline__ void fe_sqr(fe& out, const fe& a) { fe_sqr_inline(out, a); }
 
 // Exact sequential carry in int32 (an arithmetic shift floors, so
 // borrows propagate): limbs in [0, 256), returns the signed out-carry.
