@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
    (verdicts also equal to sr25519_ref.verify on every lane, and every
    branch of the ristretto equality and square root taken): verdicts
    bit-identical, tables, sign bytes and the seven spliced buffers
-   identical; K4's and K9's verdict digests equal to VERDICT_DIGESTS;
+   identical; K4's, K7's and K9's verdict digests equal to
+   VERDICT_DIGESTS;
 4. slice — a 10,240-validator set and a signed 10,240-signature commit
    through ValidatorSet.verify_commit, verify_commit_light and
    verify_commit_light_trusting (trust 1/3), a corrupted signature that
@@ -79,9 +80,9 @@ Phases, each printing one JSON line:
    plain version on those inputs (K4 at the 64-lane BatchVerifier's
    128-lane bucket and, as general_verify_mixed, at the mixed
    commit's 8,192-lane bucket; K9 at its 5,120 lanes); for the kernels
-   that spread a key or a lane over many threads (K1, K3, K4, K5, K9,
-   in both fields) the launch shapes (grid, block, dynamic shared
-   memory, resident warps an SM from
+   that spread a key or a lane over many threads (K1, K3, K4, K5, K7,
+   K8's verify, K9, in both fields) the launch shapes (grid, block,
+   dynamic shared memory, resident warps an SM from
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
@@ -98,7 +99,8 @@ Phases, each printing one JSON line:
    phases) that the parent passes; the slice and mixed phases again at
    10,240 validators, with the i32 phases' launches, outcomes and
    rejections; the f32 p50s and kernel times beside the i32 ones, and
-   the f32 kernels' rows (`<name>_f32`) in the kernels line.
+   the f32 kernels' rows (`<name>_f32`) in the kernels line, K7 also
+   at the speculation arena's 12,288 lanes (arena_verify_spec_f32).
 
 Each child's lines are relayed as {"phase": <child>, "step": ...}; a
 child that fails or outruns its time limit fails the run. Every phase
@@ -167,6 +169,7 @@ REPLACES = {
     "splice": "tendermint_tpu/crypto/tpu/resident.py:65",
     "clear": "tendermint_tpu/crypto/tpu/resident.py:87",
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
+    "arena_verify_spec": "tendermint_tpu/crypto/tpu/resident.py:162",
     "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
     "general_verify_mixed": "tendermint_tpu/crypto/tpu/verify.py:173",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
@@ -182,6 +185,7 @@ SOURCES = {
     "splice": "tendermint_tpu_torch/csrc/splice.cu",
     "clear": "tendermint_tpu_torch/csrc/splice.cu",
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
+    "arena_verify_spec": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
     "general_verify_mixed": "tendermint_tpu_torch/csrc/general_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/shard_verify.cu",
@@ -194,23 +198,30 @@ SOURCES = {
 # general_verify_mixed row is K4 at the mixed commit's shape).
 GLOBALS = {name: "k_" + name for name in SOURCES}
 GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify",
+               arena_verify_spec="k_arena_verify",
                build_tables=("k_build_chain", "k_build_rows"),
                general_verify_mixed="k_general_verify")
-# The kernel whose launches a row counts, where it is not the row's own.
-ROW_KERNEL = {"general_verify_mixed": "general_verify"}
+# The kernel whose launches a row counts, where it is not the row's own
+# (the arena_verify_spec row is K7 at the speculation arena's shape in
+# the f32 child, which runs no speculation plane).
+ROW_KERNEL = {"general_verify_mixed": "general_verify",
+              "arena_verify_spec": "arena_verify"}
 # The kernels spread over many threads a key or lane (K1, K3, K4, K5,
-# K9): the shape export of each and its number of launches
-# (kernels.launch_shapes). Each launch must run at least
+# K7, K8's verify, K9): the shape export of each and its number of
+# launches (kernels.launch_shapes). Each launch must run at least
 # MIN_THREADS_PER_ITEM threads a key or lane, with no spills.
 SHAPE_EXPORTS = {"build_tables": ("tm_build_tables_shape", 2),
                  "xverify": ("tm_xverify_shape", 1),
                  "shard_verify": ("tm_shard_verify_shape", 1),
                  "general_verify": ("tm_general_verify_shape", 1),
-                 "sr_verify": ("tm_sr_verify_shape", 1)}
-# K4's and K9's verdict digests on the kernels check's adversarial
-# batches, as the one-thread-a-lane kernels gave them in both fields:
-# the four-thread-a-lane bodies must reproduce them.
+                 "sr_verify": ("tm_sr_verify_shape", 1),
+                 "arena_verify": ("tm_arena_verify_shape", 1),
+                 "mesh_arena_verify": ("tm_arena_verify_shape", 1)}
+# K4's, K7's and K9's verdict digests on the kernels check's adversarial
+# batches and arena, as the one-thread-a-lane kernels gave them in both
+# fields: the four-thread-a-lane bodies must reproduce them.
 VERDICT_DIGESTS = {"general_verify": "a106af0ce1da1c4b",
+                   "arena_verify": "424457bc6352ff63",
                    "sr_verify": "f73a94992d6667f6"}
 MIN_THREADS_PER_ITEM = 4
 SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
@@ -2122,6 +2133,7 @@ def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
                                            flat["group"][live], arena.width)
     ops, _ = general_work(flat["ab"][live], flat["sb"][live], msg, nblocks,
                           flat["s_ok"][live])
+    lanes = max(int(snap[0].shape[0]) for snap in snapshot)
     # as K7's: per active lane its key, signature, s_ok, patch and three
     # ints; every lane's active flag and verdict; templates, the comb
     nbytes = (live.numel() * (32 + 64 + 1 + 24 + 3 * 4) + 2 * d_n * per
@@ -2130,6 +2142,7 @@ def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
     row = entry("mesh_arena_verify", err, cuda_ms(k_verify, 5), p_ms, ops,
                 nbytes)
     row["active_lanes"] = int(live.numel())
+    row["launch"] = launch_info("mesh_arena_verify", lanes)  # largest block
     out.append(row)
     if not bool(np.all(o_k[:, 0].cpu().numpy())):
         raise AssertionError("a snapshot sentinel failed")
@@ -2289,13 +2302,37 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
     _, p_ms = plain_ms(lambda: resident.clear_plain(act_p))
     rows.append(entry("clear", max_abs_diff(act_k, act_p),
                       cuda_ms(lambda: resident.clear(act_k), 100), p_ms, 0, n))
-    rows.append(k7_row(arena))  # over the active lanes the last flush verified
+    # over the active lanes the last flush verified, all of them valid
+    rows.append(k7_row(arena, all_valid=True))
     return rows
 
 
-def k7_row(arena) -> dict:
-    """K7 over the arena's active lanes: time, plain time, bound and
-    agreement with the plain version."""
+def spec_arena(vs, commit, bid, dev):
+    """The speculation phase's arena as its last flush leaves it, built
+    without the plane: the plane's capacity (SpeculationConfig
+    arena_lanes), every validator's key at slot index + 1, the
+    commit's precommit template as group 1 and every signature spliced
+    (12,288 lanes, 10,241 active at 10,240 validators)."""
+    from tendermint_tpu_torch.config import SpeculationConfig
+    from tendermint_tpu_torch.crypto.cuda import resident
+    from tendermint_tpu_torch.types import canonical
+    from tendermint_tpu_torch.types.vote import VoteType
+
+    n = len(vs.validators)
+    arena = resident.ResidentArena(SpeculationConfig().arena_lanes, device=dev)
+    arena.install_keys([v.pub_key.bytes() for v in vs.validators])
+    arena.set_template(1, *canonical.vote_sign_parts(
+        CHAIN, int(VoteType.PRECOMMIT), commit.height, commit.round, bid))
+    b = dict(ts=[cs.timestamp for cs in commit.signatures],
+             sigs=[cs.signature for cs in commit.signatures])
+    arena.splice(*splice_args(arena, b, range(n)))
+    return arena
+
+
+def k7_row(arena, all_valid: bool, name: str = "arena_verify") -> dict:
+    """K7 over the arena's active lanes: time, plain time, bound, launch
+    shape and agreement with the plain version (and, where all_valid,
+    every active lane accepted)."""
     from tendermint_tpu_torch.crypto.cuda import expanded, resident
 
     n = arena.capacity
@@ -2303,6 +2340,8 @@ def k7_row(arena) -> dict:
     v_k = resident.arena_verify(*largs)
     v_p, p_ms = plain_ms(lambda: resident.arena_verify_plain(*largs))
     err = max_abs_diff(v_k, v_p)
+    if all_valid and not bool(v_k[largs[3]].all()):
+        raise AssertionError(f"{name}: K7 rejects a valid active lane")
     (ab, sbuf, s_okb, act, pre, pre_len, suf, suf_len, pat, spl, plen, grp,
      btab) = largs
     live = act.nonzero()[:, 0]
@@ -2316,9 +2355,11 @@ def k7_row(arena) -> dict:
               + sum(t.numel() * t.element_size()
                     for t in (pre, pre_len, suf, suf_len))
               + btab.numel() * 4)
-    return entry("arena_verify", err,
-                 cuda_ms(lambda: resident.arena_verify(*largs), 5), p_ms,
-                 ops, nbytes)
+    row = entry(name, err, cuda_ms(lambda: resident.arena_verify(*largs), 5),
+                p_ms, ops, nbytes)
+    row["lanes"], row["active_lanes"] = n, int(live.numel())
+    row["launch"] = launch_info(name, n)
+    return row
 
 
 def index_copy_splice(bufs, packed):
@@ -2380,10 +2421,11 @@ def entry(name, err, ms, plain, ops, nbytes) -> dict:
 # The f32 build's kernels (every field-bearing kernel; K2 and K6 do no
 # field arithmetic and are the same code in both builds). K5 and K7 are
 # held in the kernels check only: the f32 path (slice, mixed) does not
-# run the fabric or the speculation plane.
+# run the fabric or the speculation plane. K7 is also timed at the
+# speculation arena's shape (arena_verify_spec, spec_arena).
 F32_KERNELS = ("build_tables", "xverify", "general_verify", "shard_verify",
                "arena_verify", "sr_verify")
-F32_CHECK_ONLY = ("shard_verify", "arena_verify")
+F32_CHECK_ONLY = ("shard_verify", "arena_verify", "arena_verify_spec")
 CHILD_TIMEOUT_S = {"f32": 700, "fault": 240}
 
 # A test-only kernel that stores through an address no allocation owns:
@@ -2508,7 +2550,8 @@ def f32_child(i32: dict) -> int:
     digests `i32`; the slice and mixed paths at full width through the
     entry points, launches and outcomes as in the i32 phases; then each
     f32 kernel's time, plain time and bound (K1-K4 and K9 at the main
-    path's shapes, K5 and K7 at the kernels check's). No fallback: the
+    path's shapes, K5 and K7 at the kernels check's, and K7 again at the
+    speculation arena's, built by spec_arena). No fallback: the
     library, the kernels and the checks are the f32 build's or the
     child fails."""
     import torch
@@ -2568,7 +2611,9 @@ def f32_child(i32: dict) -> int:
     rows = timing_phase(vs, commit, dev)
     rows = [r for r in rows if r["name"] != "assemble"]  # no field: K2
     rows += [sr_row(mvs, mcommit, dev), k4_mixed_row(mvs, mcommit, dev),
-             k5_row, k7_row(KEEP["arena"])]
+             k5_row, k7_row(KEEP["arena"], all_valid=False),
+             k7_row(spec_arena(vs, commit, bid, dev), all_valid=True,
+                    name="arena_verify_spec")]
     no_fallback("f32 timing", state)
     launches = {}
     for path in (res, mixed):
@@ -2596,6 +2641,7 @@ def f32_phase(i32_digests: dict, res: dict, mixed: dict, rows: list) -> list:
                 raise AssertionError(f"f32 {name} {key}: {step[name][key]} "
                                      f"against i32 {i32_res[key]}")
     i32_ms = {r["name"]: r["ms"] for r in rows}
+    i32_ms["arena_verify_spec"] = i32_ms["arena_verify"]  # the same shape
     emit({"phase": "f32", "step": "compare",
           "verify_commit_p50_ms": {
               "i32": res["verify_commit_p50_ms"],

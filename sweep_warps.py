@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time K3/K5 and K4/K9 at each candidate launch shape, to choose
-TM_XV_WARPS, TM_X4_LANES and TM_X4_WARPS.
+TM_XV_WARPS, TM_X4_LANES and TM_X4_WARPS; time K7 in both fields.
 
-    python3 sweep_warps.py [xv | x4]
+    python3 sweep_warps.py [xv | x4 | k7] [--tree DIR]
 
-With no argument both families are swept; `xv` sweeps K3 and K5 only,
-`x4` K4 and K9 only.
+With no argument the xv and x4 families are swept; `xv` sweeps K3 and
+K5 only, `x4` K4 and K9 only, `k7` times K7 alone.
 
 TM_XV_WARPS (tendermint_tpu_torch/csrc/common.cuh) is the number of
 warps a block of K3 (xverify.cu) and K5 (shard_verify.cu) runs for its
@@ -37,6 +37,18 @@ child builds the library with both defines and, on chip_smoke.py's
 against the plain version; the CUDA-event times, the launch shapes and
 the ptxas lines.
 
+`k7` times K7 (arena_verify.cu), with the default build of each
+field, on chip_smoke.py's two arenas: the kernels check's (1,024 lanes,
+821 active, adversarial) and the speculation arena (spec_arena: 12,288
+lanes, 10,241 active, the 10,240-validator commit); its verdicts
+against the plain version (and the check arena's digest, which
+chip_smoke.py holds to VERDICT_DIGESTS), the CUDA-event time, the
+launch shape where the library exports one, and the ptxas lines.
+`--tree DIR` runs the children on the tendermint_tpu_torch package of
+another checkout (an older commit unpacked with git archive), built
+into that checkout's build/ directory: the way to time the parent's
+kernels in the same call.
+
 Each child prints one JSON line per measurement, relayed with its
 field; then the card's name and power limit. Needs one CUDA device;
 exits 2 without one, 1 on any disagreement.
@@ -55,7 +67,8 @@ import chip_smoke as cs
 CANDIDATES = {"i32": (4, 8, 16), "f32": (4, 8)}
 X4_CANDIDATES = {"i32": ((8, 4), (16, 6), (32, 7), (32, 8)),
                  "f32": ((8, 4), (16, 6), (32, 8))}
-FAMILIES = ("xv", "x4")
+FAMILIES = ("xv", "x4", "k7")
+DEFAULT_FAMILIES = ("xv", "x4")
 CHILD_TIMEOUT_S = 600
 
 
@@ -89,6 +102,8 @@ def child(field: str, families) -> int:
         rc |= xv_child(field)
     if "x4" in families:
         rc |= x4_child(field)
+    if "k7" in families:
+        rc |= k7_child(field)
     return rc
 
 
@@ -234,12 +249,53 @@ def x4_child(field: str) -> int:
     return rc
 
 
+def k7_child(field: str) -> int:
+    """K7 on the kernels check's arena and on the speculation arena."""
+    import torch
+
+    import tendermint_tpu_torch
+    from tendermint_tpu_torch.crypto.cuda import kernels, resident
+
+    if kernels.FIELD != field:
+        raise AssertionError(f"the {field} child runs the {kernels.FIELD} field")
+    dev = torch.device("cuda")
+    kernels.build()
+    checks, digests = {}, {}
+    cs.arena_check(1024, dev, checks, digests)
+    vs, commit, bid, _seeds = cs.make_commit(cs.N_VALIDATORS)
+    rc = 0
+    for name, arena in (("check", cs.KEEP["arena"]),
+                        ("spec", cs.spec_arena(vs, commit, bid, dev))):
+        largs = arena.launch_args()
+        v_k = resident.arena_verify(*largs)
+        equal = bool(torch.equal(v_k, resident.arena_verify_plain(*largs)))
+        if name == "check":
+            equal &= all(checks["arena_verify"].values())
+        else:
+            equal &= bool(v_k[largs[3]].all())
+        shape = (kernels.launch_shapes("tm_arena_verify_shape", arena.capacity)
+                 if "tm_arena_verify_shape" in kernels._SIGNATURES else None)
+        cs.emit({"kernel": "arena_verify", "arena": name,
+                 "package": os.path.dirname(tendermint_tpu_torch.__file__),
+                 "lanes": arena.capacity, "active_lanes": arena.active_lanes,
+                 "verdicts_equal_plain": equal, "digest": cs.digest(v_k),
+                 "ms": cs.cuda_ms(lambda: resident.arena_verify(*largs), 10),
+                 "launch": shape, "ptxas": cs.kernel_ptxas("arena_verify")})
+        rc |= not equal
+    return rc
+
+
 def main() -> int:
     import torch
 
+    tree = (["--tree", os.path.abspath(sys.argv[sys.argv.index("--tree") + 1])]
+            if "--tree" in sys.argv else [])
     if "--field" in sys.argv:
+        if tree:
+            sys.path.insert(0, tree[1])
         return child(sys.argv[sys.argv.index("--field") + 1], sys.argv[1:])
-    families = [a for a in sys.argv[1:] if a in FAMILIES] or list(FAMILIES)
+    families = ([a for a in sys.argv[1:] if a in FAMILIES]
+                or list(DEFAULT_FAMILIES))
     if not torch.cuda.is_available():
         print("sweep_warps: no CUDA device", file=sys.stderr)
         return 2
@@ -247,7 +303,7 @@ def main() -> int:
     for field in CANDIDATES:
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), *families,
-             "--field", field],
+             "--field", field, *tree],
             stdout=subprocess.PIPE, text=True,
             env=dict(os.environ, TM_TPU_FIELD=field))
         timer = threading.Timer(CHILD_TIMEOUT_S, proc.kill)

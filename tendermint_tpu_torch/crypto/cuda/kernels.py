@@ -66,6 +66,7 @@ _SIGNATURES = {
     "tm_shard_verify_shape": (_I, _I, _P),
     "tm_general_verify_shape": (_I, _P),
     "tm_sr_verify_shape": (_I, _P),
+    "tm_arena_verify_shape": (_I, _P),
 }
 # What a *_shape export reports for each launch (csrc/common.cuh
 # tm_shape): the grid, the block, the dynamic shared bytes, the blocks
@@ -216,7 +217,8 @@ def launch_shapes(export: str, *args, launches: int = 1) -> list[dict]:
     """The shape of each launch a kernel makes, from its *_shape export
     (``tm_build_tables_shape`` nkeys: K1's two launches;
     ``tm_xverify_shape`` n; ``tm_shard_verify_shape`` n, structured;
-    ``tm_general_verify_shape`` n; ``tm_sr_verify_shape`` n),
+    ``tm_general_verify_shape`` n; ``tm_sr_verify_shape`` n;
+    ``tm_arena_verify_shape`` n),
     on the current CUDA device: SHAPE_KEYS and the resident warps an
     SM."""
     buf = (ctypes.c_int * (len(SHAPE_KEYS) * launches))()

@@ -10,7 +10,7 @@
 // - K3/K5 (xverify_lane.cuh): a block of TM_XV_WARPS warps serves
 //   TM_XV_LANES lanes, one lane a thread of each warp; the warps split
 //   the lane's windows and reduce their partial sums in shared memory;
-// - K4/K9 (verify_x4.cuh): a block of TM_X4_WARPS warps serves
+// - K4/K9 and K7 (verify_x4.cuh): a block of TM_X4_WARPS warps serves
 //   TM_X4_LANES lanes, [k](-A) on four threads a lane, the digits, R
 //   and the comb windows of [S]B on other warps, one thread a lane.
 // TM_XV_WARPS and TM_X4_WARPS are the field's: at most 256 threads a
@@ -58,7 +58,7 @@ static inline unsigned tm_blocks(long n) {
 #endif
 #define TM_XV_THREADS (TM_XV_WARPS * 32)
 
-// K4/K9 (verify_x4.cuh): lanes a block and warps a block. The warps
+// K4/K9 and K7 (verify_x4.cuh): lanes a block and warps a block. The warps
 // of a block: TM_X4_CHAIN_WARPS chain warps (four threads a lane, eight
 // lanes a warp), the digits warp, the R warp, and the comb warps (one
 // lane a thread of each). The defaults were chosen by CUDA-event time

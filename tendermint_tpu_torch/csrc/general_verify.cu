@@ -23,8 +23,8 @@
 // lane (s_ok false) does no curve work. In a block with any live lane,
 // a dead lane's R and comb threads skip theirs, but its chain threads
 // still decompress A and run the windows on zero digits; its verdict is
-// false either way. K7 and K8 keep the one-thread-a-lane body of
-// general_lane.cuh.
+// false either way. K7 and K8's verify (arena_verify.cu) run the same
+// body, with the arena's sign bytes assembled by the digits warp.
 // What holds it back now: the chain's latency. A lane's [k](-A) is
 // ~1,050 dependent rounds (the decode of A, then 68 windows of 4
 // doublings of two rounds and an add of three), each a multiply,

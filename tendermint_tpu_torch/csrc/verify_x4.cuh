@@ -1,5 +1,6 @@
-// The block body shared by K4 (general_verify.cu) and K9 (sr_verify.cu):
-// TM_X4_LANES lanes a block that each carry their own key, [k](-A) on a
+// The block body shared by K4 (general_verify.cu), K9 (sr_verify.cu)
+// and K7 (arena_verify.cu, K8's verify too): TM_X4_LANES lanes a block
+// that each carry their own key, [k](-A) on a
 // 4-thread chain a lane (chain_x4.cuh) while other warps do the rest.
 //
 // [k](-A) runs over a variable base, so its windows cannot be split
@@ -19,8 +20,9 @@
 //     digits (named barrier 1), run the windows MSB first: 4 doublings
 //     and the entry |d_w| added with the digit's sign (-X, -T);
 //   - the digits warp: the lane's signed digits into shared memory
-//     (K4: SHA-512, the fold and the recode; K9: the recode of the
-//     host's nibbles), then arrives on named barrier 1;
+//     (K4: SHA-512, the fold and the recode; K7: the same after it
+//     assembles the lane's sign bytes; K9: the recode of the host's
+//     nibbles), then arrives on named barrier 1;
 //   - the comb warps: contiguous slices of the 64 comb windows of [S]B
 //     (they need only S), each partial sum into a shared slot, then
 //     arrive on named barrier 2;
@@ -41,7 +43,8 @@
 // coordinate c of lane l at p[(k * TM_X4_LANES + l) * 4 + c]: a chain
 // warp's 32 threads read 32 consecutive words): at 32 lanes and 8 warps
 // K4 11 x 5,120 B = 55 KB in i32 and x 16,384 B = 176 KB in f32, K9 one
-// slot more (above 48 KB: cudaFuncSetAttribute before each launch). The
+// slot more, K7 K4's and its 32 message rows of 196 B (6,272 B) after
+// them (above 48 KB: cudaFuncSetAttribute before each launch). The
 // chain's field calls are inline (fe_calls_inline), its coordinate in
 // registers.
 #pragma once

@@ -20,8 +20,8 @@
 // - phase B: warps 0 and 2..W-1 (W - 1 warps) sum the [k]A windows,
 //   69 / (W - 1) each, the table entries read straight from device
 //   memory. Warp 0 starts as soon as it has written the digits; warps
-//   2..W-1 wait for them on named barrier 1 (bar.arrive by warp 0,
-//   bar.sync by them) after their comb windows. Warp 1 has no [k]A
+//   2..W-1 wait for them on named barrier 1 (barrier.arrive by warp 0,
+//   barrier.sync by them) after their comb windows. Warp 1 has no [k]A
 //   window: its decompress is the longest phase-A task;
 // - the reduction: the W partial sums meet in a tree through shared
 //   memory (warp w + h adds into warp w for h = W/2, W/4, .., 1); warp 0
@@ -51,15 +51,16 @@ static_assert(TM_XV_WARPS >= 4 && (TM_XV_WARPS & (TM_XV_WARPS - 1)) == 0,
   ((size_t)(TM_XV_WARPS / 2) * TM_XV_LANES * TM_ENTRY_INTS * sizeof(fe_limb))
 
 // Named barrier 1 between warp 0 (arrives once the digits are in
-// shared memory) and the comb warps (wait for them).
+// shared memory) and the comb warps (wait for them). It is reached from
+// two branches, so the non-aligned forms (as verify_x4.cuh's).
 #define TM_XV_DIGIT_BAR_THREADS (32 * (TM_XV_WARPS - 1))
 
 static __device__ __forceinline__ void tm_digits_arrive() {
-  asm volatile("bar.arrive 1, %0;" ::"r"(TM_XV_DIGIT_BAR_THREADS) : "memory");
+  asm volatile("barrier.arrive 1, %0;" ::"r"(TM_XV_DIGIT_BAR_THREADS) : "memory");
 }
 
 static __device__ __forceinline__ void tm_digits_wait() {
-  asm volatile("bar.sync 1, %0;" ::"r"(TM_XV_DIGIT_BAR_THREADS) : "memory");
+  asm volatile("barrier.sync 1, %0;" ::"r"(TM_XV_DIGIT_BAR_THREADS) : "memory");
 }
 
 // A point in the lane-minor shared layout: limb k at p[k * TM_XV_LANES].

@@ -192,10 +192,11 @@ def _seed(i: int) -> bytes:
     return hashlib.sha256(b"gen-order-%d" % i).digest()
 
 
-def _torsion_lanes():
+def _torsion_lanes(msgs=None):
     """(pub, msg, sig, expected) lanes: A = aB + T8 or R = rB + T8 (both
     valid under the cofactored check), a bad S on each, and the two
-    non-canonical identity keys with a good and a bad S."""
+    non-canonical identity keys with a good and a bad S; lane k signs
+    msgs[k] when msgs (ten messages) are given."""
     t8 = ref.to_extended(ref.decompress(T8))
     a = ref._clamp(hashlib.sha512(_seed(0)).digest())
     a_pt = ref.base_mult(a)
@@ -203,7 +204,7 @@ def _torsion_lanes():
     torsion_key = ref.compress(ref.from_extended(ref.pt_add(a_pt, t8)))
     lanes = []
     for i in range(6):
-        msg = b"torsion lane %d" % i
+        msg = msgs[i] if msgs else b"torsion lane %d" % i
         r = int.from_bytes(hashlib.sha256(msg).digest(), "little") % ref.L
         r_pt = ref.base_mult(r)
         key = torsion_key if i % 2 else plain_key
@@ -220,7 +221,9 @@ def _torsion_lanes():
         s = 1000 + j
         r_enc = ref.compress(ref.from_extended(ref.base_mult(s)))
         for good in (True, False):
-            lanes.append((key, b"noncanonical key %d" % j,
+            msg = (msgs[6 + 2 * j + (not good)] if msgs
+                   else b"noncanonical key %d" % j)
+            lanes.append((key, msg,
                           r_enc + (s + (not good)).to_bytes(32, "little"),
                           good))
     return lanes

@@ -18,11 +18,16 @@ on the CPU.
   non-canonically.
 - ``field.sqr`` takes symmetric column sums (csrc/field.cuh fe_sqr) and
   must equal ``field.mul(a, a)`` limb for limb.
+- The named barriers in the sources' inline PTX are the non-aligned
+  ``barrier.arrive`` / ``barrier.sync``: each is reached from two role
+  branches (K3/K5's barrier 1, K4/K9/K7's barriers 1 and 2).
 
 Tolerance: exact (limbs, verdicts); mod p against the reference's
 tables, whose limbs are another radix."""
 
 import hashlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -337,3 +342,21 @@ def test_symmetric_sqr_equals_mul(kind):
         a = _loose_chain(rng, 4096)
     assert int(a.abs().max()) < 1 << 26
     assert torch.equal(field.sqr(a), field.mul(a, a))
+
+
+def test_named_barriers_are_non_aligned():
+    """The PTX ISA leaves an aligned bar.arrive / bar.sync undefined when
+    the threads of a CTA reach it through different instructions, as
+    the role branches of csrc/xverify_lane.cuh and csrc/verify_x4.cuh
+    reach their named barriers: no inline PTX in csrc/ may use the
+    aligned forms, and both headers use the non-aligned ones."""
+    csrc = Path(ex.__file__).resolve().parents[2] / "csrc"
+    asm = {f.name: re.findall(r'asm\s+volatile\s*\(\s*"([^"]*)"',
+                              f.read_text())
+           for f in csrc.iterdir() if f.suffix in (".cu", ".cuh")}
+    aligned = {name: ops for name, ops in asm.items()
+               if any(re.match(r"\s*bar\.", op) for op in ops)}
+    assert not aligned
+    for name in ("xverify_lane.cuh", "verify_x4.cuh"):
+        ops = [op.split()[0] for op in asm[name]]
+        assert sorted(set(ops)) == ["barrier.arrive", "barrier.sync"], name

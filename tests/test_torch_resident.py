@@ -1,9 +1,9 @@
 """Port parity for the speculation arena (crypto/cuda/resident.py): K6's
 splice and clear and K7's arena verify, by their plain PyTorch
 versions on the CPU, against the JAX reference's ResidentArena (XLA
-CPU backend), its verify_batch and the ed25519_ref oracle, on
-numpy-seeded inputs. Tolerance: exact — buffers byte-equal, verdicts
-bit-identical."""
+CPU backend; its _arena_kernel through launch), its verify_batch and
+the ed25519_ref oracle, on numpy-seeded inputs. Tolerance: exact —
+buffers byte-equal, verdicts bit-identical."""
 
 import numpy as np
 import pytest
@@ -167,6 +167,22 @@ def test_arena_verify_plain_matches_reference_and_oracle(loaded):
     # the sign bytes K7 assembles are the canonical ones
     spub, smsg, ssig = cbatch._ed_probe_triple()
     assert ref.verify(spub, smsg, ssig)
+
+
+def test_arena_verify_plain_matches_reference_kernel(loaded):
+    """The reference's _arena_kernel (its ResidentArena.launch, on the
+    XLA CPU backend) over the same arena: every lane's verdict, the
+    sentinel's and the inactive lanes' included, is the plain
+    version's."""
+    b, pubs, keep, arena, out = loaded
+    jarena = jresident.ResidentArena(32)
+    jarena.install_keys(pubs)
+    jarena.set_template(1, b["pre"], b["suf"])
+    jarena.splice([i + 1 for i in keep],
+                  *_rows(jarena, [b["ts"][i] for i in keep],
+                         [b["sigs"][i] for i in keep]))
+    _assert_same(jarena, arena)
+    assert np.array_equal(np.asarray(jarena.launch()), out)
 
 
 def test_arena_wrappers_take_plain_version_for_cpu_tensors(loaded):
