@@ -7,8 +7,11 @@ Phases, each printing one JSON line:
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build — the CUDA kernels built from tendermint_tpu_torch/csrc;
-3. kernels — each of K1-K4 against its plain PyTorch version on an
-   adversarial batch (1,024 lanes over 256 keys), K6/K7 on a
+3. kernels — each of K1, K3 and K4 against its plain PyTorch version on
+   an adversarial batch (1,024 lanes over 256 keys), K3's structured
+   form (K2's assembly inside the launch) on a structured commit with
+   one lane's patch off by a byte against assemble_plain + xverify_plain
+   and against the bytes form on the host's own sign bytes, K6/K7 on a
    1,024-lane speculation arena holding the adversarial lanes and some
    inactive ones, and K9 on a 1,024-lane sr25519 adversarial batch
    (verdicts also equal to sr25519_ref.verify on every lane, and every
@@ -21,7 +24,7 @@ Phases, each printing one JSON line:
    verify_commit_light_trusting (trust 1/3), a corrupted signature that
    must be named, and a 64-lane BatchVerifier; the launch counters are
    zeroed just before and read just after, and every kernel of the
-   path (K1-K4) must have launched;
+   path (K1, K3 with K2 inside, K4) must have launched;
 5. speculation — the same set and commit through the SpeculationPlane:
    begin_height, the precommits observed in 10 bursts of 1,024 with a
    flush_sync after each (one K6 splice and one K7 launch each, the
@@ -35,8 +38,8 @@ Phases, each printing one JSON line:
    ed25519, and its signed commit through verify_commit (5 runs, p50,
    and the stages of one run), verify_commit_light and
    verify_commit_light_trusting: each call must launch K9 once for the
-   sr25519 lanes and K4 once for the ed25519 lanes, and K1, K2, K3
-   and K7 never; a corrupted sr25519 and a corrupted ed25519 signature
+   sr25519 lanes and K4 once for the ed25519 lanes, and K1, K3 and K7
+   never; a corrupted sr25519 and a corrupted ed25519 signature
    must each be named; one duplicate-vote evidence check on an sr25519
    validator (valid, then with a bad signature);
 7. fabric — the multi-device verify fabric on a mesh: every CUDA
@@ -48,7 +51,7 @@ Phases, each printing one JSON line:
    templates (structured). Then, with the crossover at 5,120 keys, the
    slice phase's set and commit: the sharded table build (one K1 launch
    a key range), verify_commit (11 runs, p50), _light and _trusting,
-   each launching K5 once per shard and K2/K3 never with the slice
+   each launching K5 once per shard and K3 never with the slice
    phase's outcome, the corrupted signature rejected at the same index;
    the mixed phase's commit through verify_commit, each call launching
    K4 and K9 once per shard with the mixed phase's outcomes and
@@ -75,9 +78,14 @@ Phases, each printing one JSON line:
    injected. The comparisons in that run (one-card verdicts, the
    timed probe, the on-device K4 and K9 references) have their
    launches taken back out of the counts;
-9. timing — each kernel at the main path's shapes: CUDA-event time,
-   the plain version's time, its bound, and its agreement with the
-   plain version on those inputs (K4 at the 64-lane BatchVerifier's
+9. timing — each kernel at the main path's shapes: its device time a
+   call (`ms`: back-to-back calls captured in a CUDA graph and the
+   replay timed by CUDA events, no host gaps) and its wrapper's time a
+   call (`wrapper_us`: CUDA events around as many calls made from
+   Python, the host's work between launches included), the plain version's time, its bound, and its agreement
+   with the plain version (K2's row: what its assembly adds to the
+   structured K3 launch that carries it, against the bytes form on the
+   same lanes) on those inputs (K4 at the 64-lane BatchVerifier's
    128-lane bucket and, as general_verify_mixed, at the mixed
    commit's 8,192-lane bucket; K9 at its 5,120 lanes); for the kernels
    that spread a key or a lane over many threads (K1, K3, K4, K5, K7,
@@ -179,7 +187,7 @@ REPLACES = {
 }
 SOURCES = {
     "build_tables": "tendermint_tpu_torch/csrc/build_tables.cu",
-    "assemble": "tendermint_tpu_torch/csrc/assemble.cu",
+    "assemble": "tendermint_tpu_torch/csrc/xverify.cu",
     "xverify": "tendermint_tpu_torch/csrc/xverify.cu",
     "general_verify": "tendermint_tpu_torch/csrc/general_verify.cu",
     "splice": "tendermint_tpu_torch/csrc/splice.cu",
@@ -188,16 +196,19 @@ SOURCES = {
     "arena_verify_spec": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
     "general_verify_mixed": "tendermint_tpu_torch/csrc/general_verify.cu",
-    "shard_verify": "tendermint_tpu_torch/csrc/shard_verify.cu",
+    "shard_verify": "tendermint_tpu_torch/csrc/xverify.cu",
     "mesh_splice": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_clear": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
 }
-# The __global__ function of each row (K8's splice and verify are K6's
-# and K7's kernels; K1 is two launches, the chain's and the rows'; the
+# The __global__ function of each row (K5 is K3's kernel, and K2 runs
+# inside it; K8's splice, clear and verify are K6's and K7's kernels;
+# K1 is two launches, the chain's and the rows'; the
 # general_verify_mixed row is K4 at the mixed commit's shape).
 GLOBALS = {name: "k_" + name for name in SOURCES}
-GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify",
+GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
+               mesh_splice="k_splice", mesh_clear="k_clear",
+               mesh_arena_verify="k_arena_verify",
                arena_verify_spec="k_arena_verify",
                build_tables=("k_build_chain", "k_build_rows"),
                general_verify_mixed="k_general_verify")
@@ -206,13 +217,17 @@ GLOBALS.update(mesh_splice="k_splice", mesh_arena_verify="k_arena_verify",
 # the f32 child, which runs no speculation plane).
 ROW_KERNEL = {"general_verify_mixed": "general_verify",
               "arena_verify_spec": "arena_verify"}
+# K2 is no launch of its own: it runs inside the structured form of K3
+# and K5 (csrc/xverify.cu), as the reference traces assemble_core into
+# _skernel; its row counts the launches that carry it.
+INSIDE = {"assemble": ("xverify", "shard_verify")}
 # The kernels spread over many threads a key or lane (K1, K3, K4, K5,
 # K7, K8's verify, K9): the shape export of each and its number of
 # launches (kernels.launch_shapes). Each launch must run at least
 # MIN_THREADS_PER_ITEM threads a key or lane, with no spills.
 SHAPE_EXPORTS = {"build_tables": ("tm_build_tables_shape", 2),
                  "xverify": ("tm_xverify_shape", 1),
-                 "shard_verify": ("tm_shard_verify_shape", 1),
+                 "shard_verify": ("tm_xverify_shape", 1),
                  "general_verify": ("tm_general_verify_shape", 1),
                  "sr_verify": ("tm_sr_verify_shape", 1),
                  "arena_verify": ("tm_arena_verify_shape", 1),
@@ -224,7 +239,7 @@ VERDICT_DIGESTS = {"general_verify": "a106af0ce1da1c4b",
                    "arena_verify": "424457bc6352ff63",
                    "sr_verify": "f73a94992d6667f6"}
 MIN_THREADS_PER_ITEM = 4
-SLICE_KERNELS = ("build_tables", "assemble", "xverify", "general_verify")
+SLICE_KERNELS = ("build_tables", "xverify", "general_verify")
 SPEC_KERNELS = ("splice", "clear", "arena_verify")
 MIXED_KERNELS = ("general_verify", "sr_verify")
 # The fabric phase's logical mesh when the machine has one card, and
@@ -253,7 +268,6 @@ def wrappers():
                                                   sr_verify, verify)
 
     return {"build_tables": expanded.build_tables,
-            "assemble": expanded.assemble,
             "xverify": expanded.xverify,
             "general_verify": verify.general_verify,
             "splice": resident.splice,
@@ -267,7 +281,10 @@ def wrappers():
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after one warm-up."""
+    """Mean milliseconds per call by CUDA events around `reps`
+    back-to-back calls, after one warm-up: the host's work between the
+    launches (a wrapper's checks, allocations, ctypes call) is inside
+    it wherever it leaves the card idle."""
     import torch
 
     fn()
@@ -280,6 +297,42 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device milliseconds of a call of fn, with no host gaps: after
+    one warm-up call, `reps` calls captured in one CUDA graph, and the
+    graph replayed `replays` times between two CUDA events, so the
+    calls' launches and copies run back to back on the card as the
+    graph's nodes. The wrappers' Python runs once, at the capture."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """A row's two times for fn: `ms`, its device time a call
+    (device_ms: a CUDA graph's replay), and `wrapper_us`, a call through
+    its Python wrapper in microseconds by CUDA events (cuda_ms), host
+    gaps included."""
+    return {"ms": device_ms(fn, reps), "wrapper_us": cuda_ms(fn, reps) * 1e3}
 
 
 def ptxas_summary(log: str, fn: str) -> dict:
@@ -453,10 +506,11 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
     # K3 through the bytes path, against the plain version and expect.
     idx, packed, wf = exp._prepare(b["idx"], b["msgs"], b["sigs"])
     t = verify.to_device(dict(packed, idx=idx), dev)
-    args = (t["idx"], exp.akeys, t["sb"], t["msg"], t["nblocks"], t["s_ok"],
-            exp.key_ok, exp.tables, verify._btab(dev))
-    v_k = expanded.xverify(*args)
-    v_p = expanded.xverify_plain(*args)
+    args = (t["idx"], exp.akeys, t["sb"], t["s_ok"], exp.key_ok, exp.tables,
+            verify._btab(dev))
+    bform = dict(msg=t["msg"], nblocks=t["nblocks"])
+    v_k = expanded.xverify(*args, **bform)
+    v_p = expanded.shard_verify_plain(*args, **bform)
     got = v_k.cpu().numpy()[:n_lanes] & wf
     out["xverify"] = dict(equal_plain=bool(torch.equal(v_k, v_p)),
                           equal_expect=bool((got == expect).all()))
@@ -479,28 +533,46 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
         equal_plain=bool(torch.equal(g_k, verify.general_verify_plain(*gargs))),
         equal_expect=bool((g == expect).all()))
     digests["general_verify"] = digest(g_k)
-    # K2: sign bytes of a structured commit, against the plain version
-    # and against the host's own padding of the materialized bytes.
+    # K2 inside K3's structured form, on a structured commit with one
+    # lane's patch off by one byte: the verdicts against the plain
+    # version (assemble_plain, then xverify_plain) and against the bytes
+    # form on the host's own padding of the materialized sign bytes,
+    # which assemble_plain must reproduce byte for byte.
     spubs, commit = structured_commit(n_lanes, seed=2)
     sexp = expanded.ExpandedKeys(spubs, device=dev)
     lanes = list(range(n_lanes))
     sbatch = CommitSignBatch(CHAIN, commit, lanes)
     sigs = [cs.signature for cs in commit.signatures]
     sidx, fields, _wf, width = sexp._prepare_structured(lanes, sbatch, sigs)
-    f = verify.to_device(dict(fields), dev)
-    aargs = (f["pre"], f["pre_len"], f["suf"], f["suf_len"], f["patch"],
-             f["split"], f["patch_len"], f["group"], width)
-    m_k, nb_k = expanded.assemble(*aargs)
-    m_p, nb_p = expanded.assemble_plain(*aargs)
+    off = n_lanes // 3  # the lane whose patch (its length prefix) is off
+    patch = fields["patch"].copy()
+    patch[off, 0] ^= 1
+    f = verify.to_device(dict(fields, patch=patch, idx=sidx), dev)
+    sargs = (f["idx"], sexp.akeys, f["sb"], f["s_ok"], sexp.key_ok,
+             sexp.tables, verify._btab(dev))
+    sform = dict(templates=(f["pre"], f["pre_len"], f["suf"], f["suf_len"]),
+                 patches=(f["patch"], f["split"], f["patch_len"], f["group"]),
+                 width=width)
+    v_s = expanded.xverify(*sargs, **sform)
+    m_p, nb_p = expanded.assemble_plain(*sform["templates"], *sform["patches"],
+                                        width)
     host = verify.pack_sig_msg(fields["sb"][:n_lanes], sbatch.materialize())
     hw = host["msg"].shape[1]
-    m_host = m_k.cpu().numpy()[:n_lanes]
+    m_host = m_p.cpu().numpy()[:n_lanes]
+    want = np.ones(n_lanes, bool)
+    want[off] = False
     out["assemble"] = dict(
-        equal_plain=bool(torch.equal(m_k, m_p) and torch.equal(nb_k, nb_p)),
-        equal_host=bool((m_host[:, :hw] == host["msg"]).all()
-                        and (m_host[:, hw:] == 0).all()
-                        and (nb_k.cpu().numpy()[:n_lanes]
-                             == host["nblocks"]).all()))
+        equal_plain=bool(torch.equal(
+            v_s, expanded.shard_verify_plain(*sargs, **sform))),
+        equal_bytes_form=bool(torch.equal(
+            v_s, expanded.xverify(*sargs, msg=m_p, nblocks=nb_p))),
+        plain_equal_host=bool(
+            (np.delete(m_host, off, 0)[:, :hw]
+             == np.delete(host["msg"], off, 0)).all()
+            and (m_host[:, hw:] == 0).all()
+            and (nb_p.cpu().numpy()[:n_lanes] == host["nblocks"]).all()),
+        verdicts_expected=bool((v_s.cpu().numpy()[:n_lanes] == want).all()))
+    digests["xverify_structured"] = digest(v_s)
     sv = sexp.verify_structured(lanes, sbatch, sigs)
     out["assemble"]["commit_verifies"] = bool(sv.all())
     timed = arena_check(n_lanes, dev, out, digests)
@@ -512,15 +584,18 @@ def kernel_phase(n_keys: int, n_lanes: int, dev) -> dict:
     for name, fn in wrappers().items():
         if name in out:  # K5 is held in the fabric phase
             out[name]["launches"] = fn.launches - before[name]
-    if dev.type == "cuda":  # CUDA-event time at this phase's shapes
-        out["build_tables"]["ms"] = cuda_ms(
-            lambda: expanded.build_tables(akeys), 3)
-        out["xverify"]["ms"] = cuda_ms(lambda: expanded.xverify(*args), 5)
-        out["general_verify"]["ms"] = cuda_ms(
-            lambda: verify.general_verify(*gargs), 5)
-        out["assemble"]["ms"] = cuda_ms(lambda: expanded.assemble(*aargs), 20)
+    if dev.type == "cuda":  # device and wrapper times at these shapes
+        out["build_tables"].update(kernel_times(
+            lambda: expanded.build_tables(akeys), 3))
+        out["xverify"].update(kernel_times(
+            lambda: expanded.xverify(*args, **bform), 5))
+        out["general_verify"].update(kernel_times(
+            lambda: verify.general_verify(*gargs), 5))
+        # K2 has no launch: the structured K3 that carries it
+        out["assemble"]["in_xverify"] = kernel_times(
+            lambda: expanded.xverify(*sargs, **sform), 5)
         for name, (fn, reps) in timed.items():
-            out[name]["ms"] = cuda_ms(fn, reps)
+            out[name].update(kernel_times(fn, reps))
     moved = {k: digests[k] for k, v in VERDICT_DIGESTS.items()
              if digests[k] != v}
     if moved:
@@ -795,7 +870,7 @@ def slice_phase(vs, commit, bid) -> dict:
 def commit_breakdown(vs, commit, reps: int = 7) -> dict:
     """Median ms of the stages of one structured verify_commit at this
     size: the host's CommitSignBatch and packing, then the device call
-    (uploads, K2, K3, verdict readback). Its launches are counted
+    (uploads, K3 with K2 inside, verdict readback). Its launches are counted
     outside the main-path run (the caller has read the counters)."""
     import torch
 
@@ -882,7 +957,8 @@ def speculation_phase(vs, commit, bid):
     lanes = plane._heights[h].lanes
     if len(lanes) != len(votes) or not all(ln.verdict for ln in lanes.values()):
         raise AssertionError("a speculated lane did not verify")
-    verify_kernels = ("assemble", "xverify", "general_verify", "arena_verify")
+    verify_kernels = ("xverify", "shard_verify", "general_verify",
+                      "arena_verify")
     before = {k: kernels[k].launches for k in verify_kernels}
     t0 = time.perf_counter()
     served = plane.serve_commit(vs, CHAIN, bid, h, commit)
@@ -1215,7 +1291,8 @@ def sr_row(vs, commit, dev) -> dict:
         raise AssertionError("K9 rejects the valid commit's lanes")
     ops, nbytes = sr_work(args)
     row = entry("sr_verify", max_abs_diff(v_k, v_p),
-                cuda_ms(lambda: sv.sr_verify(*args), 10), p_ms, ops, nbytes)
+                kernel_times(lambda: sv.sr_verify(*args), 10), p_ms, ops,
+                nbytes)
     row["lanes"] = len(lanes)
     row["launch"] = launch_info("sr_verify", len(lanes))
     return row
@@ -1242,7 +1319,7 @@ def k4_row(name, gargs, live: int) -> dict:
         raise AssertionError("K4 rejects the valid commit's lanes")
     ops, nbytes = general_work(ab, sb, msg, nblocks, s_ok.bool())
     row = entry(name, max_abs_diff(v_k, v_p),
-                cuda_ms(lambda: verify.general_verify(*gargs), 10), p_ms,
+                kernel_times(lambda: verify.general_verify(*gargs), 10), p_ms,
                 ops, nbytes + btab.numel() * 4)
     row["lanes"], row["live_lanes"] = int(ab.shape[0]), live
     row["launch"] = launch_info(name, row["lanes"])
@@ -1325,7 +1402,8 @@ def k5_check_row() -> dict:
         akeys, key_ok, s_idx, sb, s_ok, kw["msg"], kw["nblocks"])
     nbytes = lane_bytes + m * 4 + msg_bytes + btab.numel() * 4
     row = entry("shard_verify", max_abs_diff(v_k, v_p),
-                cuda_ms(lambda: expanded.shard_verify(*args, **kw), 10), p_ms,
+                kernel_times(lambda: expanded.shard_verify(*args, **kw), 10),
+                p_ms,
                 ops, nbytes)
     row["lanes"] = int(s_idx.shape[0])
     row["launch"] = launch_info("shard_verify", row["lanes"], 0)
@@ -1527,7 +1605,8 @@ def k5_row(exp, commit, lanes, dev):
     """K5 at the main path's shapes: each shard's launch on the valid
     commit's routed lanes timed alone by CUDA events, then all of them
     on their streams; shard 0's against its plain version, with its
-    bound. Returns the kernels row and the times."""
+    bound and its device time. Returns the kernels row and the
+    times."""
     import torch
 
     from tendermint_tpu_torch.crypto.cuda import expanded, verify
@@ -1556,7 +1635,8 @@ def k5_row(exp, commit, lanes, dev):
     args, kw = calls[0]
     v_k = expanded.shard_verify(*args, **kw)
     v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*args, **kw))
-    msg, nblocks = expanded.assemble(*kw["templates"], *kw["patches"], width)
+    msg, nblocks = expanded.assemble_plain(*kw["templates"], *kw["patches"],
+                                           width)
     s_idx, akeys, sb, s_ok, key_ok, _tables, btab = args
     ops, lane_bytes, _msg_bytes, m = xverify_work(akeys, key_ok, s_idx, sb,
                                                   s_ok, msg, nblocks)
@@ -1564,8 +1644,8 @@ def k5_row(exp, commit, lanes, dev):
     # the comb
     nbytes = (lane_bytes + m * (24 + 3 * 4) + btab.numel() * 4
               + sum(t.numel() * t.element_size() for t in kw["templates"]))
-    row = entry("shard_verify", max_abs_diff(v_k, v_p), shard_ms[0], p_ms,
-                ops, nbytes)
+    row = entry("shard_verify", max_abs_diff(v_k, v_p), kernel_times(
+        lambda: expanded.shard_verify(*args, **kw), 10), p_ms, ops, nbytes)
     row["lanes"] = int(s_idx.shape[0])
     row["launch"] = launch_info("shard_verify", row["lanes"], 1)
     return row, {"per_shard": shard_ms[:-1], "all_shards": shard_ms[-1]}
@@ -2084,11 +2164,13 @@ def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
         for j in range(7)]
     err = max(max_abs_diff(x, y) for x, y in zip(got, plain))
     k = len(last)
-    row = entry("mesh_splice", err, cuda_ms(k_splice, 100), p_ms, 0,
+    row = entry("mesh_splice", err, kernel_times(k_splice, 100), p_ms, 0,
                 k * (resident.ROW_BYTES + SPLICE_WRITE))
     lib = [index_copy_splice([t.clone() for t in bk], pk)
            for bk, pk in zip(bufs_k, packed)]
-    row["library_ms"] = cuda_ms(lambda: [f() for f in lib], 100)
+    lib_t = kernel_times(lambda: [f() for f in lib], 100)
+    row["library_ms"] = lib_t["ms"]
+    row["library_wrapper_us"] = lib_t["wrapper_us"]
     out = [row]
     # the clear of every block
     acts = [snap[3].clone() for snap in snapshot]
@@ -2104,7 +2186,7 @@ def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
                                                 arena._off_of[d] + per]
                        for d in range(d_n)])
     out.append(entry("mesh_clear", max_abs_diff(got, act_p),
-                     cuda_ms(k_clear, 100), p_ms, 0, d_n * per))
+                     kernel_times(k_clear, 100), p_ms, 0, d_n * per))
     # the verify of every active lane, on every device's stream
     devices = [blk["device"] for blk in blocks]
 
@@ -2139,8 +2221,8 @@ def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
     nbytes = (live.numel() * (32 + 64 + 1 + 24 + 3 * 4) + 2 * d_n * per
               + sum(t.numel() * t.element_size() for t in tpl)
               + snapshot[0][12].numel() * 4)
-    row = entry("mesh_arena_verify", err, cuda_ms(k_verify, 5), p_ms, ops,
-                nbytes)
+    row = entry("mesh_arena_verify", err, kernel_times(k_verify, 5), p_ms,
+                ops, nbytes)
     row["active_lanes"] = int(live.numel())
     row["launch"] = launch_info("mesh_arena_verify", lanes)  # largest block
     out.append(row)
@@ -2182,38 +2264,48 @@ def timing_phase(vs, commit, dev) -> list[dict]:
            + int(ok_k.sum().item()) * (69 * 7 * ADD + 68 * 4 * DOUBLE))
     nbytes = n * 32 + tab_k.numel() * 4 + n
     del tab_k
-    rows.append(entry("build_tables", err, cuda_ms(k1, 3), p_ms, ops, nbytes))
+    rows.append(entry("build_tables", err, kernel_times(k1, 3), p_ms, ops,
+                      nbytes))
     rows[-1]["launch"] = launch_info("build_tables", n)
     torch.cuda.empty_cache()
-    # K2 at the commit's shape
-    aargs = (f["pre"], f["pre_len"], f["suf"], f["suf_len"], f["patch"],
-             f["split"], f["patch_len"], f["group"], width)
-    m_k, nb_k = expanded.assemble(*aargs)
-    (m_p, nb_p), p_ms = plain_ms(lambda: expanded.assemble_plain(*aargs))
-    err = max(max_abs_diff(m_k, m_p), max_abs_diff(nb_k, nb_p))
-    nbytes = (sum(f[k].numel() * f[k].element_size() for k in
-                  ("pre", "pre_len", "suf", "suf_len", "patch", "split",
-                   "patch_len", "group"))
-              + m_k.numel() + nb_k.numel() * 4)
-    rows.append(entry("assemble", err,
-                      cuda_ms(lambda: expanded.assemble(*aargs), 20),
-                      p_ms, 0, nbytes))
-    # K3 on the assembled commit
-    xargs = (f["idx"], exp.akeys, f["sb"], m_k, nb_k, f["s_ok"], exp.key_ok,
-             exp.tables, btab)
-    v_k = expanded.xverify(*xargs)
-    v_p, p_ms = plain_ms(lambda: expanded.xverify_plain(*xargs))
+    # K3 in the structured form on the commit: the main path's launch,
+    # K2's assembly inside it
+    sargs = (f["idx"], exp.akeys, f["sb"], f["s_ok"], exp.key_ok, exp.tables,
+             btab)
+    tpl = (f["pre"], f["pre_len"], f["suf"], f["suf_len"])
+    sform = dict(templates=tpl,
+                 patches=(f["patch"], f["split"], f["patch_len"], f["group"]),
+                 width=width)
+    v_k = expanded.xverify(*sargs, **sform)
+    v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*sargs, **sform))
     err = max_abs_diff(v_k, v_p)
     if not bool(v_k[:n].all()):
         raise AssertionError("K3 rejects the valid commit")
+    (m_p, nb_p), a_ms = plain_ms(lambda: expanded.assemble_plain(
+        *tpl, *sform["patches"], width))
     ops, lane_bytes, msg_bytes, m = xverify_work(
-        exp.akeys, exp.key_ok, f["idx"], f["sb"], f["s_ok"], m_k, nb_k)
-    # and nblocks per lane, the message bytes its SHA-512 reads, the comb
-    nbytes = lane_bytes + m * 4 + msg_bytes + btab.numel() * 4
-    rows.append(entry("xverify", err,
-                      cuda_ms(lambda: expanded.xverify(*xargs), 10),
-                      p_ms, ops, nbytes))
-    rows[-1]["launch"] = launch_info("xverify", int(f["idx"].shape[0]))
+        exp.akeys, exp.key_ok, f["idx"], f["sb"], f["s_ok"], m_p, nb_p)
+    # and per live lane its patch, split, patch_len and group; the
+    # templates; the comb
+    tpl_bytes = sum(t.numel() * t.element_size() for t in tpl)
+    nbytes = lane_bytes + m * (24 + 3 * 4) + tpl_bytes + btab.numel() * 4
+    k3 = kernel_times(lambda: expanded.xverify(*sargs, **sform), 10)
+    rows.append(entry("xverify", err, k3, p_ms, ops, nbytes))
+    rows[-1]["launch"] = launch_info("xverify", int(f["idx"].shape[0]), 1)
+    # K2: no launch of its own. What it adds to the launch that carries
+    # it: the structured K3's times less the bytes form's on the same
+    # lanes, given the rows the plain version assembles; the two forms'
+    # verdicts must agree
+    bform = dict(msg=m_p, nblocks=nb_p)
+    k3b = kernel_times(lambda: expanded.xverify(*sargs, **bform), 10)
+    err = max_abs_diff(expanded.xverify(*sargs, **bform), v_k)
+    # it reads per live lane the patch and three ints, and the templates;
+    # it writes no message to device memory
+    row = entry("assemble", err, {k: k3[k] - k3b[k] for k in k3}, a_ms, 0,
+                m * (24 + 3 * 4) + tpl_bytes)
+    row.update(inside="xverify, shard_verify: the structured form",
+               structured_xverify=k3, bytes_form_xverify=k3b)
+    rows.append(row)
     # K4 at BatchVerifier's 64-lane shape (one 128-lane bucket)
     rows.append(k4_row("general_verify", k4_args(vs, commit, range(64),
                                                  dev), 64))
@@ -2283,7 +2375,8 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
     b = dict(ts=[cs.timestamp for cs in commit.signatures],
              sigs=[cs.signature for cs in commit.signatures])
     keep = list(range(len(vs.validators) - SPEC_BURST, len(vs.validators)))
-    packed_np = arena.pack(*splice_args(arena, b, keep))
+    args = splice_args(arena, b, keep)
+    packed_np = arena.pack(*args)
     packed = torch.from_numpy(packed_np).to(dev)
     bufs_k = [t.clone() for t in arena.buffers()]
     bufs_p = [t.clone() for t in arena.buffers()]
@@ -2292,16 +2385,27 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
     err = max(max_abs_diff(x, y) for x, y in zip(bufs_k, bufs_p))
     k = len(keep)
     row = entry("splice", err,
-                cuda_ms(lambda: resident.splice(*bufs_k, packed), 100), p_ms,
-                0, k * (resident.ROW_BYTES + SPLICE_WRITE))
-    row["library_ms"] = cuda_ms(index_copy_splice(bufs_p, packed), 100)
+                kernel_times(lambda: resident.splice(*bufs_k, packed), 100),
+                p_ms, 0, k * (resident.ROW_BYTES + SPLICE_WRITE))
+    lib_t = kernel_times(index_copy_splice(bufs_p, packed), 100)
+    row["library_ms"] = lib_t["ms"]
+    row["library_wrapper_us"] = lib_t["wrapper_us"]
+    # the burst's upload as the arena makes it (its pinned staging
+    # buffer, one asynchronous copy) and as a pageable copy, and the
+    # arena's whole splice of it (pack, upload, K6): host ms, medians
+    row.update(
+        staged_upload_ms=host_ms(lambda: arena._splice._upload(packed_np)),
+        pageable_upload_ms=host_ms(
+            lambda: torch.from_numpy(packed_np).to(dev)),
+        arena_splice_ms=host_ms(lambda: arena.splice(*args)))
     rows.append(row)
     # K6 clear at the arena's capacity
     act_k, act_p = arena._active.clone(), arena._active.clone()
     resident.clear(act_k)
     _, p_ms = plain_ms(lambda: resident.clear_plain(act_p))
     rows.append(entry("clear", max_abs_diff(act_k, act_p),
-                      cuda_ms(lambda: resident.clear(act_k), 100), p_ms, 0, n))
+                      kernel_times(lambda: resident.clear(act_k), 100), p_ms,
+                      0, n))
     # over the active lanes the last flush verified, all of them valid
     rows.append(k7_row(arena, all_valid=True))
     return rows
@@ -2355,7 +2459,8 @@ def k7_row(arena, all_valid: bool, name: str = "arena_verify") -> dict:
               + sum(t.numel() * t.element_size()
                     for t in (pre, pre_len, suf, suf_len))
               + btab.numel() * 4)
-    row = entry(name, err, cuda_ms(lambda: resident.arena_verify(*largs), 5),
+    row = entry(name, err,
+                kernel_times(lambda: resident.arena_verify(*largs), 5),
                 p_ms, ops, nbytes)
     row["lanes"], row["active_lanes"] = n, int(live.numel())
     row["launch"] = launch_info(name, n)
@@ -2392,6 +2497,28 @@ def index_copy_splice(bufs, packed):
     return library
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host milliseconds of a call of fn, synchronized."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def row_launches(name: str, launches: dict) -> int:
+    """A kernels-line row's launches on the paths' runs (`launches`, by
+    wrapper): its kernel's (ROW_KERNEL), or for K2 those of the launches
+    that carry it (INSIDE)."""
+    return sum(launches.get(k, 0) for k in
+               INSIDE.get(name, (ROW_KERNEL.get(name, name),)))
+
+
 def plain_ms(fn):
     """One call's result and host milliseconds, synchronized."""
     import torch
@@ -2403,14 +2530,16 @@ def plain_ms(fn):
     return r, (time.perf_counter() - t0) * 1e3
 
 
-def entry(name, err, ms, plain, ops, nbytes) -> dict:
+def entry(name, err, times, plain, ops, nbytes) -> dict:
+    """A kernels-line row: `times` is kernel_times' (device ms, wrapper
+    us a call)."""
     t_ops = ops / OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if err != 0:
         raise AssertionError(f"{name} differs from its plain version: {err}")
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "max_abs_err": err, **times, "plain_ms": plain,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
@@ -2418,8 +2547,9 @@ def entry(name, err, ms, plain, ops, nbytes) -> dict:
 
 # -- the f32 phase and the fault check: child processes ------------------
 
-# The f32 build's kernels (every field-bearing kernel; K2 and K6 do no
-# field arithmetic and are the same code in both builds). K5 and K7 are
+# The f32 build's kernels (every field-bearing kernel; K6 does no field
+# arithmetic and is the same code in both builds, and K2's assembly,
+# inside K3, is the same byte rule in both). K5 and K7 are
 # held in the kernels check only: the f32 path (slice, mixed) does not
 # run the fabric or the speculation plane. K7 is also timed at the
 # speculation arena's shape (arena_verify_spec, spec_arena).
@@ -2609,7 +2739,8 @@ def f32_child(i32: dict) -> int:
               seconds=time.perf_counter() - t0, **mixed))
     state = fallback_state()
     rows = timing_phase(vs, commit, dev)
-    rows = [r for r in rows if r["name"] != "assemble"]  # no field: K2
+    # K2's assembly does no field arithmetic: its row is the i32 run's
+    rows = [r for r in rows if r["name"] != "assemble"]
     rows += [sr_row(mvs, mcommit, dev), k4_mixed_row(mvs, mcommit, dev),
              k5_row, k7_row(KEEP["arena"], all_valid=False),
              k7_row(spec_arena(vs, commit, bid, dev), all_valid=True,
@@ -2620,7 +2751,7 @@ def f32_child(i32: dict) -> int:
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:
-        r["launches"] = launches.get(ROW_KERNEL.get(r["name"], r["name"]), 0)
+        r["launches"] = row_launches(r["name"], launches)
         r["ptxas"] = kernel_ptxas(r["name"])
         r["on_f32_path"] = r["name"] not in F32_CHECK_ONLY
         r["name"] += "_f32"
@@ -2757,7 +2888,9 @@ def main() -> int:
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:
-        r["launches"] = launches[ROW_KERNEL.get(r["name"], r["name"])]
+        r["launches"] = row_launches(r["name"], launches)
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']}: no launch on the main path")
         r["ptxas"] = kernel_ptxas(r["name"])
     emit({"phase": "timing", "card": smi,
           "tolerance": "exact: max_abs_err 0 against the plain version",

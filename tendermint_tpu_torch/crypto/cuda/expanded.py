@@ -15,15 +15,15 @@ Kernels (csrc/), each beside its plain PyTorch version:
 
 - K1 ``build_tables``: decompress every key and write its table
   (reference: tendermint_tpu/crypto/tpu/expanded.py ``_builder``).
-- K2 ``assemble``: each lane's canonical vote sign bytes from commit
-  templates plus a per-lane timestamp patch, with the SHA-512 tail
-  (reference: ``assemble_core``).
 - K3 ``xverify``: verify lanes against the tables (reference:
-  ``_xcore``).
-- K5 ``shard_verify``: K3 (with K2's byte rule in front, in the
-  structured form) on one shard of key-range-sharded tables, launched
-  once per mesh entry on its device and stream (reference:
-  ``_xkernel_sharded``, ``_skernel_sharded``).
+  ``_xcore``), the messages given as rows or, in the structured form,
+  assembled inside the launch from commit templates plus a per-lane
+  timestamp patch (K2's function, reference ``assemble_core``, traced
+  into ``_skernel``; plain version ``assemble_plain``).
+- K5 ``shard_verify``: the same kernel (csrc/xverify.cu) on one shard
+  of key-range-sharded tables, launched once per mesh entry on its
+  device and stream (reference: ``_xkernel_sharded``,
+  ``_skernel_sharded``).
 
 On a mesh (verify.effective_mesh) a set's tables either replicate, and
 each launch splits its lanes evenly over the entries, or, above the
@@ -169,12 +169,13 @@ def build_tables(akeys: torch.Tensor):
 build_tables.launches = 0
 
 
-# -- K2: sign-bytes assembly ---------------------------------------------
+# -- K2: sign-bytes assembly, inside K3/K5's structured form ------------
 
 
 def assemble_plain(pre, pre_len, suf, suf_len, patch, split, patch_len,
                    group, width: int):
-    """Plain PyTorch version of K2 (csrc/assemble.cu): (N, width) uint8
+    """Plain PyTorch version of K2, which runs inside K3/K5's structured
+    form (csrc/xverify.cu, sign_bytes.cuh) and K7: (N, width) uint8
     message rows (sign bytes + SHA-512 tail for a 64-byte prefix) and
     (N,) int32 block counts."""
     dev = patch.device
@@ -209,45 +210,13 @@ def assemble_plain(pre, pre_len, suf, suf_len, patch, split, patch_len,
     return msg.to(torch.uint8), nblocks[:, 0].to(torch.int32)
 
 
-def assemble(pre, pre_len, suf, suf_len, patch, split, patch_len, group,
-             width: int):
-    """K2 wrapper: plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (or KernelError)."""
-    if patch.device.type == "cpu":
-        return assemble_plain(pre, pre_len, suf, suf_len, patch, split,
-                              patch_len, group, width)
-    dev = patch.device
-    n = patch.shape[0]
-    k = pre.shape[0]
-    kernels.require(pre, "pre", torch.uint8, (k, _PRE_W), dev)
-    kernels.require(pre_len, "pre_len", torch.int32, (k,), dev)
-    kernels.require(suf, "suf", torch.uint8, (k, _SUF_W), dev)
-    kernels.require(suf_len, "suf_len", torch.int32, (k,), dev)
-    kernels.require(patch, "patch", torch.uint8, (n, _PATCH_W), dev)
-    for name, t in (("split", split), ("patch_len", patch_len),
-                    ("group", group)):
-        kernels.require(t, name, torch.int32, (n,), dev)
-    msg = torch.empty((n, width), dtype=torch.uint8, device=dev)
-    nblocks = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = kernels.lib().tm_assemble(
-        pre.data_ptr(), pre_len.data_ptr(), suf.data_ptr(),
-        suf_len.data_ptr(), patch.data_ptr(), split.data_ptr(),
-        patch_len.data_ptr(), group.data_ptr(), n, width, msg.data_ptr(),
-        nblocks.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check(rc, "assemble")
-    assemble.launches += 1
-    return msg, nblocks
-
-
-assemble.launches = 0
-
-
-# -- K3: verify against the tables ---------------------------------------
+# -- K3 and K5: verify against the tables (one kernel, csrc/xverify.cu) --
 
 
 def xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
                   btab) -> torch.Tensor:
-    """Plain PyTorch version of K3 (csrc/xverify.cu) -> (N,) bool."""
+    """Plain PyTorch version of K3 and K5 (csrc/xverify.cu) on message
+    rows -> (N,) bool."""
     n = idx.shape[0]
     dev = idx.device
     ki = idx.to(torch.int64)
@@ -275,67 +244,31 @@ def xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
     return ed.is_identity(v) & r_ok & s_ok & key_ok[ki]
 
 
-def xverify(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
-            btab) -> torch.Tensor:
-    """K3 wrapper: plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (or KernelError)."""
-    if idx.device.type == "cpu":
-        return xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok,
-                             tables, btab)
-    dev = idx.device
-    n, width = msg.shape
-    v = akeys.shape[0]
-    kernels.require(idx, "idx", torch.int32, (n,), dev)
-    kernels.require(akeys, "akeys", torch.uint8, (v, 32), dev)
-    kernels.require(sb, "sb", torch.uint8, (n, 64), dev)
-    kernels.require(msg, "msg", torch.uint8, (n, width), dev)
-    kernels.require(nblocks, "nblocks", torch.int32, (n,), dev)
-    kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
-    kernels.require(key_ok, "key_ok", torch.bool, (v,), dev)
-    kernels.require(tables, "tables", fe.TABLE_DTYPE,
-                    (v, _WINDOWS, _ENTRIES, 4, fe.NLIMB), dev)
-    kernels.require(btab, "btab", fe.TABLE_DTYPE, (_WINDOWS, 16, 3, fe.NLIMB),
-                    dev)
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    rc = kernels.lib().tm_xverify(
-        idx.data_ptr(), akeys.data_ptr(), sb.data_ptr(), msg.data_ptr(),
-        width, nblocks.data_ptr(), s_ok.data_ptr(), key_ok.data_ptr(),
-        tables.data_ptr(), btab.data_ptr(), n, out.data_ptr(),
-        kernels.stream_ptr(dev))
-    kernels.check(rc, "xverify")
-    xverify.launches += 1
-    return out
-
-
-xverify.launches = 0
-
-
-# -- K5: verify one shard of key-range-sharded tables ---------------------
-
-
 def shard_verify_plain(idx, akeys, sb, s_ok, key_ok, tables, btab, *,
                        msg=None, nblocks=None, templates=None,
                        patches=None, width: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of K5 (csrc/shard_verify.cu) on one shard:
-    local key indices idx (n,) i32 into the shard's akeys (K, 32) u8,
-    key_ok (K,) bool and tables (K, 69, 9, 4, NLIMB), signature rows
-    sb (n, 64) u8, s_ok (n,) bool, the comb btab. The messages are
-    either msg (n, W) u8 rows with nblocks (n,) i32, or assembled from
-    templates (pre, pre_len, suf, suf_len) and per-lane patches
-    (patch, split, patch_len, group) at `width`: assemble_plain, then
-    xverify_plain. -> (n,) bool."""
+    """Plain PyTorch version of K3 and K5 (csrc/xverify.cu) in either
+    form: key indices idx (n,) i32 into akeys (K, 32) u8, key_ok (K,)
+    bool and tables (K, 69, 9, 4, NLIMB) (the set's, or one shard's
+    key range), signature rows sb (n, 64) u8, s_ok (n,) bool, the comb
+    btab. The messages are either msg (n, W) u8 rows with nblocks (n,)
+    i32, or assembled from templates (pre, pre_len, suf, suf_len) and
+    per-lane patches (patch, split, patch_len, group) at `width`:
+    assemble_plain, then xverify_plain. -> (n,) bool."""
     if templates is not None:
         msg, nblocks = assemble_plain(*templates, *patches, width)
     return xverify_plain(idx, akeys, sb, msg, nblocks, s_ok, key_ok, tables,
                          btab)
 
 
-def shard_verify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
-                 nblocks=None, templates=None, patches=None,
-                 width: int = 0) -> torch.Tensor:
-    """K5 wrapper (arguments as shard_verify_plain): the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors (or KernelError),
-    on the current device and stream."""
+def xverify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
+            nblocks=None, templates=None, patches=None,
+            width: int = 0) -> torch.Tensor:
+    """K3 wrapper (arguments as shard_verify_plain, over the whole set's
+    tables): the plain version for CPU tensors, one launch of the CUDA
+    kernel for CUDA tensors (or KernelError), on the current device and
+    stream. In the structured form the sign bytes are assembled inside
+    the launch: no K2 launch, no message tensor."""
     if (msg is None) == (templates is None):
         raise ValueError("give msg and nblocks, or templates and patches")
     if idx.device.type == "cpu":
@@ -343,6 +276,42 @@ def shard_verify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
                                   msg=msg, nblocks=nblocks,
                                   templates=templates, patches=patches,
                                   width=width)
+    out = _xverify_launch(idx, akeys, sb, s_ok, key_ok, tables, btab, msg,
+                          nblocks, templates, patches, width)
+    xverify.launches += 1
+    return out
+
+
+xverify.launches = 0
+
+
+def shard_verify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
+                 nblocks=None, templates=None, patches=None,
+                 width: int = 0) -> torch.Tensor:
+    """K5 wrapper: K3's kernel on one shard's key range (arguments as
+    shard_verify_plain), counted here and not under K3: the plain
+    version for CPU tensors, one launch for CUDA tensors (or
+    KernelError), on the current device and stream."""
+    if (msg is None) == (templates is None):
+        raise ValueError("give msg and nblocks, or templates and patches")
+    if idx.device.type == "cpu":
+        return shard_verify_plain(idx, akeys, sb, s_ok, key_ok, tables, btab,
+                                  msg=msg, nblocks=nblocks,
+                                  templates=templates, patches=patches,
+                                  width=width)
+    out = _xverify_launch(idx, akeys, sb, s_ok, key_ok, tables, btab, msg,
+                          nblocks, templates, patches, width)
+    shard_verify.launches += 1
+    return out
+
+
+shard_verify.launches = 0
+
+
+def _xverify_launch(idx, akeys, sb, s_ok, key_ok, tables, btab, msg,
+                    nblocks, templates, patches, width) -> torch.Tensor:
+    """One tm_xverify launch on CUDA tensors (K3's and K5's; each
+    wrapper counts its own launches)."""
     dev = idx.device
     n = idx.shape[0]
     k = akeys.shape[0]
@@ -375,16 +344,12 @@ def shard_verify(idx, akeys, sb, s_ok, key_ok, tables, btab, *, msg=None,
             kernels.require(t, name, torch.int32, (n,), dev)
         ptrs[2:] = [t.data_ptr() for t in (*templates, *patches)]
     out = torch.empty(n, dtype=torch.bool, device=dev)
-    rc = kernels.lib().tm_shard_verify(
+    rc = kernels.lib().tm_xverify(
         idx.data_ptr(), akeys.data_ptr(), sb.data_ptr(), s_ok.data_ptr(),
         key_ok.data_ptr(), tables.data_ptr(), btab.data_ptr(), *ptrs, width,
         n, out.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check(rc, "shard_verify")
-    shard_verify.launches += 1
+    kernels.check(rc, "xverify")
     return out
-
-
-shard_verify.launches = 0
 
 
 class ExpandedKeys:
@@ -702,17 +667,18 @@ class ExpandedKeys:
         idx, packed, shard = self._shard_args(idx, packed)
 
         def launch(d, t):
-            return self._xverify(d, t, t["msg"], t["nblocks"])
+            return self._xverify(d, t, msg=t["msg"], nblocks=t["nblocks"])
 
         if shard:
             return tv.launch_lanes(self.mesh, dict(packed, idx=idx), launch)
         return launch(0, tv.to_device(dict(packed, idx=idx), self.device))
 
-    def _xverify(self, d, t, msg, nblocks) -> torch.Tensor:
-        """K3 over lanes `t` on entry d's copy of the tables."""
+    def _xverify(self, d, t, **form) -> torch.Tensor:
+        """One K3 launch over lanes `t` on entry d's copy of the tables,
+        the messages in `form` (xverify's keywords)."""
         akeys, tables, key_ok = self.shards[d]
-        return xverify(t["idx"], akeys, t["sb"], msg, nblocks, t["s_ok"],
-                       key_ok, tables, tv._btab(t["idx"].device))
+        return xverify(t["idx"], akeys, t["sb"], t["s_ok"], key_ok, tables,
+                       tv._btab(t["idx"].device), **form)
 
     def verify(self, indices, msgs, sigs) -> np.ndarray:
         """Verify (self.pubkeys[indices[i]], msgs[i], sigs[i]) lanes;
@@ -775,24 +741,26 @@ class ExpandedKeys:
                                         width=width)
         idx, per_lane, shard = self._shard_args(idx, per_lane)
 
-        def assembled(d, t):
+        def structured(d, t):
             dev = t["idx"].device
-            msg, nblocks = assemble(*(x.to(dev) for x in templates),
-                                    t["patch"], t["split"], t["patch_len"],
-                                    t["group"], width)
-            return self._xverify(d, t, msg, nblocks)
+            return self._xverify(
+                d, t, templates=tuple(x.to(dev) for x in templates),
+                patches=(t["patch"], t["split"], t["patch_len"], t["group"]),
+                width=width)
 
         if shard:
             return tv.launch_lanes(self.mesh, dict(per_lane, idx=idx),
-                                   assembled)
-        return assembled(0, tv.to_device(dict(per_lane, idx=idx), self.device))
+                                   structured)
+        return structured(0, tv.to_device(dict(per_lane, idx=idx),
+                                          self.device))
 
     def verify_structured(self, indices, sbatch, sigs) -> np.ndarray:
         """verify() for commit votes in structured form: identical
         verdicts to verify(indices, sbatch.materialize(), sigs), with
-        the sign bytes assembled on the device (K2, or inside K5 on
-        sharded tables) from the commit's templates and per-lane
-        timestamp patches."""
+        the sign bytes assembled on the device, inside the verify launch
+        (K3's structured form, or K5's on sharded tables: one launch a
+        device), from the commit's templates and per-lane timestamp
+        patches."""
         n = len(indices)
         if n == 0:
             return np.zeros(0, bool)

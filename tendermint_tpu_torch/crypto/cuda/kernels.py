@@ -39,9 +39,8 @@ from .fieldsel import CHOICE as FIELD
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("build_tables.cu", "assemble.cu", "xverify.cu", "general_verify.cu",
-           "splice.cu", "arena_verify.cu", "sr_verify.cu",
-           "shard_verify.cu")
+SOURCES = ("build_tables.cu", "xverify.cu", "general_verify.cu", "splice.cu",
+           "arena_verify.cu", "sr_verify.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FIELD_FLAGS = {"i32": [], "f32": ["-DTM_FIELD_F32"]}[FIELD]
 
@@ -50,20 +49,16 @@ _I = ctypes.c_int
 # C signatures (pointers and the stream as void*, sizes as int).
 _SIGNATURES = {
     "tm_build_tables": (_P, _P, _P, _I, _P),
-    "tm_assemble": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
-    "tm_xverify": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
+    "tm_xverify": (_P,) * 17 + (_I, _I, _P, _P),
     "tm_general_verify": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     "tm_splice": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    "tm_clear": (_P, _I, _P),
-    "tm_mesh_clear": (_P, _I, _I, _P),
+    "tm_clear": (_P, _I, _I, _P),
     "tm_arena_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _P, _P),
     "tm_sr_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
-    "tm_shard_verify": (_P,) * 17 + (_I, _I, _P, _P),
     "tm_sync": (_P,),
     "tm_build_tables_shape": (_I, _P),
-    "tm_xverify_shape": (_I, _P),
-    "tm_shard_verify_shape": (_I, _I, _P),
+    "tm_xverify_shape": (_I, _I, _P),
     "tm_general_verify_shape": (_I, _P),
     "tm_sr_verify_shape": (_I, _P),
     "tm_arena_verify_shape": (_I, _P),
@@ -216,7 +211,7 @@ def use_library(path: Path | None) -> None:
 def launch_shapes(export: str, *args, launches: int = 1) -> list[dict]:
     """The shape of each launch a kernel makes, from its *_shape export
     (``tm_build_tables_shape`` nkeys: K1's two launches;
-    ``tm_xverify_shape`` n; ``tm_shard_verify_shape`` n, structured;
+    ``tm_xverify_shape`` n, structured (K3's and K5's);
     ``tm_general_verify_shape`` n; ``tm_sr_verify_shape`` n;
     ``tm_arena_verify_shape`` n),
     on the current CUDA device: SHAPE_KEYS and the resident warps an
@@ -282,6 +277,15 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
         raise KernelError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise KernelError(f"{name}: not contiguous")
+
+
+def require_aligned(t, name: str, align: int) -> None:
+    """Wrapper-side base-alignment check, for a kernel that reads or
+    writes t in aligned words: KernelError unless t's data starts on an
+    `align`-byte boundary."""
+    if t.data_ptr() % align:
+        raise KernelError(
+            f"{name}: base {t.data_ptr():#x} not {align}-byte aligned")
 
 
 def stream_ptr(device) -> int:

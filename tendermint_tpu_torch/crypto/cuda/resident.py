@@ -35,8 +35,8 @@ Kernels (csrc/), each beside its plain PyTorch version:
 - K8 ``mesh_splice``, ``mesh_clear`` and ``mesh_arena_verify``: the
   per-shard arena over a mesh (MeshResidentArena), reference
   ``_mesh_splice_fn``, ``_mesh_clear_fn`` and ``_mesh_arena_kernel``:
-  K6's splice and K7's verify launched once per device over its block
-  of shards, and ``tm_mesh_clear`` (csrc/splice.cu).
+  K6's splice and clear and K7's verify launched once per device over
+  its block of shards.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors (or raises KernelError).
@@ -123,21 +123,31 @@ def splice(sb, s_ok, patch, split, patch_len, group, active,
         splice_plain(sb, s_ok, patch, split, patch_len, group, active,
                      packed)
         return
-    _splice_launch(sb, s_ok, patch, split, patch_len, group, active, packed)
+    bufs = (sb, s_ok, patch, split, patch_len, group, active)
+    check_splice_buffers(*bufs)
+    _splice_launch(bufs, packed, _delta_rows(packed))
     splice.launches += 1
 
 
 splice.launches = 0
 
+# Base alignment, in bytes, that K6's chunked copies need of each
+# buffer they write (csrc/splice.cu), and of the packed rows.
+_SPLICE_ALIGN = {"sb": 16, "patch": 8}
+_PACKED_ALIGN = 16
+# ... and K6's clear of the active mask (16 bytes a thread).
+_ACTIVE_ALIGN = 16
 
-def _splice_launch(sb, s_ok, patch, split, patch_len, group, active,
-                   packed) -> None:
-    """One tm_splice launch on CUDA tensors (K6's and K8's splice; each
-    wrapper counts its own launches)."""
+
+def check_splice_buffers(sb, s_ok, patch, split, patch_len, group,
+                         active) -> None:
+    """The seven buffers a splice writes (K6's order): one device, their
+    dtypes and shapes for one lane count, contiguous, and the base
+    alignments K6 and the clear need (KernelError otherwise). A caller's
+    buffers are checked at every splice() call; an arena's once, when
+    it is built."""
     dev = sb.device
     n = sb.shape[0]
-    k = _delta_rows(packed)
-    kernels.require(packed, "packed", torch.uint8, (k * ROW_BYTES,), dev)
     kernels.require(sb, "sb", torch.uint8, (n, 64), dev)
     kernels.require(s_ok, "s_ok", torch.bool, (n,), dev)
     kernels.require(patch, "patch", torch.uint8, (n, PATCH_W), dev)
@@ -145,11 +155,72 @@ def _splice_launch(sb, s_ok, patch, split, patch_len, group, active,
                     ("group", group)):
         kernels.require(t, name, torch.int32, (n,), dev)
     kernels.require(active, "active", torch.bool, (n,), dev)
+    for name, t in (("sb", sb), ("patch", patch)):
+        kernels.require_aligned(t, name, _SPLICE_ALIGN[name])
+    kernels.require_aligned(active, "active", _ACTIVE_ALIGN)
+
+
+def _splice_launch(bufs, packed, k: int) -> None:
+    """One tm_splice launch of k packed rows on CUDA tensors whose seven
+    buffers `bufs` are checked (K6's and K8's splice; each counts its
+    own launches)."""
+    sb = bufs[0]
+    dev = sb.device
+    kernels.require(packed, "packed", torch.uint8, (k * ROW_BYTES,), dev)
+    kernels.require_aligned(packed, "packed", _PACKED_ALIGN)
     rc = kernels.lib().tm_splice(
-        packed.data_ptr(), k, n, sb.data_ptr(), s_ok.data_ptr(),
-        patch.data_ptr(), split.data_ptr(), patch_len.data_ptr(),
-        group.data_ptr(), active.data_ptr(), kernels.stream_ptr(dev))
+        packed.data_ptr(), k, sb.shape[0], *(t.data_ptr() for t in bufs),
+        kernels.stream_ptr(dev))
     kernels.check(rc, "splice")
+
+
+class _Splicer:
+    """The splice of one device's arena buffers (K6's, or K8's for a
+    mesh block): the seven buffers checked once, here, and on a CUDA
+    device a pinned host staging buffer, with its device twin, grown to
+    the largest burst and reused. A splice copies its packed rows into
+    the staging buffer, uploads them with one asynchronous copy on the
+    launch stream and launches K6 after it on the same stream; before
+    the host overwrites the staging buffer it waits on the event
+    recorded after the previous copy. On the CPU the packed rows go to
+    the wrapper (splice or mesh_splice), which runs the plain
+    version."""
+
+    def __init__(self, bufs: tuple, mesh: bool):
+        check_splice_buffers(*bufs)
+        self.bufs = bufs
+        self.mesh = mesh
+        self.device = bufs[0].device
+        self._host = self._dev = self._copied = None
+
+    def __call__(self, packed: np.ndarray) -> None:
+        if self.device.type != "cuda":
+            fn = mesh_splice if self.mesh else splice
+            fn(*self.bufs, torch.from_numpy(packed))
+            return
+        with torch.cuda.device(self.device):
+            _splice_launch(self.bufs, self._upload(packed),
+                           packed.nbytes // ROW_BYTES)
+        if self.mesh:
+            mesh_splice.launches += 1
+        else:
+            splice.launches += 1
+
+    def _upload(self, packed: np.ndarray) -> torch.Tensor:
+        nbytes = packed.nbytes
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has read the buffer
+        if self._host is None or self._host.numel() < nbytes:
+            self._host = torch.empty(nbytes, dtype=torch.uint8,
+                                     pin_memory=True)
+            self._dev = torch.empty(nbytes, dtype=torch.uint8,
+                                    device=self.device)
+            self._copied = torch.cuda.Event()
+        self._host.numpy()[:nbytes] = packed
+        rows = self._dev[:nbytes]
+        rows.copy_(self._host[:nbytes], non_blocking=True)
+        self._copied.record()
+        return rows
 
 
 def clear_plain(active) -> None:
@@ -160,21 +231,29 @@ def clear_plain(active) -> None:
 
 
 def clear(active) -> None:
-    """K6 clear wrapper: plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (or KernelError)."""
+    """K6 clear wrapper: plain version for CPU tensors, one launch of
+    the CUDA kernel for CUDA tensors (or KernelError)."""
     if active.device.type == "cpu":
         clear_plain(active)
         return
-    dev = active.device
     n = active.shape[0]
-    kernels.require(active, "active", torch.bool, (n,), dev)
-    rc = kernels.lib().tm_clear(active.data_ptr(), n,
-                                kernels.stream_ptr(dev))
-    kernels.check(rc, "clear")
+    _clear_launch(active, n, n)
     clear.launches += 1
 
 
 clear.launches = 0
+
+
+def _clear_launch(active, per: int, n: int) -> None:
+    """One tm_clear launch (K6's clear with per = n, K8's with per = a
+    shard's lanes; each wrapper counts its own launches): lane i stays
+    active iff i % per == 0."""
+    dev = active.device
+    kernels.require(active, "active", torch.bool, (n,), dev)
+    kernels.require_aligned(active, "active", _ACTIVE_ALIGN)
+    rc = kernels.lib().tm_clear(active.data_ptr(), per, n,
+                                kernels.stream_ptr(dev))
+    kernels.check(rc, "clear")
 
 
 # -- K7: verify the active lanes -----------------------------------------
@@ -286,6 +365,7 @@ class ResidentArena:
         self._patch_len = dev(np.zeros(n, np.int32))
         self._group = dev(np.zeros(n, np.int32))
         self._active = dev(active.copy())
+        self._splice = _Splicer(self.buffers(), mesh=False)
         # host-side template staging; uploaded at the next launch after
         # a change (set_template drops the device copy)
         self.pre = np.zeros((GROUPS, PRE_W), np.uint8)
@@ -377,13 +457,14 @@ class ResidentArena:
                split: np.ndarray, patch_len: np.ndarray,
                group: np.ndarray) -> None:
         """Splice newly arrived lanes into the resident buffers: ONE
-        upload of their packed rows (105 B each) and one K6 launch."""
+        upload of their packed rows (105 B each, from the pinned staging
+        buffer) and one K6 launch."""
         if len(slots) == 0:
             return
         packed = self.pack(slots, sig_rows, patch, split, patch_len, group)
         self.reupload_bytes += packed.nbytes
         self._live[np.asarray(slots, np.int64)] = True
-        splice(*self.buffers(), torch.from_numpy(packed).to(self.device))
+        self._splice(packed)
 
     def launch_args(self) -> tuple:
         """K7's arguments over the resident buffers (the templates
@@ -420,7 +501,8 @@ class ResidentArena:
 # e of the device at lanes [e*per, (e+1)*per), its sentinel at e*per —
 # so a splice is one packed upload and one K6 launch per device, a
 # launch one K7 launch per device over its whole block, and a clear one
-# tm_mesh_clear launch per device. The plain versions below are the
+# launch of K6's clear per device (a lane active iff it is its shard's
+# first). The plain versions below are the
 # reference's programs over the (D, per, ...) view; the tests and
 # chip_smoke.py hold the blocks against them.
 
@@ -465,7 +547,9 @@ def mesh_splice(sb, s_ok, patch, split, patch_len, group, active,
         splice_plain(sb, s_ok, patch, split, patch_len, group, active,
                      packed)
         return
-    _splice_launch(sb, s_ok, patch, split, patch_len, group, active, packed)
+    bufs = (sb, s_ok, patch, split, patch_len, group, active)
+    check_splice_buffers(*bufs)
+    _splice_launch(bufs, packed, _delta_rows(packed))
     mesh_splice.launches += 1
 
 
@@ -474,19 +558,16 @@ mesh_splice.launches = 0
 
 def mesh_clear(active, per: int) -> None:
     """K8's clear on one device's block of shards of `per` lanes: the
-    plain version for a CPU tensor, one tm_mesh_clear launch for a CUDA
-    tensor (or KernelError)."""
+    plain version for a CPU tensor, one launch of K6's clear kernel
+    (lane i active iff i % per == 0), counted here, for a CUDA tensor
+    (or KernelError)."""
     n = active.shape[0]
     if per <= 0 or n % per:
         raise kernels.KernelError(f"mesh_clear: {n} lanes in shards of {per}")
     if active.device.type == "cpu":
         mesh_clear_plain(active.view(-1, per))
         return
-    dev = active.device
-    kernels.require(active, "active", torch.bool, (n,), dev)
-    rc = kernels.lib().tm_mesh_clear(active.data_ptr(), per, n,
-                                     kernels.stream_ptr(dev))
-    kernels.check(rc, "mesh_clear")
+    _clear_launch(active, per, n)
     mesh_clear.launches += 1
 
 
@@ -577,8 +658,10 @@ class MeshResidentArena:
             with _on(dev):
                 bufs = {k: torch.from_numpy(v).to(dev)
                         for k, v in host.items()}
-            self._blocks.append(dict(device=dev, shards=shards, bufs=bufs,
-                                     ab_host=ab, templates=None))
+            self._blocks.append(dict(
+                device=dev, shards=shards, bufs=bufs, ab_host=ab,
+                templates=None,
+                splice=_Splicer(tuple(bufs[k] for k in _SPLICED), mesh=True)))
             for e, d in enumerate(shards):
                 self._block_of[d] = b
                 self._off_of[d] = e * per
@@ -714,8 +797,9 @@ class MeshResidentArena:
                split: np.ndarray, patch_len: np.ndarray,
                group: np.ndarray) -> None:
         """Route each arriving lane to its home shard and splice it: per
-        device ONE upload of its rows (105 B each, block positions) and
-        one K6 launch; a device with no rows launches nothing. A slot
+        device ONE upload of its rows (105 B each, block positions, from
+        the device's pinned staging buffer) and one K6 launch; a device
+        with no rows launches nothing. A slot
         given twice keeps its last row, as the reference's scatter
         does."""
         k = len(slots)
@@ -748,10 +832,7 @@ class MeshResidentArena:
                                 sig_rows[sel], s_ok[sel], patch[sel],
                                 split[sel], patch_len[sel], group[sel])
             self.reupload_bytes += packed.nbytes
-            dev = blk["device"]
-            with _on(dev):
-                mesh_splice(*(blk["bufs"][n] for n in _SPLICED),
-                            torch.from_numpy(packed).to(dev))
+            blk["splice"](packed)
 
     def launch_args(self, b: int) -> tuple:
         """K7's arguments over block b's buffers (the templates uploaded

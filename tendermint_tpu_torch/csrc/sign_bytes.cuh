@@ -1,5 +1,7 @@
 // K2's byte rule: one byte of a lane's canonical vote sign bytes with
-// the SHA-512 tail, shared by K2 (assemble.cu) and K7 (arena_verify.cu).
+// the SHA-512 tail, shared by K3/K5's structured form (xverify.cu) and
+// K7 (arena_verify.cu), the two kernels that assemble the sign bytes
+// inside their verify launch.
 //
 // Replaces the per-byte body of tendermint_tpu/crypto/tpu/expanded.py
 // assemble_core: msg = patch[:a] || pre[g] || patch[a:plen] || suf[g],

@@ -1,6 +1,6 @@
 // K3's lane body, block-cooperative: verify TM_XV_LANES lanes against
-// their keys' comb tables with TM_XV_WARPS warps, shared by K3
-// (xverify.cu) and K5 (shard_verify.cu).
+// their keys' comb tables with TM_XV_WARPS warps, the body of K3's and
+// K5's kernel (xverify.cu).
 //
 // Replaces the per-lane arithmetic of tendermint_tpu/crypto/tpu/expanded.py
 // _xcore: SHA-512(R || A || M); the fold to k' and its signed recode to
@@ -13,8 +13,8 @@
 // diverges by role. With W = TM_XV_WARPS:
 // - phase A, before the digits exist: warp 0 runs SHA-512, the fold and
 //   the recode for its 32 lanes and writes each lane's 69 digits to
-//   shared memory (K5's structured form assembles the message there
-//   first); warp 1 decompresses R and starts its sum at -R; warps 2..W-1
+//   shared memory (in the structured form it assembles its lanes'
+//   messages there first, xverify.cu); warp 1 decompresses R and starts its sum at -R; warps 2..W-1
 //   sum the comb windows of [S]B, 64 / (W - 2) each (windows 64..68 of
 //   S are 0), which need only S;
 // - phase B: warps 0 and 2..W-1 (W - 1 warps) sum the [k]A windows,
@@ -35,8 +35,8 @@
 // static; the tree's W/2 partial points per lane dynamic, lane-minor
 // (limb k of lane l at k * 32 + l, so a warp's accesses hit 32 banks):
 // W/2 x 32 x 160 B = 20 KB in i32 or x 512 B = 64 KB in f32 at W = 8
-// (above 48 KB: cudaFuncSetAttribute before each launch); K5's
-// assembled messages alias that buffer in phase A.
+// (above 48 KB: cudaFuncSetAttribute before each launch); the
+// structured form's assembled messages alias that buffer in phase A.
 #pragma once
 #include "common.cuh"
 #include "edwards.cuh"

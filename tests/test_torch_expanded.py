@@ -1,5 +1,6 @@
 """Port parity: expanded validator sets (K1 table build, K2 sign-bytes
-assembly, K3 verify) against the JAX reference on the CPU.
+assembly, which runs inside K3's structured launch, K3 verify) against
+the JAX reference on the CPU.
 
 The port runs its plain PyTorch versions (set_default_device("cpu")),
 the reference its jitted programs on the XLA CPU backend, both on one
@@ -138,7 +139,7 @@ def test_assemble_matches_reference_bytes():
         assert np.array_equal(getattr(psb, name), getattr(jsb, name))
     t = {k: torch.from_numpy(np.require(v, requirements=["C", "W"]))
          for k, v in fields.items()}
-    msg, nblocks = ex.assemble(*(t[k] for k in order), width)
+    msg, nblocks = ex.assemble_plain(*(t[k] for k in order), width)
     jmsg, jnb = jex.assemble_core()(*(jnp.asarray(fields[k]) for k in order),
                                     width)
     assert np.array_equal(msg.numpy(), np.asarray(jmsg))

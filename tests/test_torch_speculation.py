@@ -208,13 +208,15 @@ def test_plane_matches_reference(name):
 
 
 def test_full_hit_serves_with_zero_launches(monkeypatch):
-    """A full hit in the port calls none of K2, K3, K4 or K7 (and their
+    """A full hit in the port calls none of K3 (with K2 inside its
+    structured form, the structured verify entry), K4 or K7 (and their
     launch counters stay as they were) and re-verifies no lane; the
     flush before it went through the arena (K6 + K7)."""
     calls = []
-    kernels = [expanded.assemble, expanded.xverify, verify.general_verify,
+    kernels = [expanded.xverify, expanded.shard_verify, verify.general_verify,
                resident.arena_verify]
-    for mod, fn in ((expanded, "assemble"), (expanded, "xverify"),
+    for mod, fn in ((expanded.ExpandedKeys, "verify_structured"),
+                    (expanded, "xverify"),
                     (verify, "general_verify"), (resident, "arena_verify"),
                     (resident, "splice")):
         real = getattr(mod, fn)
