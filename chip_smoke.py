@@ -78,7 +78,25 @@ Phases, each printing one JSON line:
    injected. The comparisons in that run (one-card verdicts, the
    timed probe, the on-device K4 and K9 references) have their
    launches taken back out of the counts;
-9. timing — each kernel at the main path's shapes: its device time a
+9. fastsync — fast sync's verify-ahead plane on a 1,000-validator
+   chain of 129 blocks (heights 121-249, so the first window crosses
+   height 128, with one commit made in round 1, whose template is
+   wider): a BlockPool fed by eight peers, and a loop that mirrors the
+   reference reactor's _try_sync under asyncio.run (peek 17 blocks,
+   WindowPipeline.verdicts, start_ahead, pop_request for each accepted
+   block; no block store, no apply_block). Counters zeroed before and
+   read after: 8 windows of 16 blocks, one K3 launch a window (16
+   template groups, 16 x 667 lanes, bucketed to 11,264) and one K1
+   launch for the set, no K4, 7 prefetch hits, every result None. Then
+   a copy of the chain with a signature tampered inside one commit's
+   quorum prefix and a timestamp changed after signing in another
+   window's commit: exactly those two blocks fail, the loop stops at
+   each, calls redo_request for both heights and refetches them from
+   honest peers, as the reactor does. Then, outside the counted run,
+   the verify job's stages (window_items, the MergedSignBatch build,
+   _prepare_structured, the launch, the readback), vals.hash() and
+   K3 at the window's shape (the xverify_window row);
+10. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -94,21 +112,23 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-10. fault — in a child (`--phase fault`; a sticky fault poisons the
+11. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-11. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+12. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
    verdicts against the digests of the i32 build's (kernels and fabric
-   phases) that the parent passes; the slice and mixed phases again at
-   10,240 validators, with the i32 phases' launches, outcomes and
-   rejections; the f32 p50s and kernel times beside the i32 ones, and
-   the f32 kernels' rows (`<name>_f32`) in the kernels line, K7 also
-   at the speculation arena's 12,288 lanes (arena_verify_spec_f32).
+   phases) that the parent passes; the slice, speculation, mixed,
+   fabric and healing phases again at 10,240 validators, each held to
+   its i32 phase's launches, outcomes, rejections, verdicts and (for
+   healing) counters; the f32 p50s, flush, fabric and healing times
+   beside the i32 ones, and the rows of the field-bearing kernels
+   (`<name>_f32`) at the same shapes as the i32 rows, with their
+   launches on the five f32 paths.
 
 Each child's lines are relayed as {"phase": <child>, "step": ...}; a
 child that fails or outruns its time limit fails the run. Every phase
@@ -123,6 +143,7 @@ i32 it refuses to run (its f32 phase sets the variable for its child).
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -173,11 +194,11 @@ REPLACES = {
     "build_tables": "tendermint_tpu/crypto/tpu/expanded.py:128",
     "assemble": "tendermint_tpu/crypto/tpu/expanded.py:318",
     "xverify": "tendermint_tpu/crypto/tpu/expanded.py:186",
+    "xverify_window": "tendermint_tpu/crypto/tpu/expanded.py:186",
     "general_verify": "tendermint_tpu/crypto/tpu/verify.py:173",
     "splice": "tendermint_tpu/crypto/tpu/resident.py:65",
     "clear": "tendermint_tpu/crypto/tpu/resident.py:87",
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
-    "arena_verify_spec": "tendermint_tpu/crypto/tpu/resident.py:162",
     "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
     "general_verify_mixed": "tendermint_tpu/crypto/tpu/verify.py:173",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
@@ -189,11 +210,11 @@ SOURCES = {
     "build_tables": "tendermint_tpu_torch/csrc/build_tables.cu",
     "assemble": "tendermint_tpu_torch/csrc/xverify.cu",
     "xverify": "tendermint_tpu_torch/csrc/xverify.cu",
+    "xverify_window": "tendermint_tpu_torch/csrc/xverify.cu",
     "general_verify": "tendermint_tpu_torch/csrc/general_verify.cu",
     "splice": "tendermint_tpu_torch/csrc/splice.cu",
     "clear": "tendermint_tpu_torch/csrc/splice.cu",
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
-    "arena_verify_spec": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
     "general_verify_mixed": "tendermint_tpu_torch/csrc/general_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/xverify.cu",
@@ -204,19 +225,18 @@ SOURCES = {
 # The __global__ function of each row (K5 is K3's kernel, and K2 runs
 # inside it; K8's splice, clear and verify are K6's and K7's kernels;
 # K1 is two launches, the chain's and the rows'; the
-# general_verify_mixed row is K4 at the mixed commit's shape).
+# general_verify_mixed row is K4 at the mixed commit's shape, the
+# xverify_window row K3 at a fast-sync window's).
 GLOBALS = {name: "k_" + name for name in SOURCES}
 GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
+               xverify_window="k_xverify",
                mesh_splice="k_splice", mesh_clear="k_clear",
                mesh_arena_verify="k_arena_verify",
-               arena_verify_spec="k_arena_verify",
                build_tables=("k_build_chain", "k_build_rows"),
                general_verify_mixed="k_general_verify")
-# The kernel whose launches a row counts, where it is not the row's own
-# (the arena_verify_spec row is K7 at the speculation arena's shape in
-# the f32 child, which runs no speculation plane).
+# The kernel whose launches a row counts, where it is not the row's own.
 ROW_KERNEL = {"general_verify_mixed": "general_verify",
-              "arena_verify_spec": "arena_verify"}
+              "xverify_window": "xverify"}
 # K2 is no launch of its own: it runs inside the structured form of K3
 # and K5 (csrc/xverify.cu), as the reference traces assemble_core into
 # _skernel; its row counts the launches that carry it.
@@ -247,8 +267,19 @@ MIXED_KERNELS = ("general_verify", "sr_verify")
 LOGICAL_SHARDS = 4
 FABRIC_CROSSOVER = 5120
 FABRIC_RUNS = 11  # verify_commit runs on the mesh; the first is dropped
+# The fastsync phase's chain: BASELINE.json config #3's 1,000-validator
+# set (equal power) and its 10,000 blocks cut to 129 (8 windows of 16
+# verified blocks), from height 121 so that the first window crosses
+# height 128; the commit for height 125 is made in round 1 (its
+# templates are 9 bytes wider: the canonical vote's round field). Eight
+# peers serve it (BlockPool's 20 pending requests a peer).
+FASTSYNC_VALIDATORS = 1_000
+FASTSYNC_START = 121
+FASTSYNC_BLOCKS = 129
+FASTSYNC_ROUND1 = 125
+FASTSYNC_PEERS = 8
 # Objects a later step of the same process reads: the kernels check's
-# arena (the f32 phase times K7 on it).
+# arena (sweep_warps.py times K7 on it).
 KEEP: dict = {}
 
 
@@ -957,6 +988,7 @@ def speculation_phase(vs, commit, bid):
     lanes = plane._heights[h].lanes
     if len(lanes) != len(votes) or not all(ln.verdict for ln in lanes.values()):
         raise AssertionError("a speculated lane did not verify")
+    flush_verdicts = digest(bytes(lanes[i].verdict for i in sorted(lanes)))
     verify_kernels = ("xverify", "shard_verify", "general_verify",
                       "arena_verify")
     before = {k: kernels[k].launches for k in verify_kernels}
@@ -1002,7 +1034,8 @@ def speculation_phase(vs, commit, bid):
     return dict(flushes=flushes, serve_commit_ms=serve_ms,
                 valset_hash_ms=valset_hash_ms, serve_launches=during,
                 rejected=message, lane_verifies=lane_verifies,
-                launches=launches,
+                flush_verdicts=flush_verdicts, hits=plane.hits,
+                misses=dict(plane.misses), launches=launches,
                 arena_bytes=plane._arena.arena_bytes(),
                 reupload_bytes=plane._arena.reupload_bytes), plane._arena
 
@@ -1378,8 +1411,6 @@ def k5_check(dev) -> dict:
                 err = max(err, max_abs_diff(
                     k, expanded.shard_verify_plain(*args, **kw)))
             got.append(k.to(dev))
-            if d == 0 and name == "bytes":
-                KEEP["k5_shard0"] = (args, kw)
         verdicts = torch.cat(got).cpu().numpy()[slot] & well_formed
         out["verdicts"][f"shard_verify_{name}"] = digest(verdicts.tobytes())
         out[name] = dict(max_abs_err=err, n_local=int(lidx.shape[1]),
@@ -1387,27 +1418,6 @@ def k5_check(dev) -> dict:
         if err or not out[name]["equal_expect"]:
             raise AssertionError(f"K5 check ({name}) failed: {out[name]}")
     return out
-
-
-def k5_check_row() -> dict:
-    """K5 on shard 0 of k5_check's bytes form (the adversarial batch):
-    time, plain time, bound and agreement with the plain version."""
-    from tendermint_tpu_torch.crypto.cuda import expanded
-
-    args, kw = KEEP["k5_shard0"]
-    v_k = expanded.shard_verify(*args, **kw)
-    v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*args, **kw))
-    s_idx, akeys, sb, s_ok, key_ok, _tables, btab = args
-    ops, lane_bytes, msg_bytes, m = xverify_work(
-        akeys, key_ok, s_idx, sb, s_ok, kw["msg"], kw["nblocks"])
-    nbytes = lane_bytes + m * 4 + msg_bytes + btab.numel() * 4
-    row = entry("shard_verify", max_abs_diff(v_k, v_p),
-                kernel_times(lambda: expanded.shard_verify(*args, **kw), 10),
-                p_ms,
-                ops, nbytes)
-    row["lanes"] = int(s_idx.shape[0])
-    row["launch"] = launch_info("shard_verify", row["lanes"], 0)
-    return row
 
 
 def fabric_phase(vs, commit, bid, mvs, mcommit, mbid, rejected_mixed,
@@ -2234,22 +2244,317 @@ def mesh_arena_rows(arena, snapshot, commit, last, dev) -> list[dict]:
 # -- phase 9 -------------------------------------------------------------
 
 
+def make_fastsync_chain(n_vals: int, start: int, n_blocks: int):
+    """n_vals ed25519 validators of equal power (keys from a seed,
+    signing by OpenSSL where the host has it) and blocks start ..
+    start + n_blocks - 1: block h + 1's LastCommit is signed by every
+    validator over block h's real BlockID (its hash and its part set's
+    header), per-slot timestamps, in round 1 for FASTSYNC_ROUND1 and 0
+    otherwise; the first block's LastCommit is for a block before the
+    chain (a node that state-synced to it). Each block carries 32
+    kvstore transactions from a seeded generator."""
+    import numpy as np
+
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.types.block import (
+        Block, BlockID, BlockIDFlag, Commit, CommitSig, Data, Header,
+        PartSetHeader)
+    from tendermint_tpu_torch.types.evidence import EvidenceData
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    keys = [ed25519.Ed25519PrivKey(hashlib.sha256(
+        b"fastsync-val-%d" % i).digest()) for i in range(n_vals)]
+    key_of = {k.pub_key().bytes(): k for k in keys}
+    vs = ValidatorSet([Validator.new(k.pub_key(), 10) for k in keys])
+    signers = [key_of[v.pub_key.bytes()] for v in vs.validators]
+    base_ts = 1_753_928_000_000_000_000
+
+    def commit_for(h, bid):
+        cs = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                        base_ts + h * 1_000_000_007 + 977 * i, b"")
+              for i, v in enumerate(vs.validators)]
+        commit = Commit(h, int(h == FASTSYNC_ROUND1), bid, cs)
+        for i, (sig, key) in enumerate(zip(cs, signers)):
+            sig.signature = key.sign(commit.vote_sign_bytes(CHAIN, i))
+        return commit
+
+    rng = np.random.default_rng(11)
+    vhash = vs.hash()
+    tag = hashlib.sha256(b"fastsync-before-%d" % start).digest()
+    last_bid = BlockID(tag, PartSetHeader(1, tag))
+    last_commit = commit_for(start - 1, last_bid)
+    blocks = []
+    for h in range(start, start + n_blocks):
+        txs = [b"key-%d-%d=%s" % (h, j, rng.bytes(24).hex().encode())
+               for j in range(32)]
+        evidence = EvidenceData()
+        header = Header(
+            version_block=11, version_app=1, chain_id=CHAIN, height=h,
+            time=base_ts + h * 1_000_000_007, last_block_id=last_bid,
+            last_commit_hash=last_commit.hash(), data_hash=Data(txs).hash(),
+            validators_hash=vhash, next_validators_hash=vhash,
+            consensus_hash=rng.bytes(32), app_hash=rng.bytes(32),
+            last_results_hash=b"", evidence_hash=evidence.hash(),
+            proposer_address=vs.validators[h % n_vals].address)
+        block = Block(header, Data(txs), evidence, last_commit)
+        blocks.append(block)
+        last_bid = BlockID(block.hash(), block.make_part_set().header())
+        last_commit = commit_for(h, last_bid)
+    return vs, blocks
+
+
+async def fastsync_loop(vs, chain, honest=None) -> dict:
+    """Fast sync over `chain` as the reference reactor's _try_sync
+    drives it (blockchain/reactor.py:209-262), without the block store
+    and apply_block: a BlockPool fed by FASTSYNC_PEERS peers serving
+    `chain`; each pass peeks BATCH_WINDOW + 1 blocks, awaits their
+    verdicts (WindowPipeline.verdicts), starts the next window ahead
+    and pops each accepted block. At a failed block it stops, calls
+    redo_request for its height and the next (the block and the commit
+    that verified it) and refetches from new peers serving `honest`;
+    the window's later verdicts are not used (a block whose LastCommit
+    was changed has another part set, so the next commit fails it too).
+    Returns every verdict the loop used, by height, the redone heights
+    and the pipeline's prefetch hits."""
+    from tendermint_tpu_torch.blockchain import BlockPool
+    from tendermint_tpu_torch.blockchain.verify_ahead import (
+        BATCH_WINDOW, WindowPipeline)
+
+    start = chain[0].header.height
+    top = chain[-1].header.height
+    pool = BlockPool(start)
+    peers = itertools.count()
+
+    def serve(blocks, n_peers):
+        by_height = {b.header.height: b for b in blocks}
+        for _ in range(n_peers):
+            pool.set_peer_range(f"peer-{next(peers)}", start, top)
+        for peer, h in pool.make_next_requests(now=0.0):
+            if not pool.add_block(peer, by_height[h], 0):
+                raise AssertionError(f"the pool refused height {h}")
+
+    serve(chain, FASTSYNC_PEERS)
+    pipe = WindowPipeline()
+    verdicts, redone, windows = [], [], 0
+    t0 = time.perf_counter()
+    while True:
+        blocks = pool.peek_blocks(BATCH_WINDOW + 1)
+        if len(blocks) < 2:
+            break
+        items, _parts, results = await pipe.verdicts(vs, CHAIN, blocks)
+        pipe.start_ahead(vs, CHAIN, pool.peek_blocks, len(blocks))
+        windows += 1
+        for i, err in enumerate(results):
+            verdicts.append((items[i][1], err))
+            if err is not None:
+                bad = [items[i][1], blocks[i + 1].header.height]
+                for h in bad:
+                    pool.redo_request(h)  # bans the peer that served h
+                redone.append(bad)
+                serve(honest, FASTSYNC_PEERS)
+                break
+            pool.pop_request()
+    return dict(verdicts=verdicts, redone=redone, windows=windows,
+                prefetch_hits=pipe.prefetch_hits, height=pool.height,
+                seconds=time.perf_counter() - t0)
+
+
+def fastsync_phase(dev):
+    """Fast sync's verify-ahead plane on the GPU (docstring, phase 9).
+    Returns the phase's record and the xverify_window kernels row."""
+    import asyncio
+
+    from tendermint_tpu_torch.blockchain.verify_ahead import (
+        BATCH_WINDOW, WindowPipeline)
+    from tendermint_tpu_torch.types.block import Block
+
+    t0 = time.perf_counter()
+    vs, chain = make_fastsync_chain(FASTSYNC_VALIDATORS, FASTSYNC_START,
+                                    FASTSYNC_BLOCKS)
+    setup_s = time.perf_counter() - t0
+    kernels = wrappers()
+    batches, job_ms = [], []
+    real_lanes, real_job = vs._batch_verify_lanes, \
+        WindowPipeline._verify_window_job
+
+    def spy(lanes, msgs, sigs):  # runs in the executor's thread
+        pre_len = getattr(msgs, "pre_len", None)  # None: full bytes
+        batches.append(dict(
+            form=type(msgs).__name__, lanes=len(lanes),
+            groups=0 if pre_len is None else len(pre_len),
+            pre_len=[] if pre_len is None else sorted(set(pre_len.tolist()))))
+        return real_lanes(lanes, msgs, sigs)
+
+    def timed_job(vals, chain_id, blocks):
+        t1 = time.perf_counter()
+        out = real_job(vals, chain_id, blocks)
+        job_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    vs._batch_verify_lanes = spy
+    WindowPipeline._verify_window_job = staticmethod(timed_job)
+    try:
+        # the main path: counters zeroed just before, read just after
+        for fn in kernels.values():
+            fn.launches = 0
+        clean = asyncio.run(fastsync_loop(vs, chain))
+        launches = {k: f.launches for k, f in kernels.items() if f.launches}
+        clean_batches, clean_job_ms = batches[:], job_ms[:]
+        # the faulted copy: a signature inside the quorum prefix of the
+        # commit for the third window's 5th block, and a timestamp
+        # changed after signing in the sixth window's 10th
+        bad_sig_h = FASTSYNC_START + 2 * BATCH_WINDOW + 4
+        bad_ts_h = FASTSYNC_START + 5 * BATCH_WINDOW + 9
+        faulted = list(chain)
+        for h, slot in ((bad_sig_h, FASTSYNC_VALIDATORS // 10),
+                        (bad_ts_h, FASTSYNC_VALIDATORS // 5)):
+            i = h - FASTSYNC_START + 1  # the block carrying h's commit
+            faulted[i] = Block.from_bytes(chain[i].to_bytes())
+            cs = faulted[i].last_commit.signatures[slot]
+            if h == bad_sig_h:
+                cs.signature = cs.signature[:20] + bytes(
+                    [cs.signature[20] ^ 2]) + cs.signature[21:]
+            else:
+                cs.timestamp += 1
+        before = {k: f.launches for k, f in kernels.items()}
+        bad = asyncio.run(fastsync_loop(vs, faulted, honest=chain))
+        faulted_launches = {k: f.launches - before[k]
+                            for k, f in kernels.items()
+                            if f.launches != before[k]}
+    finally:
+        WindowPipeline._verify_window_job = staticmethod(real_job)
+        del vs._batch_verify_lanes
+    n_windows = (FASTSYNC_BLOCKS - 1) // BATCH_WINDOW
+    quorum = 2 * FASTSYNC_VALIDATORS // 3 + 1  # equal power
+    if clean["windows"] != n_windows or clean["prefetch_hits"] != \
+            n_windows - 1 or clean["redone"] or \
+            clean["height"] != FASTSYNC_START + FASTSYNC_BLOCKS - 1:
+        raise AssertionError(f"fast sync: {dict(clean, verdicts=None)}")
+    if any(err is not None for _, err in clean["verdicts"]) or \
+            [h for h, _ in clean["verdicts"]] != list(range(
+                FASTSYNC_START, FASTSYNC_START + FASTSYNC_BLOCKS - 1)):
+        raise AssertionError("a clean block did not verify")
+    if launches != {"build_tables": 1, "xverify": n_windows}:
+        raise AssertionError(f"fast sync launched {launches}")
+    want = dict(form="MergedSignBatch", lanes=BATCH_WINDOW * quorum,
+                groups=BATCH_WINDOW)
+    if len(clean_batches) != n_windows or any(
+            {k: b[k] for k in want} != want for b in clean_batches):
+        raise AssertionError(f"window batches: {clean_batches}")
+    if len(clean_batches[0]["pre_len"]) != 2:
+        raise AssertionError("the first window's templates do not mix "
+                             f"widths: {clean_batches[0]}")
+    failed = {h: err for h, err in bad["verdicts"] if err is not None}
+    if sorted(failed) != [bad_sig_h, bad_ts_h] or any(
+            type(e).__name__ != "VerificationError"
+            or str(e) != f"invalid commit signature(s) for height {h}"
+            for h, e in failed.items()):
+        raise AssertionError(f"faulted chain: {failed}")
+    if bad["redone"] != [[bad_sig_h, bad_sig_h + 1],
+                         [bad_ts_h, bad_ts_h + 1]] or \
+            bad["height"] != clean["height"]:
+        raise AssertionError(f"faulted chain: redone {bad['redone']}, "
+                             f"height {bad['height']}")
+    out = dict(validators=FASTSYNC_VALIDATORS, blocks=FASTSYNC_BLOCKS,
+               heights=[FASTSYNC_START, FASTSYNC_START + FASTSYNC_BLOCKS - 1],
+               reduced="BASELINE.json config #3's 10,000 blocks cut to 129 "
+                       "(8 windows of 16) to fit the run's time limit",
+               not_run="no block store and no apply_block: the reactor, the "
+                       "store and the block executor are not ported yet",
+               setup_s=setup_s, windows=clean["windows"],
+               prefetch_hits=clean["prefetch_hits"],
+               window_batches=clean_batches, launches=launches,
+               job_ms=clean_job_ms,
+               job_p50_ms=statistics.median(clean_job_ms),
+               job_max_ms=max(clean_job_ms),
+               blocks_per_s_verify_job=(FASTSYNC_BLOCKS - 1) / sum(
+                   clean_job_ms) * 1e3,
+               loop_s=clean["seconds"],
+               blocks_per_s_loop=(FASTSYNC_BLOCKS - 1) / clean["seconds"],
+               faulted=dict(rejected={h: str(e) for h, e in failed.items()},
+                            redone=bad["redone"], windows=bad["windows"],
+                            prefetch_hits=bad["prefetch_hits"],
+                            launches=faulted_launches,
+                            other_verdicts_none=True))
+    breakdown, row = fastsync_breakdown(vs, chain[:BATCH_WINDOW + 1], dev)
+    out["breakdown"] = breakdown
+    return out, row
+
+
+def fastsync_breakdown(vs, blocks, dev, reps: int = 5):
+    """Outside the counted run: median ms of the verify job's stages on
+    one window (window_items' part sets and block ids; the quorum
+    selection and the MergedSignBatch build; _prepare_structured; the
+    structured launch with its uploads, synchronized; the verdicts'
+    readback), vals.hash() (window_key's cost, twice a window), and K3
+    at the window's shape: the xverify_window row."""
+    import torch
+
+    from tendermint_tpu_torch.blockchain.verify_ahead import window_items
+    from tendermint_tpu_torch.crypto.cuda import expanded, kernels
+    from tendermint_tpu_torch.types.sign_batch import (CommitSignBatch,
+                                                       MergedSignBatch)
+
+    exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
+    need = 2 * vs.total_voting_power()
+
+    def quorum(commit):
+        slots, tallied = [], 0
+        for idx, cs in enumerate(commit.signatures):
+            if cs.for_block():
+                slots.append(idx)
+                tallied += vs.validators[idx].voting_power
+                if 3 * tallied > need:
+                    return slots
+        raise AssertionError("no quorum")
+
+    stages = {k: [] for k in ("window_items", "merged_sign_batch",
+                              "prepare_structured", "launch", "readback",
+                              "valset_hash")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        items, _parts = window_items(blocks)
+        t1 = time.perf_counter()
+        per = [(c, quorum(c)) for _, _, c in items]
+        lanes = [s for _, slots in per for s in slots]
+        sigs = [c.signatures[s].signature for c, slots in per for s in slots]
+        merged = MergedSignBatch([CommitSignBatch(CHAIN, c, slots)
+                                  for c, slots in per])
+        t2 = time.perf_counter()
+        idx, fields, _wf, width = exp._prepare_structured(lanes, merged, sigs)
+        t3 = time.perf_counter()
+        out = exp._launch_structured(idx, fields, width)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        verdicts = kernels.readback(out)
+        t5 = time.perf_counter()
+        vs.hash()
+        t6 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                  t5 - t4, t6 - t5)):
+            stages[k].append(dt * 1e3)
+        if not verdicts[:len(lanes)].all():
+            raise AssertionError("the breakdown's window did not verify")
+    row, _ = k3_row("xverify_window", exp, lanes, merged, sigs, dev)
+    return {k + "_ms": statistics.median(v) for k, v in stages.items()}, row
+
+
+# -- phase 10 ------------------------------------------------------------
+
+
 def timing_phase(vs, commit, dev) -> list[dict]:
     """Each kernel at the main path's shapes: time, plain time, bound,
     agreement with the plain version."""
     import torch
 
-    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+    from tendermint_tpu_torch.crypto.cuda import expanded
     from tendermint_tpu_torch.types.sign_batch import CommitSignBatch
 
     exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
     n = len(vs.validators)
     lanes = list(range(n))
     sigs = [cs.signature for cs in commit.signatures]
-    sbatch = CommitSignBatch(CHAIN, commit, lanes)
-    idx, fields, _wf, width = exp._prepare_structured(lanes, sbatch, sigs)
-    f = verify.to_device(dict(fields, idx=idx), dev)
-    btab = verify._btab(dev)
     rows = []
     # K1 at the set's size
     k1 = lambda: expanded.build_tables(exp.akeys)  # noqa: E731
@@ -2270,6 +2575,44 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     torch.cuda.empty_cache()
     # K3 in the structured form on the commit: the main path's launch,
     # K2's assembly inside it
+    row, k2 = k3_row("xverify", exp, lanes,
+                     CommitSignBatch(CHAIN, commit, lanes), sigs, dev)
+    rows.append(row)
+    k3, sargs, v_k = k2["times"], k2["sargs"], k2["verdicts"]
+    m_p, nb_p = k2["msg"]
+    # K2: no launch of its own. What it adds to the launch that carries
+    # it: the structured K3's times less the bytes form's on the same
+    # lanes, given the rows the plain version assembles; the two forms'
+    # verdicts must agree
+    bform = dict(msg=m_p, nblocks=nb_p)
+    k3b = kernel_times(lambda: expanded.xverify(*sargs, **bform), 10)
+    err = max_abs_diff(expanded.xverify(*sargs, **bform), v_k)
+    # it reads per live lane the patch and three ints, and the templates;
+    # it writes no message to device memory
+    row = entry("assemble", err, {k: k3[k] - k3b[k] for k in k3},
+                k2["assemble_ms"], 0, k2["live"] * (24 + 3 * 4) + k2["tpl_bytes"])
+    row.update(inside="xverify, shard_verify: the structured form",
+               structured_xverify=k3, bytes_form_xverify=k3b)
+    rows.append(row)
+    # K4 at BatchVerifier's 64-lane shape (one 128-lane bucket)
+    rows.append(k4_row("general_verify", k4_args(vs, commit, range(64),
+                                                 dev), 64))
+    return rows
+
+
+def k3_row(name, exp, lanes, sbatch, sigs, dev):
+    """K3 in the structured form (K2's assembly inside the launch) on
+    `sbatch`'s lanes over exp's tables, as verify_structured prepares
+    them: time, plain time, bound, launch shape and agreement with the
+    plain version; every real lane must verify. Returns the row and
+    what K2's row reads (the launch's arguments and verdicts, the plain
+    assembly's rows and time, the live lanes, the templates' bytes)."""
+    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+
+    n = len(lanes)
+    idx, fields, _wf, width = exp._prepare_structured(lanes, sbatch, sigs)
+    f = verify.to_device(dict(fields, idx=idx), dev)
+    btab = verify._btab(dev)
     sargs = (f["idx"], exp.akeys, f["sb"], f["s_ok"], exp.key_ok, exp.tables,
              btab)
     tpl = (f["pre"], f["pre_len"], f["suf"], f["suf_len"])
@@ -2280,7 +2623,7 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*sargs, **sform))
     err = max_abs_diff(v_k, v_p)
     if not bool(v_k[:n].all()):
-        raise AssertionError("K3 rejects the valid commit")
+        raise AssertionError(f"{name}: K3 rejects a valid lane")
     (m_p, nb_p), a_ms = plain_ms(lambda: expanded.assemble_plain(
         *tpl, *sform["patches"], width))
     ops, lane_bytes, msg_bytes, m = xverify_work(
@@ -2289,27 +2632,13 @@ def timing_phase(vs, commit, dev) -> list[dict]:
     # templates; the comb
     tpl_bytes = sum(t.numel() * t.element_size() for t in tpl)
     nbytes = lane_bytes + m * (24 + 3 * 4) + tpl_bytes + btab.numel() * 4
-    k3 = kernel_times(lambda: expanded.xverify(*sargs, **sform), 10)
-    rows.append(entry("xverify", err, k3, p_ms, ops, nbytes))
-    rows[-1]["launch"] = launch_info("xverify", int(f["idx"].shape[0]), 1)
-    # K2: no launch of its own. What it adds to the launch that carries
-    # it: the structured K3's times less the bytes form's on the same
-    # lanes, given the rows the plain version assembles; the two forms'
-    # verdicts must agree
-    bform = dict(msg=m_p, nblocks=nb_p)
-    k3b = kernel_times(lambda: expanded.xverify(*sargs, **bform), 10)
-    err = max_abs_diff(expanded.xverify(*sargs, **bform), v_k)
-    # it reads per live lane the patch and three ints, and the templates;
-    # it writes no message to device memory
-    row = entry("assemble", err, {k: k3[k] - k3b[k] for k in k3}, a_ms, 0,
-                m * (24 + 3 * 4) + tpl_bytes)
-    row.update(inside="xverify, shard_verify: the structured form",
-               structured_xverify=k3, bytes_form_xverify=k3b)
-    rows.append(row)
-    # K4 at BatchVerifier's 64-lane shape (one 128-lane bucket)
-    rows.append(k4_row("general_verify", k4_args(vs, commit, range(64),
-                                                 dev), 64))
-    return rows
+    times = kernel_times(lambda: expanded.xverify(*sargs, **sform), 10)
+    row = entry(name, err, times, p_ms, ops, nbytes)
+    row.update(lanes=int(f["idx"].shape[0]), real_lanes=n,
+               groups=int(sbatch.pre.shape[0]),
+               launch=launch_info(name, int(f["idx"].shape[0]), 1))
+    return row, dict(times=times, sargs=sargs, verdicts=v_k, msg=(m_p, nb_p),
+                     assemble_ms=a_ms, live=m, tpl_bytes=tpl_bytes)
 
 
 def xverify_work(akeys, key_ok, idx, sb, s_ok, msg, nblocks):
@@ -2407,7 +2736,7 @@ def arena_rows(arena, vs, commit, dev) -> list[dict]:
                       kernel_times(lambda: resident.clear(act_k), 100), p_ms,
                       0, n))
     # over the active lanes the last flush verified, all of them valid
-    rows.append(k7_row(arena, all_valid=True))
+    rows.append(k7_row(arena))
     return rows
 
 
@@ -2433,10 +2762,9 @@ def spec_arena(vs, commit, bid, dev):
     return arena
 
 
-def k7_row(arena, all_valid: bool, name: str = "arena_verify") -> dict:
-    """K7 over the arena's active lanes: time, plain time, bound, launch
-    shape and agreement with the plain version (and, where all_valid,
-    every active lane accepted)."""
+def k7_row(arena) -> dict:
+    """K7 over the arena's active lanes, all of them valid: time, plain
+    time, bound, launch shape and agreement with the plain version."""
     from tendermint_tpu_torch.crypto.cuda import expanded, resident
 
     n = arena.capacity
@@ -2444,8 +2772,8 @@ def k7_row(arena, all_valid: bool, name: str = "arena_verify") -> dict:
     v_k = resident.arena_verify(*largs)
     v_p, p_ms = plain_ms(lambda: resident.arena_verify_plain(*largs))
     err = max_abs_diff(v_k, v_p)
-    if all_valid and not bool(v_k[largs[3]].all()):
-        raise AssertionError(f"{name}: K7 rejects a valid active lane")
+    if not bool(v_k[largs[3]].all()):
+        raise AssertionError("K7 rejects a valid active lane")
     (ab, sbuf, s_okb, act, pre, pre_len, suf, suf_len, pat, spl, plen, grp,
      btab) = largs
     live = act.nonzero()[:, 0]
@@ -2459,11 +2787,11 @@ def k7_row(arena, all_valid: bool, name: str = "arena_verify") -> dict:
               + sum(t.numel() * t.element_size()
                     for t in (pre, pre_len, suf, suf_len))
               + btab.numel() * 4)
-    row = entry(name, err,
+    row = entry("arena_verify", err,
                 kernel_times(lambda: resident.arena_verify(*largs), 5),
                 p_ms, ops, nbytes)
     row["lanes"], row["active_lanes"] = n, int(live.numel())
-    row["launch"] = launch_info(name, n)
+    row["launch"] = launch_info("arena_verify", n)
     return row
 
 
@@ -2547,15 +2875,16 @@ def entry(name, err, times, plain, ops, nbytes) -> dict:
 
 # -- the f32 phase and the fault check: child processes ------------------
 
-# The f32 build's kernels (every field-bearing kernel; K6 does no field
-# arithmetic and is the same code in both builds, and K2's assembly,
-# inside K3, is the same byte rule in both). K5 and K7 are
-# held in the kernels check only: the f32 path (slice, mixed) does not
-# run the fabric or the speculation plane. K7 is also timed at the
-# speculation arena's shape (arena_verify_spec, spec_arena).
+# The f32 build's kernels: every field-bearing kernel (K6 does no field
+# arithmetic and is the same code in both builds, as are K8's splice and
+# clear; K2's assembly, inside K3, is the same byte rule in both). The
+# f32 child times them at the i32 rows' shapes, on its own run of the
+# same five paths.
 F32_KERNELS = ("build_tables", "xverify", "general_verify", "shard_verify",
                "arena_verify", "sr_verify")
-F32_CHECK_ONLY = ("shard_verify", "arena_verify", "arena_verify_spec")
+F32_ROWS = ("build_tables", "xverify", "general_verify",
+            "general_verify_mixed", "sr_verify", "shard_verify",
+            "arena_verify", "mesh_arena_verify")
 CHILD_TIMEOUT_S = {"f32": 700, "fault": 240}
 
 # A test-only kernel that stores through an address no allocation owns:
@@ -2677,13 +3006,13 @@ def f32_child(i32: dict) -> int:
     """The f32 phase's child (TM_TPU_FIELD=f32): the f32 library built;
     the kernels check (K1, K3, K4, K7, K9 and K5, each against its f32
     plain version) with its verdicts held against the i32 build's
-    digests `i32`; the slice and mixed paths at full width through the
-    entry points, launches and outcomes as in the i32 phases; then each
-    f32 kernel's time, plain time and bound (K1-K4 and K9 at the main
-    path's shapes, K5 and K7 at the kernels check's, and K7 again at the
-    speculation arena's, built by spec_arena). No fallback: the
-    library, the kernels and the checks are the f32 build's or the
-    child fails."""
+    digests `i32`; the slice, speculation, mixed, fabric and healing
+    paths at full width through the entry points, each phase given the
+    f32 run's own earlier results (the parent holds their launches and
+    outcomes to the i32 phases'); then the f32 rows (F32_ROWS) at the
+    i32 rows' shapes, with their launches on these five paths. No
+    fallback but healing's injected ones: the library, the kernels and
+    the checks are the f32 build's or the child fails."""
     import torch
 
     from tendermint_tpu_torch.crypto.cuda import expanded, kernels
@@ -2708,7 +3037,6 @@ def f32_child(i32: dict) -> int:
     expanded.set_shard_crossover(FABRIC_CROSSOVER)
     try:
         k5 = k5_check(dev)
-        k5_row = k5_check_row()
     finally:
         expanded.set_shard_crossover(None)
         set_mesh(None)
@@ -2723,12 +3051,19 @@ def f32_child(i32: dict) -> int:
           "k5_check": k5, "verdicts_equal_i32": sorted(verdicts),
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    vs, commit, bid, _seed_of = make_commit(N_VALIDATORS)
+    vs, commit, bid, seed_of = make_commit(N_VALIDATORS)
     setup_s = time.perf_counter() - t0
     state = fallback_state()
     res = slice_phase(vs, commit, bid)
     no_fallback("f32 slice", state)
     emit(dict(phase="slice", validators=N_VALIDATORS, setup_s=setup_s, **res))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    spec, arena = speculation_phase(vs, commit, bid)
+    no_fallback("f32 speculation", state)
+    emit(dict(phase="speculation", validators=N_VALIDATORS,
+              bursts=len(spec["flushes"]), burst=SPEC_BURST,
+              seconds=time.perf_counter() - t0, **spec))
     t0 = time.perf_counter()
     mvs, mcommit, mbid, secret_of = make_mixed_commit(N_VALIDATORS)
     setup_s = time.perf_counter() - t0
@@ -2737,49 +3072,91 @@ def f32_child(i32: dict) -> int:
     no_fallback("f32 mixed", state)
     emit(dict(phase="mixed", validators=N_VALIDATORS, setup_s=setup_s,
               seconds=time.perf_counter() - t0, **mixed))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    fabric, k5_row = fabric_phase(vs, commit, bid, mvs, mcommit, mbid,
+                                  mixed["rejected"], dev)
+    no_fallback("f32 fabric", state)
+    emit(dict(phase="fabric", validators=N_VALIDATORS,
+              crossover=FABRIC_CROSSOVER,
+              seconds=time.perf_counter() - t0, **fabric))
+    t0 = time.perf_counter()
+    healing, k8 = healing_phase(vs, commit, bid, seed_of, mvs, mcommit, spec,
+                                dev)
+    emit(dict(phase="healing", validators=N_VALIDATORS,
+              seconds=time.perf_counter() - t0, **healing))
     state = fallback_state()
     rows = timing_phase(vs, commit, dev)
-    # K2's assembly does no field arithmetic: its row is the i32 run's
-    rows = [r for r in rows if r["name"] != "assemble"]
-    rows += [sr_row(mvs, mcommit, dev), k4_mixed_row(mvs, mcommit, dev),
-             k5_row, k7_row(KEEP["arena"], all_valid=False),
-             k7_row(spec_arena(vs, commit, bid, dev), all_valid=True,
-                    name="arena_verify_spec")]
+    rows += [k7_row(arena), sr_row(mvs, mcommit, dev),
+             k4_mixed_row(mvs, mcommit, dev), k5_row] + k8
+    rows = [r for r in rows if r["name"] in F32_ROWS]
     no_fallback("f32 timing", state)
     launches = {}
-    for path in (res, mixed):
+    for path in (res, spec, mixed, fabric, healing):  # each path's run
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:
         r["launches"] = row_launches(r["name"], launches)
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']}_f32: no launch on the f32 "
+                                 "paths")
         r["ptxas"] = kernel_ptxas(r["name"])
-        r["on_f32_path"] = r["name"] not in F32_CHECK_ONLY
         r["name"] += "_f32"
+    emit({"phase": "memory",
+          "max_allocated_bytes": torch.cuda.max_memory_allocated(dev)})
     emit({"kernels": rows})
     return 0
 
 
-def f32_phase(i32_digests: dict, res: dict, mixed: dict, rows: list) -> list:
-    """Run the f32 child, relay its lines, hold its outcomes to the i32
-    phases', print the two fields' p50s and kernel times side by side,
-    and return its kernels rows."""
+def f32_phase(i32_digests: dict, i32_paths: dict, rows: list) -> list:
+    """Run the f32 child, relay its lines, hold each of its paths'
+    outcomes to the i32 phase's (`i32_paths`: slice, speculation,
+    mixed, fabric and healing records), print the two fields' times
+    side by side, and return its kernels rows."""
     lines = run_child("f32", "--i32", json.dumps(i32_digests))
     step = {o.get("phase"): o for o in lines}
     f32_rows = next(o["kernels"] for o in lines if "kernels" in o)
-    for name, i32_res in (("slice", res), ("mixed", mixed)):
-        for key in ("rejected", "launches"):
-            if step[name][key] != i32_res[key]:
+    held = {"slice": ("rejected", "launches"),
+            "speculation": ("rejected", "launches", "serve_launches",
+                            "flush_verdicts", "hits", "misses",
+                            "lane_verifies"),
+            "mixed": ("rejected", "launches"),
+            "fabric": ("rejected", "launches", "mixed_rejected",
+                       "verdicts_equal_one_card", "shard_lanes",
+                       "trusting_shard_lanes"),
+            "healing": ("rejected", "launches", "counters_moved",
+                        "entries")}
+    for name, keys in held.items():
+        for key in keys:
+            if step[name][key] != i32_paths[name][key]:
                 raise AssertionError(f"f32 {name} {key}: {step[name][key]} "
-                                     f"against i32 {i32_res[key]}")
+                                     f"against i32 {i32_paths[name][key]}")
+        if name == "healing":
+            for key in ("table_reshard_s", "arena_reshard_s"):
+                if sorted(step[name][key]) != sorted(i32_paths[name][key]):
+                    raise AssertionError(f"f32 healing {key}")
     i32_ms = {r["name"]: r["ms"] for r in rows}
-    i32_ms["arena_verify_spec"] = i32_ms["arena_verify"]  # the same shape
-    emit({"phase": "f32", "step": "compare",
-          "verify_commit_p50_ms": {
-              "i32": res["verify_commit_p50_ms"],
-              "f32": step["slice"]["verify_commit_p50_ms"]},
-          "mixed_verify_commit_p50_ms": {
-              "i32": mixed["verify_commit_p50_ms"],
-              "f32": step["mixed"]["verify_commit_p50_ms"]},
+
+    def side(name, key):
+        return {"i32": i32_paths[name][key], "f32": step[name][key]}
+
+    emit({"phase": "f32", "step": "compare", "held": held,
+          "verify_commit_p50_ms": side("slice", "verify_commit_p50_ms"),
+          "flush_ms": {f: [x["flush_ms"] for x in p["flushes"]] for f, p in
+                       (("i32", i32_paths["speculation"]),
+                        ("f32", step["speculation"]))},
+          "flush_launch_ms": {f: [x["launch_ms"] for x in p["flushes"]]
+                              for f, p in (("i32", i32_paths["speculation"]),
+                                           ("f32", step["speculation"]))},
+          "serve_commit_ms": side("speculation", "serve_commit_ms"),
+          "mixed_verify_commit_p50_ms": side("mixed", "verify_commit_p50_ms"),
+          "fabric_verify_commit_p50_ms": side("fabric",
+                                              "verify_commit_p50_ms"),
+          "fabric_build_s": side("fabric", "build_s"),
+          "mesh_flush_p50_ms": side("healing", "flush_p50_ms"),
+          "lie_flush_ms": side("healing", "lie_flush_ms"),
+          "table_reshard_s": side("healing", "table_reshard_s"),
+          "probe_ms": side("healing", "probe_ms"),
           "kernel_ms": {r["name"]: {"f32": r["ms"],
                                     "i32": i32_ms.get(r["name"][:-4])}
                         for r in f32_rows}})
@@ -2865,6 +3242,12 @@ def main() -> int:
                                 torch.device("cuda"))
     emit(dict(phase="healing", validators=N_VALIDATORS,
               seconds=time.perf_counter() - t0, card=smi, **healing))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    fastsync, window_row = fastsync_phase(torch.device("cuda"))
+    no_fallback("fastsync", state)
+    emit(dict(phase="fastsync", seconds=time.perf_counter() - t0, card=smi,
+              **fastsync))
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -2872,6 +3255,7 @@ def main() -> int:
     rows.append(k4_mixed_row(mvs, mcommit, torch.device("cuda")))
     rows.append(k5)
     rows += k8
+    rows.append(window_row)
     no_fallback("timing", state)
     t0 = time.perf_counter()
     run_child("fault")
@@ -2880,11 +3264,12 @@ def main() -> int:
     torch.cuda.empty_cache()  # the child needs 3.3 GB of f32 tables
     f32_rows = f32_phase(dict(checks["verdicts"],
                               **fabric["k5_check"]["verdicts"]),
-                         res, mixed, rows)
+                         dict(slice=res, speculation=spec, mixed=mixed,
+                              fabric=fabric, healing=healing), rows)
     emit({"phase": "f32", "step": "done", "card": smi,
           "seconds": time.perf_counter() - t0})
     launches = {}
-    for path in (res, spec, mixed, fabric, healing):  # each path's run
+    for path in (res, spec, mixed, fabric, healing, fastsync):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -1,10 +1,13 @@
-"""RFC-6962-style merkle root with domain-separated leaf/inner hashing
-(reference: crypto/merkle/tree.go:9,62) — only the root that
-validator-set and commit hashes use."""
+"""RFC-6962-style merkle tree with domain-separated leaf/inner hashing
+(reference: crypto/merkle/tree.go:9,62 for the root that validator-set,
+commit and header hashes use; crypto/merkle/proof.go:35,52 for the
+proofs a block's part set carries). The proof-operator runtime comes
+with a caller (RPC, light client)."""
 
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass, field
 
 LEAF_PREFIX = b"\x00"
 INNER_PREFIX = b"\x01"
@@ -43,3 +46,94 @@ def hash_from_byte_slices(items: list[bytes]) -> bytes:
     k = _split_point(n)
     return inner_hash(hash_from_byte_slices(items[:k]),
                       hash_from_byte_slices(items[k:]))
+
+
+@dataclass
+class Proof:
+    total: int
+    index: int
+    leaf_hash: bytes
+    aunts: list[bytes] = field(default_factory=list)
+
+    def compute_root(self) -> bytes | None:
+        if self.index >= self.total or self.index < 0 or self.total <= 0:
+            return None
+        return _root_from_aunts(self.index, self.total, self.leaf_hash,
+                                self.aunts)
+
+    def verify(self, root: bytes, leaf: bytes) -> bool:
+        if leaf_hash(leaf) != self.leaf_hash:
+            return False
+        return self.compute_root() == root
+
+
+def _root_from_aunts(index: int, total: int, lh: bytes,
+                     aunts: list[bytes]) -> bytes | None:
+    if total == 0:
+        return None
+    if total == 1:
+        if aunts:
+            return None
+        return lh
+    if not aunts:
+        return None
+    k = _split_point(total)
+    if index < k:
+        left = _root_from_aunts(index, k, lh, aunts[:-1])
+        if left is None:
+            return None
+        return inner_hash(left, aunts[-1])
+    right = _root_from_aunts(index - k, total - k, lh, aunts[:-1])
+    if right is None:
+        return None
+    return inner_hash(aunts[-1], right)
+
+
+def proofs_from_byte_slices(items: list[bytes]) -> tuple[bytes, list[Proof]]:
+    trails, root_node = _trails_from_byte_slices(items)
+    root = root_node.hash if root_node else empty_hash()
+    proofs = [
+        Proof(total=len(items), index=i, leaf_hash=t.hash,
+              aunts=t.flatten_aunts())
+        for i, t in enumerate(trails)
+    ]
+    return root, proofs
+
+
+class _Node:
+    __slots__ = ("hash", "parent", "left", "right")
+
+    def __init__(self, h: bytes):
+        self.hash = h
+        self.parent = None
+        self.left = None  # sibling on the left
+        self.right = None  # sibling on the right
+
+    def flatten_aunts(self) -> list[bytes]:
+        aunts = []
+        node = self
+        while node is not None:
+            if node.left is not None:
+                aunts.append(node.left.hash)
+            elif node.right is not None:
+                aunts.append(node.right.hash)
+            node = node.parent
+        return aunts
+
+
+def _trails_from_byte_slices(items: list[bytes]):
+    n = len(items)
+    if n == 0:
+        return [], None
+    if n == 1:
+        node = _Node(leaf_hash(items[0]))
+        return [node], node
+    k = _split_point(n)
+    lefts, left_root = _trails_from_byte_slices(items[:k])
+    rights, right_root = _trails_from_byte_slices(items[k:])
+    root = _Node(inner_hash(left_root.hash, right_root.hash))
+    left_root.parent = root
+    left_root.right = right_root
+    right_root.parent = root
+    right_root.left = left_root
+    return lefts + rights, root

@@ -26,6 +26,31 @@ def encode_varint(v: int) -> bytes:
             return bytes(out)
 
 
+def decode_varint(data: bytes, pos: int = 0) -> tuple[int, int]:
+    result = 0
+    shift = 0
+    while True:
+        if pos >= len(data):
+            raise ValueError("truncated varint")
+        b = data[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            break
+        shift += 7
+        if shift > 63:
+            raise ValueError("varint too long")
+    if result >= 1 << 64:
+        raise ValueError("varint exceeds 64 bits")
+    if result >= 1 << 63:
+        result -= 1 << 64
+    return result, pos
+
+
+def encode_zigzag(v: int) -> bytes:
+    return encode_varint((v << 1) ^ (v >> 63) if v >= 0 else ((-v) << 1) - 1)
+
+
 class Writer:
     """Append-only protobuf wire writer."""
 
@@ -74,3 +99,50 @@ class Writer:
 
     def finish(self) -> bytes:
         return bytes(self._buf)
+
+
+class Reader:
+    """Streaming protobuf wire reader."""
+
+    def __init__(self, data: bytes):
+        self._data = data
+        self._pos = 0
+
+    def at_end(self) -> bool:
+        return self._pos >= len(self._data)
+
+    def field(self) -> tuple[int, int]:
+        tag, self._pos = decode_varint(self._data, self._pos)
+        return tag >> 3, tag & 7
+
+    def varint(self) -> int:
+        v, self._pos = decode_varint(self._data, self._pos)
+        return v
+
+    def sfixed64(self) -> int:
+        v = struct.unpack_from("<q", self._data, self._pos)[0]
+        self._pos += 8
+        return v
+
+    def bytes(self) -> bytes:
+        ln, self._pos = decode_varint(self._data, self._pos)
+        if ln < 0 or self._pos + ln > len(self._data):
+            raise ValueError("truncated bytes field")
+        out = self._data[self._pos : self._pos + ln]
+        self._pos += ln
+        return out
+
+    def string(self) -> str:
+        return self.bytes().decode()
+
+    def skip(self, wire_type: int) -> None:
+        if wire_type == 0:
+            self.varint()
+        elif wire_type == 1:
+            self._pos += 8
+        elif wire_type == 2:
+            self.bytes()
+        elif wire_type == 5:
+            self._pos += 4
+        else:
+            raise ValueError(f"unknown wire type {wire_type}")

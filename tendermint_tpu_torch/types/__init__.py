@@ -1,6 +1,7 @@
-"""Core consensus types needed by commit verification and the
-speculation plane (reference capability: types/). Header, Block,
-PartSet and vote sets come with later slices of the port."""
+"""Core consensus types needed by commit verification, the speculation
+plane and fast sync (reference capability: types/): blocks, headers,
+part sets and commits (types/block.py), votes, evidence and the
+validator set. Vote sets come with a later slice of the port."""
 
 from .block import BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader
 from .validator import Validator

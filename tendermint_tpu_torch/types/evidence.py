@@ -1,14 +1,18 @@
 """Evidence of Byzantine behavior (reference: types/evidence.go) — the
-duplicate-vote half that the port verifies: two conflicting votes from
-one validator at the same height, round and type. Verification lives
-in evidence/verify.py and uses the BatchVerifier. Its wire encoding,
-hash, ABCI form and light-client-attack evidence come with later
-slices of the port."""
+duplicate-vote half that the port verifies (two conflicting votes from
+one validator at the same height, round and type), its wire encoding
+and hash, and a block's EvidenceData. Verification lives in
+evidence/verify.py and uses the BatchVerifier. The ABCI form and
+light-client-attack evidence come with later slices of the port: until
+then, decoding light-client-attack evidence raises ValueError, with the
+text the reference raises where its light package is missing."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+from ..crypto import merkle, tmhash
+from ..encoding.proto import Reader, Writer
 from .block import BlockID
 from .vote import Vote
 
@@ -18,8 +22,24 @@ def block_key(block_id: BlockID | None) -> bytes:
     return b"" if block_id is None else block_id.key()
 
 
+class Evidence:
+    """Structural base: subclasses implement hash/validate/wire."""
+
+    def hash(self) -> bytes:
+        raise NotImplementedError
+
+    def height(self) -> int:
+        raise NotImplementedError
+
+    def validate_basic(self) -> None:
+        raise NotImplementedError
+
+    def to_bytes(self) -> bytes:
+        raise NotImplementedError
+
+
 @dataclass
-class DuplicateVoteEvidence:
+class DuplicateVoteEvidence(Evidence):
     vote_a: Vote
     vote_b: Vote
     total_voting_power: int = 0
@@ -51,6 +71,9 @@ class DuplicateVoteEvidence:
     def height(self) -> int:
         return self.vote_a.height
 
+    def hash(self) -> bytes:
+        return tmhash.sum256(self.to_bytes())
+
     def validate_basic(self) -> None:
         if self.vote_a is None or self.vote_b is None:
             raise ValueError("missing votes")
@@ -58,3 +81,79 @@ class DuplicateVoteEvidence:
         self.vote_b.validate_basic()
         if block_key(self.vote_a.block_id) >= block_key(self.vote_b.block_id):
             raise ValueError("duplicate votes in wrong order or identical")
+
+    def to_proto(self) -> Writer:
+        w = Writer()
+        w.message(1, self.vote_a.to_proto())
+        w.message(2, self.vote_b.to_proto())
+        w.varint(3, self.total_voting_power)
+        w.varint(4, self.validator_power)
+        w.varint(5, self.timestamp)
+        return w
+
+    def to_bytes(self) -> bytes:
+        return Writer().message(1, self.to_proto()).finish()
+
+    @classmethod
+    def _from_inner(cls, data: bytes) -> "DuplicateVoteEvidence":
+        r = Reader(data)
+        va = vb = None
+        tvp = vp = ts = 0
+        while not r.at_end():
+            f, wt = r.field()
+            if f == 1:
+                va = Vote.from_bytes(r.bytes())
+            elif f == 2:
+                vb = Vote.from_bytes(r.bytes())
+            elif f == 3:
+                tvp = r.varint()
+            elif f == 4:
+                vp = r.varint()
+            elif f == 5:
+                ts = r.varint()
+            else:
+                r.skip(wt)
+        if va is None or vb is None:
+            raise ValueError("duplicate-vote evidence missing votes")
+        return cls(va, vb, tvp, vp, ts)
+
+
+def evidence_from_bytes(data: bytes) -> Evidence:
+    r = Reader(data)
+    while not r.at_end():
+        f, wt = r.field()
+        if f == 1:
+            return DuplicateVoteEvidence._from_inner(r.bytes())
+        if f == 2:
+            # light-client-attack evidence: not in this port yet
+            raise ValueError("unsupported evidence type")
+        r.skip(wt)
+    raise ValueError("unknown evidence encoding")
+
+
+@dataclass
+class EvidenceData:
+    evidence: list[Evidence] = field(default_factory=list)
+
+    def hash(self) -> bytes:
+        return merkle.hash_from_byte_slices([e.hash() for e in self.evidence])
+
+    def to_proto(self) -> Writer | None:
+        if not self.evidence:
+            return None
+        w = Writer()
+        for e in self.evidence:
+            w.bytes(1, e.to_bytes(), skip_empty=False)
+        return w
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "EvidenceData":
+        r = Reader(data)
+        out = []
+        while not r.at_end():
+            f, wt = r.field()
+            if f == 1:
+                out.append(evidence_from_bytes(r.bytes()))
+            else:
+                r.skip(wt)
+        return cls(out)

@@ -14,14 +14,19 @@ The structured batches here capture the structure instead:
 
 with a handful of (pre, suf) template groups and a <=20-byte per-lane
 patch = outer_varint ‖ ts_field built by vectorized numpy (no per-lane
-Python). The assembly kernel (crypto/cuda/expanded.py, `assemble`)
-reassembles the exact bytes on device; `materialize()` yields the
-identical full bytes for host/fallback paths, and tests enforce byte
-equality between the two.
+Python). The device reassembles the exact bytes inside the verify
+launch that reads them: K3's and K5's structured form
+(csrc/xverify.cu, its hashing warp) and K7's digits warp
+(csrc/arena_verify.cu), both by K2's byte rule (csrc/sign_bytes.cuh);
+crypto/cuda/expanded.py `assemble_plain` is their plain version.
+`materialize()` yields the identical full bytes for host/fallback
+paths, and tests enforce byte equality between the two.
 
-This slice of the port carries CommitSignBatch — one commit's slots
-(groups: for-block vs nil). The fast-sync and vote micro-batch shapes
-come with later slices.
+Shapes:
+  CommitSignBatch — one commit's slots (groups: for-block vs nil).
+  MergedSignBatch — a fast-sync window: several commits, one group
+                    per commit (blockchain/verify_ahead.py).
+The vote micro-batch shape comes with a later slice.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from . import canonical
 
 PATCH_W = 24  # outer varint (<=2) + ts field (<=18), zero-padded
 
-# Template groups the assembly kernel accepts per launch
+# Template groups a structured launch accepts
 # (crypto/cuda/expanded.py pads to exactly this many rows). Builders
 # raise ValueError past it so call sites fall back to full bytes
 # SILENTLY — overflow is an input property (e.g. a peer fabricating
@@ -233,3 +238,51 @@ class CommitSignBatch(StructuredSignBytes):
         """Full canonical sign bytes per lane (host/fallback path)."""
         return [self.commit.vote_sign_bytes(self.chain_id, s)
                 for s in self.slots]
+
+
+class MergedSignBatch(StructuredSignBytes):
+    """Several commits' CommitSignBatches as ONE structured batch —
+    the fast-sync window shape (blockchain/verify_ahead.py): a window of
+    consecutive blocks, all signed by the same validator set, verifies
+    in a single device launch with one template group per commit.
+    Field layout is identical to CommitSignBatch (the kernel front-end
+    treats both the same); the templates are padded to the widest pre
+    and suf, and group ids are offset per sub-batch."""
+
+    def __init__(self, batches: list[CommitSignBatch]):
+        if not batches:
+            raise ValueError("no commit batches to merge")
+        if sum(b.pre.shape[0] for b in batches) > MAX_GROUPS:
+            raise ValueError("too many commit groups for one "
+                             "structured launch")
+        self.batches = batches
+        pw = max(b.pre.shape[1] for b in batches)
+        sw = max(b.suf.shape[1] for b in batches)
+        pres, sufs, groups = [], [], []
+        off = 0
+        for b in batches:
+            k = b.pre.shape[0]
+            pres.append(np.pad(b.pre, ((0, 0), (0, pw - b.pre.shape[1]))))
+            sufs.append(np.pad(b.suf, ((0, 0), (0, sw - b.suf.shape[1]))))
+            groups.append(b.group + off)
+            off += k
+        self.pre = np.concatenate(pres, axis=0)
+        self.suf = np.concatenate(sufs, axis=0)
+        self.pre_len = np.concatenate([b.pre_len for b in batches])
+        self.suf_len = np.concatenate([b.suf_len for b in batches])
+        self.group = np.concatenate(groups)
+        self.patch = np.concatenate([b.patch for b in batches], axis=0)
+        self.split = np.concatenate([b.split for b in batches])
+        self.patch_len = np.concatenate([b.patch_len for b in batches])
+
+    def __len__(self) -> int:
+        return int(self.group.shape[0])
+
+    def anchor_bytes(self) -> bytes:
+        return self.batches[0].anchor_bytes()
+
+    def materialize(self) -> list[bytes]:
+        out: list[bytes] = []
+        for b in self.batches:
+            out.extend(b.materialize())
+        return out

@@ -1,12 +1,14 @@
-"""Vote types (reference: types/vote.go) — only what a commit's sign
-bytes, validation and the speculation plane need in this slice of the
-port."""
+"""Vote types (reference: types/vote.go): sign bytes, validation, the
+single-signature host verify and the wire encoding that a commit, the
+speculation plane and duplicate-vote evidence need. Vote sets come with
+a later slice of the port."""
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
 
+from ..encoding.proto import Reader, Writer
 from . import canonical
 
 
@@ -41,6 +43,14 @@ class Vote:
             self.block_id, self.timestamp,
         )
 
+    def verify(self, chain_id: str, pub_key) -> bool:
+        """Synchronous single-sig verify (host path). Batch paths go
+        through crypto.batch.BatchVerifier with the same sign bytes."""
+        if pub_key.address() != self.validator_address:
+            return False
+        return pub_key.verify_signature(self.sign_bytes(chain_id),
+                                        self.signature)
+
     def is_nil(self) -> bool:
         return self.block_id is None or self.block_id.is_nil()
 
@@ -63,3 +73,54 @@ class Vote:
             raise ValueError("missing signature")
         if len(self.signature) > MAX_SIGNATURE_SIZE:
             raise ValueError("signature too big")
+
+    # -- wire --
+
+    def to_proto(self) -> Writer:
+        from .block import block_id_writer
+
+        w = Writer()
+        w.varint(1, int(self.type))
+        w.varint(2, self.height)
+        w.varint(3, self.round)
+        w.message(4, block_id_writer(self.block_id))
+        w.message(5, canonical.timestamp_writer(self.timestamp))
+        w.bytes(6, self.validator_address)
+        w.varint(7, self.validator_index)
+        w.bytes(8, self.signature)
+        return w
+
+    def to_bytes(self) -> bytes:
+        return self.to_proto().finish()
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "Vote":
+        from .block import read_block_id, read_timestamp
+
+        r = Reader(data)
+        kw = dict(
+            type=VoteType.PREVOTE, height=0, round=0, block_id=None,
+            timestamp=0, validator_address=b"", validator_index=0,
+            signature=b"",
+        )
+        while not r.at_end():
+            f, wt = r.field()
+            if f == 1:
+                kw["type"] = VoteType(r.varint())
+            elif f == 2:
+                kw["height"] = r.varint()
+            elif f == 3:
+                kw["round"] = r.varint()
+            elif f == 4:
+                kw["block_id"] = read_block_id(r.bytes())
+            elif f == 5:
+                kw["timestamp"] = read_timestamp(r.bytes())
+            elif f == 6:
+                kw["validator_address"] = r.bytes()
+            elif f == 7:
+                kw["validator_index"] = r.varint()
+            elif f == 8:
+                kw["signature"] = r.bytes()
+            else:
+                r.skip(wt)
+        return cls(**kw)

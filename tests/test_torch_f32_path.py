@@ -14,6 +14,10 @@ build and against the port's own i32 build in this process.
   key, and its key flags are equal.
 - A 16-lane sr25519 batch beside ed25519 lanes, through a
   BatchVerifier (the plain K9 under f32), agrees with the host oracle.
+- The speculation plane on a 32-lane arena (every flush a plain K6
+  splice and a plain K7 verify, device_min=1) gives the i32 build's
+  per-lane verdicts, the corrupted precommit's included, and its
+  serve_commit outcomes. No reference kernel compiles for it.
 
 A second child with TM_TPU_FIELD=bogus must raise ValueError, with the
 reference's text, in both packages. Tolerance: exact everywhere. The
@@ -166,6 +170,59 @@ def _sr_mixed() -> dict:
     return {"lanes": lanes, "oracle": oracle, "sr_calls": calls}
 
 
+def _speculation() -> dict:
+    """12 precommits of a 12-validator set (lane 5's signature
+    corrupted) observed in two bursts, each flushed (plain K6 + K7 on
+    the arena), then serve_commit on the valid commit (a full hit) and
+    on the commit with lane 5's bad signature: the lanes' verdicts and
+    the two outcomes."""
+    from tendermint_tpu_torch.config import SpeculationConfig
+    from tendermint_tpu_torch.consensus import SpeculationPlane
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.types.block import (
+        BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader)
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import (ValidatorSet,
+                                                          VerificationError)
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    seeds = [hashlib.sha256(b"f32-spec-%d" % i).digest() for i in range(12)]
+    seed_of = {ref.public_key_from_seed(s): s for s in seeds}
+    vs = ValidatorSet([Validator.new(ed25519.Ed25519PubKey(p), 10)
+                       for p in seed_of])
+    bid = BlockID(b"\x3c" * 32, PartSetHeader(1, b"\x3d" * 32))
+    votes = []
+    for i, v in enumerate(vs.validators):
+        vote = Vote(VoteType.PRECOMMIT, 9, 0, bid, 10**18 + 13 * i,
+                    v.address, i)
+        vote.signature = ref.sign(seed_of[v.pub_key.bytes()],
+                                  vote.sign_bytes("f32-chain"))
+        votes.append(vote)
+    good = votes[5].signature
+    votes[5].signature = good[:3] + bytes([good[3] ^ 8]) + good[4:]
+    plane = SpeculationPlane(SpeculationConfig(arena_lanes=32), device_min=1)
+    plane.begin_height("f32-chain", vs, 9, 0, bid)
+    for burst in (votes[:7], votes[7:]):
+        for v in burst:
+            plane.observe_precommit(v)
+        plane.flush_sync()
+    lanes = plane._heights[9].lanes
+    out = {"verdicts": [lanes[i].verdict for i in sorted(lanes)]}
+    commit = Commit(9, 0, bid, [CommitSig(BlockIDFlag.COMMIT, v.validator_address,
+                                          v.timestamp, v.signature)
+                                for v in votes])
+    for name, sig in (("corrupted", votes[5].signature), ("valid", good)):
+        commit.signatures[5].signature = sig
+        try:
+            out[name] = str(plane.serve_commit(vs, "f32-chain", bid, 9,
+                                               commit))
+        except VerificationError as e:
+            out[name] = f"VerificationError: {e}"
+    out["hits"] = plane.hits
+    return out
+
+
 def report(with_reference: bool) -> dict:
     """Everything the tests compare, from the port on the CPU (and from
     the reference's general kernel when with_reference) in this
@@ -183,7 +240,8 @@ def report(with_reference: bool) -> dict:
     torch.set_num_threads(1)
     try:
         out = {"field": CHOICE, "nlimb": F.NLIMB, "kernels_field": kernels.FIELD,
-               "commit": _commit_outcome(), "k1": _k1_canonical()}
+               "commit": _commit_outcome(), "k1": _k1_canonical(),
+               "speculation": _speculation()}
         if with_reference:
             from tendermint_tpu.crypto.tpu import verify as jtv
 
@@ -242,6 +300,15 @@ def test_sr25519_batch_matches_oracle_under_f32(f32):
     sr = f32["sr"]
     assert sr["lanes"] == sr["oracle"] and sr["sr_calls"] == [16]
     assert not all(sr["lanes"][:16]) and any(sr["lanes"][:16])
+
+
+def test_speculation_plane_matches_i32_verdicts_under_f32(f32, i32):
+    spec = f32["speculation"]
+    assert spec == i32["speculation"]
+    assert spec["verdicts"] == [i != 5 for i in range(12)]
+    assert spec["corrupted"] == (
+        "VerificationError: invalid signature(s) at index(es) [5]")
+    assert spec["valid"] == "True"
 
 
 def test_bogus_field_raises_in_both_packages():
