@@ -96,12 +96,53 @@ Phases, each printing one JSON line:
    the verify job's stages (window_items, the MergedSignBatch build,
    _prepare_structured, the launch, the readback), vals.hash() and
    K3 at the window's shape (the xverify_window row);
-10. timing — each kernel at the main path's shapes: its device time a
+10. votes — the consensus vote scheduler (VoteScheduler, batch_verdicts,
+   VoteSignBatch, VoteSet, HeightVoteSet) at one height over the first
+   10,000 validators of the slice phase's set (MAX_VOTES_COUNT, the
+   most a VoteSet admits, as the Go reference's MaxVotesCount), at
+   ConsensusConfig's defaults: eight
+   peers deliver 512 late precommits for the height before (the slice
+   commit's), then every validator's prevote and precommit and 32
+   round-1 nil precommits in shuffled bursts of 64-512 votes, each
+   burst verified and tallied before the next; one burst overflows the
+   4,096-vote buffer by 4 (shed on consensus.vote_buf, re-sent in the
+   last burst). Planted: 3 forged signatures, a timestamp changed
+   after signing, an equivocating precommit, 2 gossip duplicates.
+   Counters zeroed before and read after: exactly the planted votes
+   rejected, each peer's good/bad counts as planted, no lane for a
+   duplicate, one DuplicateVoteEvidence (verified), +2/3 prevotes and
+   precommits for the block, make_commit's commit through
+   verify_commit, K3 (structured, a VoteSignBatch) once for each batch
+   group of 128 lanes or more and K4 once for each of 40-127, K1 once
+   for the set's tables. Then the paced run: the valid votes again to
+   a fresh HeightVoteSet at 20,000 votes a second, never waiting for
+   the scheduler (every vote tallied or shed, +2/3 of both, K3/K4 by
+   batch size; the phase's time to +2/3 precommits); a 1,024-vote
+   burst of the mixed set's precommits (K4 + K9, verdicts equal to the
+   host oracle's) and a 64-vote burst (K4). Outside the counted run:
+   batch_verdicts' stages at 1,024 lanes, K3 there (the xverify_votes
+   row) and K3 on the run's largest batch against its plain version;
+11. light — BASELINE.json config #2: a 150-validator chain of 64
+   headers (a sixth of the set rotating every 16), its LightBlocks made
+   by the port's codec; counters zeroed before and read after:
+   verify_adjacent over every step (K4, 101 lanes), verify_non_adjacent
+   from height 1 to 16, 32 and 64 (K4, 51 and 101 lanes), a forged
+   target, an expired trusted header and an under-trusted skip
+   (trust 2/3) rejected with the reference's classes and texts; then
+   64 concurrent skipping verifications (two plans each) and the three
+   faults through LightVerifyCollector at LightConfig's defaults (a
+   few wide K4 launches, each with the known-answer sentinel lane).
+   Then K4 at a commit check's 101 lanes and at the collector's widest
+   launch (the general_verify_light_commit and general_verify_light
+   rows). Neither phase runs in the f32 child: they add no kernel;
+12. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
    Python, the host's work between launches included), the plain version's time, its bound, and its agreement
-   with the plain version (K2's row: what its assembly adds to the
+   with the plain version, also on a copy with one signature bit and
+   one message (K4) or patch (K3) byte flipped, whose two lanes must
+   fail (K2's row: what its assembly adds to the
    structured K3 launch that carries it, against the bytes form on the
    same lanes) on those inputs (K4 at the 64-lane BatchVerifier's
    128-lane bucket and, as general_verify_mixed, at the mixed
@@ -112,12 +153,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-11. fault — in a child (`--phase fault`; a sticky fault poisons the
+13. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-12. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+14. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -201,6 +242,9 @@ REPLACES = {
     "arena_verify": "tendermint_tpu/crypto/tpu/resident.py:162",
     "sr_verify": "tendermint_tpu/crypto/tpu/sr_verify.py:51",
     "general_verify_mixed": "tendermint_tpu/crypto/tpu/verify.py:173",
+    "xverify_votes": "tendermint_tpu/crypto/tpu/expanded.py:186",
+    "general_verify_light_commit": "tendermint_tpu/crypto/tpu/verify.py:173",
+    "general_verify_light": "tendermint_tpu/crypto/tpu/verify.py:173",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
     "mesh_splice": "tendermint_tpu/crypto/tpu/resident.py:99",
     "mesh_clear": "tendermint_tpu/crypto/tpu/resident.py:126",
@@ -217,6 +261,10 @@ SOURCES = {
     "arena_verify": "tendermint_tpu_torch/csrc/arena_verify.cu",
     "sr_verify": "tendermint_tpu_torch/csrc/sr_verify.cu",
     "general_verify_mixed": "tendermint_tpu_torch/csrc/general_verify.cu",
+    "xverify_votes": "tendermint_tpu_torch/csrc/xverify.cu",
+    "general_verify_light_commit":
+        "tendermint_tpu_torch/csrc/general_verify.cu",
+    "general_verify_light": "tendermint_tpu_torch/csrc/general_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/xverify.cu",
     "mesh_splice": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_clear": "tendermint_tpu_torch/csrc/splice.cu",
@@ -226,17 +274,24 @@ SOURCES = {
 # inside it; K8's splice, clear and verify are K6's and K7's kernels;
 # K1 is two launches, the chain's and the rows'; the
 # general_verify_mixed row is K4 at the mixed commit's shape, the
-# xverify_window row K3 at a fast-sync window's).
+# xverify_window row K3 at a fast-sync window's, xverify_votes K3 at a
+# vote batch's, general_verify_light_commit K4 at a light commit check's
+# and general_verify_light K4 at the light verify collector's widest
+# launch).
 GLOBALS = {name: "k_" + name for name in SOURCES}
 GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
-               xverify_window="k_xverify",
+               xverify_window="k_xverify", xverify_votes="k_xverify",
                mesh_splice="k_splice", mesh_clear="k_clear",
                mesh_arena_verify="k_arena_verify",
                build_tables=("k_build_chain", "k_build_rows"),
-               general_verify_mixed="k_general_verify")
+               general_verify_mixed="k_general_verify",
+               general_verify_light_commit="k_general_verify",
+               general_verify_light="k_general_verify")
 # The kernel whose launches a row counts, where it is not the row's own.
 ROW_KERNEL = {"general_verify_mixed": "general_verify",
-              "xverify_window": "xverify"}
+              "general_verify_light_commit": "general_verify",
+              "general_verify_light": "general_verify",
+              "xverify_window": "xverify", "xverify_votes": "xverify"}
 # K2 is no launch of its own: it runs inside the structured form of K3
 # and K5 (csrc/xverify.cu), as the reference traces assemble_core into
 # _skernel; its row counts the launches that carry it.
@@ -278,6 +333,47 @@ FASTSYNC_START = 121
 FASTSYNC_BLOCKS = 129
 FASTSYNC_ROUND1 = 125
 FASTSYNC_PEERS = 8
+# The votes phase: one height of consensus over the first 10,000
+# validators of the slice phase's set (BASELINE.json config #5's
+# 10,240 cut to MAX_VOTES_COUNT, the most a VoteSet admits) at
+# ConsensusConfig's defaults (a 2 ms window, batches of 1,024, a 4,096-vote buffer).
+# Eight peers deliver every validator's prevote and precommit and
+# VOTES_NIL round-1 nil precommits in bursts of VOTES_BURST votes, after
+# VOTES_LATE late precommits for the height before (two bursts); the
+# VOTES_OVER_AT-th ordinary burst is VOTES_OVERFLOW votes longer than
+# the buffer, and VOTES_FINAL fresh votes are held back for the last
+# burst. Then a VOTES_MIXED-vote burst on the mixed set and a
+# VOTES_SMALL-vote burst under _EXPAND_MIN.
+VOTES_PEERS = 8
+VOTES_BURST = (64, 512)
+VOTES_NIL = 32
+VOTES_LATE = 512
+VOTES_OVER_AT = 12
+VOTES_OVERFLOW = 4
+VOTES_FINAL = 64
+VOTES_MIXED = 1024
+VOTES_SMALL = 64
+# The paced run: the height's valid votes again, to a fresh
+# HeightVoteSet, in shuffled bursts of VOTES_BURST from VOTES_PEERS
+# peers at VOTES_RATE votes a second, the driver never waiting for the
+# scheduler. Its time from the first enqueue to +2/3 precommits is the
+# phase's end-to-end figure; the drained run above, where a batch is a
+# burst, fixes the launches the outcome checks count. 20,000 votes a
+# second brings a 10,000-validator height's 20,000 votes in ~1 s; at
+# 40,000 an H100 80GB HBM3 machine's host shed 0 and 1,086 votes in
+# two runs (PERF.md).
+VOTES_RATE = 20_000
+# The light phase: BASELINE.json config #2's 150-validator set, a chain
+# of LIGHT_HEIGHTS headers whose set loses a sixth of its validators
+# (and gains as many) every LIGHT_ROTATE heights, verified within a
+# two-week trusting period; LIGHT_REQUESTS concurrent skipping
+# verifications through the verify collector.
+LIGHT_VALIDATORS = 150
+LIGHT_HEIGHTS = 64
+LIGHT_ROTATE = 16
+LIGHT_REQUESTS = 64
+LIGHT_T0 = 1_753_930_000_000_000_000
+LIGHT_PERIOD_NS = 14 * 24 * 3600 * 10**9
 # Objects a later step of the same process reads: the kernels check's
 # arena (sweep_warps.py times K7 on it).
 KEEP: dict = {}
@@ -1340,9 +1436,13 @@ def k4_mixed_row(vs, commit, dev) -> dict:
 
 
 def k4_row(name, gargs, live: int) -> dict:
-    """K4 on gargs, whose first `live` lanes are a valid commit's: time,
-    plain time, bound, launch shape and agreement with the plain
-    version."""
+    """K4 on gargs, whose first `live` lanes are valid ones (the rest
+    the bucket's padding): time, plain time, bound, launch shape and
+    agreement with the plain version, on these lanes and on a copy with
+    one signature bit and one message byte flipped (there on the two
+    lanes and their neighbours: the plain version is lane by lane)."""
+    import torch
+
     from tendermint_tpu_torch.crypto.cuda import verify
 
     ab, sb, msg, nblocks, s_ok, btab = gargs
@@ -1350,10 +1450,30 @@ def k4_row(name, gargs, live: int) -> dict:
     v_p, p_ms = plain_ms(lambda: verify.general_verify_plain(*gargs))
     if not bool(v_k[:live].all()):
         raise AssertionError("K4 rejects the valid commit's lanes")
-    ops, nbytes = general_work(ab, sb, msg, nblocks, s_ok.bool())
-    row = entry(name, max_abs_diff(v_k, v_p),
+    # R of one lane and the first message byte of another: exactly
+    # those two lanes must fail, in the kernel as in the plain version
+    bad = (live // 3, 2 * live // 3)
+    sb_f, msg_f = sb.clone(), msg.clone()
+    sb_f[bad[0], 0] ^= 1
+    msg_f[bad[1], 0] ^= 1
+    fargs = (ab, sb_f, msg_f, nblocks, s_ok, btab)
+    f_k = verify.general_verify(*fargs)
+    want = torch.ones(live, dtype=torch.bool)
+    want[list(bad)] = False
+    if not torch.equal(f_k[:live].cpu(), want):
+        raise AssertionError(f"{name}: K4 on the flipped copy")
+    sel = flip_neighbours(bad, live, ab.device)
+    err = max(max_abs_diff(v_k, v_p), max_abs_diff(
+        f_k[sel], verify.general_verify_plain(
+            ab[sel], sb_f[sel], msg_f[sel], nblocks[sel], s_ok[sel], btab)))
+    # the work of the real lanes only: the padding's verdicts are not
+    # needed
+    real = torch.arange(ab.shape[0], device=ab.device) < live
+    ops, nbytes = general_work(ab, sb, msg, nblocks, s_ok.bool() & real)
+    row = entry(name, err,
                 kernel_times(lambda: verify.general_verify(*gargs), 10), p_ms,
                 ops, nbytes + btab.numel() * 4)
+    row["flipped_lanes"] = list(bad)
     row["lanes"], row["live_lanes"] = int(ab.shape[0]), live
     row["launch"] = launch_info(name, row["lanes"])
     return row
@@ -2543,6 +2663,855 @@ def fastsync_breakdown(vs, blocks, dev, reps: int = 5):
 # -- phase 10 ------------------------------------------------------------
 
 
+def make_votes(vs, seed_of, height: int):
+    """Every validator's prevote and precommit for one block at `height`
+    (round 0) and VOTES_NIL nil precommits of round 1, signed by
+    OpenSSL where the host has it, with seeded timestamps; and the
+    signer, sign(index, type, round, block_id)."""
+    import numpy as np
+
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    rng = np.random.default_rng(12)
+    tag = hashlib.sha256(b"votes-block-%d" % height).digest()
+    block = BlockID(tag, PartSetHeader(2, hashlib.sha256(tag).digest()))
+    keys = [ed25519.Ed25519PrivKey(seed_of[v.pub_key.bytes()])
+            for v in vs.validators]
+    base_ts = 1_753_929_000_000_000_000
+
+    def sign(i, type_, round_=0, bid=block):
+        v = Vote(type=type_, height=height, round=round_, block_id=bid,
+                 timestamp=base_ts + int(rng.integers(0, 1 << 40)),
+                 validator_address=vs.validators[i].address,
+                 validator_index=i)
+        v.signature = keys[i].sign(v.sign_bytes(CHAIN))
+        return v
+
+    n = len(vs.validators)
+    votes = [sign(i, VoteType.PREVOTE) for i in range(n)]
+    votes += [sign(i, VoteType.PRECOMMIT) for i in range(n)]
+    votes += [sign(i, VoteType.PRECOMMIT, 1, None) for i in range(VOTES_NIL)]
+    return block, votes, sign
+
+
+def commit_votes(commit):
+    """A commit's precommits as the votes that made it (the reference's
+    reconstruct_last_commit)."""
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    return [Vote(type=VoteType.PRECOMMIT, height=commit.height,
+                 round=commit.round, block_id=commit.block_id,
+                 timestamp=cs.timestamp, validator_address=cs.validator_address,
+                 validator_index=i, signature=cs.signature)
+            for i, cs in enumerate(commit.signatures)]
+
+
+def vote_deliveries(votes, late, cfg, rng):
+    """The phase's bursts, each a list of (vote, peer): the late
+    precommits for h - 1 first (two bursts), then every vote of h
+    shuffled into bursts of VOTES_BURST sizes, one of them
+    cfg.vote_buf_max + VOTES_OVERFLOW long (its last VOTES_OVERFLOW are
+    shed), VOTES_FINAL fresh votes held back for the last burst. Returns
+    the bursts, the overfull burst's index and the held-back votes."""
+    peers = [f"peer-{k}" for k in range(VOTES_PEERS)]
+
+    def deliver(vs_):
+        return [(v, peers[int(rng.integers(VOTES_PEERS))]) for v in vs_]
+
+    half = len(late) // 2
+    bursts = [deliver(late[:half]), deliver(late[half:])]
+    order = [votes[i] for i in rng.permutation(len(votes))]
+    held, rest = order[:VOTES_FINAL], order[VOTES_FINAL:]
+    over_at = len(bursts) + VOTES_OVER_AT
+    while rest:
+        size = (cfg.vote_buf_max + VOTES_OVERFLOW if len(bursts) == over_at
+                else int(rng.integers(VOTES_BURST[0], VOTES_BURST[1] + 1)))
+        bursts.append(deliver(rest[:size]))
+        rest = rest[size:]
+    if len(bursts[over_at:over_at + 1]) != 1 or \
+            len(bursts[over_at]) != cfg.vote_buf_max + VOTES_OVERFLOW:
+        raise AssertionError("the votes do not reach the overfull burst")
+    return bursts, over_at, held
+
+
+async def vote_run(sched, bursts, rate: float | None = None):
+    """Deliver each burst to the scheduler as gossip would (the whole
+    burst before the loop runs again). Without a rate, wait for each
+    burst to be verified and tallied before the next. With one, deliver
+    burst k when its first vote is due at `rate` votes a second after
+    the first enqueue, whatever the scheduler is doing (the loop runs
+    between bursts, the verify in the executor), and drain after the
+    last. Returns the first enqueue's time, each burst's and the drained
+    time."""
+    import asyncio
+
+    sched.start()
+    sent, at = 0, []
+    t0 = time.perf_counter()
+    try:
+        for burst in bursts:
+            if rate is not None:
+                await asyncio.sleep(max(0.0, t0 + sent / rate
+                                        - time.perf_counter()))
+            at.append(time.perf_counter())
+            for vote, peer in burst:
+                await sched.receive(vote, peer)
+            sent += len(burst)
+            if rate is None:
+                await sched.drain()
+        await sched.drain()
+        done = time.perf_counter()
+    finally:
+        await sched.stop()
+    return t0, at, done
+
+
+class VoteTally:
+    """The tally step a VoteScheduler is given, as the reference's
+    ConsensusState._try_add_vote/_add_vote do it: late precommits into
+    the last commit, the rest into the height's vote sets; a conflicting
+    vote becomes DuplicateVoteEvidence (timestamped `ev_time`, the
+    block time of its height). Times every call, and the moment the
+    round-0 precommits first reach +2/3."""
+
+    def __init__(self, ev_time: int):
+        self.sched = None
+        self.ev_time = ev_time
+        self.evidence, self.refused = [], []
+        self.calls, self.seconds, self.maj23_at = 0, 0.0, None
+
+    async def __call__(self, vote, peer_id, preverified):
+        from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+        from tendermint_tpu_torch.types.vote_set import (ConflictingVoteError,
+                                                         VoteSetError)
+
+        s = self.sched
+        t0 = time.perf_counter()
+        try:
+            if vote.height + 1 == s.height:
+                return s.last_commit.add_vote(vote, verify=not preverified)
+            return s.votes.add_vote(vote, peer_id, verify=not preverified)
+        except ConflictingVoteError as e:
+            self.evidence.append(DuplicateVoteEvidence.from_votes(
+                e.existing, vote, self.ev_time, s.validators))
+            return False
+        except VoteSetError as e:
+            self.refused.append(str(e))
+            return False
+        finally:
+            self.calls += 1
+            now = time.perf_counter()
+            self.seconds += now - t0
+            if self.maj23_at is None and s.votes is not None and \
+                    s.votes.precommits(0).has_two_thirds_majority():
+                self.maj23_at = now
+
+
+class PeerReporter:
+    """The per-peer trust feedback a scheduler reports: [good, bad]."""
+
+    def __init__(self):
+        self.counts: dict[str, list[int]] = {}
+
+    def observe(self, peer_id, good=0, bad=0):
+        c = self.counts.setdefault(peer_id, [0, 0])
+        c[0] += good
+        c[1] += bad
+
+    async def enforce(self, peer_id, reason):
+        pass
+
+
+def votes_phase(vs, commit, seed_of, mvs, mcommit, dev):
+    """The vote scheduler at one height of consensus (docstring, phase
+    10) over the first MAX_VOTES_COUNT validators of the slice phase's
+    set (a VoteSet admits no more, the Go reference's MaxVotesCount).
+    Returns the phase's record and the xverify_votes row."""
+    import asyncio
+
+    import numpy as np
+
+    from tendermint_tpu_torch.config import ConsensusConfig
+    from tendermint_tpu_torch.consensus import state
+    from tendermint_tpu_torch.consensus.cstypes import HeightVoteSet
+    from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.evidence.verify import verify_duplicate_vote
+    from tendermint_tpu_torch.libs.overload import CONTROLLER
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+    from tendermint_tpu_torch.types.vote import MAX_VOTES_COUNT, VoteType
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    # the same order, so a validator keeps its index (and the slice
+    # commit's precommits stay valid votes of h - 1 for it)
+    vs = ValidatorSet(vs.validators[:MAX_VOTES_COUNT])
+    h = commit.height + 1
+    cfg = ConsensusConfig()
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    block, votes, sign = make_votes(vs, seed_of, h)
+    # h - 1's set: the same validators in another object, as the state
+    # machine holds last_validators; the slice's commit is h - 1's, and
+    # VOTES_LATE of its precommits arrive late
+    last_vals = ValidatorSet(vs.validators)
+    last = commit_votes(commit)[:len(vs)]
+    late_idx = set(rng.choice(len(last), VOTES_LATE, replace=False).tolist())
+    last_commit = VoteSet(CHAIN, h - 1, 0, VoteType.PRECOMMIT, last_vals)
+    for i, v in enumerate(last):
+        if i not in late_idx:
+            last_commit.add_vote(v, verify=False)
+    late = [last[i] for i in sorted(late_idx)]
+    bursts, over_at, held = vote_deliveries(votes, late, cfg, rng)
+    # the planted faults, at seeded places in the ordinary bursts
+    ordinary = [v for k, b in enumerate(bursts) if k >= 2 and k != over_at
+                for v, _ in b]
+    picks = rng.choice(len(ordinary), 7, replace=False).tolist()
+    forged = [ordinary[i] for i in picks[:3]]
+    for v in forged:
+        v.signature = v.signature[:17] + bytes([v.signature[17] ^ 8]) + \
+            v.signature[18:]
+    retimed = ordinary[picks[3]]
+    retimed.timestamp += 1  # changed after signing
+    dups = [ordinary[i] for i in picks[4:6]]
+    used = {id(v) for v in forged + [retimed] + dups}
+    x = next(v for v in ordinary[picks[6]:] + ordinary
+             if v.type == VoteType.PRECOMMIT and v.round == 0
+             and id(v) not in used)
+    other = BlockID(b"\xee" * 32, PartSetHeader(2, b"\xef" * 32))
+    equivocation = sign(x.validator_index, VoteType.PRECOMMIT, 0, other)
+    shed = [v for v, _ in bursts[over_at][-VOTES_OVERFLOW:]]
+    final = [(v, f"peer-{k % VOTES_PEERS}") for k, v in enumerate(
+        held + shed + dups + [equivocation])]
+    bursts.append(final)
+    setup_s = time.perf_counter() - t0
+    planted_bad = {id(v) for v in forged + [retimed]}
+    # what the run must report: a lane per delivery but the shed and the
+    # duplicates, each peer's [good, bad] over its lanes
+    want_counts: dict[str, list[int]] = {}
+    want_lanes = 0
+    shed_ids, dup_ids = {id(v) for v in shed}, {id(v) for v in dups}
+    for k, b in enumerate(bursts):
+        for j, (v, peer) in enumerate(b):
+            if (k == over_at and id(v) in shed_ids) or (
+                    k == len(bursts) - 1 and id(v) in dup_ids):
+                continue
+            want_lanes += 1
+            want_counts.setdefault(peer, [0, 0])[
+                int(id(v) in planted_bad)] += 1
+    # the run: counters zeroed just before, read just after
+    tally = VoteTally(ev_time=commit.signatures[0].timestamp)
+    sched = state.VoteScheduler(cfg, CHAIN, tally)
+    tally.sched = sched
+    sched.new_height(h, vs, HeightVoteSet(CHAIN, h, vs), last_commit)
+    reporter = PeerReporter()
+    sched.reporter_fn = lambda: reporter
+    batches, groups = [], []
+    real_bv = state.batch_verdicts
+
+    def timed_bv(batch, chain_id):
+        t1 = time.perf_counter()
+        out = real_bv(batch, chain_id)
+        batches.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                            votes=[e[0] for e in batch], verdicts=out.copy()))
+        return out
+
+    def spy(vset):
+        real = vset._batch_verify_lanes
+
+        def lanes_spy(lanes, msgs, sigs):
+            pre_len = getattr(msgs, "pre_len", None)
+            groups.append(dict(form=type(msgs).__name__, lanes=len(lanes),
+                               templates=0 if pre_len is None
+                               else len(pre_len)))
+            return real(lanes, msgs, sigs)
+        return lanes_spy
+
+    k1_cached = (expanded._placement(len(vs)), hashlib.sha256(b"".join(
+        v.pub_key.bytes() for v in vs.validators)).digest()) in expanded._CACHE
+    shed0 = CONTROLLER.sheds.get(state.VOTE_BUF_QUEUE, 0)
+    kernels = wrappers()
+    state.batch_verdicts = timed_bv
+    vs._batch_verify_lanes = spy(vs)
+    last_vals._batch_verify_lanes = spy(last_vals)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        t_first = asyncio.run(vote_run(sched, bursts))[0]
+        launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    finally:
+        state.batch_verdicts = real_bv
+        del vs._batch_verify_lanes, last_vals._batch_verify_lanes
+    # the outcomes
+    rejected = {id(v) for b in batches
+                for v, ok in zip(b["votes"], b["verdicts"]) if not ok}
+    lanes = sum(len(b["votes"]) for b in batches)
+    want_launch = {"xverify": sum(g["lanes"] >= 128 for g in groups),
+                   "general_verify": sum(40 <= g["lanes"] < 128
+                                         for g in groups)}
+    want_launch = {k: n for k, n in want_launch.items() if n}
+    if not k1_cached:
+        want_launch["build_tables"] = 1
+    prevotes, precommits = sched.votes.prevotes(0), sched.votes.precommits(0)
+    checks = {
+        "rejected": rejected == planted_bad,
+        "peer_counts": reporter.counts == want_counts,
+        "lanes": lanes == want_lanes,
+        "duplicates_burn_no_lane": not any(
+            id(v) in dup_ids for b in batches[-1:] for v in b["votes"]),
+        "shed": CONTROLLER.sheds.get(state.VOTE_BUF_QUEUE, 0) - shed0
+        == VOTES_OVERFLOW,
+        "equivocation": len(tally.evidence) == 1
+        and tally.evidence[0].vote_a.validator_index == x.validator_index,
+        "prevotes_maj23": prevotes.two_thirds_majority() == (block, True),
+        "precommits_maj23": precommits.two_thirds_majority() == (block, True),
+        "late_precommits": last_commit.votes_bit_array.count() == len(vs),
+        "structured": all(g["form"] == "VoteSignBatch"
+                          for g in groups if g["lanes"] >= 128),
+        "launches": launches == want_launch,
+        "nothing_refused": not tally.refused,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"votes: {checks}, launches {launches} "
+                             f"(want {want_launch}), refused {tally.refused}")
+    verify_duplicate_vote(tally.evidence[0], CHAIN, vs, tally.ev_time)
+    made = precommits.make_commit()
+    vs.verify_commit(CHAIN, block, h, made)
+    absent = sorted(i for i, cs in enumerate(made.signatures)
+                    if cs.is_absent())
+    want_absent = sorted(v.validator_index for v in forged + [retimed]
+                         if v.type == VoteType.PRECOMMIT and v.round == 0)
+    if absent != want_absent:
+        raise AssertionError(f"make_commit's absent slots {absent}, "
+                             f"want {want_absent}")
+    ms = [b["ms"] for b in batches]
+    by_size = sorted(groups, key=lambda g: g["lanes"])
+    out = dict(
+        validators=len(vs), height=h, config=dict(
+            vote_batch_window_ms=cfg.vote_batch_window_ms,
+            vote_batch_max=cfg.vote_batch_max, vote_buf_max=cfg.vote_buf_max),
+        setup_s=setup_s, bursts=len(bursts), batches=len(batches),
+        lanes=lanes, batch_lanes=[len(b["votes"]) for b in batches],
+        groups=groups, largest_group=by_size[-1],
+        launches=launches, k1_cached=k1_cached,
+        rejected=sorted((int(v.type), v.validator_index, v.round)
+                        for v in forged + [retimed]),
+        peer_counts=reporter.counts, shed=VOTES_OVERFLOW,
+        evidence=dict(validator=x.validator_index,
+                      hash=tally.evidence[0].hash().hex()),
+        commit_absent=absent, checks=checks,
+        batch_verdicts_ms=ms, batch_verdicts_p50_ms=statistics.median(ms),
+        tally_us_per_vote=tally.seconds / tally.calls * 1e6,
+        drained_first_enqueue_to_precommit_maj23_ms=(tally.maj23_at
+                                                     - t_first) * 1e3)
+    valid = [v for v in votes if id(v) not in planted_bad]
+    out["paced"] = paced_votes(vs, valid, block, last_commit, cfg)
+    out["mixed"] = mixed_vote_burst(mvs, mcommit, cfg)
+    out["small"] = small_vote_burst(vs, sign, sched, cfg)
+    out["main_run_launches"] = launches
+    out["launches"] = dict(launches)
+    for extra in (out["paced"], out["mixed"], out["small"]):
+        for k, n in extra["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    largest = max(batches, key=lambda b: len(b["votes"]))["votes"]
+    out["breakdown"], row, out["largest_batch_k3"] = vote_breakdown(
+        vs, valid, largest, dev)
+    return out, row
+
+
+def paced_votes(vs, valid, block, last_commit, cfg) -> dict:
+    """The paced run (VOTES_RATE): `valid`, the height's votes less the
+    planted bad ones, to a fresh HeightVoteSet; counters zeroed just
+    before and read just after. Every vote tallied or shed (none is at
+    this rate on the H100's host), +2/3 prevotes and precommits for the
+    block, and K3 for each batch of 128 lanes or more and K4 for each of
+    40-127. Returns the time from the
+    first enqueue to +2/3 precommits, and from the arrival of the burst
+    that completes them."""
+    import asyncio
+
+    import numpy as np
+
+    from tendermint_tpu_torch.consensus import state
+    from tendermint_tpu_torch.consensus.cstypes import HeightVoteSet
+    from tendermint_tpu_torch.libs.overload import CONTROLLER
+    from tendermint_tpu_torch.types.vote import VoteType
+
+    rng = np.random.default_rng(14)
+    order = [valid[i] for i in rng.permutation(len(valid))]
+    bursts = []
+    while order:
+        size = int(rng.integers(VOTES_BURST[0], VOTES_BURST[1] + 1))
+        bursts.append([(v, f"peer-{int(rng.integers(VOTES_PEERS))}")
+                       for v in order[:size]])
+        order = order[size:]
+    # the burst whose arrival takes the block's round-0 precommits past
+    # 2/3 of the power
+    total, power, completes = vs.total_voting_power(), 0, None
+    for k, b in enumerate(bursts):
+        power += sum(vs.validators[v.validator_index].voting_power
+                     for v, _ in b if v.type == VoteType.PRECOMMIT
+                     and v.round == 0 and v.block_id == block)
+        if completes is None and 3 * power > 2 * total:
+            completes = k
+    h = valid[0].height
+    tally = VoteTally(ev_time=0)
+    sched = state.VoteScheduler(cfg, CHAIN, tally)
+    tally.sched = sched
+    sched.new_height(h, vs, HeightVoteSet(CHAIN, h, vs), last_commit)
+    sizes = []
+    real_bv = state.batch_verdicts
+
+    def spy(batch, chain_id):
+        sizes.append(len(batch))
+        return real_bv(batch, chain_id)
+
+    shed0 = CONTROLLER.sheds.get(state.VOTE_BUF_QUEUE, 0)
+    kernels = wrappers()
+    state.batch_verdicts = spy
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0, at, done = asyncio.run(vote_run(sched, bursts, VOTES_RATE))
+        launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    finally:
+        state.batch_verdicts = real_bv
+    want_launch = {"xverify": sum(n >= 128 for n in sizes),
+                   "general_verify": sum(40 <= n < 128 for n in sizes)}
+    shed = CONTROLLER.sheds.get(state.VOTE_BUF_QUEUE, 0) - shed0
+    checks = {
+        "tallied": tally.calls + shed == len(valid) and not tally.refused,
+        "prevotes_maj23": sched.votes.prevotes(0).two_thirds_majority()
+        == (block, True),
+        "precommits_maj23": sched.votes.precommits(0).two_thirds_majority()
+        == (block, True),
+        "launches": launches == {k: n for k, n in want_launch.items() if n},
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"paced votes: {checks}, {tally.calls} of "
+                             f"{len(valid)} tallied, shed {shed}, launches "
+                             f"{launches} (want {want_launch})")
+    return dict(
+        rate_votes_per_s=VOTES_RATE, votes=len(valid), shed=shed,
+        bursts=len(bursts),
+        arrival_span_ms=(at[-1] - t0) * 1e3, batches=len(sizes),
+        batch_lanes=sizes, batch_lanes_p50=statistics.median(sizes),
+        launches=launches, checks=checks,
+        first_enqueue_to_precommit_maj23_ms=(tally.maj23_at - t0) * 1e3,
+        completing_burst=completes,
+        completing_burst_arrival_ms=(at[completes] - t0) * 1e3,
+        precommit_maj23_after_arrival_ms=(tally.maj23_at - at[completes])
+        * 1e3,
+        drained_ms=(done - t0) * 1e3,
+        tally_us_per_vote=tally.seconds / tally.calls * 1e6)
+
+
+def burst_run(sched, burst):
+    """One burst through a fresh scheduler's run, counters zeroed just
+    before and read just after; returns the launches and the batches'
+    verdicts with their votes."""
+    import asyncio
+
+    from tendermint_tpu_torch.consensus import state
+
+    seen = []
+    real_bv = state.batch_verdicts
+
+    def spy(batch, chain_id):
+        out = real_bv(batch, chain_id)
+        seen.append(([e[0] for e in batch], out.copy()))
+        return out
+
+    kernels = wrappers()
+    state.batch_verdicts = spy
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        asyncio.run(vote_run(sched, [burst]))
+        launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    finally:
+        state.batch_verdicts = real_bv
+    return launches, seen
+
+
+def mixed_vote_burst(mvs, mcommit, cfg) -> dict:
+    """One VOTES_MIXED-vote burst of the mixed set's precommits (key i
+    sr25519 for odd i), one ed25519 and one sr25519 signature broken:
+    a batch of vote_batch_max, flushed at once, through BatchVerifier
+    (K4 for the ed25519 lanes, K9 for the sr25519 ones), with the host
+    oracle's verdicts."""
+    from tendermint_tpu_torch.consensus import state
+    from tendermint_tpu_torch.consensus.cstypes import HeightVoteSet
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+    from tendermint_tpu_torch.types.vote import MAX_VOTES_COUNT
+
+    mvs = ValidatorSet(mvs.validators[:MAX_VOTES_COUNT])  # the same order
+    votes = commit_votes(mcommit)[:VOTES_MIXED]
+    bad = {}
+    for kind in ("ed25519", "sr25519"):
+        i = next(i for i in range(VOTES_MIXED // 3, VOTES_MIXED)
+                 if mvs.validators[i].pub_key.type_name == kind)
+        v = votes[i]
+        v.signature = v.signature[:30] + bytes([v.signature[30] ^ 1]) + \
+            v.signature[31:]
+        bad[kind] = i
+    tally = VoteTally(ev_time=0)
+    sched = state.VoteScheduler(cfg, CHAIN, tally)
+    tally.sched = sched
+    sched.new_height(mcommit.height, mvs,
+                     HeightVoteSet(CHAIN, mcommit.height, mvs))
+    t0 = time.perf_counter()
+    launches, seen = burst_run(sched, [(v, "peer-mixed") for v in votes])
+    ms = (time.perf_counter() - t0) * 1e3
+    oracle = [mvs.validators[v.validator_index].pub_key.verify_signature(
+        v.sign_bytes(CHAIN), v.signature) for v in votes]
+    got = [bool(ok) for b in seen for ok in b[1]]
+    n_sr = sum(mvs.validators[v.validator_index].pub_key.type_name
+               == "sr25519" for v in votes)
+    tallied = sched.votes.precommits(0).votes_bit_array.count()
+    if [len(b[0]) for b in seen] != [VOTES_MIXED] or got != oracle or \
+            launches != {"general_verify": 1, "sr_verify": 1} or \
+            tallied != VOTES_MIXED - 2:
+        raise AssertionError(f"mixed burst: batches {[len(b[0]) for b in seen]}, "
+                             f"launches {launches}, tallied {tallied}")
+    return dict(votes=VOTES_MIXED, sr25519_lanes=n_sr,
+                ed25519_lanes=VOTES_MIXED - n_sr, rejected=bad,
+                launches=launches, ms=ms, oracle_equal=True)
+
+
+def small_vote_burst(vs, sign, sched, cfg) -> dict:
+    """VOTES_SMALL round-1 prevotes in one burst: under _EXPAND_MIN,
+    so the batch takes the bytes route, one K4 launch."""
+    from tendermint_tpu_torch.consensus import state
+    from tendermint_tpu_torch.types.vote import VoteType
+
+    votes = [sign(i, VoteType.PREVOTE, 1) for i in range(VOTES_SMALL)]
+    tally = VoteTally(ev_time=0)
+    small = state.VoteScheduler(cfg, CHAIN, tally)
+    tally.sched = small
+    small.new_height(sched.height, sched.validators, sched.votes,
+                     sched.last_commit)
+    launches, seen = burst_run(small, [(v, "peer-small") for v in votes])
+    tallied = sched.votes.prevotes(1).votes_bit_array.count()
+    if launches != {"general_verify": 1} or tallied != VOTES_SMALL or \
+            [len(b[0]) for b in seen] != [VOTES_SMALL]:
+        raise AssertionError(f"small burst: launches {launches}, "
+                             f"tallied {tallied}")
+    return dict(votes=VOTES_SMALL, launches=launches)
+
+
+def vote_breakdown(vs, valid, largest, dev, reps: int = 5):
+    """Outside the counted run: median ms of batch_verdicts' stages on a
+    vote_batch_max batch of valid votes (prevotes, precommits and nil
+    precommits: three template groups): the VoteSignBatch build,
+    _prepare_structured, the structured launch with its uploads,
+    synchronized, and the verdicts' readback; K3 at that shape (the
+    xverify_votes row), and K3 on the largest batch of the run against
+    its plain version."""
+    import torch
+
+    from tendermint_tpu_torch.config import ConsensusConfig
+    from tendermint_tpu_torch.crypto.cuda import expanded, kernels
+    from tendermint_tpu_torch.types.sign_batch import VoteSignBatch
+    from tendermint_tpu_torch.types.vote import VoteType
+
+    n = ConsensusConfig().vote_batch_max
+    nil = [v for v in valid if v.block_id is None]
+    pre = [v for v in valid if v.type == VoteType.PREVOTE]
+    com = [v for v in valid if v.type == VoteType.PRECOMMIT and v.block_id]
+    sel = nil + pre[:(n - len(nil)) // 2]
+    sel += com[:n - len(sel)]
+    exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
+    lanes = [v.validator_index for v in sel]
+    sigs = [v.signature for v in sel]
+    stages = {k: [] for k in ("vote_sign_batch", "prepare_structured",
+                              "launch", "readback")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sb = VoteSignBatch(CHAIN, sel)
+        t1 = time.perf_counter()
+        idx, fields, _wf, width = exp._prepare_structured(lanes, sb, sigs)
+        t2 = time.perf_counter()
+        out = exp._launch_structured(idx, fields, width)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        verdicts = kernels.readback(out)
+        t4 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[k].append(dt * 1e3)
+        if not verdicts[:len(sel)].all():
+            raise AssertionError("the breakdown's batch did not verify")
+    row, _ = k3_row("xverify_votes", exp, lanes, sb, sigs, dev)
+    big, _ = k3_row("xverify_votes", exp,
+                    [v.validator_index for v in largest],
+                    VoteSignBatch(CHAIN, largest),
+                    [v.signature for v in largest], dev)
+    breakdown = {k + "_ms": statistics.median(v) for k, v in stages.items()}
+    breakdown.update(lanes=len(sel), templates=int(sb.pre.shape[0]),
+                     k3_ms=row["ms"])
+    return breakdown, row, {k: big[k] for k in (
+        "lanes", "real_lanes", "groups", "max_abs_err", "ms", "plain_ms",
+        "bound_ms")}
+
+
+# -- phase 11 ------------------------------------------------------------
+
+
+def make_light_chain(n_vals: int, n_heights: int, rotate_every: int):
+    """BASELINE.json config #2's light chain: heights 1 .. n_heights of
+    n_vals ed25519 validators of equal power, a sixth of them rotating
+    out (and as many new ones in) every `rotate_every` heights; each
+    header's commit signed by its whole set (OpenSSL where the host has
+    it), each LightBlock made by the port's codec (encoded, then
+    decoded). Returns {height: LightBlock}."""
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.block import (
+        BlockID, BlockIDFlag, Commit, CommitSig, Header, PartSetHeader)
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    step = n_vals // 6
+    epochs = n_heights // rotate_every + 1
+    keys = [ed25519.Ed25519PrivKey(hashlib.sha256(b"light-val-%d" % i)
+                                   .digest())
+            for i in range(n_vals + step * epochs)]
+    key_of = {k.pub_key().bytes(): k for k in keys}
+    sets = [ValidatorSet([Validator.new(k.pub_key(), 10)
+                          for k in keys[e * step:e * step + n_vals]])
+            for e in range(epochs + 1)]
+
+    def valset(h):
+        return sets[(h - 1) // rotate_every]
+
+    blocks, prev = {}, None
+    for h in range(1, n_heights + 1):
+        vals = valset(h)
+        t = LIGHT_T0 + h * 1_000_000_000
+        header = Header(
+            version_block=11, version_app=1, chain_id=CHAIN, height=h,
+            time=t, last_block_id=prev,
+            last_commit_hash=hashlib.sha256(b"lc-%d" % h).digest(),
+            data_hash=hashlib.sha256(b"data-%d" % h).digest(),
+            validators_hash=vals.hash(),
+            next_validators_hash=valset(h + 1).hash(),
+            consensus_hash=b"\x03" * 32,
+            app_hash=hashlib.sha256(b"app-%d" % h).digest(),
+            last_results_hash=b"\x05" * 32, evidence_hash=b"\x06" * 32,
+            proposer_address=vals.proposer.address)
+        bid = BlockID(header.hash(), PartSetHeader(1, hashlib.sha256(
+            b"parts-%d" % h).digest()))
+        sigs = [CommitSig(BlockIDFlag.COMMIT, v.address, t + 1 + i, b"")
+                for i, v in enumerate(vals.validators)]
+        commit = Commit(h, 0, bid, sigs)
+        for i, v in enumerate(vals.validators):
+            sigs[i].signature = key_of[v.pub_key.bytes()].sign(
+                commit.vote_sign_bytes(CHAIN, i))
+        lb = LightBlock(SignedHeader(header, commit), vals)
+        blocks[h] = LightBlock.from_bytes(lb.to_proto().finish())
+        prev = bid
+    return blocks
+
+
+def forged_light_block(lb, slot: int):
+    """lb with one commit signature bit-flipped (a lying provider)."""
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+
+    c = lb.signed_header.commit
+    sigs = [CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                      cs.signature[:8] + bytes([cs.signature[8] ^ 1])
+                      + cs.signature[9:] if i == slot else cs.signature)
+            for i, cs in enumerate(c.signatures)]
+    return LightBlock(SignedHeader(lb.signed_header.header,
+                                   Commit(c.height, c.round, c.block_id, sigs)),
+                      lb.validator_set)
+
+
+def light_outcome(fn):
+    try:
+        fn()
+        return None
+    except Exception as e:  # noqa: BLE001 - the outcome is checked
+        return (type(e).__name__, str(e))
+
+
+def light_phase(dev):
+    """The light client's verify layer on BASELINE.json config #2
+    (docstring, phase 11). Returns the phase's record and the K4 rows
+    at the light shapes."""
+    import asyncio
+    from fractions import Fraction
+
+    from tendermint_tpu_torch.config import LightConfig
+    from tendermint_tpu_torch.light import serving, verifier
+
+    t0 = time.perf_counter()
+    b = make_light_chain(LIGHT_VALIDATORS, LIGHT_HEIGHTS, LIGHT_ROTATE)
+    setup_s = time.perf_counter() - t0
+    top = LIGHT_HEIGHTS
+    now = b[top].time() + 1_000_000_000
+    sh = b[2].signed_header
+    light_plan = b[2].validator_set.plan_commit_light(
+        CHAIN, sh.commit.block_id, 2, sh.commit)
+    trusting_plan = b[1].validator_set.plan_commit_trusting(
+        CHAIN, b[top].signed_header.commit, 1, 3)
+    quorum = 2 * LIGHT_VALIDATORS // 3 + 1
+    if (len(light_plan), len(trusting_plan)) != (quorum,
+                                                 LIGHT_VALIDATORS // 3 + 1):
+        raise AssertionError(f"plans of {len(light_plan)} and "
+                             f"{len(trusting_plan)} lanes")
+    forged = forged_light_block(b[LIGHT_ROTATE + 1], 5)
+    # validators of height 1's set still in the top height's
+    overlap = LIGHT_VALIDATORS - (top - 1) // LIGHT_ROTATE * (
+        LIGHT_VALIDATORS // 6)
+    faults = {
+        "forged_target": (b[LIGHT_ROTATE], forged, LIGHT_PERIOD_NS, now,
+                          verifier.DEFAULT_TRUST_LEVEL),
+        "expired_trusted": (b[1], b[top], b[top].time() - b[1].time(),
+                            b[top].time(), verifier.DEFAULT_TRUST_LEVEL),
+        "under_trusted_skip": (b[1], b[top], LIGHT_PERIOD_NS, now,
+                               Fraction(2, 3)),
+    }
+    want = {
+        "forged_target": ("VerificationFailedError", "invalid commit: "
+                          "invalid signature(s) at index(es) [5]"),
+        "expired_trusted": ("OutsideTrustingPeriodError",
+                            f"trusted header from {b[1].time()} expired"),
+        "under_trusted_skip": ("NewValSetCantBeTrustedError",
+                               "insufficient trusted power: "
+                               f"{10 * overlap}"),
+    }
+    cfg = LightConfig()
+    coll = serving.LightVerifyCollector(
+        batch_max=cfg.batch_max, flush_ms=cfg.flush_ms,
+        pending_max=cfg.pending_max)
+    flushes = []
+    real_jobs = coll._verify_jobs
+
+    def timed_jobs(plans):
+        t1 = time.perf_counter()
+        out = real_jobs(plans)
+        flushes.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                            lanes=sum(len(p) for p in plans), plans=plans,
+                            ok=all(v.all() for v in out)))
+        return out
+
+    coll._verify_jobs = timed_jobs
+    requests = [(b[1 + i % 8], b[10 + (i * 7) % (top - 9)])
+                for i in range(LIGHT_REQUESTS)]
+
+    async def pooled():
+        try:
+            res = await asyncio.gather(
+                *(serving.verify_through(coll, CHAIN, t, u, LIGHT_PERIOD_NS,
+                                         now) for t, u in requests),
+                *(serving.verify_through(coll, CHAIN, *args)
+                  for args in faults.values()),
+                return_exceptions=True)
+        finally:
+            coll.close()
+        return [None if r is None else (type(r).__name__, str(r))
+                for r in res]
+
+    kernels = wrappers()
+    metrics0 = dict(serving.METRICS["verify_launches"])
+    for fn in kernels.values():
+        fn.launches = 0
+    adjacent_ms, skip_ms = [], []
+    for h in range(1, top):
+        t1 = time.perf_counter()
+        verifier.verify_adjacent(CHAIN, b[h], b[h + 1], LIGHT_PERIOD_NS, now)
+        adjacent_ms.append((time.perf_counter() - t1) * 1e3)
+    for target in (top // 4, top // 2, top):
+        t1 = time.perf_counter()
+        verifier.verify_non_adjacent(CHAIN, b[1], b[target],
+                                     LIGHT_PERIOD_NS, now)
+        skip_ms.append((time.perf_counter() - t1) * 1e3)
+    verified = {name: light_outcome(lambda: verifier.verify(CHAIN, *args))
+                for name, args in faults.items()}
+    direct = {k: f.launches for k, f in kernels.items() if f.launches}
+    t1 = time.perf_counter()
+    pooled_res = asyncio.run(pooled())
+    pooled_s = time.perf_counter() - t1
+    launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    coll_launches = {k: launches[k] - direct.get(k, 0) for k in launches}
+    metrics = {k: n - metrics0.get(k, 0)
+               for k, n in serving.METRICS["verify_launches"].items()
+               if n != metrics0.get(k, 0)}
+    lanes = [f["lanes"] for f in flushes]
+    pooled_faults = dict(zip(faults, pooled_res[LIGHT_REQUESTS:]))
+    checks = {
+        "requests_verified": pooled_res[:LIGHT_REQUESTS]
+        == [None] * LIGHT_REQUESTS,
+        "faults_verifier": verified == want,
+        "faults_pooled": pooled_faults == want,
+        "direct_launches": direct == {"general_verify": top - 1 + 2 * 3 + 1},
+        "collector_launches": coll_launches == {
+            "general_verify": len(flushes)},
+        "metrics": metrics == {"device": len(flushes)},
+        "lanes": sum(lanes) == LIGHT_REQUESTS * (len(light_plan) + len(
+            trusting_plan)) + len(light_plan),
+        "flush_size": all(n >= cfg.batch_max for n in lanes[:-1]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"light: {checks}, verified {verified}, pooled "
+                             f"{pooled_faults}, direct {direct}, collector "
+                             f"{coll_launches}, metrics {metrics}, lanes "
+                             f"{lanes}")
+    rows = [light_k4_row("general_verify_light_commit",
+                         light_plan.triples(), dev)]
+    widest = max((f for f in flushes if f["ok"]), key=lambda f: f["lanes"])
+    rows.append(light_k4_row(
+        "general_verify_light",
+        [t for p in widest["plans"] for t in p.triples()], dev,
+        sentinel=True))
+    out = dict(validators=LIGHT_VALIDATORS, heights=LIGHT_HEIGHTS,
+               rotate=dict(every=LIGHT_ROTATE, validators=LIGHT_VALIDATORS // 6),
+               setup_s=setup_s, plan_lanes=dict(light=len(light_plan),
+                                                trusting=len(trusting_plan)),
+               verify_adjacent_ms=adjacent_ms,
+               verify_adjacent_p50_ms=statistics.median(adjacent_ms),
+               verify_non_adjacent_ms=skip_ms,
+               verify_non_adjacent_p50_ms=statistics.median(skip_ms),
+               faults=verified, pooled_faults=pooled_faults,
+               requests=LIGHT_REQUESTS, pooled_s=pooled_s,
+               config=dict(batch_max=cfg.batch_max, flush_ms=cfg.flush_ms,
+                           pending_max=cfg.pending_max),
+               flush_ms=[f["ms"] for f in flushes], flush_lanes=lanes,
+               collector_metrics=metrics, direct_launches=direct,
+               collector_launches=coll_launches, launches=launches,
+               k4_collector_ms=rows[1]["ms"], checks=checks)
+    return out, rows
+
+
+def light_k4_row(name, triples, dev, sentinel=False):
+    """K4 on a light launch's (pub_key, msg, sig) triples (the
+    collector's with its known-answer sentinel lane last), packed as
+    verify_batch packs them: one bucket, padded with the dummy
+    triple."""
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.crypto.cuda import verify
+
+    pubs = [pk.bytes() for pk, _, _ in triples]
+    msgs = [m for _, m, _ in triples]
+    sigs = [s for _, _, s in triples]
+    if sentinel:
+        spub, smsg, ssig = cbatch._ed_probe_triple()
+        pubs, msgs, sigs = pubs + [spub], msgs + [smsg], sigs + [ssig]
+    n = len(pubs)
+    dp, dm, ds = verify._dummy_triple()
+    pad = verify._chunks(n)[0] - n
+    t = verify.to_device(verify.pack_batch(
+        pubs + [dp] * pad, msgs + [dm] * pad, sigs + [ds] * pad), dev)
+    return k4_row(name, (t["ab"], t["sb"], t["msg"], t["nblocks"],
+                         t["s_ok"], verify._btab(dev)), n)
+
+
+# -- phase 12 ------------------------------------------------------------
+
+
 def timing_phase(vs, commit, dev) -> list[dict]:
     """Each kernel at the main path's shapes: time, plain time, bound,
     agreement with the plain version."""
@@ -2607,6 +3576,8 @@ def k3_row(name, exp, lanes, sbatch, sigs, dev):
     plain version; every real lane must verify. Returns the row and
     what K2's row reads (the launch's arguments and verdicts, the plain
     assembly's rows and time, the live lanes, the templates' bytes)."""
+    import torch
+
     from tendermint_tpu_torch.crypto.cuda import expanded, verify
 
     n = len(lanes)
@@ -2621,13 +3592,34 @@ def k3_row(name, exp, lanes, sbatch, sigs, dev):
                  width=width)
     v_k = expanded.xverify(*sargs, **sform)
     v_p, p_ms = plain_ms(lambda: expanded.shard_verify_plain(*sargs, **sform))
-    err = max_abs_diff(v_k, v_p)
     if not bool(v_k[:n].all()):
         raise AssertionError(f"{name}: K3 rejects a valid lane")
+    # R of one lane and the first patch byte of another: exactly those
+    # two lanes must fail, in the kernel as in the plain version
+    bad = (n // 3, 2 * n // 3)
+    sb_f, patch_f = f["sb"].clone(), f["patch"].clone()
+    sb_f[bad[0], 0] ^= 1
+    patch_f[bad[1], 0] ^= 1
+    fargs = (sargs[0], sargs[1], sb_f, *sargs[3:])
+    fform = dict(sform, patches=(patch_f, *sform["patches"][1:]))
+    f_k = expanded.xverify(*fargs, **fform)
+    want = torch.ones(n, dtype=torch.bool)
+    want[list(bad)] = False
+    if not torch.equal(f_k[:n].cpu(), want):
+        raise AssertionError(f"{name}: K3 on the flipped copy")
+    sel = flip_neighbours(bad, n, f_k.device)
+    err = max(max_abs_diff(v_k, v_p), max_abs_diff(
+        f_k[sel], expanded.shard_verify_plain(
+            fargs[0][sel], fargs[1], sb_f[sel], fargs[3][sel], *fargs[4:],
+            **dict(fform, patches=tuple(t[sel] for t in fform["patches"])))))
     (m_p, nb_p), a_ms = plain_ms(lambda: expanded.assemble_plain(
         *tpl, *sform["patches"], width))
+    # the work of the real lanes only: the padding's verdicts are not
+    # needed
+    real = torch.arange(f["idx"].shape[0], device=f["idx"].device) < n
     ops, lane_bytes, msg_bytes, m = xverify_work(
-        exp.akeys, exp.key_ok, f["idx"], f["sb"], f["s_ok"], m_p, nb_p)
+        exp.akeys, exp.key_ok, f["idx"], f["sb"], f["s_ok"].bool() & real,
+        m_p, nb_p)
     # and per live lane its patch, split, patch_len and group; the
     # templates; the comb
     tpl_bytes = sum(t.numel() * t.element_size() for t in tpl)
@@ -2635,10 +3627,19 @@ def k3_row(name, exp, lanes, sbatch, sigs, dev):
     times = kernel_times(lambda: expanded.xverify(*sargs, **sform), 10)
     row = entry(name, err, times, p_ms, ops, nbytes)
     row.update(lanes=int(f["idx"].shape[0]), real_lanes=n,
-               groups=int(sbatch.pre.shape[0]),
+               flipped_lanes=list(bad), groups=int(sbatch.pre.shape[0]),
                launch=launch_info(name, int(f["idx"].shape[0]), 1))
     return row, dict(times=times, sargs=sargs, verdicts=v_k, msg=(m_p, nb_p),
                      assemble_ms=a_ms, live=m, tpl_bytes=tpl_bytes)
+
+
+def flip_neighbours(bad, n: int, device):
+    """The flipped lanes and their neighbours among the first n: where
+    a row's flipped copy is held against the plain version."""
+    import torch
+
+    return torch.tensor(sorted({b + d for b in bad for d in (-1, 0, 1)
+                                if 0 <= b + d < n}), device=device)
 
 
 def xverify_work(akeys, key_ok, idx, sb, s_ok, msg, nblocks):
@@ -3248,6 +4249,19 @@ def main() -> int:
     no_fallback("fastsync", state)
     emit(dict(phase="fastsync", seconds=time.perf_counter() - t0, card=smi,
               **fastsync))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    votes, votes_row = votes_phase(vs, commit, seed_of, mvs, mcommit,
+                                   torch.device("cuda"))
+    no_fallback("votes", state)
+    emit(dict(phase="votes", seconds=time.perf_counter() - t0, card=smi,
+              **votes))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    light, light_rows = light_phase(torch.device("cuda"))
+    no_fallback("light", state)
+    emit(dict(phase="light", seconds=time.perf_counter() - t0, card=smi,
+              **light))
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -3255,7 +4269,7 @@ def main() -> int:
     rows.append(k4_mixed_row(mvs, mcommit, torch.device("cuda")))
     rows.append(k5)
     rows += k8
-    rows.append(window_row)
+    rows += [window_row, votes_row, *light_rows]
     no_fallback("timing", state)
     t0 = time.perf_counter()
     run_child("fault")
@@ -3269,7 +4283,7 @@ def main() -> int:
     emit({"phase": "f32", "step": "done", "card": smi,
           "seconds": time.perf_counter() - t0})
     launches = {}
-    for path in (res, spec, mixed, fabric, healing, fastsync):
+    for path in (res, spec, mixed, fabric, healing, fastsync, votes, light):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -7,6 +7,62 @@ from dataclasses import dataclass
 
 
 @dataclass
+class ConsensusConfig:
+    """The consensus section's vote micro-batch fields (reference:
+    config.py ConsensusConfig); the timeouts and the receive funnel come
+    with ConsensusState."""
+
+    # Micro-batch vote verification (consensus/state.py VoteScheduler):
+    # incoming votes accumulate for up to vote_batch_window_ms (or until
+    # vote_batch_max) and are verified as one device batch off the event
+    # loop; 0 disables batching and verifies each vote synchronously
+    # like the Go reference.
+    vote_batch_window_ms: float = 2.0
+    vote_batch_max: int = 1024
+    # Overload bound (libs/overload.py): the vote-scheduler buffer is
+    # capped; excess peer votes are shed and re-gossiped via votebits
+    # reconciliation once pressure clears.
+    vote_buf_max: int = 4096
+
+    def validate_basic(self) -> None:
+        if self.vote_buf_max <= 0:
+            raise ValueError("vote_buf_max must be positive")
+
+
+@dataclass
+class LightConfig:
+    """Light-client serving plane (light/serving.py): knobs for the
+    shared verification plane requests run through."""
+
+    # verified-header LRU entries (trusting-period-aware)
+    cache_size: int = 4096
+    # coalesced verify launches flush at this many signature lanes ...
+    batch_max: int = 1024
+    # ... or this many ms after the first pending check, whichever
+    # comes first
+    flush_ms: float = 2.0
+    # pending-verify backlog bound (parked + in-verify commit checks);
+    # the newest request is shed when full. Floor of 2: one
+    # non-adjacent verification parks TWO concurrent commit checks, so
+    # pending_max=1 would deterministically shed every skipping verify
+    # on an otherwise idle plane
+    pending_max: int = 1024
+    # proxy workers sharing one plane
+    workers: int = 2
+
+    def validate_basic(self) -> None:
+        for name in ("cache_size", "batch_max", "workers"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"light.{name} must be positive")
+        if self.pending_max < 2:
+            raise ValueError(
+                "light.pending_max must be >= 2 (a non-adjacent "
+                "verification parks two concurrent commit checks)")
+        if self.flush_ms < 0:
+            raise ValueError("negative light.flush_ms")
+
+
+@dataclass
 class SpeculationConfig:
     """Verify-ahead pipeline (consensus/speculation.py +
     crypto/cuda/resident.py): commit verification launched

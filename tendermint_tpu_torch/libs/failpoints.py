@@ -1,4 +1,4 @@
-"""Named failpoints (reference: libs/failpoints.py), trimmed to the two
+"""Named failpoints (reference: libs/failpoints.py), trimmed to the
 points of the device path and to the `error` and `corrupt` actions.
 
     error         raise FailpointError(name) from the call site
@@ -33,6 +33,10 @@ CATALOG: dict[str, bool] = {
     # models a raising device, `corrupt` a wrong-verdict one — either
     # evicts ONLY that entry
     "device.shard_fail": True,
+    # the light verify collector's coalesced launch
+    # (light/serving.py): `error` degrades the batch to the host oracle,
+    # exactly like a raising device launch
+    "light.verify": False,
 }
 
 

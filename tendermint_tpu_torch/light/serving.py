@@ -1,0 +1,422 @@
+"""The light-client serving plane's verify layer (reference:
+light/serving.py): the verified-header cache, the micro-batching verify
+collector, and the pooled form of one verification step.
+
+A skipping verify is two >1/3-power commit checks. A proxy serving N
+concurrent clients would pay N independent verification walks; the
+collector here takes ``types/validator_set.py`` CommitVerifyPlans from
+independent requests AND from both checks of one skipping step and
+verifies them as single wide ed25519 launches (K4,
+crypto/cuda/verify.py) — breaker-aware with host fallback, with one
+known-answer sentinel lane a device batch (a kernel giving wrong
+verdicts fails the sentinel and the batch re-runs on the host instead
+of failing requests on wrong verdicts). Its parked and in-verify
+checks are the ``light.pending_verify`` entry of libs/overload.py: at
+the bound the NEWEST request is shed with LightServingShedError.
+
+Counts go into ``METRICS``, a plain dict (crypto/batch.py's
+convention): verify launches and lanes by backend ("device", "host",
+"host_recheck"). The degrades also move crypto.batch.METRICS as every
+device path of the port does. The ServingPlane (singleflight, the
+trusted store, the Client's bisection), the serving pool and the
+/status check come with the light Client.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import logging
+from fractions import Fraction
+
+import numpy as np
+
+from ..libs.overload import CONTROLLER
+from ..types.validator_set import CommitVerifyPlan, VerificationError
+from .errors import (
+    LightClientError,
+    NewValSetCantBeTrustedError,
+    VerificationFailedError,
+)
+from .types import LightBlock
+from .verifier import DEFAULT_TRUST_LEVEL, _common_checks
+
+logger = logging.getLogger("light.serving")
+
+PENDING_VERIFY_QUEUE = "light.pending_verify"
+
+METRICS: dict = {"verify_launches": {}, "batch_lanes": {}}
+
+
+def _count(backend: str, lanes: int | None) -> None:
+    """One verify launch on `backend`, and its lanes (None: none
+    counted, as for the sentinel's host recheck)."""
+    m = METRICS["verify_launches"]
+    m[backend] = m.get(backend, 0) + 1
+    if lanes is not None:
+        m = METRICS["batch_lanes"]
+        m[backend] = m.get(backend, 0) + lanes
+
+
+class LightServingShedError(LightClientError):
+    """Pending-verify backlog full: the newest request is shed (429 at
+    the proxy) — transient backpressure, NOT a verification verdict."""
+
+    def __init__(self, depth: int, limit: int):
+        super().__init__(
+            f"light serving plane overloaded: {depth} commit checks "
+            f"pending (limit {limit}); retry later")
+
+
+class VerifiedHeaderCache:
+    """Trusting-period-aware LRU over verified LightBlocks.
+
+    Entries whose header time has left the trusting period are evicted
+    on read — a block outside its period must not be served as trusted
+    (its valset may have long unbonded), even though it still sits in
+    the persistent store."""
+
+    def __init__(self, max_entries: int, period_ns: int):
+        self.max_entries = max(1, max_entries)
+        self.period_ns = period_ns
+        self._d: collections.OrderedDict[int, LightBlock] = \
+            collections.OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def get(self, height: int, now_ns: int) -> LightBlock | None:
+        lb = self._d.get(height)
+        if lb is None:
+            return None
+        if lb.time() + self.period_ns <= now_ns:
+            del self._d[height]
+            return None
+        self._d.move_to_end(height)
+        return lb
+
+    def put(self, lb: LightBlock, now_ns: int) -> None:
+        if lb.time() + self.period_ns <= now_ns:
+            return  # already expired: never cache
+        self._d[lb.height()] = lb
+        self._d.move_to_end(lb.height())
+        while len(self._d) > self.max_entries:
+            self._d.popitem(last=False)
+
+    def clear(self) -> None:
+        self._d.clear()
+
+
+class _VerifyJob:
+    __slots__ = ("plan", "future")
+
+    def __init__(self, plan: CommitVerifyPlan, future: asyncio.Future):
+        self.plan = plan
+        self.future = future
+
+
+class LightVerifyCollector:
+    """Micro-batching commit-check collector (the unit of work is a
+    CommitVerifyPlan of several signature lanes).
+
+    ``check(plan)`` parks the plan and awaits its verdict; a single
+    flusher cuts batches once ``batch_max`` LANES have accumulated (or
+    ``flush_ms`` after the first pending plan) and runs every plan's
+    triples through ONE wide verify launch in an executor thread,
+    scattering per-lane verdicts back per plan. A plan with any invalid
+    lane gets the same VerificationError its inline execute() would
+    raise — one request's lying provider never poisons the verdicts of
+    the batchmates."""
+
+    def __init__(self, batch_max: int = 1024, flush_ms: float = 2.0,
+                 pending_max: int = 1024,
+                 device_threshold: int | None = None):
+        from ..crypto import batch as cbatch
+
+        self.batch_max = max(1, batch_max)
+        self.flush_ms = flush_ms
+        self.pending_max = max(1, pending_max)
+        self.device_threshold = cbatch._DEVICE_THRESHOLD \
+            if device_threshold is None else device_threshold
+        self._pending: collections.deque[_VerifyJob] = collections.deque()
+        self._pending_lane_count = 0
+        self._in_flight = 0
+        self._item_evt = asyncio.Event()
+        self._full_evt = asyncio.Event()
+        self._flusher: asyncio.Task | None = None
+        CONTROLLER.register(PENDING_VERIFY_QUEUE, self.depth,
+                                  lambda: self.pending_max, owner=self)
+
+    # -- sizes ---------------------------------------------------------
+
+    def depth(self) -> int:
+        """Backlog the bound applies to: parked + in-verify checks."""
+        return len(self._pending) + self._in_flight
+
+    def pending_lanes(self) -> int:
+        # maintained incrementally: a scan of a deep backlog per
+        # enqueue would make admission quadratic exactly under load
+        return self._pending_lane_count
+
+    def saturated(self) -> bool:
+        return self.depth() >= self.pending_max
+
+    # -- lifecycle -----------------------------------------------------
+
+    def close(self) -> None:
+        if self._flusher is not None:
+            self._flusher.cancel()
+            self._flusher = None
+        for job in self._pending:
+            if not job.future.done():
+                job.future.cancel()
+        self._pending.clear()
+        self._pending_lane_count = 0
+        CONTROLLER.unregister(PENDING_VERIFY_QUEUE, owner=self)
+
+    def _ensure_flusher(self) -> None:
+        if self._flusher is None or self._flusher.done():
+            self._flusher = asyncio.get_running_loop().create_task(
+                self._flush_loop(), name="light-verify-flusher")
+
+    # -- the await-a-verdict entry point -------------------------------
+
+    async def check(self, plan: CommitVerifyPlan) -> None:
+        """Queue `plan` for the next coalesced launch; returns when
+        every lane verified, raises VerificationError (bad slots named
+        exactly like the inline path) otherwise. Raises
+        LightServingShedError (shed-newest) at the backlog bound —
+        uncounted: one shed REQUEST may park two plans, so the plane
+        counts sheds once per request, not here per plan."""
+        if self.depth() >= self.pending_max:
+            raise LightServingShedError(self.depth(), self.pending_max)
+        self._ensure_flusher()
+        fut = asyncio.get_running_loop().create_future()
+        self._pending.append(_VerifyJob(plan, fut))
+        self._pending_lane_count += len(plan)
+        self._item_evt.set()
+        if self.pending_lanes() >= self.batch_max:
+            self._full_evt.set()
+        verdicts = await fut
+        plan.raise_invalid(verdicts)
+
+    # -- flusher -------------------------------------------------------
+
+    async def _flush_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            while not self._pending:
+                self._item_evt.clear()
+                await self._item_evt.wait()
+            deadline = loop.time() + self.flush_ms / 1000.0
+            while self.pending_lanes() < self.batch_max:
+                remaining = deadline - loop.time()
+                if remaining <= 0:
+                    break
+                self._full_evt.clear()
+                try:
+                    await asyncio.wait_for(self._full_evt.wait(),
+                                           remaining)
+                except asyncio.TimeoutError:
+                    break
+            batch: list[_VerifyJob] = []
+            lanes = 0
+            while self._pending and (not batch or lanes < self.batch_max):
+                job = self._pending.popleft()
+                self._pending_lane_count -= len(job.plan)
+                batch.append(job)
+                lanes += len(job.plan)
+            self._in_flight = len(batch)
+            try:
+                verdicts = await loop.run_in_executor(
+                    None, self._verify_jobs, [j.plan for j in batch])
+                for job, v in zip(batch, verdicts):
+                    if not job.future.done():
+                        job.future.set_result(v)
+            except asyncio.CancelledError:
+                for job in batch:
+                    if not job.future.done():
+                        job.future.cancel()
+                raise
+            except Exception as e:  # a verdict (or the error) must land
+                logger.exception("light verify batch died")
+                for job in batch:
+                    if not job.future.done():
+                        job.future.set_exception(e)
+            finally:
+                self._in_flight = 0
+
+    # -- the coalesced verify launch (executor thread) -----------------
+
+    def _verify_jobs(self, plans: list[CommitVerifyPlan]
+                     ) -> list[np.ndarray]:
+        """Flatten every plan's triples into one launch, scatter the
+        per-lane verdicts back per plan."""
+        triples: list[tuple] = []
+        spans: list[tuple[int, int]] = []
+        for plan in plans:
+            t = plan.triples()
+            spans.append((len(triples), len(t)))
+            triples.extend(t)
+        verdicts = self._verify_triples(triples)
+        return [verdicts[off:off + n] for off, n in spans]
+
+    def _verify_triples(self, triples: list[tuple]) -> np.ndarray:
+        # One wide general-kernel launch with a known-answer sentinel
+        # lane, breaker-aware, host fallback. Cross-plan batches mix
+        # validator sets, so the general kernel (per-lane keys) is the
+        # right tool, not any one set's expanded tables.
+        from ..crypto import batch as cbatch
+        from ..libs import failpoints
+
+        n = len(triples)
+        try:
+            failpoints.hit("light.verify")
+        except failpoints.FailpointError:
+            # injected launch failure: degrade to the host oracle,
+            # exactly like a raising device launch
+            _count("host", n)
+            return self._host_verify(triples)
+        ed = [i for i, (pk, _, _) in enumerate(triples)
+              if pk.type_name == "ed25519"]
+        ed_set = set(ed)
+        out = np.zeros(n, bool)
+        # non-ed25519 lanes (sr25519 validators) verify on the host per
+        # key — rare in practice, never worth a second kernel here
+        for i in range(n):
+            if i not in ed_set:
+                pk, m, s = triples[i]
+                try:
+                    out[i] = pk.verify_signature(m, s)
+                except Exception:
+                    out[i] = False
+        if not ed:
+            _count("host", None)
+            return out
+        want_dev = len(ed) >= self.device_threshold
+        use_dev = want_dev and cbatch.breaker("ed25519").acquire()
+        if use_dev:
+            try:
+                from ..crypto.cuda import verify as tv
+
+                failpoints.hit("device.verify")
+                # the known-answer sentinel lane rides last: a kernel
+                # giving wrong verdicts fails it, so they are detected
+                # POSITIVELY and the batch re-verifies on the host
+                spub, smsg, ssig = cbatch._ed_probe_triple()
+                dv = np.asarray(tv.verify_batch(
+                    [triples[i][0].bytes() for i in ed] + [spub],
+                    [triples[i][1] for i in ed] + [smsg],
+                    [triples[i][2] for i in ed] + [ssig]), bool)
+                # the launch landed: only now does it count as a device
+                # verify (a raising launch counts as one host launch)
+                _count("device", len(ed))
+                if dv[-1]:
+                    out[np.asarray(ed)] = dv[:-1]
+                    return out
+                cbatch.mark_device_failed("ed25519")
+                logger.error(
+                    "light verify batch (%d lanes) failed its known-answer "
+                    "sentinel; breaker open %.1fs, re-verifying on host",
+                    len(ed), cbatch.breaker("ed25519").cooldown_remaining())
+                _count("host_recheck", None)
+                cbatch.count("host_rechecks")
+                cbatch.count("host_fallbacks")
+                return self._host_verify(triples, into=out, only=ed)
+            except cbatch.UNCAUGHT:
+                raise
+            except Exception:
+                cbatch.mark_device_failed("ed25519")
+                logger.exception(
+                    "light device batch failed (%d lanes); breaker open "
+                    "%.1fs, degrading to host", len(ed),
+                    cbatch.breaker("ed25519").cooldown_remaining())
+        if want_dev:
+            cbatch.count("host_fallbacks")
+        _count("host", len(ed))
+        return self._host_verify(triples, into=out, only=ed)
+
+    @staticmethod
+    def _host_verify(triples: list[tuple], into: np.ndarray | None = None,
+                     only: list[int] | None = None) -> np.ndarray:
+        out = np.zeros(len(triples), bool) if into is None else into
+        idxs = range(len(triples)) if only is None else only
+        for i in idxs:
+            pk, m, s = triples[i]
+            try:
+                out[i] = len(s) == 64 and pk.verify_signature(m, s)
+            except Exception:
+                out[i] = False
+        return out
+
+
+async def verify_through(collector: LightVerifyCollector, chain_id: str,
+                         trusted: LightBlock, untrusted: LightBlock,
+                         trusting_period_ns: int, now_ns: int,
+                         trust_level: Fraction = DEFAULT_TRUST_LEVEL) -> None:
+    """verifier.verify with the signature work pooled (the reference's
+    ServingPlane._verify_one): the non-crypto checks run inline, the
+    commit check(s) become CommitVerifyPlans awaited through the
+    collector — the two checks of a non-adjacent step verify
+    CONCURRENTLY, so they coalesce with each other and with every other
+    in-flight request's checks into the same wide launches. Raises what
+    verifier.verify raises, or LightServingShedError."""
+    sh = untrusted.signed_header
+    if untrusted.height() == trusted.height() + 1:
+        _common_checks(chain_id, trusted, untrusted, trusting_period_ns,
+                       now_ns)
+        if sh.header.validators_hash != \
+                trusted.signed_header.header.next_validators_hash:
+            raise VerificationFailedError(
+                "new validators_hash != trusted next_validators_hash")
+        try:
+            plan = untrusted.validator_set.plan_commit_light(
+                chain_id, sh.commit.block_id, sh.header.height, sh.commit)
+        except VerificationError as e:
+            raise VerificationFailedError(f"invalid commit: {e}") from e
+        try:
+            await collector.check(plan)
+        except VerificationError as e:
+            raise VerificationFailedError(f"invalid commit: {e}") from e
+        return
+    _common_checks(chain_id, trusted, untrusted, trusting_period_ns, now_ns)
+    try:
+        plan_trusting = trusted.validator_set.plan_commit_trusting(
+            chain_id, sh.commit, trust_level.numerator,
+            trust_level.denominator)
+    except VerificationError as e:
+        raise NewValSetCantBeTrustedError(str(e)) from e
+    try:
+        plan_light = untrusted.validator_set.plan_commit_light(
+            chain_id, sh.commit.block_id, sh.header.height, sh.commit)
+    except VerificationError as e:
+        # own-commit cannot even reach 2/3 — but the reference order
+        # gives the TRUSTING check its verdict first, and a failed
+        # overlap drives bisection, not rejection
+        try:
+            await collector.check(plan_trusting)
+        except VerificationError as e2:
+            raise NewValSetCantBeTrustedError(str(e2)) from e2
+        raise VerificationFailedError(f"invalid commit: {e}") from e
+    # both-or-neither admission for the gathered pair: if only ONE slot
+    # remains, parking the trusting check and shedding its twin would
+    # delay the shed until the admitted launch completes — shed
+    # promptly instead (the per-check gate in check() stays the bound)
+    if collector.depth() + 2 > collector.pending_max:
+        raise LightServingShedError(collector.depth(),
+                                    collector.pending_max)
+    res_t, res_l = await asyncio.gather(
+        collector.check(plan_trusting), collector.check(plan_light),
+        return_exceptions=True)
+    # error taxonomy parity with verifier.verify_non_adjacent: a failed
+    # TRUSTING check (insufficient overlap OR bad overlap signature)
+    # drives bisection; a failed own-commit check is a definitive
+    # rejection; anything else (shed, cancellation) propagates
+    if isinstance(res_t, VerificationError):
+        raise NewValSetCantBeTrustedError(str(res_t)) from res_t
+    if isinstance(res_t, BaseException):
+        raise res_t
+    if isinstance(res_l, VerificationError):
+        raise VerificationFailedError(f"invalid commit: {res_l}") from res_l
+    if isinstance(res_l, BaseException):
+        raise res_l

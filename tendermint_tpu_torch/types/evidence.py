@@ -2,10 +2,9 @@
 duplicate-vote half that the port verifies (two conflicting votes from
 one validator at the same height, round and type), its wire encoding
 and hash, and a block's EvidenceData. Verification lives in
-evidence/verify.py and uses the BatchVerifier. The ABCI form and
-light-client-attack evidence come with later slices of the port: until
-then, decoding light-client-attack evidence raises ValueError, with the
-text the reference raises where its light package is missing."""
+evidence/verify.py and uses the BatchVerifier. Light-client-attack evidence
+lives in light/types.py and decodes here; the ABCI form comes with a
+later slice of the port."""
 
 from __future__ import annotations
 
@@ -125,8 +124,9 @@ def evidence_from_bytes(data: bytes) -> Evidence:
         if f == 1:
             return DuplicateVoteEvidence._from_inner(r.bytes())
         if f == 2:
-            # light-client-attack evidence: not in this port yet
-            raise ValueError("unsupported evidence type")
+            from ..light.types import LightClientAttackEvidence
+
+            return LightClientAttackEvidence._from_inner(r.bytes())
         r.skip(wt)
     raise ValueError("unknown evidence encoding")
 

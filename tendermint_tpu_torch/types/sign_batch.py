@@ -26,7 +26,9 @@ Shapes:
   CommitSignBatch — one commit's slots (groups: for-block vs nil).
   MergedSignBatch — a fast-sync window: several commits, one group
                     per commit (blockchain/verify_ahead.py).
-The vote micro-batch shape comes with a later slice.
+  VoteSignBatch   — a live gossip vote micro-batch: one group per
+                    distinct (type, height, round, block_id)
+                    (consensus/state.py vote scheduler).
 """
 
 from __future__ import annotations
@@ -286,3 +288,45 @@ class MergedSignBatch(StructuredSignBytes):
         for b in self.batches:
             out.extend(b.materialize())
         return out
+
+
+class VoteSignBatch(StructuredSignBytes):
+    """A live gossip vote micro-batch (consensus/state.py scheduler)
+    in structured form: one template group per distinct
+    (type, height, round, block_id) — during one round's burst that is
+    1-2 groups for thousands of votes, so the launch ships per-lane
+    timestamp patches instead of full sign-byte rows, exactly like the
+    commit path."""
+
+    def __init__(self, chain_id: str, votes: list):
+        self.chain_id = chain_id
+        self.votes = votes
+        n = len(votes)
+        parts: list[tuple[bytes, bytes]] = []
+        group_of: dict = {}
+        group = np.zeros(n, np.int32)
+        ts = np.zeros(n, np.int64)
+        for i, v in enumerate(votes):
+            ts[i] = _check_ts(v.timestamp)
+            key = (int(v.type), v.height, v.round, v.block_id)
+            g = group_of.get(key)
+            if g is None:
+                if len(parts) >= MAX_GROUPS:
+                    raise ValueError("too many vote groups for one "
+                                     "structured launch")
+                g = len(parts)
+                group_of[key] = g
+                parts.append(canonical.vote_sign_parts(
+                    chain_id, int(v.type), v.height, v.round,
+                    v.block_id))
+            group[i] = g
+        self._finish(parts, group, ts)
+
+    def __len__(self) -> int:
+        return len(self.votes)
+
+    def anchor_bytes(self) -> bytes:
+        return self.votes[0].sign_bytes(self.chain_id)
+
+    def materialize(self) -> list[bytes]:
+        return [v.sign_bytes(self.chain_id) for v in self.votes]

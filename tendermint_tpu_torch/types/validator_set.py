@@ -42,11 +42,11 @@ class CommitVerifyPlan:
     cryptography runs: the selection loops of verify_commit_light /
     verify_commit_light_trusting (power tally, address matching, the
     insufficient-power rejections) produce a plan, and the signature
-    work is a separate step. The split lets a light-client serving
-    plane (the reference's light/serving.py; a later slice of the port)
-    coalesce the lanes of many independent plans into a single wide
-    device launch, while the classic verify_commit* methods just plan
-    + execute inline."""
+    work is a separate step. The split lets the light-client verify
+    collector (light/serving.py LightVerifyCollector) coalesce the
+    lanes of many independent plans into a single wide device launch,
+    while the classic verify_commit* methods just plan + execute
+    inline."""
 
     __slots__ = ("valset", "lanes", "slots", "sigs", "msgs")
 
@@ -60,6 +60,19 @@ class CommitVerifyPlan:
 
     def __len__(self) -> int:
         return len(self.lanes)
+
+    def triples(self) -> list[tuple]:
+        """(pub_key, sign_bytes, signature) per lane, msgs
+        materialized — the form a cross-plan batch consumes (different
+        plans may come from different validator sets, so the shared
+        launch uses the general per-lane-key kernel, not this set's
+        expanded tables)."""
+        from .sign_batch import StructuredSignBytes
+
+        msgs = self.msgs.materialize() \
+            if isinstance(self.msgs, StructuredSignBytes) else self.msgs
+        return [(self.valset.validators[i].pub_key, m, s)
+                for i, m, s in zip(self.lanes, msgs, self.sigs)]
 
     def raise_invalid(self, verdicts) -> None:
         """Map per-lane verdicts back to commit slots; raise the same
@@ -125,10 +138,23 @@ class ValidatorSet:
         i = self._addr_index().get(addr, -1)
         return (i, self.validators[i]) if i >= 0 else (-1, None)
 
+    def get_by_index(self, i: int) -> Validator | None:
+        if 0 <= i < len(self.validators):
+            return self.validators[i]
+        return None
+
     def hash(self) -> bytes:
         return merkle.hash_from_byte_slices(
             [v.bytes_for_hash() for v in self.validators]
         )
+
+    def validate_basic(self) -> None:
+        if not self.validators:
+            raise ValueError("empty validator set")
+        for v in self.validators:
+            v.validate_basic()
+        if self.proposer is None:
+            raise ValueError("no proposer")
 
     # -- proposer rotation (reference: validator_set.go:110-230) --
 

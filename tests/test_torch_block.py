@@ -219,8 +219,15 @@ def test_vote_verify_matches_reference(chains):
 
 
 def test_light_client_attack_evidence_is_unsupported():
+    """Field 2 of the Evidence oneof (light-client-attack evidence) now
+    decodes as the reference decodes it (light/types.py; the test's name
+    dates from before that port): this malformed inner message fails
+    with the reference's error, and a well-formed one round-trips
+    (tests/test_torch_light.py)."""
     data = jevidence.Writer().bytes(2, b"\x08\x01").finish()
-    with pytest.raises(ValueError, match="^unsupported evidence type$"):
+    with pytest.raises(ValueError, match="^truncated bytes field$"):
+        jevidence.evidence_from_bytes(data)
+    with pytest.raises(ValueError, match="^truncated bytes field$"):
         pevidence.evidence_from_bytes(data)
     with pytest.raises(ValueError, match="^unknown evidence encoding$"):
         pevidence.evidence_from_bytes(b"")
