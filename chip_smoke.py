@@ -135,7 +135,30 @@ Phases, each printing one JSON line:
    Then K4 at a commit check's 101 lanes and at the collector's widest
    launch (the general_verify_light_commit and general_verify_light
    rows). Neither phase runs in the f32 child: they add no kernel;
-12. timing — each kernel at the main path's shapes: its device time a
+12. light_client — BASELINE.json config #2's 150 validators on a
+   node's own stores: a 520-height chain (a sixth of the set rotating
+   every 16 heights) built through the port's GenesisDoc,
+   make_genesis_state, State.make_block, BlockStore.save_block and
+   Store.save_validator_set over MemDB, every client on a fixed clock.
+   Counters zeroed before and read after: a Client trusted at height 1
+   by hash, its primary a BlockStoreProvider over those stores
+   reporting evidence into a recording sink, an honest witness and one
+   forking from height 497 (headers with another app hash, re-signed by
+   each height's own set), verifies height 512 by bisection; the
+   forking witness proves its fork from the common block, and the
+   Client raises DivergenceError with two LightClientAttackEvidence and
+   purges its store above the common height. verify_evidence on the
+   node's stores: the evidence against the witness verifies (one 1/3
+   trusting check), the one against the primary matches the committed
+   chain, one at the tip (520) lacks its canonical commit. A second
+   Client (honest witness only): 16 sequential update() steps, 8
+   skipping verifications up to 512, a backwards walk below its head
+   (hashes only). A ServingPlane at LightConfig's defaults over a third
+   Client: 64 concurrent get_verified at 16 heights, then the same 64
+   (the cache). Every commit check and collector flush is one K4
+   launch; the launches must equal the checks the trace implies plus
+   the flushes. No kernel is added: the phase adds to K4's rows;
+13. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -153,12 +176,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-13. fault — in a child (`--phase fault`; a sticky fault poisons the
+14. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-14. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+15. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -245,6 +268,7 @@ REPLACES = {
     "xverify_votes": "tendermint_tpu/crypto/tpu/expanded.py:186",
     "general_verify_light_commit": "tendermint_tpu/crypto/tpu/verify.py:173",
     "general_verify_light": "tendermint_tpu/crypto/tpu/verify.py:173",
+    "general_verify_light_client": "tendermint_tpu/crypto/tpu/verify.py:173",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
     "mesh_splice": "tendermint_tpu/crypto/tpu/resident.py:99",
     "mesh_clear": "tendermint_tpu/crypto/tpu/resident.py:126",
@@ -265,6 +289,8 @@ SOURCES = {
     "general_verify_light_commit":
         "tendermint_tpu_torch/csrc/general_verify.cu",
     "general_verify_light": "tendermint_tpu_torch/csrc/general_verify.cu",
+    "general_verify_light_client":
+        "tendermint_tpu_torch/csrc/general_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/xverify.cu",
     "mesh_splice": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_clear": "tendermint_tpu_torch/csrc/splice.cu",
@@ -275,9 +301,11 @@ SOURCES = {
 # K1 is two launches, the chain's and the rows'; the
 # general_verify_mixed row is K4 at the mixed commit's shape, the
 # xverify_window row K3 at a fast-sync window's, xverify_votes K3 at a
-# vote batch's, general_verify_light_commit K4 at a light commit check's
-# and general_verify_light K4 at the light verify collector's widest
-# launch).
+# vote batch's, general_verify_light_commit K4 at a light commit check's,
+# general_verify_light K4 at the light verify collector's widest launch
+# and general_verify_light_client K4 at the serving plane's widest flush
+# in the light_client phase, a row only when that flush's bucket is one
+# no other K4 row has).
 GLOBALS = {name: "k_" + name for name in SOURCES}
 GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
                xverify_window="k_xverify", xverify_votes="k_xverify",
@@ -286,11 +314,13 @@ GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
                build_tables=("k_build_chain", "k_build_rows"),
                general_verify_mixed="k_general_verify",
                general_verify_light_commit="k_general_verify",
-               general_verify_light="k_general_verify")
+               general_verify_light="k_general_verify",
+               general_verify_light_client="k_general_verify")
 # The kernel whose launches a row counts, where it is not the row's own.
 ROW_KERNEL = {"general_verify_mixed": "general_verify",
               "general_verify_light_commit": "general_verify",
               "general_verify_light": "general_verify",
+              "general_verify_light_client": "general_verify",
               "xverify_window": "xverify", "xverify_votes": "xverify"}
 # K2 is no launch of its own: it runs inside the structured form of K3
 # and K5 (csrc/xverify.cu), as the reference traces assemble_core into
@@ -374,6 +404,17 @@ LIGHT_ROTATE = 16
 LIGHT_REQUESTS = 64
 LIGHT_T0 = 1_753_930_000_000_000_000
 LIGHT_PERIOD_NS = 14 * 24 * 3600 * 10**9
+# The light_client phase: the same set and rotation on a node's stores,
+# LC_HEIGHTS heights so that LC_TARGET's canonical commit (stored with
+# the next block) exists; the forking witness diverges from LC_FORK_FROM
+# up; LC_UPDATES sequential update() steps; the plane's LC_REQUESTS
+# concurrent requests spread over LC_PLANE_HEIGHTS heights.
+LC_HEIGHTS = 520
+LC_TARGET = 512
+LC_FORK_FROM = 497
+LC_UPDATES = 16
+LC_REQUESTS = 64
+LC_PLANE_HEIGHTS = 16
 # Objects a later step of the same process reads: the kernels check's
 # arena (sweep_warps.py times K7 on it).
 KEEP: dict = {}
@@ -3512,6 +3553,429 @@ def light_k4_row(name, triples, dev, sentinel=False):
 # -- phase 12 ------------------------------------------------------------
 
 
+def sign_node_commit(vals, key_of, height: int, bid, ts: int):
+    """Every validator of `vals` precommits `bid` at `height`, round 0,
+    at time ts (OpenSSL where the host has it)."""
+    from tendermint_tpu_torch.types.block import BlockIDFlag, Commit, CommitSig
+
+    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address, ts, b"")
+            for v in vals.validators]
+    commit = Commit(height, 0, bid, sigs)
+    for i, v in enumerate(vals.validators):
+        sigs[i].signature = key_of[v.pub_key.bytes()].sign(
+            commit.vote_sign_bytes(CHAIN, i))
+    return commit
+
+
+def make_node_chain(n_vals: int, n_heights: int, rotate_every: int):
+    """BASELINE.json config #2's chain committed into a node's stores
+    (the port's state.Store and store.BlockStore over MemDB): heights 1
+    .. n_heights of n_vals ed25519 validators of equal power, a sixth of
+    them rotating out (and as many new ones in) every `rotate_every`
+    heights; the genesis by GenesisDoc and make_genesis_state, each
+    block by State.make_block (one tx, the previous commit), each commit
+    signed by the height's whole set. Returns the state after the last
+    block, the two stores and the signing key of each public key."""
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.state.store import Store
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.block import BlockID
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    step = n_vals // 6
+    epochs = n_heights // rotate_every + 1
+    keys = [ed25519.Ed25519PrivKey(hashlib.sha256(b"light-val-%d" % i)
+                                   .digest())
+            for i in range(n_vals + step * epochs)]
+    key_of = {k.pub_key().bytes(): k for k in keys}
+    state = make_genesis_state(GenesisDoc(
+        chain_id=CHAIN, genesis_time=LIGHT_T0,
+        validators=[GenesisValidator(k.pub_key(), 10)
+                    for k in keys[:n_vals]]))
+    sets = [state.validators] + [
+        ValidatorSet([Validator.new(k.pub_key(), 10)
+                      for k in keys[e * step:e * step + n_vals]])
+        for e in range(1, epochs + 1)]
+
+    def valset(h):
+        return sets[(h - 1) // rotate_every]
+
+    state_store, block_store = Store(MemDB()), BlockStore(MemDB())
+    commit = None
+    for h in range(1, n_heights + 1):
+        vals = valset(h)
+        state.validators, state.next_validators = vals, valset(h + 1)
+        t = LIGHT_T0 + h * 1_000_000_000
+        block = state.make_block(h, [b"tx-%d" % h], commit, [],
+                                 vals.get_proposer().address, t)
+        parts = block.make_part_set()
+        bid = BlockID(block.hash(), parts.header())
+        commit = sign_node_commit(vals, key_of, h, bid, t + 1)
+        block_store.save_block(block, parts, commit)
+        state_store.save_validator_set(h, vals)
+        state.last_block_height, state.last_block_id = h, bid
+        state.last_block_time = t
+    state_store.save(state)
+    return state, state_store, block_store, key_of
+
+
+def light_providers(block_store, state_store, key_of):
+    """The phase's providers over a node's stores: the primary
+    (reporting evidence into a recording sink), an honest witness, a
+    witness forking from LC_FORK_FROM (each header from there up with
+    another app hash, re-signed by its height's own set), and a primary
+    whose head a caller moves (`cap`)."""
+    import dataclasses
+
+    from tendermint_tpu_torch.light.provider import (
+        BlockNotFoundError, BlockStoreProvider, Provider)
+    from tendermint_tpu_torch.light.types import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+
+    class EvidenceSink:
+        def __init__(self):
+            self.added = []
+
+        def add_evidence(self, ev):
+            self.added.append(ev)
+
+    class Forking(Provider):
+        def __init__(self, inner):
+            self.inner, self.forged = inner, {}
+
+        def provider_id(self) -> str:
+            return "forking"
+
+        async def light_block(self, height):
+            lb = await self.inner.light_block(height)
+            h = lb.height()
+            if h < LC_FORK_FROM:
+                return lb
+            if h not in self.forged:
+                hdr = dataclasses.replace(
+                    lb.signed_header.header,
+                    app_hash=hashlib.sha256(b"fork-%d" % h).digest())
+                bid = BlockID(hdr.hash(), PartSetHeader(1, hashlib.sha256(
+                    b"fork-parts-%d" % h).digest()))
+                self.forged[h] = LightBlock(SignedHeader(
+                    hdr, sign_node_commit(lb.validator_set, key_of, h, bid,
+                                          hdr.time + 1)), lb.validator_set)
+            return self.forged[h]
+
+    class Head(Provider):
+        def __init__(self, inner):
+            self.inner, self.cap = inner, 1
+
+        async def light_block(self, height):
+            height = height or self.cap
+            if height > self.cap:
+                raise BlockNotFoundError(f"no light block at height {height}")
+            return await self.inner.light_block(height)
+
+    sink = EvidenceSink()
+    primary = BlockStoreProvider(block_store, state_store, name="primary",
+                                 evidence_pool=sink)
+    honest = BlockStoreProvider(block_store, state_store, name="honest")
+    return sink, primary, honest, Forking(honest), Head(primary)
+
+
+def light_client_phase(dev):
+    """The light client, its stores, the serving plane and evidence
+    verification at BASELINE.json config #2's 150 validators (docstring,
+    phase 12). Returns the phase's record and the K4 row of the plane's
+    widest flush where its bucket is new (else none)."""
+    import asyncio
+    import dataclasses
+
+    from tendermint_tpu_torch.config import LightConfig
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+    from tendermint_tpu_torch.evidence.verify import verify_evidence
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.light import client as client_mod
+    from tendermint_tpu_torch.light import serving
+    from tendermint_tpu_torch.light.client import Client, TrustOptions
+    from tendermint_tpu_torch.light.errors import DivergenceError
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.types import validator_set as vset_mod
+
+    t0 = time.perf_counter()
+    state, ss, bs, key_of = make_node_chain(LIGHT_VALIDATORS, LC_HEIGHTS,
+                                            LIGHT_ROTATE)
+    setup_s = time.perf_counter() - t0
+    now = LIGHT_T0 + (LC_HEIGHTS + 1) * 1_000_000_000  # the fixed clock
+    sink, primary, honest, forking, head = light_providers(bs, ss, key_of)
+    trust = TrustOptions(LIGHT_PERIOD_NS, 1, bs.load_block_meta(1).block_id.hash)
+
+    def new_client(prim, witnesses):
+        return Client(CHAIN, trust, prim, witnesses, LightStore(MemDB()),
+                      now_fn=lambda: now)
+
+    # the trace: each verify step (its heights, kind, outcome, time and
+    # the commit checks it ran) and each commit check run inline
+    steps, plans = [], []
+    real_verify = client_mod.verify
+    real_execute = vset_mod.CommitVerifyPlan.execute
+
+    def traced_verify(chain_id, trusted, block, *args):
+        step = dict(trusted=trusted.height(), target=block.height(),
+                    kind="adjacent" if block.height() == trusted.height() + 1
+                    else "skip", outcome=None, first_plan=len(plans))
+        t1 = time.perf_counter()
+        try:
+            real_verify(chain_id, trusted, block, *args)
+        except Exception as e:
+            step["outcome"] = type(e).__name__
+            raise
+        finally:
+            step["ms"] = (time.perf_counter() - t1) * 1e3
+            step["plans"] = plans[step.pop("first_plan"):]
+            steps.append(step)
+
+    def counted_execute(plan):
+        plans.append(len(plan))
+        return real_execute(plan)
+
+    cfg = LightConfig()
+    flushes, timed = [], {}
+
+    async def drive():
+        out = {}
+        # 1. bisection to LC_TARGET, the forking witness proven
+        cl1 = new_client(primary, [honest, forking])
+        detect = cl1._detect_divergence
+
+        async def timed_detect(verified, now_ns):
+            t1 = time.perf_counter()
+            try:
+                await detect(verified, now_ns)
+            finally:
+                timed["detector_ms"] = (time.perf_counter() - t1) * 1e3
+
+        cl1._detect_divergence = timed_detect
+        t1 = time.perf_counter()
+        try:
+            await cl1.verify_light_block_at_height(LC_TARGET)
+            out["divergence"] = None
+        except DivergenceError as e:
+            out["divergence"] = e
+        timed["verify_target_ms"] = (time.perf_counter() - t1) * 1e3
+        out["cl1"] = cl1
+        out["cl1_steps"] = len(steps)
+        # 2. the evidences against the node's stores
+        div = out["divergence"]
+        evs = list(div.evidence) if div is not None else []
+        if evs:
+            tip = await forking.light_block(LC_HEIGHTS)
+            evs.append(dataclasses.replace(evs[0], conflicting_block=tip))
+        out["evidence"], timed["verify_evidence_ms"] = [], []
+        for ev in evs:
+            t1 = time.perf_counter()
+            out["evidence"].append(light_outcome(
+                lambda: verify_evidence(ev, state, ss, bs)))
+            timed["verify_evidence_ms"].append(
+                (time.perf_counter() - t1) * 1e3)
+        # 3. sequential updates, skipping verifications, a backwards walk
+        cl2 = new_client(head, [honest])
+        out["updates"], timed["update_ms"] = [], []
+        for cap in range(2, 2 + LC_UPDATES):
+            head.cap = cap
+            t1 = time.perf_counter()
+            lb = await cl2.update()
+            timed["update_ms"].append((time.perf_counter() - t1) * 1e3)
+            out["updates"].append(lb.height() if lb else None)
+        head.cap = LC_HEIGHTS
+        out["skips"], timed["skip_ms"] = [], []
+        for target in range(LC_TARGET // 8, LC_TARGET + 1, LC_TARGET // 8):
+            t1 = time.perf_counter()
+            lb = await cl2.verify_light_block_at_height(target)
+            timed["skip_ms"].append((time.perf_counter() - t1) * 1e3)
+            out["skips"].append(lb.hash() ==
+                                bs.load_block_meta(target).block_id.hash)
+        n0, s0 = len(plans), len(steps)
+        t1 = time.perf_counter()
+        back = await cl2.verify_light_block_at_height(LC_TARGET - 7)
+        timed["backwards_ms"] = (time.perf_counter() - t1) * 1e3
+        out["backwards"] = (back.hash() == bs.load_block_meta(
+            LC_TARGET - 7).block_id.hash, len(plans) - n0, len(steps) - s0)
+        out["cl2"] = cl2
+        # 4. the serving plane over a fresh client
+        cl3 = new_client(primary, [honest])
+        await cl3.initialize()
+        plane = serving.ServingPlane(cl3, cfg)
+        real_jobs = plane.collector._verify_jobs
+
+        def timed_jobs(job_plans):
+            t1 = time.perf_counter()
+            res = real_jobs(job_plans)
+            flushes.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                                lanes=sum(len(p) for p in job_plans),
+                                plans=job_plans,
+                                ok=all(v.all() for v in res)))
+            return res
+
+        plane.collector._verify_jobs = timed_jobs
+        gap = LC_TARGET // LC_PLANE_HEIGHTS
+        heights = [gap * (1 + i % LC_PLANE_HEIGHTS)
+                   for i in range(LC_REQUESTS)]
+        out["active"] = serving.active_plane() is plane
+        waves = []
+        for wave in range(2):
+            hits0 = plane.cache_hits
+            t1 = time.perf_counter()
+            res = await asyncio.gather(*(plane.get_verified(h)
+                                         for h in heights))
+            timed.setdefault("wave_ms", []).append(
+                (time.perf_counter() - t1) * 1e3)
+            waves.append(dict(
+                ok=all(lb.hash() == bs.load_block_meta(h).block_id.hash
+                       for lb, h in zip(res, heights)),
+                cache_hits=plane.cache_hits - hits0))
+        out["waves"] = waves
+        out["plane"] = dict(requests=plane.requests,
+                            coalesced=plane.coalesced,
+                            cache_hits=plane.cache_hits,
+                            cache_misses=plane.cache_misses,
+                            sheds=dict(plane.sheds))
+        out["status"] = plane.status_check()
+        plane.close()
+        out["closed"] = serving.active_plane() is None
+        return out
+
+    kernels = wrappers()
+    metrics0 = dict(serving.METRICS["verify_launches"])
+    client_mod.verify = traced_verify
+    vset_mod.CommitVerifyPlan.execute = counted_execute
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        res = asyncio.run(drive())
+        run_s = time.perf_counter() - t1
+        launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    finally:
+        client_mod.verify = real_verify
+        vset_mod.CommitVerifyPlan.execute = real_execute
+    metrics = {k: n - metrics0.get(k, 0)
+               for k, n in serving.METRICS["verify_launches"].items()
+               if n != metrics0.get(k, 0)}
+    div = res["divergence"]
+    evs = div.evidence if div is not None else []
+    common = evs[0].common_height if evs else None
+    cl1_steps = steps[:res["cl1_steps"]]
+    # what the checks imply: an adjacent step one +2/3 check, a skip two
+    # (the 1/3 trusting check, then the +2/3), a skip refused for want of
+    # trusted power none (refused while planning); one +2/3 check a
+    # client's initialize (three clients), one trusting check for the
+    # evidence against the witness; a plane flush one launch
+    implied = 3 + 1 + sum((1 if st["kind"] == "adjacent" else 2)
+                          for st in steps if st["outcome"] is None)
+    flush_plans = [len(p) for f in flushes for p in f["plans"]]
+    quorum, third = 2 * LIGHT_VALIDATORS // 3 + 1, LIGHT_VALIDATORS // 3 + 1
+    shapes: dict = {}
+    for n in plans:
+        key = f"{tv._chunks(n)[0]} lanes, {n} live"
+        shapes[key] = shapes.get(key, 0) + 1
+    for f in flushes:
+        key = f"{tv._chunks(f['lanes'] + 1)[0]} lanes, flush"
+        shapes[key] = shapes.get(key, 0) + 1
+    want_evidence = [
+        None,
+        ("EvidenceError", "conflicting block matches the committed chain"),
+        ("EvidenceError", f"no committed header+commit at conflicting height "
+                          f"{LC_HEIGHTS} (commit lands with block "
+                          f"{LC_HEIGHTS + 1})")]
+    checks = {
+        "divergence": div is not None and len(evs) == 2,
+        "fork_common": common is not None and common < LC_FORK_FROM
+        and all(ev.common_height == common for ev in evs)
+        and evs[0].conflicting_block.hash() != evs[1].conflicting_block.hash()
+        and evs[1].conflicting_block.hash() == bs.load_block_meta(
+            LC_TARGET).block_id.hash,
+        "bisected": sum(st["outcome"] == "NewValSetCantBeTrustedError"
+                        for st in cl1_steps) > 0,
+        "store_purged": common is not None and max(
+            res["cl1"].store.heights()) <= common,
+        "reported": [e.hash() for e in sink.added] == [evs[0].hash()]
+        if evs else False,
+        "witnesses_kept": len(res["cl1"].witnesses) == 2,
+        "evidence": res["evidence"] == want_evidence,
+        "updates": res["updates"] == list(range(2, 2 + LC_UPDATES)),
+        "skips": all(res["skips"]) and len(res["skips"]) == 8,
+        "backwards": res["backwards"] == (True, 0, 0),
+        "no_divergence": res["cl2"].witnesses == [honest],
+        "waves": [w["ok"] for w in res["waves"]] == [True, True]
+        and [w["cache_hits"] for w in res["waves"]] == [0, LC_REQUESTS],
+        "plane": res["plane"]["requests"] == 2 * LC_REQUESTS
+        and res["plane"]["coalesced"] >= LC_REQUESTS - LC_PLANE_HEIGHTS
+        and res["plane"]["cache_hits"] == LC_REQUESTS
+        and not any(res["plane"]["sheds"].values()),
+        "status": res["status"]["status"] == "ok" and res["active"]
+        and res["closed"],
+        "plan_lanes": set(plans + flush_plans) <= {quorum, third},
+        "launches": launches == {"general_verify": len(plans) + len(flushes)},
+        "implied": len(plans) == implied,
+        "flushes_device": metrics == {"device": len(flushes)}
+        and all(f["ok"] for f in flushes),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"light_client: {checks}, launches {launches}, "
+                             f"plans {len(plans)} implied {implied}, "
+                             f"flushes {[f['lanes'] for f in flushes]}, "
+                             f"evidence {res['evidence']}, updates "
+                             f"{res['updates']}, plane {res['plane']}, "
+                             f"status {res['status']}")
+    rows = []
+    known = {128, 2048, 8192}
+    new = [f for f in flushes if tv._chunks(f["lanes"] + 1)[0] not in known]
+    if new:
+        widest = max(new, key=lambda f: f["lanes"])
+        rows.append(light_k4_row(
+            "general_verify_light_client",
+            [t for p in widest["plans"] for t in p.triples()], dev,
+            sentinel=True))
+
+    def p50(xs):
+        return statistics.median(xs) if xs else None
+
+    ok_skip = [st["ms"] for st in steps
+               if st["kind"] == "skip" and st["outcome"] is None]
+    refused = [st["ms"] for st in steps if st["outcome"] is not None]
+    adjacent = [st["ms"] for st in steps if st["kind"] == "adjacent"]
+    out = dict(
+        validators=LIGHT_VALIDATORS, heights=LC_HEIGHTS, target=LC_TARGET,
+        fork_from=LC_FORK_FROM,
+        rotate=dict(every=LIGHT_ROTATE, validators=LIGHT_VALIDATORS // 6),
+        setup_s=setup_s, run_s=run_s,
+        trace=[(st["trusted"], st["target"], st["outcome"]) for st in
+               cl1_steps],
+        common_height=common, evidence=res["evidence"],
+        skipping_verification_p50_ms=p50(timed["skip_ms"]),
+        skipping_verification_ms=timed["skip_ms"],
+        bisection_step_p50_ms=p50([st["ms"] for st in steps]),
+        step_p50_ms=dict(skip=p50(ok_skip), refused=p50(refused),
+                         adjacent=p50(adjacent)),
+        update_p50_ms=p50(timed["update_ms"]),
+        verify_target_ms=timed["verify_target_ms"],
+        detector_ms=timed["detector_ms"],
+        verify_evidence_ms=timed["verify_evidence_ms"],
+        backwards_ms=timed["backwards_ms"],
+        wave_ms=timed["wave_ms"], plane=res["plane"],
+        config=dict(batch_max=cfg.batch_max, flush_ms=cfg.flush_ms,
+                    pending_max=cfg.pending_max),
+        flushes=[dict(ms=f["ms"], lanes=f["lanes"], plans=len(f["plans"]))
+                 for f in flushes],
+        plans=len(plans), implied=implied, launch_shapes=shapes,
+        collector_metrics=metrics, launches=launches, checks=checks)
+    return out, rows
+
+
+# -- phase 13 ------------------------------------------------------------
+
+
 def timing_phase(vs, commit, dev) -> list[dict]:
     """Each kernel at the main path's shapes: time, plain time, bound,
     agreement with the plain version."""
@@ -4262,6 +4726,12 @@ def main() -> int:
     no_fallback("light", state)
     emit(dict(phase="light", seconds=time.perf_counter() - t0, card=smi,
               **light))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    light_client, light_client_rows = light_client_phase(torch.device("cuda"))
+    no_fallback("light_client", state)
+    emit(dict(phase="light_client", seconds=time.perf_counter() - t0,
+              card=smi, **light_client))
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -4269,7 +4739,7 @@ def main() -> int:
     rows.append(k4_mixed_row(mvs, mcommit, torch.device("cuda")))
     rows.append(k5)
     rows += k8
-    rows += [window_row, votes_row, *light_rows]
+    rows += [window_row, votes_row, *light_rows, *light_client_rows]
     no_fallback("timing", state)
     t0 = time.perf_counter()
     run_child("fault")
@@ -4283,7 +4753,8 @@ def main() -> int:
     emit({"phase": "f32", "step": "done", "card": smi,
           "seconds": time.perf_counter() - t0})
     launches = {}
-    for path in (res, spec, mixed, fabric, healing, fastsync, votes, light):
+    for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
+                 light_client):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

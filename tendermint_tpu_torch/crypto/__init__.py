@@ -70,6 +70,12 @@ def pubkey_from_type_and_bytes(type_name: str, data: bytes) -> PubKey:
     return cls(data)
 
 
+def pubkey_types() -> frozenset[str]:
+    """The key type names the port registers."""
+    _ensure_registered()
+    return frozenset(_PUBKEY_REGISTRY)
+
+
 def _ensure_registered() -> None:
     """Import every key-type module of the port so its register_pubkey
     ran (the reference's set also has secp256k1, not ported yet)."""

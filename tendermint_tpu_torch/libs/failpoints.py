@@ -1,14 +1,16 @@
 """Named failpoints (reference: libs/failpoints.py), trimmed to the
-points of the device path and to the `error` and `corrupt` actions.
+points of the device path, the light serving plane and the block store,
+and to the `error`, `delay` and `corrupt` actions.
 
     error         raise FailpointError(name) from the call site
+    delay         time.sleep(delay_ms) at the call site (stall shape)
     corrupt       the call site's payload bytes come back bit-flipped
                   and truncated; on a point with no payload it degrades
                   to `error`
 
 A trigger decides which armed hits fire: ``nth=N`` only the N-th
 (1-based), ``count=N`` disarm after N fires; with none, every hit
-fires. Arm with ``arm(name, action, nth=...)``;
+fires. Arm with ``arm(name, action, nth=..., delay_ms=...)``;
 ``hit(name, payload)`` is the call-site hook, a dict lookup when
 nothing is armed.
 """
@@ -17,10 +19,12 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 
 logger = logging.getLogger("failpoints")
 
-ACTIONS = ("error", "corrupt")
+ACTIONS = ("error", "delay", "corrupt")
+MAX_DELAY_MS = 60_000.0
 
 # name -> the call site passes a payload through hit()
 CATALOG: dict[str, bool] = {
@@ -35,8 +39,12 @@ CATALOG: dict[str, bool] = {
     "device.shard_fail": True,
     # the light verify collector's coalesced launch
     # (light/serving.py): `error` degrades the batch to the host oracle,
-    # exactly like a raising device launch
+    # exactly like a raising device launch; `delay` models a slow
+    # verify so the pending-verify queue backs up and sheds
     "light.verify": False,
+    # a block about to be persisted to the block store (store/__init__.py:
+    # one atomic batch of meta, parts, commits and the store's state)
+    "store.save_block": False,
 }
 
 
@@ -49,10 +57,12 @@ class FailpointError(Exception):
 
 
 class _Armed:
-    __slots__ = ("action", "nth", "count", "hits")
+    __slots__ = ("action", "delay_ms", "nth", "count", "hits")
 
-    def __init__(self, action: str, nth: int | None, count: int | None):
+    def __init__(self, action: str, delay_ms: float, nth: int | None,
+                 count: int | None):
         self.action = action
+        self.delay_ms = delay_ms
         self.nth = nth
         self.count = count  # remaining fires before auto-disarm
         self.hits = 0
@@ -62,19 +72,21 @@ _lock = threading.Lock()
 _ACTIVE: dict[str, _Armed] = {}
 
 
-def arm(name: str, action: str, *, nth: int | None = None,
-        count: int | None = None) -> None:
+def arm(name: str, action: str, *, delay_ms: float = 0.0,
+        nth: int | None = None, count: int | None = None) -> None:
     """Arm `name` with `action`. Raises ValueError on an unknown point,
-    action or trigger."""
+    action, delay or trigger."""
     if name not in CATALOG:
         raise ValueError(f"unknown failpoint {name!r}")
     if action not in ACTIONS:
         raise ValueError(f"unknown failpoint action {action!r}")
+    if not 0.0 <= delay_ms <= MAX_DELAY_MS:
+        raise ValueError(f"delay_ms {delay_ms} out of [0, {MAX_DELAY_MS}]")
     for label, v in (("nth", nth), ("count", count)):
         if v is not None and v < 1:
             raise ValueError(f"{label} must be >= 1")
     with _lock:
-        _ACTIVE[name] = _Armed(action, nth, count)
+        _ACTIVE[name] = _Armed(action, delay_ms, nth, count)
     logger.warning("failpoint armed: %s %s", name, action)
 
 
@@ -105,8 +117,8 @@ def _corrupt_bytes(data: bytes) -> bytes:
     return bytes(b[:-1]) if len(b) > 1 else bytes(b)
 
 
-def _fires(name: str) -> str | None:
-    """Count a hit of an armed point; its action when the hit fires."""
+def _fires(name: str) -> _Armed | None:
+    """Count a hit of an armed point; its entry when the hit fires."""
     armed = _ACTIVE.get(name)
     if armed is None:
         return None
@@ -121,14 +133,18 @@ def _fires(name: str) -> str | None:
             if armed.count <= 0:
                 _ACTIVE.pop(name, None)
     logger.warning("failpoint firing: %s action=%s", name, armed.action)
-    return armed.action
+    return armed
 
 
 def hit(name: str, payload: bytes | None = None):
     """The call-site hook. Returns `payload` (transformed by an armed
     `corrupt`): call sites with a payload must use the return value."""
-    action = _fires(name)
-    if action is None:
+    armed = _fires(name)
+    if armed is None:
+        return payload
+    action = armed.action
+    if action == "delay":
+        time.sleep(armed.delay_ms / 1000.0)
         return payload
     if action == "corrupt" and payload is not None:
         return _corrupt_bytes(payload)

@@ -1,15 +1,16 @@
-"""Light client verification (reference: light/): verify chain headers
-without executing blocks.
+"""Light client: verify chain headers without executing blocks
+(reference: light/).
 
 A light client tracks a chain by verifying SignedHeaders against
 validator sets it already trusts — adjacent headers by valset-hash
-continuity, distant headers by the +1/3-trust overlap rule (Go
-reference light/verifier.go:33,102). Every commit check rides the
-batched surfaces of ValidatorSet, and the verify collector
-(serving.py) pools the checks of many requests into one wide launch.
-The Client (bisection, witnesses, the detector), its providers and
-store, and the ServingPlane come with a later slice of the port."""
+continuity, distant headers by the +1/3-trust overlap rule with
+bisection (Go reference light/client.go:114, verifier.go:33,102).
+Every commit check rides the batched surfaces of ValidatorSet, and the
+serving plane's verify collector (serving.py) pools the checks of many
+requests into one wide launch. The serving pool, the proxy and the
+JSON-RPC provider come with the port's RPC layer."""
 
+from .client import Client, TrustOptions
 from .errors import (
     DivergenceError,
     LightClientError,
@@ -17,12 +18,15 @@ from .errors import (
     OutsideTrustingPeriodError,
     VerificationFailedError,
 )
+from .provider import BlockStoreProvider, Provider
 from .serving import (
     LightServingShedError,
     LightVerifyCollector,
+    ServingPlane,
     VerifiedHeaderCache,
     verify_through,
 )
+from .store import LightStore
 from .types import LightBlock, LightClientAttackEvidence, SignedHeader
 from .verifier import (
     DEFAULT_TRUST_LEVEL,
@@ -33,11 +37,12 @@ from .verifier import (
 )
 
 __all__ = [
-    "LightBlock", "SignedHeader", "LightClientAttackEvidence",
-    "VerifiedHeaderCache", "LightVerifyCollector", "LightServingShedError",
-    "verify_through", "verify", "verify_adjacent", "verify_non_adjacent",
-    "verify_backwards", "DEFAULT_TRUST_LEVEL",
-    "LightClientError", "VerificationFailedError",
+    "Client", "TrustOptions", "LightBlock", "SignedHeader",
+    "LightClientAttackEvidence", "LightStore", "Provider",
+    "BlockStoreProvider", "ServingPlane", "VerifiedHeaderCache",
+    "LightVerifyCollector", "LightServingShedError", "verify_through",
+    "verify", "verify_adjacent", "verify_non_adjacent", "verify_backwards",
+    "DEFAULT_TRUST_LEVEL", "LightClientError", "VerificationFailedError",
     "NewValSetCantBeTrustedError", "OutsideTrustingPeriodError",
     "DivergenceError",
 ]

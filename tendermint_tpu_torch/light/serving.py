@@ -14,12 +14,22 @@ of failing requests on wrong verdicts). Its parked and in-verify
 checks are the ``light.pending_verify`` entry of libs/overload.py: at
 the bound the NEWEST request is shed with LightServingShedError.
 
+The ServingPlane sits in front of one light ``Client`` and turns N
+concurrent requests into few wide launches: a singleflight map keyed
+by height makes concurrent requests for one height pay ONE
+verification, a trusting-period-aware LRU over the trusted
+``LightStore`` makes the second client of a verified height cost a
+dict lookup, and the commit checks of every in-flight bisection go
+through the plane's collector. It keeps the Client's semantics: the
+same pivots, error taxonomy, witness cross-checking and trusted-store
+writes.
+
 Counts go into ``METRICS``, a plain dict (crypto/batch.py's
 convention): verify launches and lanes by backend ("device", "host",
-"host_recheck"). The degrades also move crypto.batch.METRICS as every
-device path of the port does. The ServingPlane (singleflight, the
-trusted store, the Client's bisection), the serving pool and the
-/status check come with the light Client.
+"host_recheck"). The plane keeps its request, coalescing, cache and
+shed tallies on itself (read by ``status_check``). The degrades also
+move crypto.batch.METRICS as every device path of the port does. The
+serving pool and the proxy come with the port's RPC layer.
 """
 
 from __future__ import annotations
@@ -34,8 +44,10 @@ import numpy as np
 from ..libs.overload import CONTROLLER
 from ..types.validator_set import CommitVerifyPlan, VerificationError
 from .errors import (
+    DivergenceError,
     LightClientError,
     NewValSetCantBeTrustedError,
+    OutsideTrustingPeriodError,
     VerificationFailedError,
 )
 from .types import LightBlock
@@ -44,6 +56,10 @@ from .verifier import DEFAULT_TRUST_LEVEL, _common_checks
 logger = logging.getLogger("light.serving")
 
 PENDING_VERIFY_QUEUE = "light.pending_verify"
+
+# Shed reasons: the closed label set of the plane's shed tally.
+SHED_QUEUE_FULL = "queue_full"
+SHED_REASONS = (SHED_QUEUE_FULL,)
 
 METRICS: dict = {"verify_launches": {}, "batch_lanes": {}}
 
@@ -66,6 +82,18 @@ class LightServingShedError(LightClientError):
         super().__init__(
             f"light serving plane overloaded: {depth} commit checks "
             f"pending (limit {limit}); retry later")
+
+
+# -- the process-global active plane (the /status `light` check) ------
+
+_ACTIVE_PLANE: "ServingPlane | None" = None
+
+
+def active_plane() -> "ServingPlane | None":
+    """The most recently built (not yet closed) plane in this process.
+    Several in-process planes replace each other, as the controller
+    singleton's registrations do."""
+    return _ACTIVE_PLANE
 
 
 class VerifiedHeaderCache:
@@ -126,11 +154,13 @@ class LightVerifyCollector:
     scattering per-lane verdicts back per plan. A plan with any invalid
     lane gets the same VerificationError its inline execute() would
     raise — one request's lying provider never poisons the verdicts of
-    the batchmates."""
+    the batchmates. The backlog registers as ``light.pending_verify``
+    with `controller` (default: the process-global CONTROLLER; a
+    ServingPlane passes its own)."""
 
     def __init__(self, batch_max: int = 1024, flush_ms: float = 2.0,
                  pending_max: int = 1024,
-                 device_threshold: int | None = None):
+                 device_threshold: int | None = None, controller=None):
         from ..crypto import batch as cbatch
 
         self.batch_max = max(1, batch_max)
@@ -138,13 +168,14 @@ class LightVerifyCollector:
         self.pending_max = max(1, pending_max)
         self.device_threshold = cbatch._DEVICE_THRESHOLD \
             if device_threshold is None else device_threshold
+        self._controller = controller or CONTROLLER
         self._pending: collections.deque[_VerifyJob] = collections.deque()
         self._pending_lane_count = 0
         self._in_flight = 0
         self._item_evt = asyncio.Event()
         self._full_evt = asyncio.Event()
         self._flusher: asyncio.Task | None = None
-        CONTROLLER.register(PENDING_VERIFY_QUEUE, self.depth,
+        self._controller.register(PENDING_VERIFY_QUEUE, self.depth,
                                   lambda: self.pending_max, owner=self)
 
     # -- sizes ---------------------------------------------------------
@@ -172,7 +203,7 @@ class LightVerifyCollector:
                 job.future.cancel()
         self._pending.clear()
         self._pending_lane_count = 0
-        CONTROLLER.unregister(PENDING_VERIFY_QUEUE, owner=self)
+        self._controller.unregister(PENDING_VERIFY_QUEUE, owner=self)
 
     def _ensure_flusher(self) -> None:
         if self._flusher is None or self._flusher.done():
@@ -420,3 +451,251 @@ async def verify_through(collector: LightVerifyCollector, chain_id: str,
         raise VerificationFailedError(f"invalid commit: {res_l}") from res_l
     if isinstance(res_l, BaseException):
         raise res_l
+
+
+class ServingPlane:
+    """The shared verification plane requests run through. One plane
+    owns one light Client (and its trusted store); requests enter via
+    get_verified()."""
+
+    def __init__(self, client, config=None, controller=None):
+        from ..config import LightConfig
+
+        cfg = config or LightConfig()
+        cfg.validate_basic()
+        self.client = client
+        self.config = cfg
+        self.cache = VerifiedHeaderCache(
+            cfg.cache_size, client.trust_options.period_ns)
+        self.collector = LightVerifyCollector(
+            batch_max=cfg.batch_max, flush_ms=cfg.flush_ms,
+            pending_max=cfg.pending_max, controller=controller)
+        self._inflight: dict[int, asyncio.Task] = {}
+        # running tallies for the /status `light` check
+        self.requests = 0
+        self.coalesced = 0
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.sheds: dict[str, int] = {r: 0 for r in SHED_REASONS}
+        global _ACTIVE_PLANE
+        _ACTIVE_PLANE = self
+
+    def close(self) -> None:
+        self.collector.close()
+        for task in self._inflight.values():
+            task.cancel()
+        self._inflight.clear()
+        global _ACTIVE_PLANE
+        if _ACTIVE_PLANE is self:
+            _ACTIVE_PLANE = None
+
+    # -- the request entry point ---------------------------------------
+
+    async def get_verified(self, height: int = 0) -> LightBlock:
+        """Verified LightBlock at `height` (0 = the primary's latest).
+        Coalesces with any in-flight verification of the same height;
+        sheds (LightServingShedError) when the pending-verify backlog
+        is at its bound and this request would start a NEW
+        verification."""
+        self.requests += 1
+        now_ns = self.client.now_fn()
+        if height:
+            lb = self.cache.get(height, now_ns)
+            if lb is not None:
+                self.cache_hits += 1
+                return lb
+            self.cache_misses += 1
+            # trusted-store probe BEFORE the admission gate: a height
+            # already verified and inside its period is a READ, not new
+            # verification work — it serves even on a saturated plane
+            stored = self.client.store.get(height)
+            if stored is not None and stored.time() + \
+                    self.client.trust_options.period_ns > now_ns:
+                self.cache.put(stored, now_ns)
+                return stored
+        task = self._inflight.get(height)
+        if task is not None and not task.done():
+            # join the in-flight verification: no new device work, no
+            # queue growth — the whole point of the singleflight map
+            self.coalesced += 1
+            return await self._await_counted(task)
+        if self.collector.saturated():
+            # shed at ADMISSION: a flood of distinct heights dies here,
+            # not deep inside a bisection. Backwards walks shed too:
+            # each is new work (primary fetches per uncached interim).
+            self._count_shed(SHED_QUEUE_FULL)
+            raise LightServingShedError(self.collector.depth(),
+                                        self.collector.pending_max)
+        task = asyncio.get_running_loop().create_task(
+            self._verify_height(height, now_ns),
+            name=f"light-verify-h{height}")
+        self._inflight[height] = task
+
+        def _done(t, h=height):
+            if self._inflight.get(h) is t:
+                del self._inflight[h]
+            # every waiter may have been cancelled while the shielded
+            # task ran on: retrieve the exception so asyncio does not
+            # log it as never retrieved
+            if not t.cancelled():
+                t.exception()
+
+        task.add_done_callback(_done)
+        return await self._await_counted(task)
+
+    async def _await_counted(self, task: asyncio.Task) -> LightBlock:
+        """Await the shared verification (shielded: a cancelled waiter
+        must not cancel the task other coalesced waiters are parked on)
+        and count a mid-verification shed once PER AFFECTED REQUEST."""
+        try:
+            return await asyncio.shield(task)
+        except LightServingShedError:
+            self._count_shed(SHED_QUEUE_FULL)
+            raise
+
+    def _count_shed(self, reason: str) -> None:
+        """ONE shed request: the tally and the controller tracking the
+        pending-verify queue (the collector's, never unconditionally
+        the process-global one)."""
+        self.sheds[reason] += 1
+        self.collector._controller.shed(PENDING_VERIFY_QUEUE)
+
+    # -- the singleflight body -----------------------------------------
+
+    async def _verify_height(self, height: int,
+                             now_ns: int) -> LightBlock:
+        cl = self.client
+        if not cl._initialized:
+            await cl.initialize()
+        period = cl.trust_options.period_ns
+        if height:
+            stored = cl.store.get(height)
+            if stored is not None:
+                if stored.time() + period > now_ns:
+                    self.cache.put(stored, now_ns)
+                    return stored
+                # outside its trusting period the old verification no
+                # longer makes it servable: below the trusted head the
+                # backwards walk re-proves it from an in-period anchor;
+                # at the head there is nothing to anchor on
+                latest = cl.store.latest()
+                if latest is None or height >= latest.height():
+                    raise OutsideTrustingPeriodError(
+                        f"stored header {height} outside trusting "
+                        "period")
+                return await cl._verify_backwards(height, now_ns)
+            latest = cl.store.latest()
+            if latest is not None and height < latest.height():
+                # hash-chain walk down — no commit signatures to batch
+                lb = await cl._verify_backwards(height, now_ns)
+                self.cache.put(lb, now_ns)
+                return lb
+            target = await cl._from_primary(height)
+        else:
+            target = await cl._from_primary(0)
+            latest = cl.store.latest()
+            if latest is not None and \
+                    target.height() <= latest.height():
+                if latest.time() + period <= now_ns:
+                    raise OutsideTrustingPeriodError(
+                        f"trusted head {latest.height()} outside "
+                        "trusting period")
+                self.cache.put(latest, now_ns)
+                return latest
+        # verify from the head captured BEFORE the fetch (the serial
+        # client's order): a concurrent task may have advanced
+        # store.latest() past `height` while _from_primary awaited
+        trusted = latest
+        assert trusted is not None
+        try:
+            await self._verify_skipping(trusted, target, now_ns)
+            await cl._detect_divergence(target, now_ns)
+        except DivergenceError:
+            # a PROVEN fork purged the trusted store above the common
+            # height — the LRU may still hold the attacker's chain
+            self.cache.clear()
+            raise
+        # a mid-verification LightServingShedError propagates uncounted
+        # from here: _await_counted counts it once per affected waiter
+        self.cache.put(target, now_ns)
+        return target
+
+    # -- batched skipping verification ---------------------------------
+
+    async def _verify_skipping(self, trusted: LightBlock,
+                               target: LightBlock,
+                               now_ns: int) -> None:
+        """Client._verify_skipping with the commit checks routed
+        through the coalescing collector: same pivots, same error
+        taxonomy, same store writes."""
+        cl = self.client
+        pending: list[LightBlock] = [target]
+        seen: set[int] = {target.height()}
+        steps = 0
+        while pending:
+            steps += 1
+            if steps > 200:  # 2^200 heights — unreachable honestly
+                raise LightClientError("bisection did not converge")
+            block = pending[-1]
+            try:
+                await self._verify_one(trusted, block, now_ns)
+            except NewValSetCantBeTrustedError:
+                pivot_h = (trusted.height() + block.height()) // 2
+                if pivot_h in (trusted.height(), block.height()) or \
+                        pivot_h in seen:
+                    raise  # can't split further: genuine failure
+                pivot = await cl._from_primary(pivot_h)
+                seen.add(pivot_h)
+                pending.append(pivot)
+                continue
+            cl.store.save(block)
+            self.cache.put(block, now_ns)
+            trusted = block
+            pending.pop()
+
+    async def _verify_one(self, trusted: LightBlock,
+                          untrusted: LightBlock, now_ns: int) -> None:
+        """verifier.verify with the signature work pooled through the
+        plane's collector (verify_through)."""
+        cl = self.client
+        await verify_through(self.collector, cl.chain_id, trusted,
+                             untrusted, cl.trust_options.period_ns, now_ns,
+                             cl.trust_level)
+
+    # -- /status -------------------------------------------------------
+
+    def status_check(self) -> dict:
+        """The `light` check body: backlog fill, request/coalesce/cache
+        tallies, shed breakdown, verify-backend split (this process's
+        METRICS). Shedding is designed behavior — only a saturated
+        pending-verify backlog degrades the check."""
+        from ..crypto import batch as cbatch
+
+        launches = METRICS["verify_launches"]
+        depth = self.collector.depth()
+        cap = self.collector.pending_max
+        out: dict = {
+            "requests": self.requests,
+            "coalesced": self.coalesced,
+            "cache": {"entries": len(self.cache),
+                      "hits": self.cache_hits,
+                      "misses": self.cache_misses},
+            "queue_depth": depth,
+            "queue_capacity": cap,
+            "shed": {r: n for r, n in self.sheds.items() if n},
+            "trusted_height": self.client.store.latest_height(),
+            "verify_launches": {
+                b: launches[b] for b in ("device", "host", "host_recheck")
+                if launches.get(b)},
+        }
+        fill = depth / cap if cap else 0.0
+        if fill >= 0.8:
+            out["status"] = "degraded"
+            out["detail"] = (f"pending-verify backlog at {fill:.0%}; "
+                             "shedding newest requests soon")
+        else:
+            out["status"] = "ok"
+            if not cbatch.device_available("ed25519"):
+                out["detail"] = ("ed25519 breaker open: light plane "
+                                 "verifying on host")
+        return out

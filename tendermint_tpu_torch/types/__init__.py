@@ -1,7 +1,8 @@
 """Core consensus types needed by commit verification, the speculation
-plane and fast sync (reference capability: types/): blocks, headers,
-part sets and commits (types/block.py), votes, evidence and the
-validator set. Vote sets come with a later slice of the port."""
+plane, fast sync, the vote scheduler and the light client (reference
+capability: types/): blocks, headers, part sets and commits
+(types/block.py), votes, vote sets, evidence, the validator set,
+consensus params, block metas and the genesis document."""
 
 from .block import BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader
 from .validator import Validator

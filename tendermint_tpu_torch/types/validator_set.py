@@ -143,10 +143,22 @@ class ValidatorSet:
             return self.validators[i]
         return None
 
+    def has_address(self, addr: bytes) -> bool:
+        return self.get_by_address(addr)[0] >= 0
+
     def hash(self) -> bytes:
         return merkle.hash_from_byte_slices(
             [v.bytes_for_hash() for v in self.validators]
         )
+
+    def copy(self) -> "ValidatorSet":
+        vs = ValidatorSet([])
+        vs.validators = [v.copy() for v in self.validators]
+        if self.proposer is not None:
+            i, _ = self.get_by_address(self.proposer.address)
+            vs.proposer = vs.validators[i] if i >= 0 else self.proposer.copy()
+        vs._total = self._total
+        return vs
 
     def validate_basic(self) -> None:
         if not self.validators:
@@ -157,6 +169,11 @@ class ValidatorSet:
             raise ValueError("no proposer")
 
     # -- proposer rotation (reference: validator_set.go:110-230) --
+
+    def increment_proposer_priority(self, times: int) -> None:
+        if times <= 0:
+            raise ValueError("times must be positive")
+        self._increment_proposer_priority(times)
 
     def _increment_proposer_priority(self, times: int) -> None:
         diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
@@ -196,6 +213,18 @@ class ValidatorSet:
         avg = total // n if total >= 0 else -((-total) // n)  # trunc toward 0
         for v in self.validators:
             v.proposer_priority -= avg
+
+    def get_proposer(self) -> Validator:
+        assert self.validators
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return self.proposer
+
+    def _find_proposer(self) -> Validator:
+        mostest = self.validators[0]
+        for v in self.validators[1:]:
+            mostest = mostest.compare_proposer_priority(v)
+        return mostest
 
     # -- commit verification (batched; the hot path) --
 
