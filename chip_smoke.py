@@ -150,7 +150,13 @@ Phases, each printing one JSON line:
    purges its store above the common height. verify_evidence on the
    node's stores: the evidence against the witness verifies (one 1/3
    trusting check), the one against the primary matches the committed
-   chain, one at the tip (520) lacks its canonical commit. A second
+   chain, one at the tip (520) lacks its canonical commit. The evidence
+   against the witness then goes into an evidence Pool over the node's
+   stores (add_evidence: one K4 launch, as verify_evidence's), is
+   pending, checks in a block without a launch, raises twice in one
+   block, is refilled by a second Pool over the same DB, and update()
+   at a state past both max ages commits it and prunes the tip evidence
+   added as consensus saw it. A second
    Client (honest witness only): 16 sequential update() steps, 8
    skipping verifications up to 512, a backwards walk below its head
    (hashes only). A ServingPlane at LightConfig's defaults over a third
@@ -158,7 +164,30 @@ Phases, each printing one JSON line:
    (the cache). Every commit check and collector flush is one K4
    launch; the launches must equal the checks the trace implies plus
    the flushes. No kernel is added: the phase adds to K4's rows;
-13. timing — each kernel at the main path's shapes: its device time a
+13. admission — the tx path at MempoolConfig's defaults (a pool of 5,000,
+   a 10,000-entry cache, permissive, batches of 256, a 2 ms deadline, a
+   2,048-tx pre-verify queue, 1,024 CheckTx in flight): a CListMempool
+   over AppConns and LocalClients on a PersistentKVStoreApp, a
+   proposer's cycle every 2,000 admitted txs (lock, reap under the
+   default block params, BeginBlock/DeliverTx/EndBlock/Commit on the
+   consensus connection, save_abci_responses read back, update with
+   recheck, unlock). Three nodes, counters zeroed before and read
+   after: the reference e2e overload mix (20,000 unique kvstore txs of
+   100-200 bytes, 30% garbage-signature envelopes, 10% valid ones from
+   1,024 signers, the rest raw) with 1,024 submissions outstanding; a
+   signed-only chain (strict: 8,000 valid envelopes, 80 unsigned and 80
+   malformed txs); the width probe (255 small envelopes and one of 64
+   KiB in one flush, then one at max_tx_bytes). Every valid and raw tx
+   admitted and committed exactly once, every garbage, unsigned and
+   malformed one shed with its reason and never seen by the app's
+   CheckTx, every enveloped tx's verdict equal to the collector's host
+   oracle (_host_verify, in 8 spawned processes), one K4 launch a flush
+   of 40 txs or more and none below, each app hash equal to a fresh
+   app's fed the committed blocks, no backpressure shed. Then K4 at each
+   bucket the flushes used and at the probe's two flushes (pack, upload,
+   device ms, message width) and the general_verify_admission row (a
+   full strict flush: 257 live lanes of 512). No kernel is added;
+14. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -176,12 +205,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-14. fault — in a child (`--phase fault`; a sticky fault poisons the
+15. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-15. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+16. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -269,6 +298,7 @@ REPLACES = {
     "general_verify_light_commit": "tendermint_tpu/crypto/tpu/verify.py:173",
     "general_verify_light": "tendermint_tpu/crypto/tpu/verify.py:173",
     "general_verify_light_client": "tendermint_tpu/crypto/tpu/verify.py:173",
+    "general_verify_admission": "tendermint_tpu/crypto/tpu/verify.py:173",
     "shard_verify": "tendermint_tpu/crypto/tpu/expanded.py:394",
     "mesh_splice": "tendermint_tpu/crypto/tpu/resident.py:99",
     "mesh_clear": "tendermint_tpu/crypto/tpu/resident.py:126",
@@ -291,6 +321,7 @@ SOURCES = {
     "general_verify_light": "tendermint_tpu_torch/csrc/general_verify.cu",
     "general_verify_light_client":
         "tendermint_tpu_torch/csrc/general_verify.cu",
+    "general_verify_admission": "tendermint_tpu_torch/csrc/general_verify.cu",
     "shard_verify": "tendermint_tpu_torch/csrc/xverify.cu",
     "mesh_splice": "tendermint_tpu_torch/csrc/splice.cu",
     "mesh_clear": "tendermint_tpu_torch/csrc/splice.cu",
@@ -305,7 +336,9 @@ SOURCES = {
 # general_verify_light K4 at the light verify collector's widest launch
 # and general_verify_light_client K4 at the serving plane's widest flush
 # in the light_client phase, a row only when that flush's bucket is one
-# no other K4 row has).
+# no other K4 row has, and general_verify_admission K4 at a full
+# admission flush: 256 signed txs and the sentinel lane in the 512-lane
+# bucket).
 GLOBALS = {name: "k_" + name for name in SOURCES}
 GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
                xverify_window="k_xverify", xverify_votes="k_xverify",
@@ -315,12 +348,14 @@ GLOBALS.update(assemble="k_xverify", shard_verify="k_xverify",
                general_verify_mixed="k_general_verify",
                general_verify_light_commit="k_general_verify",
                general_verify_light="k_general_verify",
-               general_verify_light_client="k_general_verify")
+               general_verify_light_client="k_general_verify",
+               general_verify_admission="k_general_verify")
 # The kernel whose launches a row counts, where it is not the row's own.
 ROW_KERNEL = {"general_verify_mixed": "general_verify",
               "general_verify_light_commit": "general_verify",
               "general_verify_light": "general_verify",
               "general_verify_light_client": "general_verify",
+              "general_verify_admission": "general_verify",
               "xverify_window": "xverify", "xverify_votes": "xverify"}
 # K2 is no launch of its own: it runs inside the structured form of K3
 # and K5 (csrc/xverify.cu), as the reference traces assemble_core into
@@ -415,6 +450,28 @@ LC_FORK_FROM = 497
 LC_UPDATES = 16
 LC_REQUESTS = 64
 LC_PLANE_HEIGHTS = 16
+# The admission phase: the tx path at MempoolConfig's defaults (a pool of
+# 5,000 txs, a 10,000-entry cache, batches of 256, a 2 ms deadline, a
+# 2,048-tx pre-verify queue, 1,024 CheckTx in flight) on a
+# PersistentKVStoreApp through AppConns and LocalClients. The mixed
+# traffic is the reference e2e overload mix (ADM_MIX: garbage when
+# i % 100 < 30, a valid envelope when < 40, raw otherwise) over ADM_TXS
+# unique kvstore txs of 100-200 bytes from ADM_SIGNERS signers, with
+# ADM_OUTSTANDING submissions outstanding; the signed-only chain's
+# traffic ADM_STRICT valid envelopes and ADM_STRICT_BAD unsigned and as
+# many malformed txs under `strict`. A proposer cycle every ADM_CYCLE
+# admitted txs. The width probe: ADM_PROBE_SMALL small envelopes and one
+# of ADM_WIDE bytes in one flush, then one at max_tx_bytes.
+ADM_TXS = 20_000
+ADM_MIX = (30, 40)
+ADM_SIGNERS = 1_024
+ADM_OUTSTANDING = 1_024
+ADM_STRICT = 8_000
+ADM_STRICT_BAD = 80
+ADM_CYCLE = 2_000
+ADM_PROBE_SMALL = 255
+ADM_WIDE = 64 * 1024
+ADM_ORACLE_WORKERS = 8
 # Objects a later step of the same process reads: the kernels check's
 # arena (sweep_warps.py times K7 on it).
 KEEP: dict = {}
@@ -3772,12 +3829,18 @@ def light_client_phase(dev):
             tip = await forking.light_block(LC_HEIGHTS)
             evs.append(dataclasses.replace(evs[0], conflicting_block=tip))
         out["evidence"], timed["verify_evidence_ms"] = [], []
+        out["evidence_launches"] = []
         for ev in evs:
+            k0 = tv.general_verify.launches
             t1 = time.perf_counter()
             out["evidence"].append(light_outcome(
                 lambda: verify_evidence(ev, state, ss, bs)))
             timed["verify_evidence_ms"].append(
                 (time.perf_counter() - t1) * 1e3)
+            out["evidence_launches"].append(tv.general_verify.launches - k0)
+        # 2b. the evidence against the witness through an evidence Pool
+        # over the node's stores
+        out["pool"] = evidence_pool_steps(evs, state, ss, bs) if evs else {}
         # 3. sequential updates, skipping verifications, a backwards walk
         cl2 = new_client(head, [honest])
         out["updates"], timed["update_ms"] = [], []
@@ -3870,9 +3933,11 @@ def light_client_phase(dev):
     # (the 1/3 trusting check, then the +2/3), a skip refused for want of
     # trusted power none (refused while planning); one +2/3 check a
     # client's initialize (three clients), one trusting check for the
-    # evidence against the witness; a plane flush one launch
-    implied = 3 + 1 + sum((1 if st["kind"] == "adjacent" else 2)
-                          for st in steps if st["outcome"] is None)
+    # evidence against the witness by verify_evidence and one by the
+    # evidence pool; a plane flush one launch
+    # and one more for the evidence the pool verifies
+    implied = 3 + 1 + 1 + sum((1 if st["kind"] == "adjacent" else 2)
+                              for st in steps if st["outcome"] is None)
     flush_plans = [len(p) for f in flushes for p in f["plans"]]
     quorum, third = 2 * LIGHT_VALIDATORS // 3 + 1, LIGHT_VALIDATORS // 3 + 1
     shapes: dict = {}
@@ -3902,7 +3967,15 @@ def light_client_phase(dev):
         "reported": [e.hash() for e in sink.added] == [evs[0].hash()]
         if evs else False,
         "witnesses_kept": len(res["cl1"].witnesses) == 2,
-        "evidence": res["evidence"] == want_evidence,
+        "evidence": res["evidence"] == want_evidence
+        and res["evidence_launches"] == [1, 0, 0],
+        "pool": res["pool"].get("checks") == {
+            "add_launches": res["evidence_launches"][0],
+            "pending": True, "check_block": (None, 0),
+            "duplicate_in_block": (("EvidenceError",
+                                    "duplicate evidence in block"), 0),
+            "readd": (0, 1), "refilled": True,
+            "update": (True, False, False, 0), "after_update": (0, True)},
         "updates": res["updates"] == list(range(2, 2 + LC_UPDATES)),
         "skips": all(res["skips"]) and len(res["skips"]) == 8,
         "backwards": res["backwards"] == (True, 0, 0),
@@ -3962,6 +4035,7 @@ def light_client_phase(dev):
         verify_target_ms=timed["verify_target_ms"],
         detector_ms=timed["detector_ms"],
         verify_evidence_ms=timed["verify_evidence_ms"],
+        evidence_pool={k: v for k, v in res["pool"].items() if k != "checks"},
         backwards_ms=timed["backwards_ms"],
         wave_ms=timed["wave_ms"], plane=res["plane"],
         config=dict(batch_max=cfg.batch_max, flush_ms=cfg.flush_ms,
@@ -3973,7 +4047,588 @@ def light_client_phase(dev):
     return out, rows
 
 
-# -- phase 13 ------------------------------------------------------------
+def evidence_pool_steps(evs, state, ss, bs) -> dict:
+    """The light_client phase's evidence through an evidence Pool over
+    the node's stores: the evidence against the witness added from a
+    peer (verified, launching K4 as verify_evidence does), then pending,
+    checked in a block that holds it (pending: no launch), twice in one
+    block (raises), added again (a no-op), refilled by a second Pool
+    over the same DB; the tip evidence added as consensus saw it, then
+    update() at a state past both evidence max ages commits the first
+    and prunes the second, and a third Pool finds nothing pending."""
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+    from tendermint_tpu_torch.evidence import Pool
+    from tendermint_tpu_torch.libs.db import MemDB
+
+    ev, tip = evs[0], evs[2]
+    db = MemDB()
+    pool = Pool(db, ss, bs)
+
+    def counted(fn):
+        k0 = tv.general_verify.launches
+        return fn(), tv.general_verify.launches - k0
+
+    t1 = time.perf_counter()
+    _, add_launches = counted(lambda: pool.add_evidence(ev))
+    add_ms = (time.perf_counter() - t1) * 1e3
+    pending = [e.hash() for e in pool.pending_evidence(-1)] == [ev.hash()]
+    check_block = counted(lambda: light_outcome(
+        lambda: pool.check_evidence([ev])))
+    duplicate = counted(lambda: light_outcome(
+        lambda: pool.check_evidence([ev, ev])))
+    _, readd = counted(lambda: pool.add_evidence(ev))
+    readd = (readd, pool.size())
+    refilled = [e.hash() for e in Pool(db, ss, bs).evidence_list] == [
+        ev.hash()]
+    pool.add_evidence_from_consensus(tip)
+    later = state.copy()
+    p = later.consensus_params.evidence
+    later.last_block_height = tip.height() + p.max_age_num_blocks + 1
+    later.last_block_time = tip.timestamp + p.max_age_duration_ns + 1
+    t1 = time.perf_counter()
+    pool.update(later, [ev])
+    update_ms = (time.perf_counter() - t1) * 1e3
+    third = Pool(db, ss, bs)
+    return dict(add_ms=add_ms, update_ms=update_ms, checks=dict(
+        add_launches=add_launches, pending=pending, check_block=check_block,
+        duplicate_in_block=duplicate, readd=readd,
+        refilled=refilled,
+        update=(pool.is_committed(ev), pool.is_pending(ev),
+                pool.is_pending(tip), pool.size()),
+        after_update=(third.size(), third.is_committed(ev))))
+
+
+# -- phase 13: admission ---------------------------------------------------
+
+
+def adm_payload(tag: bytes, i: int, rng) -> bytes:
+    """A unique kvstore tx `key=value` of 100-200 bytes."""
+    key = b"%s%06d" % (tag, i)
+    size = int(rng.integers(100, 201))
+    return key + b"=" + rng.bytes(size).hex().encode()[:size - len(key) - 1]
+
+
+def adm_signers(n: int):
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+
+    return [Ed25519PrivKey(hashlib.sha256(b"adm-signer-%d" % i).digest())
+            for i in range(n)]
+
+
+def adm_mixed_txs(n: int, signers) -> tuple[list[bytes], list[str]]:
+    """The reference e2e overload mix (e2e/runner.py envelope_mix_tx) over
+    n unique payloads: each tx and its kind (garbage, valid, raw)."""
+    import numpy as np
+
+    from tendermint_tpu_torch.types import tx_envelope
+
+    rng = np.random.default_rng(1401)
+    txs, kinds = [], []
+    for i in range(n):
+        payload, key = adm_payload(b"m", i, rng), signers[i % len(signers)]
+        slot = i % 100
+        if slot < ADM_MIX[0]:
+            txs.append(tx_envelope.encode(key.pub_key().bytes(), bytes(64),
+                                          payload))
+            kinds.append("garbage")
+        elif slot < ADM_MIX[1]:
+            txs.append(tx_envelope.sign_tx(key, payload))
+            kinds.append("valid")
+        else:
+            txs.append(payload)
+            kinds.append("raw")
+    return txs, kinds
+
+
+def adm_strict_txs(n: int, n_bad: int, signers):
+    """A signed-only chain's traffic: n valid envelopes with n_bad
+    unsigned and n_bad malformed (MAGIC + a payload) txs spread evenly
+    among them."""
+    import numpy as np
+
+    from tendermint_tpu_torch.types import tx_envelope
+
+    rng = np.random.default_rng(1402)
+    txs = [tx_envelope.sign_tx(signers[i % len(signers)],
+                               adm_payload(b"s", i, rng)) for i in range(n)]
+    kinds = ["valid"] * n
+    every = n // (2 * n_bad)
+    for j in range(2 * n_bad):
+        bad = adm_payload(b"u" if j % 2 == 0 else b"x", j, rng)
+        at = (j + 1) * every + j
+        txs.insert(at, bad if j % 2 == 0 else tx_envelope.MAGIC + bad)
+        kinds.insert(at, "unsigned" if j % 2 == 0 else "malformed")
+    return txs, kinds
+
+
+def adm_probe_txs(signers, wide: int):
+    """ADM_PROBE_SMALL small valid envelopes and one whose whole envelope
+    is `wide` bytes."""
+    import numpy as np
+
+    from tendermint_tpu_torch.types import tx_envelope
+
+    rng = np.random.default_rng(1403 + wide)
+    txs = [tx_envelope.sign_tx(signers[i % len(signers)],
+                               adm_payload(b"p%d-" % wide, i, rng))
+           for i in range(ADM_PROBE_SMALL)]
+    key = b"wide%d=" % wide
+    body = key + rng.bytes(wide).hex().encode()
+    # the envelope's fields cost their tags and lengths (a varint that
+    # shrinks with the body): trim the body until the whole envelope is
+    # exactly `wide` bytes
+    while (over := len(tx_envelope.encode(bytes(32), bytes(64), body))
+           - wide) != 0:
+        body = body[:len(body) - over] if over > 0 else body + b"0" * -over
+    big = tx_envelope.sign_tx(signers[-1], body)
+    if len(big) != wide:
+        raise AssertionError(f"probe envelope {len(big)} B, not {wide}")
+    return txs + [big]
+
+
+def oracle_chunk(triples):
+    """The collector's own host oracle on (pub_key, signature, payload)
+    triples, in a worker process."""
+    from tendermint_tpu_torch.mempool.admission import AdmissionCollector
+    from tendermint_tpu_torch.types.tx_envelope import TxEnvelope
+
+    return AdmissionCollector._host_verify(
+        [TxEnvelope(*t) for t in triples]).tolist()
+
+
+def host_oracle(envs) -> list[bool]:
+    """AdmissionCollector._host_verify over `envs`, split over
+    ADM_ORACLE_WORKERS spawned processes (a garbage signature costs the
+    pure-Python ZIP-215 recheck, milliseconds each)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    triples = [(e.pub_key, e.signature, e.payload) for e in envs]
+    step = -(-len(triples) // (4 * ADM_ORACLE_WORKERS)) or 1
+    chunks = [triples[i:i + step] for i in range(0, len(triples), step)]
+    with ProcessPoolExecutor(ADM_ORACLE_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as ex:
+        return [v for part in ex.map(oracle_chunk, chunks) for v in part]
+
+
+class AdmissionStack:
+    """One node's tx path: a PersistentKVStoreApp that records its
+    CheckTx calls, AppConns over LocalClients, a CListMempool at
+    MempoolConfig's defaults (admission `mode`), a state Store for the
+    ABCI responses, and the proposer's cycle over the consensus
+    connection. The collector's flushes and verdict latencies are
+    recorded."""
+
+    def __init__(self, mode: str):
+        from tendermint_tpu_torch.abci import kvstore
+        from tendermint_tpu_torch.abci.client import ClientCreator
+        from tendermint_tpu_torch.config import MempoolConfig
+        from tendermint_tpu_torch.crypto.cuda import verify as tv
+        from tendermint_tpu_torch.libs.db import MemDB
+        from tendermint_tpu_torch.mempool.clist_mempool import CListMempool
+        from tendermint_tpu_torch.proxy import AppConns
+        from tendermint_tpu_torch.state.store import Store
+        from tendermint_tpu_torch.types.params import ConsensusParams
+
+        class App(kvstore.PersistentKVStoreApp):
+            def __init__(self, db):
+                super().__init__(db)
+                self.checked, self.rechecks = [], 0
+
+            def check_tx(self, req):
+                if req.type == 0:
+                    self.checked.append(req.tx)
+                else:
+                    self.rechecks += 1
+                return super().check_tx(req)
+
+        self.app = App(MemDB())
+        self.conns = AppConns(ClientCreator(app=self.app))
+        self.pool = CListMempool(MempoolConfig(admission=mode),
+                                 self.conns.mempool)
+        self.store = Store(MemDB())
+        self.params = ConsensusParams()
+        self.height, self.blocks, self.cycles = 0, [], []
+        self.app_hash = b""
+        self.responses_equal = True
+        self.flushes, self.verdict_s = [], []
+        coll = self.pool.admission.collector
+        real_batch, real_verify = coll._verify_batch, coll.verify
+
+        def recorded(envs):
+            k0 = tv.general_verify.launches
+            t0 = time.perf_counter()
+            out = real_batch(envs)
+            self.flushes.append(dict(
+                n=len(envs), ms=(time.perf_counter() - t0) * 1e3,
+                launches=tv.general_verify.launches - k0, envs=envs,
+                verdicts=[bool(v) for v in out]))
+            return out
+
+        async def timed_verify(env):
+            t0 = time.perf_counter()
+            try:
+                return await real_verify(env)
+            finally:
+                self.verdict_s.append(time.perf_counter() - t0)
+
+        coll._verify_batch, coll.verify = recorded, timed_verify
+
+    async def propose(self) -> None:
+        """lock, reap under the block params, BeginBlock / DeliverTx /
+        EndBlock / Commit on the consensus connection, the responses
+        saved and read back, update with recheck, unlock."""
+        from tendermint_tpu_torch.abci import types as t
+
+        pool, cons = self.pool, self.conns.consensus
+        pool.lock()
+        try:
+            t0 = time.perf_counter()
+            txs = pool.reap_max_bytes_max_gas(self.params.block.max_bytes,
+                                              self.params.block.max_gas)
+            self.height += 1
+            h = self.height
+            bb = await cons.begin_block(t.RequestBeginBlock(
+                header={"height": h}))
+            dtx = [await cons.deliver_tx(t.RequestDeliverTx(tx))
+                   for tx in txs]
+            eb = await cons.end_block(t.RequestEndBlock(h))
+            cm = await cons.commit()
+            resp = {"deliver_txs": dtx, "begin_block": bb, "end_block": eb}
+            self.store.save_abci_responses(h, resp)
+            self.responses_equal &= self.store.load_abci_responses(h) == resp
+            await pool.update(h, txs, dtx)
+            self.blocks.append(txs)
+            self.app_hash = cm.data
+            self.cycles.append(dict(txs=len(txs),
+                                    ms=(time.perf_counter() - t0) * 1e3))
+        finally:
+            pool.unlock()
+
+    async def drive(self, txs, outstanding: int) -> dict:
+        """Submit `txs` with `outstanding` CheckTx calls open, a proposer
+        cycle every ADM_CYCLE admitted txs, backpressure sheds resubmitted
+        once the backlog drains, a last cycle for the rest. Returns the
+        responses, per-tx CheckTx latencies, sheds and seconds."""
+        import asyncio
+
+        from tendermint_tpu_torch.mempool.admission import (
+            AdmissionQueueFullError)
+        from tendermint_tpu_torch.mempool.clist_mempool import (
+            MempoolBusyError, MempoolFullError)
+
+        backpressure = (AdmissionQueueFullError, MempoolBusyError,
+                        MempoolFullError)
+        results, lat = [None] * len(txs), [0.0] * len(txs)
+        sem = asyncio.Semaphore(outstanding)
+        sheds: dict = {}
+        retry: list = []
+        st = {"admitted": 0, "next": ADM_CYCLE, "cycle": None}
+        cycles: list = []
+
+        async def one(i):
+            t0 = time.perf_counter()
+            try:
+                res = await self.pool.check_tx(txs[i])
+                results[i] = res
+                if res.code == 0:
+                    st["admitted"] += 1
+                    if st["admitted"] >= st["next"] and (
+                            st["cycle"] is None or st["cycle"].done()):
+                        st["next"] = st["admitted"] + ADM_CYCLE
+                        st["cycle"] = asyncio.ensure_future(self.propose())
+                        cycles.append(st["cycle"])
+            except backpressure as e:
+                sheds[type(e).__name__] = sheds.get(type(e).__name__, 0) + 1
+                retry.append(i)
+            finally:
+                lat[i] = time.perf_counter() - t0
+                sem.release()
+
+        t0 = time.perf_counter()
+        tasks = []
+        for i in range(len(txs)):
+            await sem.acquire()
+            tasks.append(asyncio.ensure_future(one(i)))
+        await asyncio.gather(*tasks)
+        while retry:
+            await asyncio.gather(*cycles)
+            again, retry[:] = list(retry), []
+            for i in again:
+                await sem.acquire()
+                tasks.append(asyncio.ensure_future(one(i)))
+            await asyncio.gather(*tasks)
+        await asyncio.gather(*cycles)
+        seconds = time.perf_counter() - t0
+        while self.pool.size():
+            await self.propose()
+        return dict(results=results, lat=lat, sheds=sheds, seconds=seconds,
+                    admitted=st["admitted"])
+
+    def close(self) -> None:
+        self.pool.close()
+
+
+def adm_flush_record(f) -> dict:
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+
+    return dict(lanes=f["n"], bucket=tv.lane_bucket(f["n"] + 1)
+                if f["n"] >= 40 else None, launches=f["launches"],
+                ms=f["ms"])
+
+
+def adm_packed(envs):
+    """A flush's lanes as verify_batch packs them: the envelopes, the
+    sentinel lane last, the dummy triple up to the bucket."""
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+    from tendermint_tpu_torch.types import tx_envelope
+
+    spub, smsg, ssig = cbatch._ed_probe_triple()
+    pubs = [e.pub_key for e in envs] + [spub]
+    msgs = [tx_envelope.sign_bytes(e.payload) for e in envs] + [smsg]
+    sigs = [e.signature for e in envs] + [ssig]
+    dp, dm, ds = tv._dummy_triple()
+    pad = tv._chunks(len(pubs))[0] - len(pubs)
+    return pubs + [dp] * pad, msgs + [dm] * pad, sigs + [ds] * pad
+
+
+def adm_k4_ms(envs, dev, reps: int = 10) -> dict:
+    """K4's device time on a flush's packed lanes (device_ms), the host
+    pack and the upload (medians of 3) and the message width."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+
+    lanes = adm_packed(envs)
+    pack_ms, up_ms, packed, t = [], [], None, None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        packed = tv.pack_batch(*lanes)
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        t = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = tv.to_device(packed, dev)
+        torch.cuda.synchronize()
+        up_ms.append((time.perf_counter() - t0) * 1e3)
+    args = (t["ab"], t["sb"], t["msg"], t["nblocks"], t["s_ok"],
+            tv._btab(dev))
+    ok = bool(tv.general_verify(*args)[:len(envs) + 1].all())
+    out = dict(lanes=len(envs) + 1, bucket=int(t["ab"].shape[0]),
+               msg_width=int(packed["msg"].shape[1]),
+               host_bytes=sum(a.nbytes for a in packed.values()),
+               pack_ms=statistics.median(pack_ms),
+               upload_ms=statistics.median(up_ms),
+               k4_ms=device_ms(lambda: tv.general_verify(*args), reps),
+               ok=ok)
+    return out
+
+
+def adm_k4_row(name, envs, dev) -> dict:
+    """K4 on a full admission flush of valid envelopes, packed as
+    verify_batch packs it: the kernels line's row."""
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+
+    t = tv.to_device(tv.pack_batch(*adm_packed(envs)), dev)
+    return k4_row(name, (t["ab"], t["sb"], t["msg"], t["nblocks"],
+                         t["s_ok"], tv._btab(dev)), len(envs) + 1)
+
+
+def admission_phase(dev):
+    """The tx path on the card (docstring, phase 13): the mixed and the
+    strict traffic and the width probe, each through its own node's
+    AdmissionStack. Returns the phase's record and the
+    general_verify_admission row."""
+    import asyncio
+
+    import torch
+
+    from tendermint_tpu_torch.abci import kvstore
+    from tendermint_tpu_torch.abci import types as t
+    from tendermint_tpu_torch.config import MempoolConfig
+    from tendermint_tpu_torch.crypto.cuda import verify as tv
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.libs.overload import CONTROLLER
+    from tendermint_tpu_torch.mempool import admission as adm
+
+    t0 = time.perf_counter()
+    signers = adm_signers(ADM_SIGNERS)
+    mixed, mixed_kinds = adm_mixed_txs(ADM_TXS, signers)
+    strict, strict_kinds = adm_strict_txs(ADM_STRICT, ADM_STRICT_BAD, signers)
+    max_tx = MempoolConfig().max_tx_bytes
+    probes = [adm_probe_txs(signers, w) for w in (ADM_WIDE, max_tx)]
+    setup_s = time.perf_counter() - t0
+    stacks = {"mixed": AdmissionStack("permissive"),
+              "strict": AdmissionStack("strict"),
+              "probe": AdmissionStack("permissive")}
+    runs, queues = {}, {}
+
+    async def drive():
+        for name, txs in (("mixed", mixed), ("strict", strict)):
+            await stacks[name].conns.start()
+            queues[name] = sorted(CONTROLLER.evaluate()["queues"])
+            runs[name] = await stacks[name].drive(txs, ADM_OUTSTANDING)
+        await stacks["probe"].conns.start()
+        runs["probe"] = [await stacks["probe"].drive(txs, len(txs))
+                         for txs in probes]
+        for st in stacks.values():
+            await st.conns.stop()
+
+    kernels = wrappers()
+    metrics0 = {k: dict(v) for k, v in adm.METRICS.items()}
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    asyncio.run(drive())
+    run_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items() if f.launches}
+    for st in stacks.values():
+        st.close()
+    metrics = {k: {b: n - metrics0[k].get(b, 0) for b, n in v.items()
+                   if n != metrics0[k].get(b, 0)}
+               for k, v in adm.METRICS.items()}
+    flushes = [f for st in stacks.values() for f in st.flushes]
+
+    # the host oracle on every enveloped tx's verdict
+    t0 = time.perf_counter()
+    want = host_oracle([e for f in flushes for e in f["envs"]])
+    oracle_s = time.perf_counter() - t0
+    got = [v for f in flushes for v in f["verdicts"]]
+
+    def committed(st):
+        out = {}
+        for block in st.blocks:
+            for tx in block:
+                out[tx] = out.get(tx, 0) + 1
+        return out
+
+    def fresh_app_hash(st):
+        app = kvstore.PersistentKVStoreApp(MemDB())
+        for h, block in enumerate(st.blocks, 1):
+            app.begin_block(t.RequestBeginBlock(header={"height": h}))
+            for tx in block:
+                app.deliver_tx(t.RequestDeliverTx(tx))
+            app.end_block(t.RequestEndBlock(h))
+            app.commit(t.RequestCommit())
+        return app.app_hash, app.height
+
+    def traffic_checks(name, txs, kinds):
+        st, r = stacks[name], runs[name]
+        done = committed(st)
+        res = r["results"]
+        want_shed = {"garbage": "admission: bad_signature",
+                     "unsigned": "admission: unsigned",
+                     "malformed": "admission: malformed"}
+        checked = set(st.app.checked)
+        admitted = sum(k in ("valid", "raw") for k in kinds)
+        return {
+            "admitted_once": all(
+                res[i].code == 0 and done.get(tx) == 1
+                for i, (tx, k) in enumerate(zip(txs, kinds))
+                if k in ("valid", "raw")),
+            "shed": all(res[i].code == adm.CODE_ADMISSION_REJECT
+                        and res[i].log == want_shed[k] and tx not in done
+                        and tx not in checked
+                        for i, (tx, k) in enumerate(zip(txs, kinds))
+                        if k in want_shed),
+            "app_checks": len(st.app.checked) == admitted,
+            "committed": sum(done.values()) == r["admitted"] == admitted,
+            "app_hash": fresh_app_hash(st) == (st.app_hash, st.height),
+            "responses": st.responses_equal,
+            "k4_per_flush": all(f["launches"] == (1 if f["n"] >= 40 else 0)
+                                for f in st.flushes),
+            "pool_empty": st.pool.size() == 0,
+        }
+
+    n_env = (sum(k in ("garbage", "valid") for k in mixed_kinds) + ADM_STRICT
+             + 2 * (ADM_PROBE_SMALL + 1))
+    checks = {
+        "mixed": traffic_checks("mixed", mixed, mixed_kinds),
+        "strict": traffic_checks("strict", strict, strict_kinds),
+        "probe": all(res.code == 0 for r in runs["probe"]
+                     for res in r["results"])
+        and [f["n"] for f in stacks["probe"].flushes] == [
+            ADM_PROBE_SMALL + 1] * 2
+        and fresh_app_hash(stacks["probe"]) == (
+            stacks["probe"].app_hash, stacks["probe"].height),
+        "oracle": got == want and len(got) == n_env,
+        "launches": launches == {"general_verify": sum(
+            f["n"] >= 40 for f in flushes)}
+        and all(f["launches"] == (f["n"] >= 40) for f in flushes),
+        "metrics": metrics["verify_launches"].get("device", 0) == sum(
+            f["n"] >= 40 for f in flushes)
+        and metrics["verify_launches"].get("host", 0) == sum(
+            f["n"] < 40 for f in flushes)
+        and set(metrics["verify_launches"]) <= {"device", "host"},
+        "queues": all({"mempool.pool", "mempool.preverify"} <= set(q)
+                      for q in queues.values()),
+        "no_backpressure": not runs["mixed"]["sheds"]
+        and not runs["strict"]["sheds"],
+    }
+    if not all(v if isinstance(v, bool) else all(v.values())
+               for v in checks.values()):
+        raise AssertionError(f"admission: {checks}, launches {launches}, "
+                             f"metrics {metrics}, backpressure "
+                             f"{runs['mixed']['sheds']} "
+                             f"{runs['strict']['sheds']}")
+
+    # K4 at each bucket the flushes used (the widest flush of each), and
+    # at the width probe's two flushes
+    widest: dict = {}
+    for f in stacks["strict"].flushes + stacks["mixed"].flushes:
+        if f["n"] >= 40:
+            b = tv.lane_bucket(f["n"] + 1)
+            if f["n"] > widest.get(b, {"n": -1})["n"]:
+                widest[b] = f
+    k4_by_bucket = {b: adm_k4_ms(f["envs"], dev)
+                    for b, f in sorted(widest.items())}
+    probe = []
+    for f in stacks["probe"].flushes:
+        probe.append(adm_k4_ms(f["envs"], dev, reps=3))
+        torch.cuda.empty_cache()
+    full = next(f for f in stacks["strict"].flushes
+                if f["n"] == MempoolConfig().admission_batch)
+    row = adm_k4_row("general_verify_admission", full["envs"], dev)
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 if xs else None
+
+    def traffic(name):
+        st, r = stacks[name], runs[name]
+        return dict(
+            txs=len(r["results"]), admitted=r["admitted"],
+            seconds=r["seconds"], admitted_per_s=r["admitted"] / r["seconds"],
+            sheds=dict(st.pool.admission.sheds), backpressure=r["sheds"],
+            flushes=[adm_flush_record(f) for f in st.flushes],
+            flush_ms_p50=statistics.median(f["ms"] for f in st.flushes),
+            verdict_p50_ms=pct(st.verdict_s, 0.5),
+            verdict_p99_ms=pct(st.verdict_s, 0.99),
+            check_tx_p50_ms=pct(r["lat"], 0.5),
+            check_tx_p99_ms=pct(r["lat"], 0.99),
+            cycles=st.cycles, app_rechecks=st.app.rechecks)
+
+    cfg = MempoolConfig()
+    out = dict(
+        config=dict(size=cfg.size, cache_size=cfg.cache_size,
+                    admission_batch=cfg.admission_batch,
+                    admission_flush_ms=cfg.admission_flush_ms,
+                    admission_queue=cfg.admission_queue,
+                    checktx_max_inflight=cfg.checktx_max_inflight,
+                    outstanding=ADM_OUTSTANDING, signers=ADM_SIGNERS),
+        setup_s=setup_s, run_s=run_s, oracle_s=oracle_s,
+        mixed=traffic("mixed"), strict=traffic("strict"),
+        probe=dict(flushes=[adm_flush_record(f)
+                            for f in stacks["probe"].flushes],
+                   k4=probe, wide_bytes=[ADM_WIDE, max_tx]),
+        k4_by_bucket=k4_by_bucket, collector_metrics=metrics,
+        launches=launches, checks=checks)
+    return out, row
+
+
+# -- phase 14 ------------------------------------------------------------
 
 
 def timing_phase(vs, commit, dev) -> list[dict]:
@@ -4732,6 +5387,12 @@ def main() -> int:
     no_fallback("light_client", state)
     emit(dict(phase="light_client", seconds=time.perf_counter() - t0,
               card=smi, **light_client))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    admission, admission_row = admission_phase(torch.device("cuda"))
+    no_fallback("admission", state)
+    emit(dict(phase="admission", seconds=time.perf_counter() - t0,
+              card=smi, **admission))
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -4739,7 +5400,8 @@ def main() -> int:
     rows.append(k4_mixed_row(mvs, mcommit, torch.device("cuda")))
     rows.append(k5)
     rows += k8
-    rows += [window_row, votes_row, *light_rows, *light_client_rows]
+    rows += [window_row, votes_row, *light_rows, *light_client_rows,
+             admission_row]
     no_fallback("timing", state)
     t0 = time.perf_counter()
     run_child("fault")
@@ -4754,7 +5416,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
-                 light_client):
+                 light_client, admission):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -30,6 +30,57 @@ class ConsensusConfig:
 
 
 @dataclass
+class MempoolConfig:
+    """The mempool section (reference: config.py:147 MempoolConfig):
+    every field, the admission plane's knobs among them."""
+
+    recheck: bool = True
+    broadcast: bool = True
+    wal_dir: str = ""
+    size: int = 5000
+    max_txs_bytes: int = 1073741824
+    cache_size: int = 10000
+    keep_invalid_txs_in_cache: bool = False
+    max_tx_bytes: int = 1048576
+    # CheckTx admission control: reject with MempoolBusyError when
+    # this many CheckTx requests are already in flight on the ABCI
+    # mempool connection (0 = unlimited) — a saturated app window must
+    # shed new admissions, not queue them unboundedly.
+    checktx_max_inflight: int = 1024
+    # Device-offloaded signature pre-verification in front of CheckTx
+    # (mempool/admission.py): txs carrying a types/tx_envelope.py
+    # signature envelope are coalesced into batched ed25519 verify
+    # launches and only signature-valid txs pay the ABCI round trip.
+    #   off        — no envelope processing at all
+    #   permissive — enveloped txs are pre-verified; unsigned txs pass
+    #                through to CheckTx untouched (default)
+    #   strict     — unsigned txs are shed too (signed-only chains)
+    admission: str = "permissive"
+    # micro-batch collector: flush a verify batch at this many txs ...
+    admission_batch: int = 256
+    # ... or this many ms after the first tx arrives, whichever first
+    admission_flush_ms: float = 2.0
+    # pre-verify backlog bound (pending + in-verify txs); the newest
+    # arrival is shed with a 429-style error when full
+    admission_queue: int = 2048
+
+    def validate_basic(self) -> None:
+        if self.size < 0 or self.cache_size < 0 or self.max_tx_bytes < 0:
+            raise ValueError("negative mempool limits")
+        if self.checktx_max_inflight < 0:
+            raise ValueError("negative checktx_max_inflight")
+        if self.admission not in ("off", "permissive", "strict"):
+            raise ValueError(
+                f"mempool.admission must be off|permissive|strict, "
+                f"not {self.admission!r}")
+        if self.admission_batch < 1 or self.admission_queue < 1:
+            raise ValueError(
+                "admission_batch and admission_queue must be positive")
+        if self.admission_flush_ms < 0:
+            raise ValueError("negative admission_flush_ms")
+
+
+@dataclass
 class LightConfig:
     """Light-client serving plane (light/serving.py): knobs for the
     shared verification plane requests run through."""

@@ -1,6 +1,7 @@
 """Named failpoints (reference: libs/failpoints.py), trimmed to the
-points of the device path, the light serving plane and the block store,
-and to the `error`, `delay` and `corrupt` actions.
+points of the device path, the light serving plane, the block store,
+the ABCI connections and the mempool admission plane, and to the
+`error`, `delay` and `corrupt` actions.
 
     error         raise FailpointError(name) from the call site
     delay         time.sleep(delay_ms) at the call site (stall shape)
@@ -12,7 +13,7 @@ A trigger decides which armed hits fire: ``nth=N`` only the N-th
 (1-based), ``count=N`` disarm after N fires; with none, every hit
 fires. Arm with ``arm(name, action, nth=..., delay_ms=...)``;
 ``hit(name, payload)`` is the call-site hook, a dict lookup when
-nothing is armed.
+nothing is armed; ``hit_async`` is its form for coroutine call sites.
 """
 
 from __future__ import annotations
@@ -45,6 +46,14 @@ CATALOG: dict[str, bool] = {
     # a block about to be persisted to the block store (store/__init__.py:
     # one atomic batch of meta, parts, commits and the store's state)
     "store.save_block": False,
+    # an ABCI request leaving a proxy connection (proxy/__init__.py
+    # instrument_client: every client type shares it)
+    "abci.deliver": False,
+    # the admission plane's batched tx-signature verification launch
+    # (mempool/admission.py, device or host backend): `delay` models a
+    # slow verify so the pre-verify queue backs up and sheds, `error` a
+    # failed launch that degrades to the host oracle
+    "mempool.admission.verify": False,
 }
 
 
@@ -145,6 +154,25 @@ def hit(name: str, payload: bytes | None = None):
     action = armed.action
     if action == "delay":
         time.sleep(armed.delay_ms / 1000.0)
+        return payload
+    if action == "corrupt" and payload is not None:
+        return _corrupt_bytes(payload)
+    raise FailpointError(name)
+
+
+async def hit_async(name: str, payload: bytes | None = None):
+    """hit() for coroutine call sites (abci.deliver): the `delay` action
+    awaits asyncio.sleep instead of blocking the event loop, so an
+    injected stall slows the targeted component the way a real slow app
+    would while the rest of the loop keeps running."""
+    armed = _fires(name)
+    if armed is None:
+        return payload
+    action = armed.action
+    if action == "delay":
+        import asyncio
+
+        await asyncio.sleep(armed.delay_ms / 1000.0)
         return payload
     if action == "corrupt" and payload is not None:
         return _corrupt_bytes(payload)

@@ -4,18 +4,19 @@ libs/overload.py), trimmed to the aggregate controller.
 Every queue that can grow under external input is bounded, counts what
 it sheds, and registers with the process-global ``CONTROLLER``, which
 aggregates saturation into one ok/pressured/shedding level. The port's
-two tracked queues so far are the vote scheduler's buffer
-(``consensus.vote_buf``, consensus/state.py) and the light verify
-collector's backlog (``light.pending_verify``, light/serving.py).
+tracked queues so far are the vote scheduler's buffer
+(``consensus.vote_buf``, consensus/state.py), the light verify
+collector's backlog (``light.pending_verify``, light/serving.py), the
+mempool (``mempool.pool``, mempool/clist_mempool.py) and its admission
+pre-verify backlog (``mempool.preverify``, mempool/admission.py).
 
 The reference also exports depth/capacity gauges and a shed counter
 through its metrics library; the port keeps the shed counts in
 ``OverloadController.sheds``, a plain dict (crypto/batch.py METRICS
 convention). PriorityFunnel, DropOldestQueue and the slow-peer
-bookkeeping come with the p2p and mempool ports, and with them the
-reference's advisory queues and sheds (reported, not driving the
-level) and its configurable shed window: neither tracked queue here is
-advisory.
+bookkeeping come with the p2p port, and with them the reference's
+advisory queues and sheds (reported, not driving the level) and its
+configurable shed window: no tracked queue here is advisory.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ signed header (header + commit) and the validator set that signed it.
 LightClientAttackEvidence proves a set of validators signed a
 conflicting light block: the light client's detector builds it on
 witness/primary divergence and full nodes verify it against their own
-chain, punishing the signers via ABCI. The detector, that verification
-and the ABCI form (to_abci) come with later slices of the port."""
+chain, punishing the signers via ABCI (to_abci, the BeginBlock
+byzantine_validators entries). The detector is light/client.py's; the
+verification, evidence/verify.py's."""
 
 from __future__ import annotations
 
@@ -239,6 +240,23 @@ class LightClientAttackEvidence(Evidence):
                 f"conflicting block height {sh.header.height}")
         sh.header.validate_basic()
         sh.commit.validate_basic()
+
+    def to_abci(self) -> list:
+        """BeginBlock byzantine_validators entries, one a byzantine
+        validator (reference: light/types.py:242)."""
+        from ..abci.types import Misbehavior
+
+        return [
+            Misbehavior(
+                type="LIGHT_CLIENT_ATTACK",
+                validator_address=v.address,
+                validator_power=v.voting_power,
+                height=self.common_height,
+                time=self.timestamp,
+                total_voting_power=self.total_voting_power,
+            )
+            for v in self.byzantine_validators
+        ]
 
     def to_proto(self) -> Writer:
         w = Writer()

@@ -2,16 +2,16 @@
 
 Persists: the current State, validator sets (a full set a height; the
 reference's pruning keeps every VALSET_CHECKPOINT-th, Go
-state/store.go:458 lastStoredHeightFor) and consensus params, under
-the reference's keys and JSON bytes. The per-height ABCI responses
-(reference :193-228) come with the port's ABCI types; pruning deletes
-their keys all the same."""
+state/store.go:458 lastStoredHeightFor), consensus params and the
+per-height ABCI responses (reference :193-225), under the reference's
+keys and JSON bytes."""
 
 from __future__ import annotations
 
 import json
 import struct
 
+from ..abci import types as abci_types
 from ..libs.db import DB
 from ..types.block import BlockID, PartSetHeader
 from ..types.params import ConsensusParams
@@ -185,6 +185,42 @@ class Store:
         if raw is None:
             return None
         return ConsensusParams.from_json(json.loads(raw)["params"])
+
+    # -- ABCI responses (reference state/store.py:193,212) --
+
+    def save_abci_responses(self, height: int, responses: dict) -> None:
+        """responses: {"deliver_txs": [ResponseDeliverTx], "begin_block":
+        ResponseBeginBlock, "end_block": ResponseEndBlock}."""
+        self.db.set(
+            b"abciResponsesKey:" + _h(height),
+            json.dumps({
+                "deliver_txs": [
+                    abci_types.encode_msg(r).decode()
+                    for r in responses.get("deliver_txs", [])
+                ],
+                "begin_block": abci_types.encode_msg(
+                    responses["begin_block"]
+                ).decode() if responses.get("begin_block") else None,
+                "end_block": abci_types.encode_msg(
+                    responses["end_block"]
+                ).decode() if responses.get("end_block") else None,
+            }).encode(),
+        )
+
+    def load_abci_responses(self, height: int) -> dict | None:
+        raw = self.db.get(b"abciResponsesKey:" + _h(height))
+        if raw is None:
+            return None
+        d = json.loads(raw)
+        return {
+            "deliver_txs": [
+                abci_types.decode_msg(s.encode()) for s in d["deliver_txs"]
+            ],
+            "begin_block": abci_types.decode_msg(d["begin_block"].encode())
+                if d["begin_block"] else None,
+            "end_block": abci_types.decode_msg(d["end_block"].encode())
+                if d["end_block"] else None,
+        }
 
     # -- pruning (Go reference state/store.go:223) --
 

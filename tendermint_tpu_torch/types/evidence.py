@@ -3,8 +3,8 @@ duplicate-vote half that the port verifies (two conflicting votes from
 one validator at the same height, round and type), its wire encoding
 and hash, and a block's EvidenceData. Verification lives in
 evidence/verify.py and uses the BatchVerifier. Light-client-attack evidence
-lives in light/types.py and decodes here; the ABCI form comes with a
-later slice of the port."""
+lives in light/types.py and decodes here. Both kinds give their ABCI
+form (to_abci: abci/types.py Misbehavior entries)."""
 
 from __future__ import annotations
 
@@ -72,6 +72,20 @@ class DuplicateVoteEvidence(Evidence):
 
     def hash(self) -> bytes:
         return tmhash.sum256(self.to_bytes())
+
+    def to_abci(self) -> list:
+        """BeginBlock byzantine_validators entries (reference:
+        types/evidence.py:72; Go types/evidence.go ABCI())."""
+        from ..abci.types import Misbehavior
+
+        return [Misbehavior(
+            type="DUPLICATE_VOTE",
+            validator_address=self.vote_a.validator_address,
+            validator_power=self.validator_power,
+            height=self.vote_a.height,
+            time=self.timestamp,
+            total_voting_power=self.total_voting_power,
+        )]
 
     def validate_basic(self) -> None:
         if self.vote_a is None or self.vote_b is None:
