@@ -187,7 +187,37 @@ Phases, each printing one JSON line:
    bucket the flushes used and at the probe's two flushes (pack, upload,
    device ms, message width) and the general_verify_admission row (a
    full strict flush: 257 live lanes of 512). No kernel is added;
-14. timing — each kernel at the main path's shapes: its device time a
+14. execution — the commit pipeline (BlockExecutor.apply_block) at
+   10,000 validators (MAX_VOTES_COUNT, the most signatures a block's
+   LastCommit may hold): a genesis of 10,000 ed25519 validators (MockPV
+   keys from seeds) started by reconcile_and_handshake (InitChain) on a
+   PersistentKVStoreApp behind AppConns, with a CListMempool at
+   MempoolConfig's defaults, an evidence Pool, an EventBus and an
+   IndexerService. Counters zeroed before and read after. Six clean
+   heights: 64 signed envelopes (one admission flush, one K4 launch)
+   and 32 raw kvstore txs a height through check_tx, reaped by
+   create_proposal_block, the 10,000 precommits signed on the host,
+   save_block and apply_block, whose validate_block checks each
+   LastCommit by one structured K3 launch; `val:` txs at height 2 add
+   a validator and remove one, so the changed set's tables are built
+   by K1 in the warm thread before its first commit (height 4's) is
+   verified under it. A block whose LastCommit has one flipped
+   signature is rejected with BlockValidationError naming the lane
+   (the host oracle agrees) and the state, both stores, the app hash
+   untouched and no BeginBlock. Two more heights with a
+   SpeculationPlane fed the LastCommit's precommits (K6 + K7 a burst),
+   served with no K3 launch. Crash recovery over FileDBs: the pipeline
+   cut at state.apply.responses_saved and at state.apply.app_committed
+   while applying height 3, every store reopened from disk,
+   reconcile_and_handshake repairing with exactly state_reapply /
+   state_from_responses (one K3 launch each) to the clean run's app
+   hash, then one more height. The tx indexer finds every tx at its
+   height; every block, app hash, last_results_hash and state store
+   digest equals a child's (`--phase execution_host`, run alongside)
+   that builds the same chain with crypto.batch's host route forced
+   and no kernel; each height's apply_block time and its split, the
+   p50, the K1 build and whether its warm thread was done in time;
+15. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -205,12 +235,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-15. fault — in a child (`--phase fault`; a sticky fault poisons the
+16. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-16. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+17. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -472,6 +502,29 @@ ADM_CYCLE = 2_000
 ADM_PROBE_SMALL = 255
 ADM_WIDE = 64 * 1024
 ADM_ORACLE_WORKERS = 8
+# The execution phase (commit pipeline): a genesis of EXEC_VALIDATORS
+# ed25519 validators (MockPV keys derived from seeds, as make_node_chain
+# derives them) over a PersistentKVStoreApp; EXEC_HEIGHTS clean heights,
+# each with EXEC_ENVELOPES signed envelopes (one admission flush) and
+# EXEC_RAW raw kvstore txs through check_tx; at EXEC_CHANGE_AT `val:`
+# txs add one validator and remove one (in force at EXEC_CHANGE_AT + 2);
+# then one forged LastCommit, and EXEC_SPEC_HEIGHTS heights whose
+# LastCommit a fed SpeculationPlane serves. Crash recovery at
+# EXEC_CRASH_H over FileDBs, at each point of EXEC_CRASHES.
+# 10,000, not N_VALIDATORS: a block's LastCommit may hold at most
+# MAX_VOTES_COUNT signatures (types/block.py Commit.validate_basic, the
+# reference's rule and the Go reference's MaxVotesCount), so no block
+# of a 10,240-validator chain past the first validates.
+EXEC_VALIDATORS = 10_000
+EXEC_HEIGHTS = 6
+EXEC_SPEC_HEIGHTS = 2
+EXEC_ENVELOPES = 64
+EXEC_RAW = 32
+EXEC_CHANGE_AT = 2
+EXEC_CRASH_H = 3
+EXEC_CRASHES = {"state.apply.responses_saved": ["state_reapply"],
+                "state.apply.app_committed": ["state_from_responses"]}
+EXEC_T0 = 1_760_000_000_000_000_000
 # Objects a later step of the same process reads: the kernels check's
 # arena (sweep_warps.py times K7 on it).
 KEEP: dict = {}
@@ -4628,7 +4681,711 @@ def admission_phase(dev):
     return out, row
 
 
-# -- phase 14 ------------------------------------------------------------
+# -- phase 14: execution ---------------------------------------------------
+
+
+def exec_keys(n: int):
+    """n + 1 MockPVs (the last key joins the set at EXEC_CHANGE_AT), their
+    keys derived from seeds as make_node_chain derives its keys."""
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+
+    return [MockPV(ed25519.Ed25519PrivKey(
+        hashlib.sha256(b"exec-val-%d" % i).digest())) for i in range(n + 1)]
+
+
+def exec_genesis(pvs):
+    """The genesis of every pvs key but the last, of power 10 each."""
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    return GenesisDoc(chain_id=CHAIN, genesis_time=EXEC_T0,
+                      validators=[GenesisValidator(pv.get_pub_key(), 10)
+                                  for pv in pvs[:-1]])
+
+
+def db_digest(db) -> str:
+    h = hashlib.sha256()
+    for k, v in db.iterate():
+        h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big") + v)
+    return h.hexdigest()[:16]
+
+
+class ExecNode:
+    """One node of the commit pipeline (docstring, phase 14): a state
+    Store and a BlockStore, a PersistentKVStoreApp that counts its
+    BeginBlocks, AppConns over LocalClients, and, when `full`, a
+    CListMempool at MempoolConfig's defaults (the admission plane in
+    front of CheckTx), an evidence Pool and an EventBus with an
+    IndexerService; a BlockExecutor over them. start() runs
+    reconcile_and_handshake."""
+
+    def __init__(self, pvs, dbs=None, full: bool = True):
+        from tendermint_tpu_torch.abci import kvstore
+        from tendermint_tpu_torch.libs.db import MemDB
+        from tendermint_tpu_torch.state.store import Store
+        from tendermint_tpu_torch.store import BlockStore
+
+        class App(kvstore.PersistentKVStoreApp):
+            def begin_block(self, req):
+                self.begin_blocks = getattr(self, "begin_blocks", 0) + 1
+                return super().begin_block(req)
+
+        self.pvs = pvs
+        self.pv_of = {pv.get_pub_key().address(): pv for pv in pvs}
+        self.dbs = dbs or (MemDB(), MemDB(), MemDB())
+        self.ss, self.bs = Store(self.dbs[0]), BlockStore(self.dbs[1])
+        self.app = App(self.dbs[2])
+        self.full = full
+        self.last_commit = None
+
+    async def start(self) -> "ExecNode":
+        from tendermint_tpu_torch.abci.client import ClientCreator
+        from tendermint_tpu_torch.config import MempoolConfig
+        from tendermint_tpu_torch.consensus.replay import reconcile_and_handshake
+        from tendermint_tpu_torch.evidence import Pool
+        from tendermint_tpu_torch.libs.db import MemDB
+        from tendermint_tpu_torch.mempool.clist_mempool import CListMempool
+        from tendermint_tpu_torch.proxy import AppConns
+        from tendermint_tpu_torch.state.execution import BlockExecutor
+        from tendermint_tpu_torch.state.txindex import (BlockIndexer,
+                                                        IndexerService,
+                                                        TxIndexer)
+        from tendermint_tpu_torch.types.events import EventBus
+
+        self.conns = AppConns(ClientCreator(app=self.app))
+        await self.conns.start()
+        self.bus = self.indexer = self.mempool = self.evpool = None
+        if self.full:
+            self.bus = EventBus()
+            self.indexer = IndexerService(TxIndexer(MemDB()), self.bus,
+                                          BlockIndexer(MemDB()))
+            self.indexer.start()
+        t0 = time.perf_counter()
+        self.state, self.report = await reconcile_and_handshake(
+            None, self.ss, self.bs, exec_genesis(self.pvs), self.conns,
+            event_bus=self.bus)
+        self.handshake_s = time.perf_counter() - t0
+        if self.full:
+            self.mempool = CListMempool(MempoolConfig(), self.conns.mempool)
+            self.evpool = Pool(MemDB(), self.ss, self.bs)
+        self.executor = BlockExecutor(self.ss, self.conns.consensus,
+                                      mempool=self.mempool,
+                                      evidence_pool=self.evpool,
+                                      event_bus=self.bus)
+        if self.state.last_block_height:
+            self.last_commit = self.bs.load_seen_commit(
+                self.state.last_block_height)
+        return self
+
+    async def settle(self) -> None:
+        """Let the indexer's tasks take every event published so far."""
+        import asyncio
+
+        subs = [self.indexer._sub, self.indexer._blk_sub]
+        idle = 0
+        while idle < 16:  # a message takes a few loop turns past its get
+            await asyncio.sleep(0)
+            idle = 0 if any(not s.queue.empty() for s in subs) else idle + 1
+
+    async def stop(self) -> None:
+        if self.full:
+            await self.settle()
+            self.indexer.stop()
+            self.mempool.close()
+        await self.conns.stop()
+
+    def sign_commit(self, vals, height: int, bid, ts: int):
+        """Every validator of `vals` precommits bid at height, round 0, at
+        time ts, signed by its MockPV (OpenSSL where the host has it)."""
+        from tendermint_tpu_torch.types.block import (BlockIDFlag, Commit,
+                                                      CommitSig)
+        from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+        sigs = []
+        for i, v in enumerate(vals.validators):
+            vote = Vote(type=VoteType.PRECOMMIT, height=height, round=0,
+                        block_id=bid, timestamp=ts,
+                        validator_address=v.address, validator_index=i)
+            self.pv_of[v.address].sign_vote(CHAIN, vote)
+            sigs.append(CommitSig(BlockIDFlag.COMMIT, v.address, ts,
+                                  vote.signature))
+        return Commit(height, 0, bid, sigs)
+
+    async def admit(self, h: int, signers) -> list[int]:
+        """Height h's txs through check_tx: EXEC_ENVELOPES signed envelopes
+        at once (one admission flush), then EXEC_RAW raw kvstore txs and,
+        at EXEC_CHANGE_AT, the `val:` txs that add the last key and remove
+        the fourth. The responses' codes."""
+        import asyncio
+
+        from tendermint_tpu_torch.abci.kvstore import encode_validator_tx
+        from tendermint_tpu_torch.types import tx_envelope
+
+        envs = [tx_envelope.sign_tx(signers[i], b"env%d-%d=%d" % (h, i, h * i))
+                for i in range(EXEC_ENVELOPES)]
+        raw = [b"raw%d-%d=%d" % (h, i, i) for i in range(EXEC_RAW)]
+        if h == EXEC_CHANGE_AT:
+            raw += [encode_validator_tx(
+                self.pvs[-1].get_pub_key().bytes().hex(), 10),
+                encode_validator_tx(self.pvs[3].get_pub_key().bytes().hex(), 0)]
+        codes = []
+        for txs in (envs, raw):  # in turn: a deterministic mempool order
+            res = await asyncio.gather(*(self.mempool.check_tx(tx)
+                                         for tx in txs))
+            codes += [r.code for r in res]
+        return codes
+
+    def propose(self):
+        st = self.state
+        return self.executor.create_proposal_block(
+            st.last_block_height + 1, st, self.last_commit,
+            st.validators.get_proposer().address)
+
+    async def apply(self, block, parts, seen):
+        """save_block, then apply_block, as consensus commits a height."""
+        from tendermint_tpu_torch.types.block import BlockID
+
+        if self.bs.height < block.header.height:
+            self.bs.save_block(block, parts, seen)
+        bid = BlockID(block.hash(), parts.header())
+        self.state, _ = await self.executor.apply_block(self.state, bid, block)
+        self.last_commit = seen
+
+
+def pipeline_timer(node):
+    """Wrap the steps apply_block takes (validate_block, and within it
+    ValidatorSet.hash, verify_commit and median_time; the ABCI exec, and
+    within it the stored validator set's load; the responses save;
+    update_state; Commit with the mempool update; the evidence pool's
+    update; the state save; the events) for the length of a `with`; each
+    step's ms accumulates in the dict it yields (a speculated height adds
+    serve_commit, exec_speculated), and `gc` sums the garbage collector's
+    pauses, inside whichever step they fell."""
+    import contextlib
+    import gc
+
+    from tendermint_tpu_torch.state import execution, validation
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    acc: dict = {}
+    inside = {"validate": False}
+
+    def add(step, t0):
+        acc[step] = acc.get(step, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    def timed(step, fn, in_validate=False):
+        def run(*a, **kw):
+            if in_validate and not inside["validate"]:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                add(step, t0)
+        return run
+
+    def timed_async(step, fn):
+        async def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return await fn(*a, **kw)
+            finally:
+                add(step, t0)
+        return run
+
+    real_validate = execution.validate_block
+
+    def validate(*a, **kw):
+        inside["validate"] = True
+        t0 = time.perf_counter()
+        try:
+            return real_validate(*a, **kw)
+        finally:
+            inside["validate"] = False
+            add("validate", t0)
+
+    ex = node.executor
+    module_patches = [
+        (execution, "validate_block", validate),
+        (ValidatorSet, "hash", timed("valset_hash", ValidatorSet.hash, True)),
+        (ValidatorSet, "verify_commit",
+         timed("verify_commit", ValidatorSet.verify_commit, True)),
+        (validation, "median_time",
+         timed("median_time", validation.median_time, True)),
+        (execution, "update_state",
+         timed("update_state", execution.update_state))]
+    instance_patches = [
+        (ex, "_exec_block_on_proxy_app",
+         timed_async("exec", ex._exec_block_on_proxy_app)),
+        (ex, "_commit", timed_async("commit", ex._commit)),
+        (ex, "_fire_events", timed("events", ex._fire_events)),
+        (node.ss, "save_abci_responses",
+         timed("responses_save", node.ss.save_abci_responses)),
+        # build_last_commit_info's stored set of height - 1, in the exec
+        (node.ss, "load_validators",
+         timed("load_validators", node.ss.load_validators)),
+        (node.ss, "save", timed("state_save", node.ss.save))]
+    if node.evpool is not None:
+        instance_patches.append((node.evpool, "update",
+                                 timed("evidence_update", node.evpool.update)))
+
+    gc_start = []
+
+    def gc_pause(phase, info):
+        # the collector's pauses, whichever step (or thread) they hit
+        if phase == "start":
+            gc_start.append(time.perf_counter())
+        elif gc_start:
+            add("gc", gc_start.pop())
+
+    @contextlib.contextmanager
+    def installed():
+        saved = [(o, n, getattr(o, n)) for o, n, _ in module_patches]
+        for o, n, fn in module_patches + instance_patches:
+            setattr(o, n, fn)
+        gc.callbacks.append(gc_pause)
+        try:
+            yield acc
+        finally:
+            gc.callbacks.remove(gc_pause)
+            for o, n, fn in saved:
+                setattr(o, n, fn)
+            for o, n, _ in instance_patches:
+                delattr(o, n)
+
+    return installed()
+
+
+def exec_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def exec_delta(before: dict) -> dict:
+    now = exec_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+async def exec_height(node, h: int, signers, acc=None) -> dict:
+    """One clean height: admit its txs, reap them into the proposer's
+    block, sign the set's precommits on the host, save_block and
+    apply_block. The height's record (times in ms, each step's launches)
+    and its (block, parts, seen commit)."""
+    import torch
+
+    from tendermint_tpu_torch.types.block import BlockID
+
+    k0 = exec_counts()
+    t0 = time.perf_counter()
+    codes = await node.admit(h, signers)
+    admit_ms = (time.perf_counter() - t0) * 1e3
+    if any(codes):
+        raise AssertionError(f"height {h}: a tx was refused: {codes}")
+    admit_launches = exec_delta(k0)
+    t0 = time.perf_counter()
+    block = node.propose()
+    parts = block.make_part_set()
+    bid = BlockID(block.hash(), parts.header())
+    propose_ms = (time.perf_counter() - t0) * 1e3
+    if len(block.data.txs) != len(codes):
+        raise AssertionError(f"height {h}: {len(block.data.txs)} txs reaped "
+                             f"of {len(codes)}")
+    t0 = time.perf_counter()
+    seen = node.sign_commit(node.state.validators, h, bid,
+                            block.header.time + 1_000_000_000)
+    sign_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    node.bs.save_block(block, parts, seen)
+    save_block_ms = (time.perf_counter() - t0) * 1e3
+    if acc is not None:
+        acc.clear()
+    k1 = exec_counts()
+    t0 = time.perf_counter()
+    await node.apply(block, parts, seen)
+    if torch.cuda.is_initialized():  # the host run never touches the card
+        torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    st = node.state
+    if st.app_hash != node.app.app_hash or st.last_block_height != h:
+        raise AssertionError(f"height {h}: state and app disagree")
+    return dict(height=h, txs=len(block.data.txs),
+                validators=len(st.validators), admit_ms=admit_ms,
+                admit_launches=admit_launches, propose_ms=propose_ms,
+                sign_ms=sign_ms, save_block_ms=save_block_ms,
+                apply_block_ms=apply_ms, apply_at=t0,
+                split_ms=dict(acc) if acc is not None else None,
+                apply_launches=exec_delta(k1),
+                block_hash=block.hash().hex(), app_hash=st.app_hash.hex(),
+                last_results_hash=st.last_results_hash.hex(),
+                state_db=db_digest(node.dbs[0])), (block, parts, seen)
+
+
+async def exec_clean_chain(pvs, signers, node=None, timer=None):
+    """EXEC_HEIGHTS clean heights on a started full node (or a fresh
+    one): the records and each height's (block, parts, seen)."""
+    node = node or await ExecNode(pvs).start()
+    records, blocks = [], {}
+    for h in range(1, EXEC_HEIGHTS + 1):
+        rec, blocks[h] = await exec_height(node, h, signers, timer)
+        records.append(rec)
+    return node, records, blocks
+
+
+def exec_host_child() -> int:
+    """The execution phase's host run (`--phase execution_host`): the same
+    chain with crypto.batch's host route forced and the admission
+    collector on its host oracle, so no kernel runs; one line a height
+    (block, app and state digests) for the parent to compare."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.mempool import admission
+
+    cbatch.set_force_host(True)
+    real_init = admission.AdmissionCollector.__init__
+
+    def host_collector(self, *a, **kw):
+        real_init(self, *a, **kw)
+        self.device_threshold = 10**9
+
+    admission.AdmissionCollector.__init__ = host_collector
+    pvs, signers = exec_keys(EXEC_VALIDATORS), adm_signers(EXEC_ENVELOPES)
+
+    async def run():
+        node, records, _ = await exec_clean_chain(pvs, signers)
+        for h in range(EXEC_HEIGHTS + 1, EXEC_HEIGHTS + EXEC_SPEC_HEIGHTS + 1):
+            rec, _ = await exec_height(node, h, signers)
+            records.append(rec)
+        await node.stop()
+        return records
+
+    records = asyncio.run(run())
+    if any(exec_counts().values()):
+        raise AssertionError(f"the host run launched: {exec_counts()}")
+    for r in records:
+        emit({"phase": "height", **{k: r[k] for k in (
+            "height", "txs", "block_hash", "app_hash", "last_results_hash",
+            "state_db", "apply_block_ms")}})
+    return 0
+
+
+async def exec_forged(node) -> dict:
+    """A block whose LastCommit has one flipped signature: apply_block must
+    raise BlockValidationError naming the lane after one K3 launch, with
+    the state, both stores and the app untouched and no BeginBlock."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.state import median_time
+    from tendermint_tpu_torch.state.validation import BlockValidationError
+    from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig
+
+    st, lc = node.state, node.last_commit
+    bad = len(lc.signatures) * 29 // 64
+    sigs = [CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                      cs.signature) for cs in lc.signatures]
+    good = sigs[bad].signature
+    sigs[bad].signature = good[:20] + bytes([good[20] ^ 0x10]) + good[21:]
+    forged = Commit(lc.height, lc.round, lc.block_id, sigs)
+    block = st.make_block(st.last_block_height + 1, [b"forged=1"], forged, [],
+                          st.validators.get_proposer().address,
+                          median_time(forged, st.last_validators))
+    parts = block.make_part_set()
+
+    def snapshot():
+        return (db_digest(node.dbs[0]), db_digest(node.dbs[1]),
+                db_digest(node.dbs[2]), node.app.app_hash, node.app.height,
+                getattr(node.app, "begin_blocks", 0), node.bs.height)
+
+    before = snapshot()
+    k0 = exec_counts()
+    t0 = time.perf_counter()
+    try:
+        await node.executor.apply_block(st, BlockID(block.hash(),
+                                                    parts.header()), block)
+    except BlockValidationError as e:
+        message = str(e)
+    else:
+        raise AssertionError("the forged LastCommit was applied")
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = exec_delta(k0)
+    want = f"invalid LastCommit: invalid signature(s) at index(es) [{bad}]"
+    pub = st.last_validators.validators[bad].pub_key.bytes()
+    msg = lc.vote_sign_bytes(CHAIN, bad)
+    oracle = (ref.verify(pub, msg, good), ref.verify(pub, msg,
+                                                     sigs[bad].signature))
+    if message != want or launches.get("xverify") != 1 or \
+            oracle != (True, False) or snapshot() != before or \
+            node.state is not st:
+        raise AssertionError(f"forged block: {message} {launches} {oracle} "
+                             f"{before} {snapshot()}")
+    return dict(lane=bad, rejected=message, apply_block_ms=ms,
+                launches=launches, oracle=list(oracle))
+
+
+async def exec_speculated(node, h: int, signers, timer) -> dict:
+    """Height h with a SpeculationPlane fed the LastCommit's precommits
+    (bursts of SPEC_BURST, a flush_sync after each: K6 + K7) before the
+    block is applied: validate_block is served by the plane, with no K3
+    launch."""
+    from tendermint_tpu_torch.config import SpeculationConfig
+    from tendermint_tpu_torch.consensus import SpeculationPlane
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    lc, vals = node.last_commit, node.state.last_validators
+    k0 = exec_counts()
+    t0 = time.perf_counter()
+    plane = SpeculationPlane(SpeculationConfig())
+    plane.begin_height(CHAIN, vals, lc.height, lc.round, lc.block_id)
+    for start in range(0, len(lc.signatures), SPEC_BURST):
+        for i in range(start, min(start + SPEC_BURST, len(lc.signatures))):
+            cs = lc.signatures[i]
+            plane.observe_precommit(Vote(
+                VoteType.PRECOMMIT, lc.height, lc.round, lc.block_id,
+                cs.timestamp, cs.validator_address, i, cs.signature))
+        plane.flush_sync()
+    feed_ms = (time.perf_counter() - t0) * 1e3
+    feed_launches = exec_delta(k0)
+    real_serve = plane.serve_commit
+
+    def serve(*a):
+        t = time.perf_counter()
+        try:
+            return real_serve(*a)
+        finally:
+            timer["serve_commit"] = (time.perf_counter() - t) * 1e3
+
+    plane.serve_commit = serve
+    node.executor.speculation = plane
+    try:
+        rec, blk = await exec_height(node, h, signers, timer)
+    finally:
+        node.executor.speculation = None
+    if plane.hits != 1 or any(plane.misses.values()) or \
+            rec["apply_launches"]:
+        raise AssertionError(f"height {h}: not served by the plane: "
+                             f"{plane.hits} {plane.misses} "
+                             f"{rec['apply_launches']}")
+    rec.update(feed_ms=feed_ms, feed_launches=feed_launches)
+    return rec, blk
+
+
+async def exec_crash(pvs, blocks, clean, d, point, want) -> dict:
+    """Crash the pipeline at `point` while applying height EXEC_CRASH_H
+    over FileDBs in d (the clean run's blocks), reopen every store from
+    disk and reconcile: exactly the `want` repairs, one K3 launch for the
+    re-apply, the clean run's app hash, then one more height."""
+    from tendermint_tpu_torch.libs import failpoints
+    from tendermint_tpu_torch.libs.db import FileDB
+
+    def open_dbs():
+        return tuple(FileDB(os.path.join(d, f"{n}.db"))
+                     for n in ("state", "blocks", "app"))
+
+    dbs = open_dbs()
+    node = await ExecNode(pvs, dbs, full=False).start()
+    t0 = time.perf_counter()
+    for h in range(1, EXEC_CRASH_H + 1):
+        if h == EXEC_CRASH_H:
+            failpoints.arm(point, "error")
+        try:
+            await node.apply(*blocks[h])
+        except failpoints.FailpointError as e:
+            if h != EXEC_CRASH_H or e.name != point:
+                raise
+        else:
+            if h == EXEC_CRASH_H:
+                raise AssertionError(f"{point} did not fire")
+        finally:
+            failpoints.disarm_all()
+    grow_s = time.perf_counter() - t0
+    await node.stop()
+    for db in dbs:
+        db.close()
+    dbs = open_dbs()  # the restart: every store from disk
+    try:
+        k0 = exec_counts()
+        t0 = time.perf_counter()
+        node = await ExecNode(pvs, dbs, full=False).start()
+        recover_s = time.perf_counter() - t0
+        recover_launches = exec_delta(k0)
+        repairs = [r["kind"] for r in node.report.repairs]
+        healed = node.state.app_hash.hex()
+        t0 = time.perf_counter()
+        await node.apply(*blocks[EXEC_CRASH_H + 1])
+        next_ms = (time.perf_counter() - t0) * 1e3
+        await node.stop()
+    finally:
+        for db in dbs:
+            db.close()
+    ok = (repairs == want and recover_launches.get("xverify") == 1
+          and healed == clean[EXEC_CRASH_H]["app_hash"]
+          and node.state.last_block_height == EXEC_CRASH_H + 1
+          and node.state.app_hash.hex() == clean[EXEC_CRASH_H + 1]["app_hash"])
+    if not ok:
+        raise AssertionError(f"{point}: {repairs} {recover_launches} {healed}")
+    return dict(point=point, repairs=repairs, grow_s=grow_s,
+                recover_s=recover_s, recover_launches=recover_launches,
+                healed_app_hash=healed, next_apply_ms=next_ms,
+                report=node.report.to_dict())
+
+
+def start_host_child():
+    """The execution phase's host run (exec_host_child), in a child
+    that prints its lines on a pipe."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase",
+         "execution_host"], stdout=subprocess.PIPE, text=True)
+
+
+def execution_phase():
+    """The commit pipeline on the card (docstring, phase 14). Returns the
+    phase's record."""
+    import asyncio
+    import tempfile
+    import threading
+
+    import torch
+
+    from tendermint_tpu_torch.crypto import tmhash
+    from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    child = start_host_child()
+    timer = threading.Timer(CHILD_TIMEOUT_S["execution_host"], child.kill)
+    timer.start()
+    try:
+        t0 = time.perf_counter()
+        pvs, signers = exec_keys(EXEC_VALIDATORS), adm_signers(EXEC_ENVELOPES)
+        setup_s = time.perf_counter() - t0
+        kernels = wrappers()
+        for fn in kernels.values():
+            fn.launches = 0
+        warm, builds = [], []
+        real_warm = ValidatorSet.warm_device_tables
+        real_init = expanded.ExpandedKeys.__init__
+
+        def recording_warm(self):
+            thread = real_warm(self)
+            warm.append((time.perf_counter(), thread))
+            return thread
+
+        def timed_build(self, pubkeys, device=None):
+            t = time.perf_counter()
+            real_init(self, pubkeys, device)
+            torch.cuda.synchronize()
+            builds.append(dict(thread=threading.current_thread().name,
+                               keys=len(pubkeys), end=time.perf_counter(),
+                               ms=(time.perf_counter() - t) * 1e3))
+
+        metrics0 = dict(execution.METRICS["block_processing_seconds"])
+
+        async def run():
+            node = await ExecNode(pvs).start()
+            out = dict(handshake_s=node.handshake_s)
+            with pipeline_timer(node) as acc:
+                _, records, blocks = await exec_clean_chain(pvs, signers, node,
+                                                            acc)
+                for t in [t for _, t in warm]:
+                    t.join()  # re-raises a failed build
+                out["forged"] = await exec_forged(node)
+                for h in range(EXEC_HEIGHTS + 1,
+                               EXEC_HEIGHTS + EXEC_SPEC_HEIGHTS + 1):
+                    rec, blocks[h] = await exec_speculated(node, h, signers,
+                                                           acc)
+                    records.append(rec)
+            for _, thread in warm:
+                thread.join()
+            await node.settle()
+            found = 0
+            for h, (block, _, _) in sorted(blocks.items()):
+                for i, tx in enumerate(block.data.txs):
+                    r = node.indexer.indexer.get(tmhash.sum256(tx))
+                    if r is None or (r.height, r.index) != (h, i):
+                        raise AssertionError(f"tx {i} of height {h} not "
+                                             f"indexed there: {r}")
+                    found += 1
+            out["indexed_txs"] = found
+            await node.stop()
+            clean = {r["height"]: r for r in records}
+            out["crashes"] = []
+            for point, want in EXEC_CRASHES.items():
+                with tempfile.TemporaryDirectory() as d:
+                    out["crashes"].append(await exec_crash(
+                        pvs, blocks, clean, d, point, want))
+            for _, thread in warm:  # the crash runs' re-warms (cache hits)
+                thread.join()
+            return out, records
+
+        ValidatorSet.warm_device_tables = recording_warm
+        expanded.ExpandedKeys.__init__ = timed_build
+        try:
+            out, records = asyncio.run(run())
+        finally:
+            ValidatorSet.warm_device_tables = real_warm
+            expanded.ExpandedKeys.__init__ = real_init
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()
+                    if fn.launches}
+        host = [line for line in map(json.loads, child.stdout)]
+        if child.wait() != 0:
+            raise AssertionError("the execution host child failed")
+    finally:
+        timer.cancel()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    keys = ("height", "txs", "block_hash", "app_hash", "last_results_hash",
+            "state_db")  # the host child's lines carry these
+    mine = [{k: r[k] for k in keys} for r in records]
+    theirs = [{k: r[k] for k in keys} for r in host]
+    if mine != theirs:
+        raise AssertionError(f"the host run differs: {mine} {theirs}")
+    # the first LastCommit the changed set signed is block
+    # EXEC_CHANGE_AT + 3's; was its tables' warm build done by then?
+    first_verify = next(r for r in records
+                        if r["height"] == EXEC_CHANGE_AT + 3)["apply_at"]
+    warm_build = next(b for b in builds if b["thread"] == "expanded-warm")
+    warm_done = warm_build.pop("end") < first_verify
+    for b in builds:
+        b.pop("end", None)
+    for r in records:
+        r.pop("apply_at")
+    k3 = [r["apply_launches"].get("xverify", 0) for r in records]
+    want_k3 = [0] + [1] * (EXEC_HEIGHTS - 1) + [0] * EXEC_SPEC_HEIGHTS
+    k4 = [r["admit_launches"].get("general_verify", 0) for r in records]
+    if k3 != want_k3 or k4 != [1] * len(records) or \
+            len(warm) != 1 + len(EXEC_CRASHES) or \
+            launches.get("build_tables") != 2 or \
+            [b["keys"] for b in builds] != [EXEC_VALIDATORS] * 2:
+        raise AssertionError(f"launches: K3 {k3}, K4 {k4}, warm {len(warm)}, "
+                             f"{launches}, builds {builds}")
+    for name in ("build_tables", "xverify", "general_verify", "splice",
+                 "arena_verify"):
+        if not launches.get(name):
+            raise AssertionError(f"{name} did not launch: {launches}")
+    verified = [r["apply_block_ms"] for r in records[1:EXEC_HEIGHTS]]
+    metrics = execution.METRICS["block_processing_seconds"]
+    return dict(
+        validators=EXEC_VALIDATORS, setup_s=setup_s, heights=records,
+        apply_block_p50_ms=statistics.median(verified),
+        apply_block_p50_of=f"heights 2-{EXEC_HEIGHTS} (one K3 each)",
+        served_apply_block_ms=[r["apply_block_ms"]
+                               for r in records[EXEC_HEIGHTS:]],
+        split_p50_ms={k: statistics.median(r["split_ms"].get(k, 0.0)
+                                           for r in records[1:EXEC_HEIGHTS])
+                      for k in dict.fromkeys(k for r in records[1:EXEC_HEIGHTS]
+                                             for k in r["split_ms"])},
+        k3_per_block=k3, k4_per_height=k4,
+        table_builds=builds, warm_started_at_height=EXEC_CHANGE_AT,
+        warm_done_before_first_verify=warm_done,
+        host_run=dict(heights=len(host), equal=True,
+                      apply_block_ms=[r["apply_block_ms"] for r in host]),
+        block_processing=dict(
+            count=metrics["count"] - metrics0["count"],
+            seconds=metrics["sum"] - metrics0["sum"]),
+        launches=launches, **out)
+
+
+# -- phase 15 ------------------------------------------------------------
 
 
 def timing_phase(vs, commit, dev) -> list[dict]:
@@ -5005,7 +5762,7 @@ F32_KERNELS = ("build_tables", "xverify", "general_verify", "shard_verify",
 F32_ROWS = ("build_tables", "xverify", "general_verify",
             "general_verify_mixed", "sr_verify", "shard_verify",
             "arena_verify", "mesh_arena_verify")
-CHILD_TIMEOUT_S = {"f32": 700, "fault": 240}
+CHILD_TIMEOUT_S = {"f32": 700, "fault": 240, "execution_host": 400}
 
 # A test-only kernel that stores through an address no allocation owns:
 # its launch succeeds and it faults while it runs
@@ -5295,6 +6052,8 @@ def main() -> int:
             rc = fault_child()
             sys.stdout.flush()
             os._exit(rc)  # the poisoned context is not torn down
+        if phase == "execution_host":
+            return exec_host_child()
         return f32_child(json.loads(sys.argv[sys.argv.index("--i32") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5393,6 +6152,12 @@ def main() -> int:
     no_fallback("admission", state)
     emit(dict(phase="admission", seconds=time.perf_counter() - t0,
               card=smi, **admission))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    execution = execution_phase()
+    no_fallback("execution", state)
+    emit(dict(phase="execution", seconds=time.perf_counter() - t0,
+              card=smi, **execution))
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -5416,7 +6181,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
-                 light_client, admission):
+                 light_client, admission, execution):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -7,6 +7,36 @@ from dataclasses import dataclass
 
 
 @dataclass
+class BaseConfig:
+    """The base section as far as the stores go (reference: config.py:15
+    BaseConfig): the data directory, the KV backend and its durability.
+    The key files, the ABCI transport and the peer filter come with the
+    node's assembly."""
+
+    chain_id: str = ""
+    moniker: str = "node"
+    home: str = "."
+    fast_sync: bool = True
+    db_dir: str = "data"
+    # sqlite (ordered, disk-resident, range deletes — the tm-db
+    # analogue) | filedb (log-structured, memory-resident) | memdb
+    db_backend: str = "sqlite"
+    # sqlite durability (PRAGMA synchronous): FULL fsyncs every
+    # committed batch — the contract crash recovery relies on.
+    # NORMAL/OFF trade the tail of the log for write speed; only safe
+    # for replayable non-validator workloads (libs/db.py SqliteDB).
+    db_synchronous: str = "FULL"
+
+    def validate_basic(self) -> None:
+        if self.db_backend not in ("sqlite", "filedb", "memdb"):
+            raise ValueError(f"unknown db_backend {self.db_backend!r}")
+        if self.db_synchronous.upper() not in ("OFF", "NORMAL", "FULL"):
+            raise ValueError(
+                f"db_synchronous must be OFF|NORMAL|FULL, "
+                f"not {self.db_synchronous!r}")
+
+
+@dataclass
 class ConsensusConfig:
     """The consensus section's vote micro-batch fields (reference:
     config.py ConsensusConfig); the timeouts and the receive funnel come

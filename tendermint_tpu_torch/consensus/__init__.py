@@ -1,7 +1,8 @@
 """Consensus-side planes of the port (reference capability:
 consensus/): the verify-ahead SpeculationPlane, the vote micro-batch
-scheduler and the round types it tallies into. The consensus state
-machine, reactor and WAL come with later slices."""
+scheduler and the round types it tallies into, the WAL (wal.py) and the
+startup handshake and reconciliation (replay.py). The consensus state
+machine and reactor come with later slices."""
 
 from .cstypes import HeightVoteSet, RoundStep
 from .speculation import SpeculationPlane

@@ -79,6 +79,25 @@ CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
 METRICS: dict = {"host_fallbacks": 0, "evictions": {}, "probes": {},
                  "host_rechecks": 0}
 
+# Host-only override (reference crypto/batch.py:413): every batch
+# verification routes to the host oracle, with no device in the loop —
+# the reference's deterministic simulations pin verdicts so, and a run
+# that must compare the device path with the host path forces it.
+_FORCE_HOST = False
+
+
+def set_force_host(on: bool) -> bool:
+    """Pin batch verification to the host path (returns the previous
+    setting so callers can restore it)."""
+    global _FORCE_HOST
+    prev = _FORCE_HOST
+    _FORCE_HOST = bool(on)
+    return prev
+
+
+def host_forced() -> bool:
+    return _FORCE_HOST
+
 
 def count(key: str, sub=None) -> None:
     """Add one to METRICS[key] (to METRICS[key][sub] for a keyed one)."""
@@ -444,7 +463,8 @@ class BatchVerifier:
         use_dev = self._use_device
         if type_name == "ed25519":
             if use_dev is None:
-                use_dev = len(items) >= _DEVICE_THRESHOLD
+                use_dev = (not _FORCE_HOST
+                           and len(items) >= _DEVICE_THRESHOLD)
             if use_dev:
                 from .cuda.verify import verify_batch
 
@@ -454,7 +474,8 @@ class BatchVerifier:
             return host_verify(items)
         if type_name == "sr25519":
             if use_dev is None:
-                use_dev = len(items) >= _DEVICE_THRESHOLD_SR
+                use_dev = (not _FORCE_HOST
+                           and len(items) >= _DEVICE_THRESHOLD_SR)
             if use_dev:
                 from .cuda.sr_verify import verify_batch_sr
 

@@ -1,7 +1,8 @@
 """Named failpoints (reference: libs/failpoints.py), trimmed to the
 points of the device path, the light serving plane, the block store,
-the ABCI connections and the mempool admission plane, and to the
-`error`, `delay` and `corrupt` actions.
+the ABCI connections, the mempool admission plane and the commit
+pipeline (the block executor, the consensus WAL, the persistent KV
+stores), and to the `error`, `delay` and `corrupt` actions.
 
     error         raise FailpointError(name) from the call site
     delay         time.sleep(delay_ms) at the call site (stall shape)
@@ -54,7 +55,42 @@ CATALOG: dict[str, bool] = {
     # slow verify so the pre-verify queue backs up and sheds, `error` a
     # failed launch that degrades to the host oracle
     "mempool.admission.verify": False,
+    # the block executor's persistence boundaries (state/execution.py
+    # apply_block), in call order
+    "state.apply.block_executed": False,  # executed, responses not saved
+    "state.apply.responses_saved": False,  # responses saved, state not updated
+    "state.apply.app_committed": False,  # app committed, state not saved
+    "state.apply.state_saved": False,  # everything saved, events not fired
+    # consensus WAL flush+fsync (consensus/wal.py write_sync's barrier)
+    "wal.fsync": False,
+    # the crc-framed record bytes about to be appended to the WAL head
+    # (corrupt = a torn write mid-record)
+    "wal.torn_write": True,
+    # a persistent KV-store write (SqliteDB set/batch, FileDB append)
+    "db.set": False,
 }
+
+# The reference's crash sites (its catalog's legacy_index flag: the
+# persistence boundaries of committing a height that the legacy
+# FAIL_TEST_INDEX ordinal counts) among the points above ...
+CRASH_SITES = frozenset({
+    "state.apply.block_executed", "state.apply.responses_saved",
+    "state.apply.app_committed", "state.apply.state_saved",
+})
+# ... and the per-height commit-pipeline points the port has, in
+# persistence order (the reference's COMMIT_PIPELINE less its consensus
+# and privval points, which come with those modules): a crash at any of
+# them leaves a cross-store skew consensus/replay.py heals.
+COMMIT_PIPELINE: tuple[str, ...] = (
+    "wal.fsync",
+    "db.set",
+    "store.save_block",
+    "state.apply.block_executed",
+    "state.apply.responses_saved",
+    "state.apply.app_committed",
+    "state.apply.state_saved",
+)
+assert CRASH_SITES <= set(COMMIT_PIPELINE) <= set(CATALOG)
 
 
 class FailpointError(Exception):

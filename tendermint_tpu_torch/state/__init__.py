@@ -4,7 +4,7 @@ state/state.go).
 
 State is treated as immutable: every mutation returns a fresh copy
 (matching the Go reference's value-semantics State struct). The block
-executor and validation come with the node's assembly."""
+executor is execution.py, block validation validation.py."""
 
 from __future__ import annotations
 

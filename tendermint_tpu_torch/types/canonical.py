@@ -98,3 +98,18 @@ def ts_field_bytes(time_ns: int) -> bytes:
     w = Writer()
     w.message(5, timestamp_writer(time_ns))
     return w.finish()
+
+
+def proposal_sign_bytes(chain_id: str, height: int, round_: int,
+                        pol_round: int, block_id, time_ns: int) -> bytes:
+    w = Writer()
+    w.varint(1, 32)  # SignedMsgType PROPOSAL
+    w.sfixed64(2, height)
+    w.sfixed64(3, round_)
+    # pol_round is -1 when absent; encodes as int64 two's complement.
+    w.varint(4, pol_round)
+    w.message(5, canonical_block_id_writer(block_id))
+    w.message(6, timestamp_writer(time_ns))
+    w.string(7, chain_id)
+    body = w.finish()
+    return encode_varint(len(body)) + body

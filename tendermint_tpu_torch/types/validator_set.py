@@ -226,6 +226,57 @@ class ValidatorSet:
             mostest = mostest.compare_proposer_priority(v)
         return mostest
 
+    # -- validator updates (reference: types/validator_set.py:226; Go
+    # validator_set.go:516-646) --
+
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        """Apply ABCI validator updates: power 0 removes, new adds,
+        other powers update. New validators start at priority
+        -1.125 * new total power (reference: computeNewPriorities)."""
+        if not changes:
+            return
+        seen = set()
+        for c in changes:
+            if c.address in seen:
+                raise ValueError("duplicate address in change set")
+            seen.add(c.address)
+            if c.voting_power < 0:
+                raise ValueError("negative power update")
+
+        removals = {c.address for c in changes if c.voting_power == 0}
+        updates = {c.address: c for c in changes if c.voting_power > 0}
+
+        for addr in removals:
+            if not self.has_address(addr):
+                raise ValueError("removing unknown validator")
+        kept = [v for v in self.validators if v.address not in removals]
+
+        new_total = sum(
+            updates.get(v.address, v).voting_power for v in kept
+        ) + sum(c.voting_power for c in updates.values() if not self.has_address(c.address))
+        if new_total == 0:
+            raise ValueError("validator set would be empty")
+        if new_total > MAX_TOTAL_VOTING_POWER:
+            raise ValueError("total voting power would exceed cap")
+
+        out: list[Validator] = []
+        for v in kept:
+            if v.address in updates:
+                nv = updates.pop(v.address).copy()
+                nv.proposer_priority = v.proposer_priority
+                out.append(nv)
+            else:
+                out.append(v)
+        for c in updates.values():
+            nv = c.copy()
+            nv.proposer_priority = -(new_total + (new_total >> 3))
+            out.append(nv)
+
+        out.sort(key=lambda v: (-v.voting_power, v.address))
+        self.validators = out
+        self._total = None
+        self._shift_by_avg_proposer_priority()
+
     # -- commit verification (batched; the hot path) --
 
     def _use_expanded(self, lanes: list[int]) -> bool:
@@ -234,6 +285,7 @@ class ValidatorSet:
         from ..crypto.cuda import verify as tv
 
         if not (_EXPAND_MIN <= len(lanes) <= tv._MAX_BATCH
+                and not _batch.host_forced()
                 and _batch.device_available("ed25519")):
             return False
         try:
