@@ -217,7 +217,46 @@ Phases, each printing one JSON line:
    that builds the same chain with crypto.batch's host route forced
    and no kernel; each height's apply_block time and its split, the
    p50, the K1 build and whether its warm thread was done in time;
-15. timing — each kernel at the main path's shapes: its device time a
+15. consensus — one validator node among 10,000 (config #5's
+   mega-commit cut to MAX_VOTES_COUNT, as the votes and execution phases
+   are) running the port's ConsensusState at ConsensusConfig's defaults
+   (timeouts 3 s / 1 s / 1 s / 1 s commit, vote batching 2 ms / 1,024 /
+   4,096) with a FilePV on disk, FileDB stores, an on-disk WAL, the
+   kvstore app, a CListMempool with the admission plane, an evidence
+   Pool, an EventBus with the indexers and a SpeculationPlane at its
+   defaults flushed by its own flusher. The node's key is the one the
+   set's proposer order puts at height 3. The other 9,999 validators are
+   a child (`--phase consensus_peers`, host only: the keys, four forked
+   signing workers, State.make_block from the node's saved state and
+   seen commit): it signs each round's proposal, parts, prevotes and
+   precommits, which the parent decodes (decode_consensus_msg) and hands
+   to add_peer_msg in shuffled bursts from 8 peer ids, as a reactor
+   would. Eight heights: 1; 2 with one peer's forged prevote and another
+   peer's equivocating precommit; 3 proposed and signed by the node,
+   carrying the DuplicateVoteEvidence; 4 whose round-0 proposer stays
+   silent (timeout_propose, 10,000-wide nil prevotes and precommits,
+   round 1 commits); 5 and 6 with 64 signed envelopes and 32 raw txs
+   admitted by the node's mempool (one K4 flush each) and carried by
+   the peers' blocks; 7, whose commit an `error` at
+   consensus.commit.wal_delimited ends (the node halts, wait_for_height
+   re-raises it); a restart from the disks (reconcile_and_handshake
+   repairs with state_reapply, reconstruct_last_commit, _catchup_replay)
+   that commits 8. Counters zeroed before and read after: every height
+   committed, K1 once (the genesis set's tables), every K3 and K4
+   launch named by the step it served (vote groups of 128 lanes or more
+   K3, of 40-127 K4; admission flushes K4; reconstruct_last_commit one
+   K4; no verify_commit before the restart: each LastCommit served by
+   the plane, whose flusher launched K6 and K7; after it, one K3 per
+   verify_commit), the forged prevote rejected (that peer's bad count
+   1), exactly one DuplicateVoteEvidence in block 3 and committed, the
+   FilePV's state file at the last HRS the node signed, then the peers
+   child replays the node's stored blocks from genesis with the host
+   route forced, and every block, app hash, last_results_hash and state
+   digest equals the node's. Each height's interval from NewHeight to
+   commit and its split, the receive routine's host us per message, the
+   vote batches' group sizes, the launches, speculation hits and
+   misses and the collector's pauses;
+16. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -235,12 +274,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-16. fault — in a child (`--phase fault`; a sticky fault poisons the
+17. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-17. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+18. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -254,7 +293,9 @@ Phases, each printing one JSON line:
    launches on the five f32 paths.
 
 Each child's lines are relayed as {"phase": <child>, "step": ...}; a
-child that fails or outruns its time limit fails the run. Every phase
+child that fails or outruns its time limit fails the run.
+`python3 chip_smoke.py --phase consensus` builds the kernels and runs
+the consensus phase alone. Every phase
 but healing must end with all breakers closed and the host fallbacks,
 rechecks and evictions unchanged. Then the kernels line, the
 nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
@@ -525,6 +566,31 @@ EXEC_CRASH_H = 3
 EXEC_CRASHES = {"state.apply.responses_saved": ["state_reapply"],
                 "state.apply.app_committed": ["state_from_responses"]}
 EXEC_T0 = 1_760_000_000_000_000_000
+# The consensus phase: one validator among CS_VALIDATORS (config #5's
+# mega-commit cut to MAX_VOTES_COUNT, as the votes and execution phases
+# are) running ConsensusState at ConsensusConfig's defaults for
+# CS_HEIGHTS heights, its peers played by a child (CS_WORKERS signing
+# workers). At CS_FORGE_H one peer's prevote carries a forged signature
+# and another equivocates on its precommit; the node proposes
+# CS_OWN_H (with the evidence); CS_SILENT_H's round-0 proposer stays
+# silent; CS_TX_HEIGHTS carry CS_ENVELOPES signed envelopes and CS_RAW
+# raw txs through the node's mempool; CS_CRASH_POINT errors while
+# CS_CRASH_H commits, and the node restarts from its disks.
+CS_VALIDATORS = 10_000
+CS_HEIGHTS = 8
+CS_PEERS = 8
+CS_BURST = (256, 1024)
+CS_WORKERS = 4
+CS_FORGE_H = 2
+CS_OWN_H = 3
+CS_SILENT_H = 4
+CS_TX_HEIGHTS = (5, 6)
+CS_ENVELOPES = 64
+CS_RAW = 32
+CS_CRASH_H = 7
+CS_CRASH_POINT = "consensus.commit.wal_delimited"
+CS_T0 = 1_760_100_000_000_000_000
+CS_PEERS_ARGV = None  # the peers child's command (None: this script's)
 # Objects a later step of the same process reads: the kernels check's
 # arena (sweep_warps.py times K7 on it).
 KEEP: dict = {}
@@ -5385,7 +5451,1106 @@ def execution_phase():
         launches=launches, **out)
 
 
-# -- phase 15 ------------------------------------------------------------
+# -- phase 15: consensus ---------------------------------------------------
+
+
+def cs_seed(i: int) -> bytes:
+    return hashlib.sha256(b"cs-val-%d" % i).digest()
+
+
+def cs_genesis(pubs):
+    """The consensus phase's genesis: every key of power 10."""
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    gdoc = GenesisDoc(chain_id=CHAIN, genesis_time=CS_T0,
+                      validators=[GenesisValidator(Ed25519PubKey(p), 10)
+                                  for p in pubs])
+    gdoc.validate_and_complete()
+    return gdoc
+
+
+def cs_block_id(bid) -> tuple | None:
+    """A BlockID as plain values (None for nil), for the child's pipe."""
+    if bid is None:
+        return None
+    return (bid.hash, bid.part_set_header.total, bid.part_set_header.hash)
+
+
+def cs_from_block_id(t):
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+
+    return None if t is None else BlockID(t[0], PartSetHeader(t[1], t[2]))
+
+
+# the peers' keys in the child and its signing workers (forked after the
+# keys are made, so each worker inherits them)
+_CS_KEYS: list = []
+_CS_INDEX: list = []  # key index -> validator index in the set
+
+
+def cs_sign_slice(vote_type: int, height: int, round_: int, bid_t, ts: int,
+                  keys: list, forge: int | None):
+    """One signing worker's share of a round's votes: each key's vote as
+    the encoded VoteMessage; `forge`'s signature gets a flipped bit."""
+    from tendermint_tpu_torch.consensus.messages import (VoteMessage,
+                                                          encode_consensus_msg)
+    from tendermint_tpu_torch.types.vote import Vote, VoteType
+
+    bid = cs_from_block_id(bid_t)
+    out = []
+    for k in keys:
+        priv = _CS_KEYS[k]
+        v = Vote(type=VoteType(vote_type), height=height, round=round_,
+                 block_id=bid, timestamp=ts,
+                 validator_address=priv.pub_key().address(),
+                 validator_index=_CS_INDEX[k])
+        v.signature = priv.sign(v.sign_bytes(CHAIN))
+        if k == forge:
+            v.signature = v.signature[:7] + bytes([v.signature[7] ^ 4]) + \
+                v.signature[8:]
+        out.append((k, encode_consensus_msg(VoteMessage(v))))
+    return out
+
+
+def cs_frame_write(f, obj) -> None:
+    import pickle
+
+    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    f.write(len(data).to_bytes(8, "big") + data)
+    f.flush()
+
+
+def cs_frame_read(f):
+    import pickle
+
+    head = f.read(8)
+    if len(head) < 8:
+        raise EOFError("the peer pipe closed")
+    n = int.from_bytes(head, "big")
+    data = f.read(n)
+    if len(data) < n:
+        raise EOFError("the peer pipe closed mid-frame")
+    return pickle.loads(data)
+
+
+def cs_peers_child() -> int:
+    """The consensus phase's peers (`--phase consensus_peers`): the other
+    validators' signing and block building, on the host, in this process
+    and CS_WORKERS forked signing workers; CUDA is never initialised.
+    Requests and replies are pickled frames on stdin/stdout:
+
+    votes  — (h, round, block id or None, ts, forge, equivocate): every
+             peer's prevote and precommit for it (`forge`'s prevote with a
+             flipped signature bit; `equivocate` adds a nil precommit
+             beside its precommit for the block);
+    build  — (h, round, state JSON, LastCommit bytes, txs, proposer):
+             the block State.make_block gives, its proposal signed by the
+             proposer, the block's parts, then the votes as above;
+    replay — the node's block store path: every stored block re-applied
+             from genesis with crypto.batch's host route forced (every
+             LastCommit verified on the host) over fresh stores and a
+             fresh kvstore app; each height's digests."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    t0 = time.perf_counter()
+    _CS_KEYS[:] = [Ed25519PrivKey(cs_seed(i)) for i in range(CS_VALIDATORS)]
+    pubs = [k.pub_key().bytes() for k in _CS_KEYS]
+    gdoc = cs_genesis(pubs)
+    from tendermint_tpu_torch.types.validator import Validator
+
+    vs = ValidatorSet([Validator.new(k.pub_key(), 10) for k in _CS_KEYS])
+    index = {v.address: i for i, v in enumerate(vs.validators)}
+    _CS_INDEX[:] = [index[k.pub_key().address()] for k in _CS_KEYS]
+    keys_s = time.perf_counter() - t0
+    pool = ProcessPoolExecutor(CS_WORKERS, mp_context=mp.get_context("fork"))
+    inp, out = sys.stdin.buffer, sys.stdout.buffer
+    cs_frame_write(out, {"op": "keys", "pubs": pubs, "keys_s": keys_s})
+
+    def votes(req, skip):
+        t = time.perf_counter()
+        mine = [k for k in range(CS_VALIDATORS) if k != skip]
+        shares = [mine[w::CS_WORKERS] for w in range(CS_WORKERS)]
+        res = {}
+        for kind, vt in (("prevotes", 1), ("precommits", 2)):
+            futs = [pool.submit(cs_sign_slice, vt, req["h"], req["round"],
+                                req["bid"], req["ts"], s,
+                                req.get("forge") if vt == 1 else None)
+                    for s in shares]
+            res[kind] = [x for f in futs for x in f.result()]
+        eq = req.get("equivocate")
+        res["equivocation"] = (cs_sign_slice(2, req["h"], req["round"], None,
+                                             req["ts"], [eq], None)
+                               if eq is not None else [])
+        res["sign_s"] = time.perf_counter() - t
+        return res
+
+    while True:
+        req = cs_frame_read(inp)
+        op = req["op"]
+        if op == "exit":
+            break
+        if op == "votes":
+            cs_frame_write(out, votes(req, req["node"]))
+        elif op == "build":
+            cs_frame_write(out, cs_build(req, votes))
+        elif op == "replay":
+            cs_frame_write(out, cs_replay(req, gdoc))
+    pool.shutdown()
+    return 0
+
+
+def cs_build(req, votes):
+    """The `build` request (cs_peers_child): the block, its proposal and
+    parts, and the round's votes for it."""
+    from tendermint_tpu_torch.consensus.messages import (BlockPartMessage,
+                                                          ProposalMessage,
+                                                          encode_consensus_msg)
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.state import median_time
+    from tendermint_tpu_torch.state.store import _STATE_KEY, Store
+    from tendermint_tpu_torch.types.block import NIL_BLOCK_ID, BlockID, Commit
+    from tendermint_tpu_torch.types.proposal import Proposal
+
+    t = time.perf_counter()
+    db = MemDB()
+    db.set(_STATE_KEY, req["state"])
+    st = Store(db).load()
+    h = req["h"]
+    commit = Commit.from_bytes(req["last_commit"]) \
+        if req["last_commit"] else None
+    if commit is None:
+        commit = Commit(0, 0, NIL_BLOCK_ID, [])
+        time_ns = st.last_block_time
+    else:
+        time_ns = median_time(commit, st.last_validators)
+    priv = _CS_KEYS[req["proposer"]]
+    block = st.make_block(h, req["txs"], commit, [], priv.pub_key().address(),
+                          time_ns)
+    parts = block.make_part_set()
+    bid = BlockID(block.hash(), parts.header())
+    prop = Proposal(height=h, round=req["round"], pol_round=-1, block_id=bid,
+                    timestamp=time_ns)
+    prop.signature = priv.sign(prop.sign_bytes(CHAIN))
+    msgs = [encode_consensus_msg(ProposalMessage(prop))] + [
+        encode_consensus_msg(BlockPartMessage(h, req["round"],
+                                              parts.get_part(i)))
+        for i in range(parts.total)]
+    build_s = time.perf_counter() - t
+    res = votes(dict(req, bid=cs_block_id(bid), ts=time_ns + 1_000_000_000),
+                req["node"])
+    res.update(proposal=msgs, bid=cs_block_id(bid), build_s=build_s,
+               block_time=time_ns)
+    return res
+
+
+def cs_replay(req, gdoc):
+    """The `replay` request (cs_peers_child): the node's stored blocks
+    re-applied from genesis on the host."""
+    import asyncio
+
+    from tendermint_tpu_torch.abci.client import ClientCreator
+    from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
+    from tendermint_tpu_torch.consensus.replay import reconcile_and_handshake
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.evidence import Pool
+    from tendermint_tpu_torch.libs.db import FileDB, MemDB
+    from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.store import Store
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.block import BlockID
+
+    cbatch.set_force_host(True)
+
+    async def run():
+        node_bs = BlockStore(FileDB(req["blocks"]))
+        ss, app_db = Store(MemDB()), MemDB()
+        app = PersistentKVStoreApp(app_db)
+        conns = AppConns(ClientCreator(app=app))
+        await conns.start()
+        state, _ = await reconcile_and_handshake(None, ss, BlockStore(MemDB()),
+                                                 gdoc, conns)
+        ex = BlockExecutor(ss, conns.consensus,
+                           evidence_pool=Pool(MemDB(), ss, node_bs))
+        heights = []
+        for h in range(1, node_bs.height + 1):
+            block = node_bs.load_block(h)
+            parts = block.make_part_set()
+            t = time.perf_counter()
+            state, _ = await ex.apply_block(state, BlockID(block.hash(),
+                                                           parts.header()),
+                                            block)
+            heights.append(dict(
+                height=h, block_hash=block.hash().hex(),
+                app_hash=state.app_hash.hex(),
+                last_results_hash=state.last_results_hash.hex(),
+                state_db=db_digest(ss.db),
+                evidence=len(block.evidence.evidence),
+                apply_block_ms=(time.perf_counter() - t) * 1e3))
+        await conns.stop()
+        node_bs.db.close()
+        return heights
+
+    t = time.perf_counter()
+    heights = asyncio.run(run())
+    cbatch.set_force_host(False)
+    return {"heights": heights, "seconds": time.perf_counter() - t}
+
+
+class CsPeers:
+    """The parent's end of cs_peers_child: one request at a time, each in
+    a worker thread so the node's event loop runs meanwhile."""
+
+    def __init__(self, argv=None):
+        import concurrent.futures
+
+        self.proc = subprocess.Popen(
+            argv or [sys.executable, os.path.abspath(__file__), "--phase",
+                     "consensus_peers"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        self.pool = concurrent.futures.ThreadPoolExecutor(1)
+        self.first = cs_frame_read(self.proc.stdout)
+
+    def call(self, req):
+        cs_frame_write(self.proc.stdin, req)
+        return cs_frame_read(self.proc.stdout)
+
+    def submit(self, req):
+        """The reply as a concurrent future (one request in flight)."""
+        return self.pool.submit(self.call, req)
+
+    def close(self):
+        try:
+            if self.proc.poll() is None:
+                cs_frame_write(self.proc.stdin, {"op": "exit"})
+                self.proc.wait(timeout=30)
+        except Exception:  # noqa: BLE001 - the child is killed below
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.pool.shutdown()
+
+
+class CsNode:
+    """The consensus phase's validator (docstring, phase 15): FileDBs for
+    the state, the blocks, the app and the evidence under `home`, the
+    WAL, the kvstore app behind AppConns, an EventBus with the tx and
+    block indexers, a CListMempool with the admission plane at
+    MempoolConfig's defaults, an evidence Pool, a SpeculationPlane at
+    SpeculationConfig's defaults, the BlockExecutor, and ConsensusState
+    at ConsensusConfig's defaults signing with the FilePV `pv`.
+    start() reconciles the stores (reconcile_and_handshake) first."""
+
+    def __init__(self, gdoc, pv, home):
+        self.gdoc, self.pv, self.home = gdoc, pv, home
+
+    async def start(self):
+        from tendermint_tpu_torch.abci.client import ClientCreator
+        from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
+        from tendermint_tpu_torch.config import (ConsensusConfig,
+                                                 MempoolConfig,
+                                                 SpeculationConfig)
+        from tendermint_tpu_torch.consensus import (ConsensusState,
+                                                    SpeculationPlane)
+        from tendermint_tpu_torch.consensus.replay import reconcile_and_handshake
+        from tendermint_tpu_torch.consensus.wal import WAL
+        from tendermint_tpu_torch.evidence import Pool
+        from tendermint_tpu_torch.libs.db import FileDB, MemDB
+        from tendermint_tpu_torch.mempool.clist_mempool import CListMempool
+        from tendermint_tpu_torch.proxy import AppConns
+        from tendermint_tpu_torch.state.execution import BlockExecutor
+        from tendermint_tpu_torch.state.store import Store
+        from tendermint_tpu_torch.state.txindex import (BlockIndexer,
+                                                        IndexerService,
+                                                        TxIndexer)
+        from tendermint_tpu_torch.store import BlockStore
+        from tendermint_tpu_torch.types.events import EventBus
+
+        self.dbs = tuple(FileDB(os.path.join(self.home, f"{n}.db"))
+                         for n in ("state", "blocks", "app", "evidence"))
+        self.wal_path = os.path.join(self.home, "cs.wal", "wal")
+        self.app = PersistentKVStoreApp(self.dbs[2])
+        self.conns = AppConns(ClientCreator(app=self.app))
+        await self.conns.start()
+        self.ss, self.bs = Store(self.dbs[0]), BlockStore(self.dbs[1])
+        self.bus = EventBus()
+        self.indexer = IndexerService(TxIndexer(MemDB()), self.bus,
+                                      BlockIndexer(MemDB()))
+        self.indexer.start()
+        t = time.perf_counter()
+        self.state, self.report = await reconcile_and_handshake(
+            None, self.ss, self.bs, self.gdoc, self.conns,
+            event_bus=self.bus, wal_path=self.wal_path)
+        self.handshake_s = time.perf_counter() - t
+        self.mempool = CListMempool(MempoolConfig(), self.conns.mempool)
+        self.evpool = Pool(self.dbs[3], self.ss, self.bs)
+        self.plane = SpeculationPlane(SpeculationConfig())
+        self.executor = BlockExecutor(self.ss, self.conns.consensus,
+                                      mempool=self.mempool,
+                                      evidence_pool=self.evpool,
+                                      event_bus=self.bus,
+                                      speculation=self.plane)
+        t = time.perf_counter()
+        self.cs = ConsensusState(ConsensusConfig(), self.state,
+                                 self.executor, self.bs,
+                                 mempool=self.mempool, evpool=self.evpool,
+                                 wal=WAL(self.wal_path), event_bus=self.bus,
+                                 speculation=self.plane)
+        self.cs.set_priv_validator(self.pv)
+        self.init_s = time.perf_counter() - t
+        return self
+
+    async def stop(self):
+        if self.cs.is_running:
+            await self.cs.stop()
+        self.indexer.stop()
+        self.mempool.close()
+        await self.conns.stop()
+        for db in self.dbs:
+            db.close()
+
+
+class CsProbe:
+    """The consensus phase's measurements of one node (a fresh one after
+    the restart): wraps ConsensusState's steps and the pieces of its
+    receive routine, the WAL, the block store, the executor and the vote
+    scheduler's tally; everything accumulates into `heights`' record of
+    the height the node is at."""
+
+    def __init__(self, node, heights: dict):
+        import gc
+        import inspect
+
+        from tendermint_tpu_torch.consensus import messages as m
+        from tendermint_tpu_torch.consensus.wal import EndHeightMessage
+
+        cs = node.cs
+        self.own_votes: list = []
+
+        def rec():
+            h = cs.rs.height
+            if h not in heights:
+                heights[h] = dict(height=h, host_us={}, msgs={}, gc_ms=0.0,
+                                  t={})
+            return heights[h]
+
+        self.rec = rec
+
+        def wrap(obj, name, before=None, timed=None):
+            """Time obj.name into the height's host_us under timed(*args)
+            (None: not timed); call before(*args) first (async only)."""
+            real = getattr(obj, name)
+            if inspect.iscoroutinefunction(real):
+                async def run(*a, **kw):
+                    if before:
+                        before(*a)
+                    t = time.perf_counter()
+                    try:
+                        return await real(*a, **kw)
+                    finally:
+                        if timed:
+                            add(timed(*a), t)
+            else:
+                def run(*a, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return real(*a, **kw)
+                    finally:
+                        if timed:
+                            add(timed(*a), t)
+            setattr(obj, name, run)
+
+        def add(key, t0):
+            if key is None:
+                return
+            r = rec()
+            us = (time.perf_counter() - t0) * 1e6
+            r["host_us"][key] = r["host_us"].get(key, 0.0) + us
+            r["msgs"][key] = r["msgs"].get(key, 0) + 1
+
+        def stamp(key):
+            r = rec()
+            r["t"].setdefault(key, time.perf_counter())
+
+        def new_round(h, round_):
+            if round_ == 0:
+                stamp("new_height")
+
+        def msg_kind(qm):
+            return "handle_" + {m.VoteMessage: "vote",
+                                m.ProposalMessage: "proposal",
+                                m.BlockPartMessage: "part"}.get(
+                                    type(qm.msg), "other")
+
+        def wal_kind(msg, *_):
+            return "wal_end_height_fsync" if isinstance(
+                msg, EndHeightMessage) else None
+
+        real_commit = cs._commit_height
+
+        async def commit_height(h):
+            r = rec()
+            r["t"]["commit_start"] = time.perf_counter()
+            await real_commit(h)
+            r["t"]["committed"] = time.perf_counter()
+
+        cs._commit_height = commit_height
+        wrap(cs, "_enter_new_round", before=new_round)
+        wrap(cs, "_proposal_completed", before=lambda: stamp("proposal"))
+        wrap(cs, "_handle_msg", timed=msg_kind)
+        wrap(cs.wal, "write", timed=lambda *a: "wal_write")
+        wrap(cs.wal, "write_sync", timed=wal_kind)
+        wrap(node.bs, "save_block", timed=lambda *a: "save_block")
+        wrap(node.executor, "apply_block", timed=lambda *a: "apply_block")
+        wrap(cs.scheduler, "_tally", timed=lambda *a: "tally")
+
+        def step_hook(event, payload):
+            if event == "step":
+                stamp(f"step_{int(payload.step)}_r{payload.round}")
+            elif event == "vote" and \
+                    payload.validator_address == cs.priv_validator_address:
+                self.own_votes.append((payload.height, payload.round,
+                                       int(payload.type),
+                                       payload.block_id is None))
+
+        cs.broadcast_hooks.append(step_hook)
+        self.gc_start: list = []
+
+        def gc_pause(phase, info):
+            if phase == "start":
+                self.gc_start.append(time.perf_counter())
+            elif self.gc_start:
+                r = rec()
+                r["gc_ms"] += (time.perf_counter() - self.gc_start.pop()) * 1e3
+
+        self.gc_pause = gc_pause
+        gc.callbacks.append(gc_pause)
+
+    def close(self):
+        import gc
+
+        gc.callbacks.remove(self.gc_pause)
+
+
+def cs_batch_probe(batches: list, sites: "CsSites"):
+    """Record every vote batch batch_verdicts verifies: its group sizes
+    (one group a validator set), its kernel launches and its ms (the scheduler calls the
+    module's function). Returns the function that undoes it."""
+    from tendermint_tpu_torch.consensus import state as cstate
+
+    real = cstate.batch_verdicts
+
+    def probe(batch, chain_id):
+        k0 = exec_counts()
+        t = time.perf_counter()
+        groups: dict = {}
+        for _vote, _peer, _pk, vals in batch:
+            groups[id(vals)] = groups.get(id(vals), 0) + 1
+        try:
+            return sites.tagged("votes", real)(batch, chain_id)
+        finally:
+            batches.append(dict(groups=list(groups.values()),
+                                height=max(v.height for v, *_ in batch),
+                                ms=(time.perf_counter() - t) * 1e3,
+                                launches=exec_delta(k0)))
+
+    cstate.batch_verdicts = probe
+    return lambda: setattr(cstate, "batch_verdicts", real)
+
+
+async def cs_until(cond, node, what: str, timeout: float = 120.0):
+    """Poll cond() every 5 ms; raise the node's fault, or on the time
+    limit."""
+    import asyncio
+
+    t = time.perf_counter()
+    while not cond():
+        if node.cs.fault is not None:
+            raise node.cs.fault
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"consensus: timed out waiting for {what} "
+                                 f"(at {node.cs.rs.height}/{node.cs.rs.round} "
+                                 f"step {int(node.cs.rs.step)})")
+        await asyncio.sleep(0.005)
+
+
+async def cs_deliver(node, raws, rng, rec, key: str, first=()):
+    """The peers' messages (key index, wire bytes) as a reactor hands
+    them over: `first` in order, then the rest shuffled, in bursts of
+    CS_BURST from CS_PEERS peer ids (a key's peer is its index mod
+    CS_PEERS); each decoded by decode_consensus_msg and admitted through
+    add_peer_msg. Records the decode time and the last delivery."""
+    import asyncio
+
+    from tendermint_tpu_torch.consensus.messages import decode_consensus_msg
+
+    order = list(first) + [raws[i] for i in rng.permutation(len(raws))]
+    rec["t"][f"first_{key}"] = time.perf_counter()
+    t_dec = 0.0
+    i = 0
+    while i < len(order):
+        n = int(rng.integers(CS_BURST[0], CS_BURST[1] + 1))
+        for k, raw in order[i:i + n]:
+            if not node.cs.is_running:
+                break  # halted: a reactor drops what it cannot hand over
+            t = time.perf_counter()
+            msg = decode_consensus_msg(raw)
+            t_dec += time.perf_counter() - t
+            await node.cs.add_peer_msg(msg, f"peer-{k % CS_PEERS}")
+        i += n
+        await asyncio.sleep(0)
+    rec["host_us"]["decode"] = rec["host_us"].get("decode", 0.0) + t_dec * 1e6
+    rec["msgs"]["decode"] = rec["msgs"].get("decode", 0) + len(order)
+    rec["t"][f"delivered_{key}"] = time.perf_counter()
+
+
+def cs_txs(h: int, signers):
+    """Height h's txs: CS_ENVELOPES signed envelopes, CS_RAW raw."""
+    from tendermint_tpu_torch.types import tx_envelope
+
+    envs = [tx_envelope.sign_tx(signers[i], b"cs%d-env%d=%d" % (h, i, h * i))
+            for i in range(CS_ENVELOPES)]
+    return envs, [b"cs%d-raw%d=%d" % (h, i, i) for i in range(CS_RAW)]
+
+
+def cs_split(r: dict) -> dict:
+    """A height from NewHeight to its commit: each mark's offset from
+    NewHeight (ms), the commit's own steps, and the timeout_commit wait
+    that follows."""
+    t = r["t"]
+    cr = r.get("commit_round") or 0
+    t0 = t.get("new_height")
+
+    def at(key):
+        return (t[key] - t0) * 1e3 if key in t and t0 is not None else None
+
+    def gap(a, b):
+        return (t[b] - t[a]) * 1e3 if a in t and b in t else None
+
+    hu = r["host_us"]
+    # RoundStep.PRECOMMIT (6) is entered on +2/3 prevotes for the block,
+    # RoundStep.COMMIT (8) on +2/3 precommits
+    pc, cm = f"step_6_r{cr}", f"step_8_r{cr}"
+    return dict(
+        offsets_ms=dict(proposal_complete=at("proposal"),
+                        first_prevote_handed=at("first_prevotes"),
+                        prevotes_23=at(pc),
+                        last_prevote_handed=at("delivered_prevotes"),
+                        first_precommit_handed=at("first_precommits"),
+                        precommits_23=at(cm),
+                        last_precommit_handed=at("delivered_precommits"),
+                        committed=at("committed"), halted=at("halted")),
+        prevotes_23_after_last_handed_ms=gap("delivered_prevotes", pc),
+        precommits_23_after_last_handed_ms=gap("delivered_precommits", cm),
+        commit_ms=gap("commit_start", "committed"),
+        save_block_ms=hu.get("save_block", 0.0) / 1e3,
+        end_height_fsync_ms=hu.get("wal_end_height_fsync", 0.0) / 1e3,
+        apply_block_ms=hu.get("apply_block", 0.0) / 1e3,
+        timeout_commit_wait_ms=r.get("timeout_commit_wait_ms"))
+
+
+class CsSites:
+    """Which step of the node each K3 and K4 launch served: a thread-local
+    tag set by the vote batches (batch_verdicts), the speculation plane's
+    commit-time serve (its re-verified misses), ValidatorSet.verify_commit
+    (a LastCommit the plane did not serve) and ConsensusState.
+    reconstruct_last_commit; untagged K4 launches are the admission
+    plane's. Records each K3 call (ExpandedKeys.verify_structured / verify)
+    and K4 call (verify.general_verify) with its tag, each verify_commit's
+    height and whether it came before or after the restart, and each
+    speculative flush's lanes (the flusher's _launch_batch) and whether
+    it clears the plane's device crossover."""
+
+    def __init__(self):
+        import threading
+
+        self.local = threading.local()
+        self.k3: list = []
+        self.k4: list = []
+        self.commit_checks: list = []
+        self.flushes: list = []  # the plane's launches: (lanes, on the device)
+        self.stage = "before"
+        self._undo: list = []
+
+    def site(self) -> str:
+        return getattr(self.local, "site", None) or "other"
+
+    def tagged(self, name, fn):
+        def run(*a, **kw):
+            prev = getattr(self.local, "site", None)
+            self.local.site = name
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.local.site = prev
+        return run
+
+    def _patch(self, obj, attr, fn) -> None:
+        self._undo.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, fn)
+
+    def install(self) -> None:
+        from tendermint_tpu_torch.consensus import state as cstate
+        from tendermint_tpu_torch.consensus.speculation import SpeculationPlane
+        from tendermint_tpu_torch.crypto.cuda import expanded, verify
+        from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+        E = expanded.ExpandedKeys
+        real_vs, real_v = E.verify_structured, E.verify
+        real_k4 = verify.general_verify
+        real_vc = ValidatorSet.verify_commit
+        real_launch = SpeculationPlane._launch_batch
+
+        def structured(this, lanes, msgs, sigs):
+            self.k3.append((self.site(), type(msgs).__name__, len(lanes)))
+            return real_vs(this, lanes, msgs, sigs)
+
+        def rows(this, lanes, msgs, sigs):
+            self.k3.append((self.site(), "bytes", len(lanes)))
+            return real_v(this, lanes, msgs, sigs)
+
+        sites = self
+
+        class K4:
+            """verify.general_verify, recording each call's tag; its
+            launch count stays the wrapper's own."""
+
+            launches = property(
+                lambda _: real_k4.launches,
+                lambda _, n: setattr(real_k4, "launches", n))
+
+            def __call__(self, *a, **kw):
+                sites.k4.append((sites.site(), int(a[0].shape[0])))
+                return real_k4(*a, **kw)
+
+        def verify_commit(this, chain_id, block_id, height, commit):
+            self.commit_checks.append((self.stage, height))
+            return real_vc(this, chain_id, block_id, height, commit)
+
+        def launch(plane, entry, batch):
+            self.flushes.append((len(batch), len(batch) >= plane.device_min))
+            return real_launch(plane, entry, batch)
+
+        self._patch(E, "verify_structured", structured)
+        self._patch(E, "verify", rows)
+        self._patch(verify, "general_verify", K4())
+        self._patch(ValidatorSet, "verify_commit",
+                    self.tagged("commit", verify_commit))
+        self._patch(cstate.ConsensusState, "reconstruct_last_commit",
+                    self.tagged("reconstruct",
+                                cstate.ConsensusState.reconstruct_last_commit))
+        self._patch(SpeculationPlane, "serve_commit",
+                    self.tagged("serve", SpeculationPlane.serve_commit))
+        self._patch(SpeculationPlane, "_launch_batch", launch)
+
+    def uninstall(self) -> None:
+        for obj, attr, fn in reversed(self._undo):
+            setattr(obj, attr, fn)
+        self._undo.clear()
+
+    def count(self, kind: str, site: str) -> int:
+        return sum(1 for x in (self.k3 if kind == "k3" else self.k4)
+                   if x[0] == site)
+
+
+async def cs_material(probe, pending, material_of):
+    """Await the peers' material for the node's current height; record
+    the wait (the part the node's loop did not hide) and the child's own
+    build and signing seconds."""
+    t = time.perf_counter()
+    material = await material_of(pending)
+    parts = [material, material.get("nil") or {}, material.get("round1") or {}]
+    probe.rec()["peers"] = dict(
+        wait_ms=(time.perf_counter() - t) * 1e3,
+        build_s=sum(m.get("build_s", 0.0) for m in parts),
+        sign_s=sum(m.get("sign_s", 0.0) for m in parts))
+    return material
+
+
+def consensus_phase():
+    """The consensus state machine on the card (docstring, phase 15).
+    Returns the phase's record."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.consensus.cstypes import RoundStep
+    from tendermint_tpu_torch.libs import failpoints
+    from tendermint_tpu_torch.mempool import admission
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.state.store import _STATE_KEY
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    t0 = time.perf_counter()
+    peers = CsPeers(CS_PEERS_ARGV)
+    home = tempfile.mkdtemp(prefix="cs-node-")
+    try:
+        pubs = peers.first["pubs"]
+        gdoc = cs_genesis(pubs)
+        vals = make_genesis_state(gdoc).validators
+        addr_key = {}
+        from tendermint_tpu_torch.crypto.ed25519 import (Ed25519PrivKey,
+                                                         Ed25519PubKey)
+
+        for k, p in enumerate(pubs):
+            addr_key[Ed25519PubKey(p).address()] = k
+
+        def proposer(h: int, round_: int) -> int:
+            vs = vals.copy()
+            if h - 1 + round_:
+                vs.increment_proposer_priority(h - 1 + round_)
+            return addr_key[vs.get_proposer().address]
+
+        node_k = proposer(CS_OWN_H, 0)
+        silent, r1 = proposer(CS_SILENT_H, 0), proposer(CS_SILENT_H, 1)
+        others = [k for k in range(CS_VALIDATORS) if k != node_k]
+        forge, equivocate = others[17], others[29]
+        if node_k in (silent, r1) or any(
+                proposer(h, 0) == node_k for h in range(1, CS_HEIGHTS + 1)
+                if h != CS_OWN_H):
+            raise AssertionError("the node proposes at a height it must not")
+        key_path = os.path.join(home, "pv_key.json")
+        state_path = os.path.join(home, "pv_state.json")
+        pv = FilePV(Ed25519PrivKey(cs_seed(node_k)), key_path, state_path)
+        pv.save_key()
+        signers = adm_signers(CS_ENVELOPES)
+        setup_s = time.perf_counter() - t0
+        kernels = wrappers()
+        for fn in kernels.values():
+            fn.launches = 0
+        heights: dict = {}
+        batches: list = []
+        sites = CsSites()
+        reporter = PeerReporter()
+        adm0 = json.loads(json.dumps(admission.METRICS))
+        rng = np.random.default_rng(15)
+        out: dict = {"node_key": node_k, "setup_s": setup_s,
+                     "peer_keys_s": peers.first["keys_s"]}
+
+        async def drive(node, probe, h, material, crash=False):
+            """One height from NewHeight to its commit (or, `crash`, to the
+            halt the armed failpoint causes)."""
+            cs = node.cs
+            await cs_until(lambda: cs.rs.height == h and
+                           cs.rs.step >= RoundStep.PROPOSE, node,
+                           f"NewHeight {h}")
+            rec = probe.rec()
+            if "txs" in material:
+                k0 = exec_counts()
+                t = time.perf_counter()
+                envs, raw = material["txs"]
+                res = []
+                for txs in (envs, raw):
+                    res += await asyncio.gather(*(node.mempool.check_tx(tx)
+                                                  for tx in txs))
+                if any(r.code for r in res):
+                    raise AssertionError(f"height {h}: a tx was refused")
+                rec["check_tx_ms"] = (time.perf_counter() - t) * 1e3
+                rec["check_tx_launches"] = exec_delta(k0)
+                rec["mempool_size_before"] = node.mempool.size()
+            if h == CS_OWN_H:
+                await cs_until(lambda: cs.rs.proposal is not None and
+                               cs.rs.proposal_complete(), node, "own proposal")
+                bid = cs.rs.proposal.block_id
+                t = time.perf_counter()
+                fut = peers.submit(dict(op="votes", h=h, round=0, node=node_k,
+                                        bid=cs_block_id(bid),
+                                        ts=cs.rs.proposal_block.header.time
+                                        + 1_000_000_000))
+                material = await asyncio.wrap_future(fut)
+                rec["peers"] = dict(wait_ms=(time.perf_counter() - t) * 1e3,
+                                    build_s=0.0, sign_s=material["sign_s"])
+                rec["proposer"] = "node"
+            elif h == CS_SILENT_H:
+                await cs_until(lambda: (h, 0, 1, True) in probe.own_votes,
+                               node, "the nil prevote after timeout_propose")
+                rec["t"]["timeout_propose"] = time.perf_counter()
+                nil = material["nil"]
+                await cs_deliver(node, nil["prevotes"], rng, rec, "nil_prevotes")
+                await cs_deliver(node, nil["precommits"], rng, rec,
+                                 "nil_precommits")
+                await cs_until(lambda: cs.rs.round == 1, node, "round 1")
+                material = material["round1"]
+                rec["proposer"] = "peer (round 1)"
+            else:
+                rec["proposer"] = "peer"
+            if "proposal" in material:
+                pk = proposer(h, cs.rs.round)
+                await cs_deliver(node, [], rng, rec, "proposal",
+                                 first=[(pk, b) for b in material["proposal"]])
+            await cs_deliver(node, material["prevotes"], rng, rec, "prevotes")
+            if crash:
+                failpoints.arm(CS_CRASH_POINT, "error")
+            precommits, first = material["precommits"], []
+            if material["equivocation"]:
+                # the equivocating pair leads the first burst: both land
+                # in the height, before its +2/3
+                eq = material["equivocation"][0][0]
+                first = [x for x in precommits if x[0] == eq] + \
+                    material["equivocation"]
+                precommits = [x for x in precommits if x[0] != eq]
+            await cs_deliver(node, precommits, rng, rec, "precommits",
+                             first=first)
+            if crash:
+                t = time.perf_counter()
+                while cs.is_running and time.perf_counter() - t < 120:
+                    await asyncio.sleep(0.001)
+                if cs.is_running or not isinstance(
+                        cs.fault, failpoints.FailpointError):
+                    raise AssertionError(f"no halt at {CS_CRASH_POINT}: "
+                                         f"{cs.fault!r}")
+                failpoints.disarm_all()
+                rec["t"]["halted"] = time.perf_counter()
+                rec["fault"] = repr(cs.fault)
+                return rec
+            await cs_until(lambda: cs.state.last_block_height == h, node,
+                           f"commit {h}")
+            rec["commit_round"] = node.bs.load_seen_commit(h).round
+            rec["speculation"] = dict(hits=node.plane.hits,
+                                      misses={k: v for k, v in
+                                              node.plane.misses.items() if v})
+            rec.update(app_hash=cs.state.app_hash.hex(),
+                       last_results_hash=cs.state.last_results_hash.hex(),
+                       block_hash=node.bs.load_block_meta(h).header.hash().hex(),
+                       state_db=db_digest(node.dbs[0]),
+                       txs=len(node.bs.load_block(h).data.txs),
+                       mempool_size_after=node.mempool.size())
+            return rec
+
+        def request(node, h):
+            """Height h's material from the peers, asked for as soon as h-1
+            is committed (the state and the seen commit are then known)."""
+            st = node.ss.db.get(_STATE_KEY)
+            lc = node.bs.load_seen_commit(h - 1)
+            lcb = lc.to_bytes() if lc is not None else b""
+            txs = cs_txs(h, signers) if h in CS_TX_HEIGHTS else None
+            base = dict(op="build", h=h, round=0, node=node_k, state=st,
+                        last_commit=lcb, txs=[*txs[0], *txs[1]] if txs else [],
+                        proposer=proposer(h, 0))
+            if h == CS_FORGE_H:
+                base.update(forge=forge, equivocate=equivocate)
+            if h == CS_OWN_H:
+                return {}
+            if h == CS_SILENT_H:
+                nil = peers.submit(dict(op="votes", h=h, round=0, node=node_k,
+                                        bid=None, ts=CS_T0 + h * 10**10))
+                r1f = peers.submit(dict(base, round=1, proposer=r1))
+                return {"futs": (nil, r1f)}
+            fut = peers.submit(base)
+            return {"fut": fut, "txs": txs}
+
+        async def material_of(req):
+            if "futs" in req:
+                nil, r1f = req["futs"]
+                return {"nil": await asyncio.wrap_future(nil),
+                        "round1": await asyncio.wrap_future(r1f)}
+            if "fut" in req:
+                m = await asyncio.wrap_future(req["fut"])
+                if req["txs"]:
+                    m["txs"] = req["txs"]
+                return m
+            return {}
+
+        async def run():
+            node = await CsNode(gdoc, pv, home).start()
+            probe = CsProbe(node, heights)
+            node.cs.reporter_fn = lambda: reporter
+            out["first_start"] = dict(handshake_s=node.handshake_s,
+                                      init_s=node.init_s)
+            await node.cs.start()
+            pending = request(node, 1)
+            with pipeline_timer(node) as acc:
+                for h in range(1, CS_CRASH_H):
+                    material = await cs_material(probe, pending, material_of)
+                    rec = await drive(node, probe, h, material)
+                    pending = request(node, h + 1)
+                    rec["apply_split_ms"] = dict(acc)
+                    acc.clear()
+                material = await cs_material(probe, pending, material_of)
+                await drive(node, probe, CS_CRASH_H, material, crash=True)
+            probe.close()
+            crashed = dict(fault=repr(node.cs.fault),
+                           block_store=node.bs.height,
+                           state=node.cs.state.last_block_height)
+            await node.stop()
+            # the restart: every store, the WAL and the FilePV from disk
+            sites.stage = "after"
+            k0 = exec_counts()
+            t = time.perf_counter()
+            pv2 = FilePV.load(key_path, state_path)
+            node = await CsNode(gdoc, pv2, home).start()
+            probe = CsProbe(node, heights)
+            node.cs.reporter_fn = lambda: reporter
+            await node.cs.start()
+            restart = dict(crashed, handshake_s=node.handshake_s,
+                           init_s=node.init_s,
+                           seconds=time.perf_counter() - t,
+                           repairs=[r["kind"] for r in node.report.repairs],
+                           launches=exec_delta(k0),
+                           state=node.cs.state.last_block_height)
+            heights[CS_CRASH_H].update(
+                app_hash=node.cs.state.app_hash.hex(),
+                last_results_hash=node.cs.state.last_results_hash.hex(),
+                block_hash=node.bs.load_block_meta(
+                    CS_CRASH_H).header.hash().hex(),
+                state_db=db_digest(node.dbs[0]),
+                txs=len(node.bs.load_block(CS_CRASH_H).data.txs))
+            with pipeline_timer(node) as acc:
+                for h in range(CS_CRASH_H + 1, CS_HEIGHTS + 1):
+                    material = await cs_material(probe, request(node, h),
+                                                 material_of)
+                    rec = await drive(node, probe, h, material)
+                    rec["apply_split_ms"] = dict(acc)
+                    acc.clear()
+            probe.close()
+            out["restart"] = restart
+            ev_block = node.bs.load_block(CS_OWN_H).evidence.evidence
+            evs = [(h, e) for h in range(1, CS_HEIGHTS + 1)
+                   for e in node.bs.load_block(h).evidence.evidence]
+            out["evidence"] = dict(
+                in_blocks=[(h, type(e).__name__,
+                            e.vote_a.validator_address.hex())
+                           for h, e in evs],
+                committed=[node.evpool.is_committed(e) for _, e in evs],
+                pending=len(node.evpool.pending_evidence(-1)))
+            if len(evs) != 1 or evs[0][0] != CS_OWN_H or \
+                    not isinstance(ev_block[0], DuplicateVoteEvidence) or \
+                    ev_block[0].vote_a.validator_address != \
+                    Ed25519PubKey(pubs[equivocate]).address() or \
+                    not all(out["evidence"]["committed"]):
+                raise AssertionError(f"evidence: {out['evidence']}")
+            lss = FilePV.load(key_path, state_path).last_sign_state
+            mem = node.cs.priv_validator.last_sign_state
+            out["filepv"] = dict(height=lss.height, round=lss.round,
+                                 step=lss.step)
+            if (lss.height, lss.round, lss.step, lss.signature) != \
+                    (mem.height, mem.round, mem.step, mem.signature) or \
+                    (lss.height, lss.step) != (CS_HEIGHTS, 3):
+                raise AssertionError(f"FilePV state: {out['filepv']}")
+            out["final_height"] = node.cs.state.last_block_height
+            out["plane"] = node.plane.status_check()
+            await node.stop()
+
+        sites.install()
+        undo = cs_batch_probe(batches, sites)
+        t_run = time.perf_counter()
+        try:
+            asyncio.run(run())
+        finally:
+            undo()
+            sites.uninstall()
+            failpoints.disarm_all()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = {name: fn.launches for name, fn in kernels.items()
+                    if fn.launches}
+        t = time.perf_counter()
+        replay = peers.call({"op": "replay",
+                             "blocks": os.path.join(home, "blocks.db")})
+        replay_s = time.perf_counter() - t
+    finally:
+        peers.close()
+        shutil.rmtree(home, ignore_errors=True)
+    keys = ("height", "block_hash", "app_hash", "last_results_hash",
+            "state_db")
+    mine = [{k: heights[h][k] for k in keys} for h in sorted(heights)
+            if h <= CS_HEIGHTS]
+    theirs = [{k: r[k] for k in keys} for r in replay["heights"]]
+    if mine != theirs:
+        raise AssertionError(f"the host replay differs: {mine} {theirs}")
+    bad = {p: c for p, c in reporter.counts.items() if c[1]}
+    forged_peer = f"peer-{forge % CS_PEERS}"
+    if bad != {forged_peer: bad.get(forged_peer)} or bad[forged_peer][1] != 1:
+        raise AssertionError(f"bad votes by peer: {reporter.counts}")
+    if out["restart"]["repairs"] != ["state_reapply"] or \
+            out["final_height"] != CS_HEIGHTS:
+        raise AssertionError(f"restart: {out['restart']}")
+    # which step each K3 and K4 launch served (CsSites)
+    groups = [n for b in batches for n in b["groups"]]
+    k3_votes = [n for site, _, n in sites.k3 if site == "votes"]
+    before = [h for stage, h in sites.commit_checks if stage == "before"]
+    after = [h for stage, h in sites.commit_checks if stage == "after"]
+    adm = admission.METRICS["verify_launches"].get("device", 0) - \
+        adm0["verify_launches"].get("device", 0)
+    k4 = {site: sites.count("k4", site) for site in
+          ("votes", "serve", "commit", "reconstruct", "other")}
+    k3 = {site: sites.count("k3", site) for site in
+          ("votes", "serve", "commit", "other")}
+    device_flushes = sum(1 for _, dev in sites.flushes if dev)
+    want_k4_votes = sum(1 for n in groups if 40 <= n < 128)
+    want_k3_votes = sum(1 for n in groups if n >= 128)
+    counted = dict(build_tables=1, xverify=len(sites.k3),
+                   general_verify=len(sites.k4))
+    if {k: launches.get(k, 0) for k in counted} != counted or \
+            k3["votes"] != want_k3_votes or k4["votes"] != want_k4_votes or \
+            k4["reconstruct"] != 1 or k4["other"] != adm or before or \
+            after[:1] != [CS_CRASH_H - 1] or \
+            k3["commit"] + k4["commit"] != len(after) or \
+            launches.get("arena_verify", 0) != device_flushes or \
+            launches.get("splice", 0) != device_flushes:
+        raise AssertionError(
+            f"launches {launches}, counted {counted}; K3 by step {k3} "
+            f"(votes: {want_k3_votes} groups of 128+), K4 by step {k4} "
+            f"(votes: {want_k4_votes} groups of 40-127, admission {adm}); "
+            f"verify_commit before the restart at {before}, after at {after}; "
+            f"{device_flushes} device flushes; vote groups {groups}")
+    records = []
+    for h in sorted(k for k in heights if k <= CS_HEIGHTS):
+        r = heights[h]
+        nxt = heights.get(h + 1, {}).get("t", {})
+        if "committed" in r["t"] and "new_height" in nxt and \
+                h != CS_CRASH_H:
+            r["timeout_commit_wait_ms"] = (nxt["new_height"]
+                                           - r["t"]["committed"]) * 1e3
+        records.append(dict(
+            height=h, proposer=r.get("proposer"), peers=r.get("peers"),
+            commit_round=r.get("commit_round"), txs=r.get("txs"),
+            fault=r.get("fault"), split_ms=cs_split(r),
+            apply_split_ms=r.get("apply_split_ms"),
+            host_us_per_msg={k: r["host_us"][k] / r["msgs"][k]
+                             for k in r["host_us"]},
+            msgs=r["msgs"], gc_ms=r["gc_ms"],
+            check_tx_ms=r.get("check_tx_ms"),
+            check_tx_launches=r.get("check_tx_launches"),
+            mempool=(r.get("mempool_size_before"),
+                     r.get("mempool_size_after")),
+            speculation=r.get("speculation"),
+            batches=[b["groups"] for b in batches if b["height"] == h],
+            batch_launches=[b["launches"] for b in batches
+                            if b["height"] == h and b["launches"]]))
+    return dict(
+        validators=CS_VALIDATORS, heights=records, run_s=run_s,
+        replay=dict(seconds=replay_s, child_seconds=replay["seconds"],
+                    equal=True, apply_block_ms=[r["apply_block_ms"]
+                                                for r in replay["heights"]]),
+        batch_sizes=dict(count=len(groups), p50=statistics.median(groups),
+                         max=max(groups), under_40=sum(n < 40 for n in groups),
+                         k4_40_127=want_k4_votes, k3_128_up=want_k3_votes),
+        k3=dict(by_step=k3, vote_batch_lanes=k3_votes,
+                verify_commit_before_restart=before,
+                verify_commit_after_restart=after),
+        k4=dict(by_step=k4, admission_flushes=adm,
+                lanes=[n for _, n in sites.k4]),
+        flushes=dict(count=len(sites.flushes), device=device_flushes,
+                     p50=statistics.median([n for n, _ in sites.flushes])
+                     if sites.flushes else None,
+                     max=max((n for n, _ in sites.flushes), default=None)),
+        forged_peer=forged_peer, peer_counts=reporter.counts,
+        launches=launches, **out)
+
+
+# -- phase 16 ------------------------------------------------------------
 
 
 def timing_phase(vs, commit, dev) -> list[dict]:
@@ -6054,6 +7219,19 @@ def main() -> int:
             os._exit(rc)  # the poisoned context is not torn down
         if phase == "execution_host":
             return exec_host_child()
+        if phase == "consensus_peers":
+            return cs_peers_child()
+        if phase == "consensus":
+            from tendermint_tpu_torch.crypto.cuda import kernels
+
+            kernels.build()
+            state = fallback_state()
+            t0 = time.perf_counter()
+            consensus = consensus_phase()
+            no_fallback("consensus", state)
+            emit(dict(phase="consensus", seconds=time.perf_counter() - t0,
+                      card=nvidia_smi(), **consensus))
+            return 0
         return f32_child(json.loads(sys.argv[sys.argv.index("--i32") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6158,6 +7336,12 @@ def main() -> int:
     no_fallback("execution", state)
     emit(dict(phase="execution", seconds=time.perf_counter() - t0,
               card=smi, **execution))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    consensus = consensus_phase()
+    no_fallback("consensus", state)
+    emit(dict(phase="consensus", seconds=time.perf_counter() - t0,
+              card=smi, **consensus))
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -6181,7 +7365,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
-                 light_client, admission, execution):
+                 light_client, admission, execution, consensus):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -38,10 +38,24 @@ class BaseConfig:
 
 @dataclass
 class ConsensusConfig:
-    """The consensus section's vote micro-batch fields (reference:
-    config.py ConsensusConfig); the timeouts and the receive funnel come
-    with ConsensusState."""
+    """The consensus section (reference: config.py ConsensusConfig; Go
+    config/config.go:846-875): the WAL, the round timeouts, the vote
+    micro-batching and the receive funnel's bounds."""
 
+    wal_file: str = "data/cs.wal/wal"
+    timeout_propose_ms: int = 3000
+    timeout_propose_delta_ms: int = 500
+    timeout_prevote_ms: int = 1000
+    timeout_prevote_delta_ms: int = 500
+    timeout_precommit_ms: int = 1000
+    timeout_precommit_delta_ms: int = 500
+    timeout_commit_ms: int = 1000
+    skip_timeout_commit: bool = False
+    create_empty_blocks: bool = True
+    create_empty_blocks_interval_ms: int = 0
+    double_sign_check_height: int = 0
+    peer_gossip_sleep_ms: int = 100
+    peer_query_maj23_sleep_ms: int = 2000
     # Micro-batch vote verification (consensus/state.py VoteScheduler):
     # incoming votes accumulate for up to vote_batch_window_ms (or until
     # vote_batch_max) and are verified as one device batch off the event
@@ -49,14 +63,55 @@ class ConsensusConfig:
     # like the Go reference.
     vote_batch_window_ms: float = 2.0
     vote_batch_max: int = 1024
-    # Overload bound (libs/overload.py): the vote-scheduler buffer is
-    # capped; excess peer votes are shed and re-gossiped via votebits
-    # reconciliation once pressure clears.
+    # Overload bounds (libs/overload.py): the serialized receive funnel
+    # is split by class — vote/proposal messages get a blocking
+    # (backpressure) queue, block parts / catchup data a shed-when-full
+    # queue — and the vote-scheduler buffer is capped (excess peer votes
+    # are shed and re-gossiped via votebits reconciliation once
+    # pressure clears).
+    peer_funnel_votes_size: int = 1024
+    peer_funnel_data_size: int = 512
     vote_buf_max: int = 4096
 
+    def propose_timeout(self, round_: int) -> float:
+        return (self.timeout_propose_ms
+                + self.timeout_propose_delta_ms * round_) / 1000
+
+    def prevote_timeout(self, round_: int) -> float:
+        return (self.timeout_prevote_ms
+                + self.timeout_prevote_delta_ms * round_) / 1000
+
+    def precommit_timeout(self, round_: int) -> float:
+        return (self.timeout_precommit_ms
+                + self.timeout_precommit_delta_ms * round_) / 1000
+
+    def commit_timeout(self) -> float:
+        return self.timeout_commit_ms / 1000
+
     def validate_basic(self) -> None:
-        if self.vote_buf_max <= 0:
-            raise ValueError("vote_buf_max must be positive")
+        for name in ("timeout_propose_ms", "timeout_propose_delta_ms",
+                     "timeout_prevote_ms", "timeout_prevote_delta_ms",
+                     "timeout_precommit_ms", "timeout_precommit_delta_ms",
+                     "timeout_commit_ms", "create_empty_blocks_interval_ms",
+                     "double_sign_check_height"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"negative {name}")
+        for name in ("peer_funnel_votes_size", "peer_funnel_data_size",
+                     "vote_buf_max"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be positive")
+
+
+def fast_consensus_config() -> ConsensusConfig:
+    """Short timeouts for in-process tests (reference: config.py
+    fast_consensus_config; Go's 10 ms timeout-commit test config,
+    config/config.go:867-875)."""
+    return ConsensusConfig(
+        timeout_propose_ms=400, timeout_propose_delta_ms=100,
+        timeout_prevote_ms=200, timeout_prevote_delta_ms=100,
+        timeout_precommit_ms=200, timeout_precommit_delta_ms=100,
+        timeout_commit_ms=20, skip_timeout_commit=True,
+    )
 
 
 @dataclass
@@ -161,8 +216,7 @@ class SpeculationConfig:
     max_heights_ahead: int = 2
     # micro-batch window: patches accumulate this long after the first
     # pending arrival before a speculative launch (0 launches every
-    # drain immediately); read by the asyncio flusher, which comes with
-    # the consensus-state port (drive flush_sync until then)
+    # drain immediately); read by the plane's asyncio flusher
     flush_ms: float = 2.0
 
     def validate_basic(self) -> None:

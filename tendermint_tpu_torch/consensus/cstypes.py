@@ -1,13 +1,15 @@
-"""Consensus round types (reference: consensus/types/): RoundStep
-progression and HeightVoteSet (per-round prevote/precommit VoteSets,
-height_vote_set.go:41). RoundState comes with ConsensusState, which
-needs the proposal types."""
+"""Consensus round types (reference: consensus/cstypes.py; Go
+consensus/types/): RoundStep progression, RoundState (the full mutable
+state of one consensus instance, round_state.go:67) and HeightVoteSet
+(per-round prevote/precommit VoteSets, height_vote_set.go:41)."""
 
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass
 
-from ..types.block import BlockID
+from ..types.block import Block, BlockID, PartSet
+from ..types.proposal import Proposal
 from ..types.validator_set import ValidatorSet
 from ..types.vote import Vote, VoteType
 from ..types.vote_set import VoteSet, VoteSetError
@@ -22,6 +24,38 @@ class RoundStep(enum.IntEnum):
     PRECOMMIT = 6
     PRECOMMIT_WAIT = 7
     COMMIT = 8
+
+
+@dataclass
+class RoundState:
+    """Reference: consensus/types/round_state.go:67."""
+
+    height: int = 0
+    round: int = 0
+    step: RoundStep = RoundStep.NEW_HEIGHT
+    start_time: float = 0.0
+    commit_time: float = 0.0
+    validators: ValidatorSet | None = None
+    proposal: Proposal | None = None
+    proposal_block: Block | None = None
+    proposal_block_parts: PartSet | None = None
+    locked_round: int = -1
+    locked_block: Block | None = None
+    locked_block_parts: PartSet | None = None
+    valid_round: int = -1
+    valid_block: Block | None = None
+    valid_block_parts: PartSet | None = None
+    votes: "HeightVoteSet | None" = None
+    commit_round: int = -1
+    last_commit: VoteSet | None = None
+    last_validators: ValidatorSet | None = None
+    triggered_timeout_precommit: bool = False
+
+    def proposal_complete(self) -> bool:
+        return (
+            self.proposal is not None
+            and self.proposal_block is not None
+        )
 
 
 class HeightVoteSet:

@@ -25,6 +25,16 @@ takes it off that path by starting it before the commit is needed:
      a full hit launches no verification at commit time; a miss costs
      exactly the lanes that missed.
 
+The consensus state machine feeds the plane (consensus/state.py:
+begin_height at _set_proposal, observe_precommit at _add_vote) and the
+plane's own asyncio flusher launches each burst ``flush_ms`` after its
+first patch arrives, in an executor thread; ``flush_sync`` drains and
+launches inline for callers without an event loop. The
+``consensus.speculate`` failpoint wraps each lane's observed timestamp
+on its way into a launch: `corrupt` makes every speculated lane
+mismatch at commit, `error` abandons the launch, `delay` stalls it; all
+three degrade to the commit-time fallback.
+
 The device path is breaker-aware (crypto/batch.py): a launch that
 raises opens the ed25519 breaker and the batch re-verifies on the
 host; a launch whose known-answer sentinel reads false does the same,
@@ -32,14 +42,21 @@ and on a MeshResidentArena (one sentinel a shard) only the lying
 entries' breakers open, so the arena reshards over the survivors
 (``ensure_mesh``) at the next launch and keeps serving on the device.
 
-Reference: tendermint_tpu/consensus/speculation.py. Not in this slice
-of the port: the asyncio flusher (drive ``flush_sync``), the
-``consensus.speculate`` failpoint, tracing spans and metrics, and the
-/status hook.
+One divergence, the port's rule for its own faults (crypto/batch.py
+UNCAUGHT): where the reference's flusher logs a launch that raised and
+goes on, a KernelError or NoDeviceError ends the flusher; the plane
+keeps it as ``fault`` and re-raises it at the next feed, so the state
+machine that feeds the plane stops with it.
+
+Reference: consensus/speculation.py. Not in this slice of the port:
+tracing spans and metrics (the plain counters ``hits``, ``misses`` and
+``patched_lanes`` stand for them); ``status_check`` is the body the
+reference's GET /status check serves.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import threading
 from collections import deque
@@ -63,6 +80,14 @@ MISS_REASONS = (MISS_NO_PLAN, MISS_UNPATCHED, MISS_NIL, MISS_MISMATCH,
                 MISS_EQUIVOCATION, MISS_NOT_LAUNCHED)
 
 _ORPHAN_RING = 2048  # precommits buffered before their proposal arrives
+
+_ACTIVE_PLANE: "SpeculationPlane | None" = None
+
+
+def active_plane() -> "SpeculationPlane | None":
+    """The process's most recently built plane (the /status hook; a
+    process normally hosts one node)."""
+    return _ACTIVE_PLANE
 
 
 class _Lane:
@@ -110,6 +135,7 @@ class SpeculationPlane:
 
         self.arena_lanes = getattr(config, "arena_lanes", 12288)
         self.max_heights_ahead = getattr(config, "max_heights_ahead", 2)
+        self.flush_ms = getattr(config, "flush_ms", 2.0)
         self.device_min = (cbatch._DEVICE_THRESHOLD
                            if device_min is None else device_min)
         self._lock = threading.Lock()
@@ -119,14 +145,46 @@ class SpeculationPlane:
         self._arena = None
         self._arena_keys_hash: bytes | None = None
         self._arena_entry: _HeightSpec | None = None
+        self._flusher: asyncio.Task | None = None
+        self._pending_evt: asyncio.Event | None = None
+        self.fault: BaseException | None = None  # what ended the flusher
         self.hits = 0
         self.misses: dict[str, int] = {r: 0 for r in MISS_REASONS}
         self.patched_lanes = 0
+        global _ACTIVE_PLANE
+        _ACTIVE_PLANE = self
 
     def close(self) -> None:
+        if self._flusher is not None:
+            self._flusher.cancel()
+            self._flusher = None
         with self._lock:
             self._heights.clear()
             self._orphans.clear()
+        global _ACTIVE_PLANE
+        if _ACTIVE_PLANE is self:
+            _ACTIVE_PLANE = None
+
+    def _ensure_flusher(self) -> None:
+        """Start the flusher on the running loop (none: synchronous
+        callers use flush_sync); re-raise what ended it."""
+        if self.fault is not None:
+            raise self.fault
+        if self._flusher is not None and not self._flusher.done():
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        if self._pending_evt is None:
+            self._pending_evt = asyncio.Event()
+        self._flusher = loop.create_task(self._flush_loop(),
+                                         name="speculation-flusher")
+
+    def _wake_flusher(self) -> None:
+        self._ensure_flusher()
+        if self._pending_evt is not None:
+            self._pending_evt.set()
 
     # -- consensus-side feeds ------------------------------------------
 
@@ -160,6 +218,9 @@ class SpeculationPlane:
             for v in list(self._orphans):
                 if v.height == height:
                     self._observe_locked(entry, v)
+            replayed = bool(entry.pending)
+        if replayed:
+            self._wake_flusher()
 
     def observe_precommit(self, vote) -> None:
         """A verified-or-about-to-verify precommit arrived: patch its
@@ -170,6 +231,7 @@ class SpeculationPlane:
                 self._orphans.append(vote)
                 return
             self._observe_locked(entry, vote)
+        self._wake_flusher()
 
     def _observe_locked(self, entry: _HeightSpec, vote) -> None:
         if vote.round != entry.round or not vote.signature:
@@ -210,6 +272,32 @@ class SpeculationPlane:
 
     # -- the verify-ahead launches -------------------------------------
 
+    async def _flush_loop(self) -> None:
+        from ..crypto.batch import UNCAUGHT
+
+        loop = asyncio.get_running_loop()
+        evt = self._pending_evt
+        while True:
+            await evt.wait()
+            if self.flush_ms > 0:
+                await asyncio.sleep(self.flush_ms / 1000.0)
+            evt.clear()
+            for entry, batch in self._drain():
+                try:
+                    await loop.run_in_executor(None, self._launch_batch,
+                                               entry, batch)
+                except asyncio.CancelledError:
+                    raise
+                except UNCAUGHT as e:
+                    self.fault = e
+                    raise
+                except Exception:
+                    # a failed speculative launch never surfaces: the
+                    # lanes stay verdict-less and the commit-time
+                    # fallback verifies them
+                    logger.exception("speculative launch died "
+                                     "(%d lanes)", len(batch))
+
     def _drain(self) -> list[tuple[_HeightSpec, list]]:
         out = []
         with self._lock:
@@ -226,11 +314,22 @@ class SpeculationPlane:
             self._launch_batch(entry, batch)
 
     def _launch_batch(self, entry: _HeightSpec, batch: list) -> None:
-        verdicts = self._verify_lanes(entry, batch)
+        kept: list[tuple[int, int, bytes]] = []
+        for idx, ts, sig in batch:
+            try:
+                raw = failpoints.hit("consensus.speculate",
+                                     payload=ts.to_bytes(8, "big"))
+            except failpoints.FailpointError:
+                logger.warning("speculative launch abandoned (injected "
+                               "consensus.speculate); %d lanes fall back "
+                               "at commit", len(batch))
+                return
+            kept.append((idx, int.from_bytes(raw, "big"), sig))
+        verdicts = self._verify_lanes(entry, kept)
         if verdicts is None:
             return
         with self._lock:
-            for (idx, ts_used, _sig), ok in zip(batch, verdicts):
+            for (idx, ts_used, _sig), ok in zip(kept, verdicts):
                 lane = entry.lanes.get(idx)
                 if lane is None:
                     continue
@@ -468,3 +567,31 @@ class SpeculationPlane:
         if lane.verdict is None:
             return MISS_NOT_LAUNCHED
         return MISS_MISMATCH
+
+    # -- /status -------------------------------------------------------
+
+    def status_check(self) -> dict:
+        """The GET /status `speculation` check body. Speculation is an
+        optimization: misses are designed behavior (the fallback path
+        is the correctness story), so the check never degrades; an open
+        breaker is noted, not escalated."""
+        from ..crypto import batch as cbatch
+
+        with self._lock:
+            heights = sorted(self._heights)
+            patched = {h: len(e.lanes) for h, e in self._heights.items()}
+        out: dict = {
+            "status": "ok",
+            "hits": self.hits,
+            "misses": {r: n for r, n in self.misses.items() if n},
+            "patched_lanes": self.patched_lanes,
+            "heights": heights,
+            "lanes_by_height": patched,
+            "arena_bytes": (self._arena.arena_bytes()
+                            if self._arena is not None else 0),
+            "reupload_bytes": (self._arena.reupload_bytes
+                               if self._arena is not None else 0),
+        }
+        if not cbatch.device_available("ed25519"):
+            out["detail"] = "ed25519 breaker open: speculating on host"
+        return out

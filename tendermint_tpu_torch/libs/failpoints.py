@@ -1,8 +1,10 @@
 """Named failpoints (reference: libs/failpoints.py), trimmed to the
 points of the device path, the light serving plane, the block store,
-the ABCI connections, the mempool admission plane and the commit
-pipeline (the block executor, the consensus WAL, the persistent KV
-stores), and to the `error`, `delay` and `corrupt` actions.
+the ABCI connections, the mempool admission plane, the commit
+pipeline (the consensus state machine's commit, the block executor,
+the consensus WAL, the persistent KV stores, the FilePV's last-sign
+state) and the speculation plane, and to the `error`, `delay` and
+`corrupt` actions.
 
     error         raise FailpointError(name) from the call site
     delay         time.sleep(delay_ms) at the call site (stall shape)
@@ -30,6 +32,11 @@ MAX_DELAY_MS = 60_000.0
 
 # name -> the call site passes a payload through hit()
 CATALOG: dict[str, bool] = {
+    # consensus/state.py finalize_commit: the block saved to the store,
+    # the WAL's end-height not yet written ...
+    "consensus.commit.block_saved": False,
+    # ... the WAL's end-height written, the state not yet applied
+    "consensus.commit.wal_delimited": False,
     # a device batch-verification launch (the general kernel, the
     # sr25519 kernel, the expanded commit path, the speculation arena)
     "device.verify": False,
@@ -68,27 +75,38 @@ CATALOG: dict[str, bool] = {
     "wal.torn_write": True,
     # a persistent KV-store write (SqliteDB set/batch, FileDB append)
     "db.set": False,
+    # a precommit lane entering a speculative verify-ahead launch
+    # (consensus/speculation.py): the payload is the lane's observed
+    # timestamp bytes; `corrupt` makes every speculated lane mismatch at
+    # commit, `error` abandons the launch, `delay` stalls it
+    "consensus.speculate": True,
+    # the FilePV's LastSignState about to be persisted (privval/file_pv.py):
+    # an error here must never let an unpersisted signature escape
+    "privval.save": False,
 }
 
 # The reference's crash sites (its catalog's legacy_index flag: the
 # persistence boundaries of committing a height that the legacy
 # FAIL_TEST_INDEX ordinal counts) among the points above ...
 CRASH_SITES = frozenset({
+    "consensus.commit.block_saved", "consensus.commit.wal_delimited",
     "state.apply.block_executed", "state.apply.responses_saved",
     "state.apply.app_committed", "state.apply.state_saved",
 })
-# ... and the per-height commit-pipeline points the port has, in
-# persistence order (the reference's COMMIT_PIPELINE less its consensus
-# and privval points, which come with those modules): a crash at any of
-# them leaves a cross-store skew consensus/replay.py heals.
+# ... and the per-height commit-pipeline points, in persistence order
+# (the reference's COMMIT_PIPELINE): a crash at any of them leaves a
+# cross-store skew consensus/replay.py heals.
 COMMIT_PIPELINE: tuple[str, ...] = (
     "wal.fsync",
     "db.set",
     "store.save_block",
+    "consensus.commit.block_saved",
+    "consensus.commit.wal_delimited",
     "state.apply.block_executed",
     "state.apply.responses_saved",
     "state.apply.app_committed",
     "state.apply.state_saved",
+    "privval.save",
 )
 assert CRASH_SITES <= set(COMMIT_PIPELINE) <= set(CATALOG)
 

@@ -100,6 +100,53 @@ def ts_field_bytes(time_ns: int) -> bytes:
     return w.finish()
 
 
+def strip_canonical_timestamp(sign_bytes: bytes, ts_field: int) -> bytes:
+    """Re-emit a length-prefixed canonical blob with the timestamp field
+    removed — used to decide whether two sign-byte blobs differ only by
+    timestamp (reference: privval checkVotesOnlyDifferByTimestamp,
+    file.go:413). Wire-level copy; no semantic re-encoding."""
+    from ..encoding.proto import Reader, decode_varint
+
+    body_len, pos = decode_varint(sign_bytes, 0)
+    body = sign_bytes[pos:pos + body_len]
+    if len(body) != body_len:
+        raise ValueError("truncated canonical sign bytes")
+    r = Reader(body)
+    out = bytearray()
+    while not r.at_end():
+        start = r._pos
+        f, wt = r.field()
+        r.skip(wt)
+        if f != ts_field:
+            out += body[start:r._pos]
+    return encode_varint(len(out)) + bytes(out)
+
+
+def extract_canonical_timestamp(sign_bytes: bytes, ts_field: int) -> int:
+    """Timestamp (ns) carried inside a canonical sign-bytes blob; 0 if
+    the field is absent."""
+    from ..encoding.proto import Reader, decode_varint
+
+    body_len, pos = decode_varint(sign_bytes, 0)
+    r = Reader(sign_bytes[pos:pos + body_len])
+    while not r.at_end():
+        f, wt = r.field()
+        if f == ts_field and wt == 2:
+            tr = Reader(r.bytes())
+            secs = nanos = 0
+            while not tr.at_end():
+                tf, twt = tr.field()
+                if tf == 1:
+                    secs = tr.varint()
+                elif tf == 2:
+                    nanos = tr.varint()
+                else:
+                    tr.skip(twt)
+            return secs * 1_000_000_000 + nanos
+        r.skip(wt)
+    return 0
+
+
 def proposal_sign_bytes(chain_id: str, height: int, round_: int,
                         pol_round: int, block_id, time_ns: int) -> bytes:
     w = Writer()

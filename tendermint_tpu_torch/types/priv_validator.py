@@ -1,9 +1,9 @@
 """PrivValidator interface (reference: types/priv_validator.py; Go
 types/priv_validator.go).
 
-The signing abstraction consensus uses: MockPV is the in-memory test
-implementation; the reference's FilePV (privval/, last-sign state for
-double-sign protection) comes with the consensus state machine.
+The signing abstraction consensus uses: FilePV (privval/) persists
+last-sign state for double-sign protection; MockPV is the in-memory
+test implementation.
 """
 
 from __future__ import annotations
