@@ -256,7 +256,50 @@ Phases, each printing one JSON line:
    commit and its split, the receive routine's host us per message, the
    vote batches' group sizes, the launches, speculation hits and
    misses and the collector's pauses;
-16. timing — each kernel at the main path's shapes: its device time a
+16. p2p — the p2p stack and the block-path reactors over TCP on
+   127.0.0.1, in two parts, counters zeroed before the first and read
+   after the second. Part A, BASELINE.json config #1 (`make localnet`'s
+   4-validator genesis) at ConsensusConfig's defaults: node A (validator
+   0) here on the card with FileDB stores, every reactor (consensus,
+   mempool, evidence, blockchain) and a strict admission plane (every
+   tx a signed envelope); its key in a FilePV behind a SignerServer in
+   a child (`--phase p2p_signer`) that dials A's SignerClient over a
+   SecretConnection; validators 1-3 in another child (`--phase
+   p2p_peers`), forced to the host, on one event loop; persistent
+   peers, all links through Transport and SecretConnection. While A is
+   at heights 2-10 its client submits bursts of 64 envelopes (concurrent
+   check_tx) every 640 ms, and B's client bursts of 16; D double-prevotes
+   at height 5 (the maverick hooks); after height 8 A's signer link
+   drops once and is re-adopted before A signs again. Checks: the four
+   nodes' blocks, app hashes and last_results_hashes equal to height 12
+   (or to the height where the last tx is committed, at most 8 more),
+   every tx committed exactly once and none refused, one
+   DuplicateVoteEvidence against D committed within two heights and
+   gossiped to A by the evidence reactor, A's FilePV (in the signer
+   child's files) last signed a precommit at the last height, K4 once
+   for each admission flush of 40 or more (the bursts), nothing else on
+   A. Printed: each height's NewHeight to commit, the receive routine's
+   host us a message by channel, bytes a second by channel, the flush
+   sizes, the signer's round trip. Part B, config #3 cut to 129 blocks:
+   a child (`--phase p2p_servers`, host only, started before the
+   consensus phase so that its build overlaps it; with `--phase p2p`,
+   at the phase's start) builds a
+   1,000-validator chain from genesis through BlockExecutor over a
+   kvstore app (32 txs a block, every commit signed by all 1,000, the
+   commit of height 64 in round 1) and serves it from four switches and
+   a copy with one forged LastCommit signature in block 78 from two
+   more. A fresh node here fast-syncs from the four through
+   BlockchainReactor and hands over to consensus: its blocks and state
+   digest equal to the chain's at the height it stops (128, or 127 when
+   the pool is caught up first), K1 once, K3 once a window job and once
+   a LastCommit that apply_block validates, K4 once for the handover's
+   reconstruct_last_commit. A second fresh node dials the forged
+   servers first: the reactor bans both (redo of heights 77 and 78),
+   then syncs from two honest servers to the same digest. Printed:
+   blocks a second end to end and the split between verify (the
+   windows' awaits), apply_block, save_block and the network (the
+   rest);
+17. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -274,12 +317,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-17. fault — in a child (`--phase fault`; a sticky fault poisons the
+18. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-18. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+19. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -295,7 +338,7 @@ Phases, each printing one JSON line:
 Each child's lines are relayed as {"phase": <child>, "step": ...}; a
 child that fails or outruns its time limit fails the run.
 `python3 chip_smoke.py --phase consensus` builds the kernels and runs
-the consensus phase alone. Every phase
+the consensus phase alone; `--phase p2p` the p2p phase. Every phase
 but healing must end with all breakers closed and the host fallbacks,
 rechecks and evictions unchanged. Then the kernels line, the
 nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
@@ -6550,7 +6593,982 @@ def consensus_phase():
         launches=launches, **out)
 
 
-# -- phase 16 ------------------------------------------------------------
+# -- phase 16: p2p ---------------------------------------------------------
+
+P2P_CHAIN = "p2p-localnet"
+P2P_SYNC_CHAIN = "p2p-fastsync"
+P2P_T0 = 1_700_000_000 * 10**9
+P2P_VALIDATORS = 4
+P2P_HEIGHTS = 12
+P2P_TX_HEIGHTS = (2, 11)  # the clients submit while their node is at [2, 11)
+# A's client: bursts of 64 (one K4 admission flush each) every 640 ms,
+# 100 txs a second; B's: bursts of 16, 25 a second. At 400 + 100 and at
+# 200 + 50 txs a second the gossip (one tx a message, each receive
+# awaiting its check_tx) fell behind, A's mempool filled and its
+# proposals missed their round (PERF.md, PR 17)
+P2P_BURST, P2P_BURST_S = 64, 0.640
+P2P_PEER_BURST, P2P_PEER_BURST_S = 16, 0.640
+P2P_SIGNERS = 64
+P2P_MAVERICK_H = 5  # D (validator 3) double-prevotes here
+P2P_DROP_AFTER = 8  # A's signer link drops once between 8 and 9
+P2P_DRAIN_HEIGHTS = 8  # the most heights past 12 the txs may take
+P2P_SYNC_VALIDATORS = 1_000
+P2P_SYNC_BLOCKS = 129
+P2P_SYNC_TXS = 32
+P2P_SYNC_ROUND1 = 64  # the commit of this height is made in round 1
+P2P_SYNC_SERVERS = 4
+P2P_FORGED_AT = 78  # its LastCommit carries one forged signature (a copy)
+P2P_FORGED_SERVERS = 2
+P2P_WAIT_S = 240.0
+P2P_CHILD_CMD = None  # the children's command (None: this script)
+
+
+def p2p_key(kind: bytes, i: int = 0):
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+
+    return Ed25519PrivKey(hashlib.sha256(b"p2p-%s-%d" % (kind, i)).digest())
+
+
+def p2p_genesis(chain_id: str, pubs):
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    gdoc = GenesisDoc(chain_id=chain_id, genesis_time=P2P_T0,
+                      validators=[GenesisValidator(Ed25519PubKey(p), 10)
+                                  for p in pubs])
+    gdoc.validate_and_complete()
+    return gdoc
+
+
+async def p2p_until(cond, what: str, timeout: float = P2P_WAIT_S,
+                    fault=None):
+    """Poll `cond` every 10 ms; re-raise what halted a node (`fault()`)."""
+    import asyncio
+
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        exc = fault() if fault is not None else None
+        if exc is not None:
+            raise exc
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"p2p: timed out waiting for {what}")
+        await asyncio.sleep(0.01)
+
+
+class P2pNode:
+    """A port node of the p2p phase (docstring, phase 16), wired through
+    a Switch and a Transport on 127.0.0.1: the kvstore app behind
+    AppConns, the state and block stores and an evidence Pool (FileDBs
+    under `home`, else MemDBs), with `mempool` a CListMempool whose
+    admission plane is strict (every tx a signed envelope), a
+    BlockExecutor, ConsensusState at ConsensusConfig's defaults signing
+    with `pv`, and the consensus, blockchain (`fast_sync`), evidence and
+    mempool reactors."""
+
+    CHANNELS = bytes([0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40])
+
+    def __init__(self, gdoc, name: str, pv=None, home=None, mempool=True,
+                 fast_sync=False):
+        from tendermint_tpu_torch.p2p.key import NodeKey
+
+        self.gdoc, self.name, self.pv, self.home = gdoc, name, pv, home
+        self.with_mempool, self.fast_sync = mempool, fast_sync
+        self.node_key = NodeKey(p2p_key(b"node-" + name.encode()))
+        self.cs = self.switch = self.mempool = None
+
+    async def start(self):
+        from tendermint_tpu_torch.abci.client import ClientCreator
+        from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
+        from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+        from tendermint_tpu_torch.config import ConsensusConfig, MempoolConfig
+        from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+        from tendermint_tpu_torch.consensus.replay import \
+            handshake_and_load_state
+        from tendermint_tpu_torch.consensus.state import ConsensusState
+        from tendermint_tpu_torch.evidence import Pool
+        from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+        from tendermint_tpu_torch.libs.db import FileDB, MemDB
+        from tendermint_tpu_torch.mempool.clist_mempool import CListMempool
+        from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+        from tendermint_tpu_torch.p2p.node_info import NodeInfo
+        from tendermint_tpu_torch.p2p.switch import Switch
+        from tendermint_tpu_torch.p2p.transport import Transport
+        from tendermint_tpu_torch.proxy import AppConns
+        from tendermint_tpu_torch.state.execution import BlockExecutor
+        from tendermint_tpu_torch.state.store import Store
+        from tendermint_tpu_torch.store import BlockStore
+
+        if self.home is not None:
+            os.makedirs(self.home, exist_ok=True)
+            self.dbs = tuple(FileDB(os.path.join(self.home, f"{n}.db"))
+                             for n in ("state", "blocks", "app", "evidence"))
+        else:
+            self.dbs = (MemDB(), MemDB(), MemDB(), MemDB())
+        self.app = PersistentKVStoreApp(self.dbs[2])
+        self.conns = AppConns(ClientCreator(app=self.app))
+        await self.conns.start()
+        self.ss, self.bs = Store(self.dbs[0]), BlockStore(self.dbs[1])
+        state = await handshake_and_load_state(None, self.ss, self.bs,
+                                               self.gdoc, self.conns)
+        self.evpool = Pool(self.dbs[3], self.ss, self.bs)
+        if self.with_mempool:
+            self.mempool = CListMempool(MempoolConfig(admission="strict"),
+                                        self.conns.mempool,
+                                        state.last_block_height)
+        self.executor = BlockExecutor(self.ss, self.conns.consensus,
+                                      mempool=self.mempool,
+                                      evidence_pool=self.evpool)
+        self.cs = ConsensusState(ConsensusConfig(), state, self.executor,
+                                 self.bs, mempool=self.mempool,
+                                 evpool=self.evpool)
+        if self.pv is not None:
+            self.cs.set_priv_validator(self.pv)
+        self.reactor = ConsensusReactor(self.cs, wait_sync=self.fast_sync)
+        self.bc_reactor = BlockchainReactor(
+            state, self.executor, self.bs, fast_sync=self.fast_sync,
+            consensus_reactor=self.reactor)
+        holder = {}
+
+        def ni():
+            t = holder["transport"]
+            return NodeInfo(node_id=self.node_key.id,
+                            listen_addr=t.listen_addr if t._server else "",
+                            network=self.gdoc.chain_id, moniker=self.name,
+                            channels=self.CHANNELS)
+
+        transport = Transport(self.node_key, ni)
+        holder["transport"] = transport
+        self.switch = Switch(transport, ni)
+        self.switch.add_reactor("consensus", self.reactor)
+        self.switch.add_reactor("blockchain", self.bc_reactor)
+        self.switch.add_reactor("evidence", EvidenceReactor(self.evpool))
+        if self.mempool is not None:
+            self.switch.add_reactor("mempool", MempoolReactor(self.mempool))
+        await transport.listen("127.0.0.1", 0)
+        await self.switch.start()
+        return self
+
+    @property
+    def addr(self) -> str:
+        return f"{self.node_key.id}@{self.switch.transport.listen_addr}"
+
+    def fault(self):
+        return self.switch.fault or self.cs.fault
+
+    async def dial(self, addr: str, persistent: bool = True) -> None:
+        if persistent:
+            self.switch.add_persistent_peers([addr])
+        await self.switch.dial_peer(addr, persistent=persistent)
+
+    async def stop(self) -> None:
+        if self.cs is not None and self.cs.is_running:
+            await self.cs.stop()
+        if self.switch is not None and self.switch.is_running:
+            await self.switch.stop()
+        if self.mempool is not None:
+            self.mempool.close()
+        await self.conns.stop()
+        for db in self.dbs:
+            db.close()
+
+    def chain(self, hi: int) -> list:
+        """(block hash, app hash, last_results_hash) at heights 1..hi."""
+        out = []
+        for h in range(1, hi + 1):
+            b = self.bs.load_block(h)
+            out.append((b.hash().hex(), b.header.app_hash.hex(),
+                        b.header.last_results_hash.hex()))
+        return out
+
+
+class P2pChild:
+    """A child of the p2p phase (`--phase <phase> <args>`): pickled frames
+    on its stdin and stdout (cs_frame_write, cs_frame_read)."""
+
+    def __init__(self, phase: str, *args):
+        cmd = P2P_CHILD_CMD or [sys.executable, os.path.abspath(__file__)]
+        self.proc = subprocess.Popen([*cmd, "--phase", phase,
+                                      *map(str, args)],
+                                     stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE)
+
+    def send(self, obj) -> None:
+        cs_frame_write(self.proc.stdin, obj)
+
+    def read(self):
+        return cs_frame_read(self.proc.stdout)
+
+    async def aread(self, timeout: float = P2P_WAIT_S):
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        return await asyncio.wait_for(loop.run_in_executor(None, self.read),
+                                      timeout)
+
+    def close(self) -> None:
+        try:
+            if self.proc.poll() is None:
+                self.send({"op": "exit"})
+                self.proc.wait(timeout=30)
+        except Exception:  # noqa: BLE001 - the child is killed below
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def p2p_host_only() -> None:
+    """A child's nodes verify on the host: crypto.batch's host route
+    forced and the admission collector on its host oracle."""
+    from tendermint_tpu_torch.crypto import batch as cbatch
+    from tendermint_tpu_torch.mempool import admission
+
+    cbatch.set_force_host(True)
+    real_init = admission.AdmissionCollector.__init__
+
+    def host_collector(self, *a, **kw):
+        real_init(self, *a, **kw)
+        self.device_threshold = 10**9
+
+    admission.AdmissionCollector.__init__ = host_collector
+
+
+async def p2p_submit(mempool, tag: bytes, burst: int, every_s: float,
+                     height_of, signers) -> tuple[list, list]:
+    """A client: bursts of `burst` signed envelopes (kvstore txs), each by
+    concurrent check_tx, every `every_s` while the node is at a height
+    in P2P_TX_HEIGHTS. The txs check_tx took, and every response code
+    (an exception's name where check_tx refused the tx)."""
+    import asyncio
+
+    from tendermint_tpu_torch.types import tx_envelope
+
+    lo, hi = P2P_TX_HEIGHTS
+    while height_of() < lo:
+        await asyncio.sleep(0.01)
+    txs, codes = [], []
+    nxt = time.perf_counter()
+    while height_of() < hi:
+        batch = [tx_envelope.sign_tx(signers[(len(txs) + j) % len(signers)],
+                                     b"%s%06d=%d" % (tag, len(txs) + j, j))
+                 for j in range(burst)]
+        res = await asyncio.gather(*(mempool.check_tx(tx) for tx in batch),
+                                   return_exceptions=True)
+        for tx, r in zip(batch, res):
+            if isinstance(r, Exception):  # refused (mempool full, ...)
+                codes.append(type(r).__name__)
+            else:
+                txs.append(tx)
+                codes.append(r.code)
+        nxt += every_s
+        await asyncio.sleep(max(0.0, nxt - time.perf_counter()))
+    return txs, codes
+
+
+def p2p_peers_child(a_addr: str) -> int:
+    """The localnet's validators 1-3 (`--phase p2p_peers <A's address>`):
+    three port nodes on one event loop, forced to the host, each dialing
+    A and the others as persistent peers; D double-prevotes at
+    P2P_MAVERICK_H (consensus/misbehavior.py DoublePrevote). Frames on
+    stdin/stdout: `ready` (their addresses) once the mesh is up; on
+    `go` their consensus starts and B's client submits; on `txs`, once
+    B's client is done, its txs and codes; on `stop` (a height) each
+    node's chain to it and any fault."""
+    import asyncio
+
+    from tendermint_tpu_torch.consensus.misbehavior import DoublePrevote
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+
+    p2p_host_only()
+    keys = [p2p_key(b"val", i) for i in range(P2P_VALIDATORS)]
+    gdoc = p2p_genesis(P2P_CHAIN, [k.pub_key().bytes() for k in keys])
+    inp, out = sys.stdin.buffer, sys.stdout.buffer
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        nodes = [await P2pNode(gdoc, f"val{i}", pv=MockPV(keys[i])).start()
+                 for i in range(1, P2P_VALIDATORS)]
+        nodes[-1].cs.misbehaviors[P2P_MAVERICK_H] = DoublePrevote()
+        addrs = [n.addr for n in nodes]
+        for i, n in enumerate(nodes):
+            for other in [a_addr] + addrs[i + 1:]:
+                await n.dial(other)
+        await p2p_until(lambda: all(n.switch.n_peers() == P2P_VALIDATORS - 1
+                                    for n in nodes), "the peers' mesh")
+        cs_frame_write(out, {"op": "ready", "addrs": addrs})
+        await loop.run_in_executor(None, cs_frame_read, inp)  # go
+        for n in nodes:
+            await n.cs.start()
+        b = nodes[0]
+        client = loop.create_task(p2p_submit(
+            b.mempool, b"b-", P2P_PEER_BURST, P2P_PEER_BURST_S,
+            lambda: b.cs.rs.height, adm_signers(P2P_SIGNERS)))
+        await loop.run_in_executor(None, cs_frame_read, inp)  # txs
+        try:
+            txs, codes = await client
+            rep = {"op": "txs", "txs": txs, "codes": codes}
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            rep = {"op": "txs", "error": repr(e)}
+        cs_frame_write(out, rep)
+        req = await loop.run_in_executor(None, cs_frame_read, inp)  # stop
+        faults = [repr(n.fault()) for n in nodes if n.fault() is not None]
+        try:
+            for n in nodes:
+                await n.cs.wait_for_height(req["upto"], timeout=60)
+            rep = {"op": "chains", "chains": [n.chain(req["upto"])
+                                              for n in nodes],
+                   "faults": faults}
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            rep = {"op": "chains", "error": repr(e), "faults": faults}
+        cs_frame_write(out, rep)
+        await loop.run_in_executor(None, cs_frame_read, inp)  # exit
+        for n in nodes:
+            await n.stop()
+
+    asyncio.run(run())
+    return 0
+
+
+def p2p_signer_child(port: int, home: str) -> int:
+    """A's remote signer (`--phase p2p_signer <port> <home>`): the FilePV
+    under `home` behind a SignerServer that dials A's SignerClient on
+    127.0.0.1:<port> over a SecretConnection and redials whenever the
+    link drops, as a tmkms deployment does. Runs until terminated, or
+    until its stdin closes (the parent is gone)."""
+    import asyncio
+    import threading
+
+    from tendermint_tpu_torch.privval import FilePV, SignerServer
+
+    def orphaned():
+        sys.stdin.buffer.read()
+        os._exit(0)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+
+    pv = FilePV.load(os.path.join(home, "pv_key.json"),
+                     os.path.join(home, "pv_state.json"))
+    server = SignerServer(pv, P2P_CHAIN, conn_key=p2p_key(b"signer-link"),
+                          expected_node_addr=p2p_key(
+                              b"node-link").pub_key().address())
+    asyncio.run(server.dial_and_serve("127.0.0.1", port, retries=None,
+                                      retry_delay=0.2))
+    return 0
+
+
+async def p2p_localnet(home: str) -> dict:
+    """Part A of the p2p phase: A (validator 0) on the card, its key in
+    the signer child, validators 1-3 in the peers child; 12 heights."""
+    import asyncio
+    import collections
+
+    from tendermint_tpu_torch.mempool import admission
+    from tendermint_tpu_torch.p2p.conn import connection
+    from tendermint_tpu_torch.privval import FilePV, SignerClient
+
+    keys = [p2p_key(b"val", i) for i in range(P2P_VALIDATORS)]
+    gdoc = p2p_genesis(P2P_CHAIN, [k.pub_key().bytes() for k in keys])
+    pv_home = os.path.join(home, "signer")
+    os.makedirs(pv_home)
+    FilePV(keys[0], os.path.join(pv_home, "pv_key.json"),
+           os.path.join(pv_home, "pv_state.json")).save_key()
+    client = SignerClient(P2P_CHAIN, timeout=60.0,
+                          conn_key=p2p_key(b"node-link"),
+                          expected_signer_addr=p2p_key(
+                              b"signer-link").pub_key().address())
+    port = await client.listen()
+    signer = P2pChild("p2p_signer", port, pv_home)
+    node = await P2pNode(gdoc, "val0", home=os.path.join(home, "a")).start()
+    peers = None
+    out: dict = {}
+    try:
+        # the receive routine's host time a message, by channel
+        recv_us, recv_n = collections.Counter(), collections.Counter()
+        on_receive = node.switch._on_peer_receive
+
+        async def timed_receive(peer, chan_id, msg):
+            t = time.perf_counter()
+            try:
+                await on_receive(peer, chan_id, msg)
+            finally:
+                recv_us[f"{chan_id:#04x}"] += (time.perf_counter() - t) * 1e6
+                recv_n[f"{chan_id:#04x}"] += 1
+
+        node.switch._on_peer_receive = timed_receive
+        # the signer's round trip a signature
+        sign_ms: list = []
+        call = client._call
+
+        async def timed_call(req):
+            t = time.perf_counter()
+            res = await call(req)
+            if req["type"].startswith("sign_"):
+                sign_ms.append((time.perf_counter() - t) * 1e3)
+            return res
+
+        client._call = timed_call
+        # the admission flushes: lanes, and whether K4 took them
+        flushes: list = []
+        collector = node.mempool.admission.collector
+        verify_batch = collector._verify_batch
+
+        def timed_batch(envs):
+            t = time.perf_counter()
+            res = verify_batch(envs)
+            flushes.append((len(envs), len(envs) >= collector.device_threshold,
+                            (time.perf_counter() - t) * 1e3))
+            return res
+
+        collector._verify_batch = timed_batch
+        # NewHeight (update_to_state) and commit (_enter_commit) times
+        steps: dict = {}
+        update_to_state = node.cs.update_to_state
+        enter_commit = node.cs._enter_commit
+
+        def timed_update(state):
+            steps.setdefault(("new_height", state.last_block_height + 1),
+                             time.perf_counter())
+            return update_to_state(state)
+
+        async def timed_commit(height, commit_round):
+            steps.setdefault(("commit", height), time.perf_counter())
+            return await enter_commit(height, commit_round)
+
+        node.cs.update_to_state = timed_update
+        node.cs._enter_commit = timed_commit
+        peers = P2pChild("p2p_peers", node.addr)
+        t = time.perf_counter()
+        await client.wait_connected()
+        client.timeout = 5.0
+        out["signer_connect_s"] = time.perf_counter() - t
+        node.cs.set_priv_validator(client)
+        ready = await peers.aread()
+        node.switch.add_persistent_peers(ready["addrs"])
+        await p2p_until(lambda: node.switch.n_peers() == P2P_VALIDATORS - 1,
+                        "A's three peers", fault=node.fault)
+        net0 = json.loads(json.dumps(connection.METRICS))
+        adm0 = json.loads(json.dumps(admission.METRICS))
+        k0 = exec_counts()
+        peers.send({"op": "go"})
+        t_run = time.perf_counter()
+        steps[("new_height", 1)] = t_run
+        await node.cs.start()
+        a_client = asyncio.get_running_loop().create_task(p2p_submit(
+            node.mempool, b"a-", P2P_BURST, P2P_BURST_S,
+            lambda: node.cs.rs.height, adm_signers(P2P_SIGNERS)))
+        # the signer link drops once after height P2P_DROP_AFTER commits
+        await node.cs.wait_for_height(P2P_DROP_AFTER, timeout=P2P_WAIT_S)
+        t = time.perf_counter()
+        client._link.close()
+        lost = None
+        try:
+            await client.ping()
+        except Exception as e:  # noqa: BLE001 - the drop is the point
+            lost = f"{type(e).__name__}: {e}"
+        await p2p_until(lambda: not client._conn_q.empty(),
+                        "the signer's redial", fault=node.fault)
+        await client.ping()
+        out["signer_drop"] = dict(at_height=node.cs.rs.height, lost=lost,
+                                  readopt_ms=(time.perf_counter() - t) * 1e3)
+        await node.cs.wait_for_height(P2P_HEIGHTS, timeout=P2P_WAIT_S)
+        mempool_at_12 = node.mempool.size()
+        a_txs, a_codes = await a_client
+        peers.send({"op": "txs"})
+        b_rep = await peers.aread()
+        if "error" in b_rep:
+            raise AssertionError(f"p2p: B's client: {b_rep['error']}")
+        # every tx committed exactly once, nothing else: the gossip of
+        # one tx a message may leave a backlog past height 12, which the
+        # next heights' proposers drain
+        submitted = collections.Counter(a_txs + b_rep["txs"])
+        committed = collections.Counter()
+        top = 0
+        while True:
+            while top < node.bs.height:
+                top += 1
+                committed.update(node.bs.load_block(top).data.txs)
+            if top >= P2P_HEIGHTS and not submitted - committed:
+                break
+            if top >= P2P_HEIGHTS + P2P_DRAIN_HEIGHTS:
+                break
+            await node.cs.wait_for_height(top + 1, timeout=P2P_WAIT_S)
+        run_s = time.perf_counter() - t_run
+        k1 = exec_counts()
+        net1 = json.loads(json.dumps(connection.METRICS))
+        peers.send({"op": "stop", "upto": top})
+        rep = await peers.aread()
+        if "error" in rep or rep["faults"] or node.fault() is not None:
+            raise AssertionError(f"p2p: a node failed: {rep.get('error')} "
+                                 f"{rep['faults']} {node.fault()!r}")
+        launches = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+        device = [n for n, dev, _ in flushes if dev]
+        by_lanes = collections.Counter(n for n, _, _ in flushes)
+        heights = []
+        for h in range(1, top + 1):
+            nh = steps.get(("new_height", h))
+            cm = steps.get(("commit", h))
+            b = node.bs.load_block(h)
+            heights.append(dict(
+                height=h, txs=len(b.data.txs),
+                proposer=b.header.proposer_address.hex()[:8],
+                commit_round=node.bs.load_seen_commit(h).round,
+                new_height_to_commit_ms=(cm - nh) * 1e3
+                if nh and cm else None))
+        chans = sorted(set(net1["peer_receive_bytes"]) |
+                       set(net1["peer_send_bytes"]))
+
+        def rate(family, ch):
+            return (net1[family].get(ch, 0) - net0[family].get(ch, 0)) / run_s
+
+        refused = collections.Counter(c for c in a_codes + b_rep["codes"]
+                                      if c)
+        out.update(
+            validators=P2P_VALIDATORS, a=keys[0].pub_key().address().hex()[:8],
+            heights=heights, run_s=run_s, last_height=top,
+            txs=dict(a=len(a_txs), b=len(b_rep["txs"]),
+                     committed=sum(committed.values()),
+                     missing=sum((submitted - committed).values()),
+                     refused=dict(refused),
+                     a_bursts=len(a_txs) // P2P_BURST,
+                     a_mempool_at_12=mempool_at_12),
+            signer_round_trip_ms=dict(
+                n=len(sign_ms), p50=statistics.median(sign_ms),
+                max=max(sign_ms)) if sign_ms else None,
+            recv_host_us_per_msg={ch: recv_us[ch] / recv_n[ch]
+                                  for ch in sorted(recv_n)},
+            recv_msgs=dict(sorted(recv_n.items())),
+            bytes_per_s={ch: dict(recv=rate("peer_receive_bytes", ch),
+                                  send=rate("peer_send_bytes", ch))
+                         for ch in chans},
+            flushes=dict(count=len(flushes), device=len(device),
+                         device_lanes=sorted(collections.Counter(device)
+                                             .items()),
+                         host_lanes=sorted((n, c) for n, c in by_lanes.items()
+                                           if n < collector.device_threshold),
+                         device_ms_p50=statistics.median(
+                             [ms for n, dev, ms in flushes if dev])
+                         if device else None),
+            launches=launches)
+        try:
+            p2p_localnet_checks(node, rep, top, keys, submitted, committed,
+                                refused, net0, net1, pv_home, flushes,
+                                launches, device, adm0, out)
+        except AssertionError:
+            print(json.dumps({"p2p_localnet": out}, default=str),
+                  file=sys.stderr, flush=True)
+            raise
+        return out
+    finally:
+        await node.stop()
+        client.close()
+        if peers is not None:
+            peers.close()
+        signer.proc.terminate()
+        signer.proc.wait(timeout=30)
+
+
+def p2p_localnet_checks(node, rep, top, keys, submitted, committed,
+                        refused, net0, net1, pv_home, flushes, launches,
+                        device, adm0, out) -> None:
+    """Part A's checks (docstring, phase 16); adds the evidence and the
+    signer's last-sign state to `out`."""
+    from tendermint_tpu_torch.mempool import admission
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.privval.file_pv import STEP_PRECOMMIT
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    if "error" in rep or rep["faults"] or node.fault() is not None:
+        raise AssertionError(f"p2p: a node failed: {rep.get('error')} "
+                             f"{rep['faults']} {node.fault()!r}")
+    chain = node.chain(top)
+    if any(c != chain for c in rep["chains"]):
+        raise AssertionError("p2p: the four nodes' chains differ")
+    if refused or committed != submitted or max(submitted.values()) != 1:
+        raise AssertionError(
+            f"p2p: {sum(submitted.values())} txs submitted, "
+            f"{sum(committed.values())} committed to height {top}; "
+            f"refused {dict(refused)}")
+    evidence = [(h, ev) for h in range(1, top + 1)
+                for ev in node.bs.load_block(h).evidence.evidence]
+    d_addr = keys[-1].pub_key().address()
+    if len(evidence) != 1 or \
+            not isinstance(evidence[0][1], DuplicateVoteEvidence) or \
+            evidence[0][1].vote_a.validator_address != d_addr or \
+            evidence[0][1].height() != P2P_MAVERICK_H or \
+            evidence[0][0] > P2P_MAVERICK_H + 2:
+        raise AssertionError(f"p2p: evidence in the chain {evidence}")
+    gossiped = net1["message_receive"].get("0x38", 0) - \
+        net0["message_receive"].get("0x38", 0)
+    out["evidence"] = dict(height=evidence[0][0], against=d_addr.hex()[:8],
+                           gossiped_to_a=gossiped)
+    if not gossiped:
+        raise AssertionError("p2p: no evidence message reached A")
+    lss = FilePV.load(os.path.join(pv_home, "pv_key.json"),
+                      os.path.join(pv_home, "pv_state.json")).last_sign_state
+    out["signer_last_sign"] = [lss.height, lss.round, lss.step]
+    last = node.bs.load_seen_commit(top)
+    if (lss.height, lss.round, lss.step) != (top, last.round,
+                                             STEP_PRECOMMIT):
+        raise AssertionError(f"p2p: A's FilePV last signed "
+                             f"{(lss.height, lss.round, lss.step)}")
+    if launches != ({"general_verify": len(device)} if device else {}):
+        raise AssertionError(f"p2p: A launched {launches} for "
+                             f"{len(device)} device flushes")
+    if admission.METRICS["verify_launches"].get("device", 0) - \
+            adm0["verify_launches"].get("device", 0) != len(device):
+        raise AssertionError("p2p: the admission counts disagree")
+
+
+class _TxFeed:
+    """The chain builder's mempool: reaps the next block's txs."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.mempool import NopMempool
+
+        self.nop = NopMempool()
+        self.txs: list = []
+
+    def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int):
+        return list(self.txs)
+
+    def __getattr__(self, name):
+        return getattr(self.nop, name)
+
+
+async def p2p_build_chain(gdoc, keys):
+    """Part B's chain from genesis: P2P_SYNC_BLOCKS blocks of
+    P2P_SYNC_TXS kvstore txs through a BlockExecutor (the host route
+    forced: every LastCommit verified on the host) over a kvstore app;
+    each block's commit signed by every validator (OpenSSL where the
+    host has it), in round 1 at P2P_SYNC_ROUND1. The block store, and
+    the digests (state store, app hash, last_results_hash) after each of
+    the last three blocks, by height (a syncing node stops at the second
+    last or the one before it)."""
+    from tendermint_tpu_torch.abci.client import ClientCreator
+    from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
+    from tendermint_tpu_torch.consensus.replay import handshake_and_load_state
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.store import Store
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.block import (BlockID, BlockIDFlag, Commit,
+                                                  CommitSig)
+
+    state_db = MemDB()
+    ss, bs = Store(state_db), BlockStore(MemDB())
+    conns = AppConns(ClientCreator(app=PersistentKVStoreApp(MemDB())))
+    await conns.start()
+    state = await handshake_and_load_state(None, ss, bs, gdoc, conns)
+    feed = _TxFeed()
+    executor = BlockExecutor(ss, conns.consensus, mempool=feed)
+    key_of = {k.pub_key().address(): k for k in keys}
+    last_commit, sign_s, digests = None, 0.0, {}
+    for h in range(1, P2P_SYNC_BLOCKS + 1):
+        feed.txs = [b"sync-%d-%d=%d" % (h, j, h * j)
+                    for j in range(P2P_SYNC_TXS)]
+        block = executor.create_proposal_block(
+            h, state, last_commit, state.validators.get_proposer().address)
+        parts = block.make_part_set()
+        bid = BlockID(block.hash(), parts.header())
+        ts = block.header.time + 1_000_000_000
+        t = time.perf_counter()
+        vals = state.validators.validators
+        commit = Commit(h, int(h == P2P_SYNC_ROUND1), bid,
+                        [CommitSig(BlockIDFlag.COMMIT, v.address, ts, b"")
+                         for v in vals])
+        for i, v in enumerate(vals):
+            commit.signatures[i].signature = key_of[v.address].sign(
+                commit.vote_sign_bytes(gdoc.chain_id, i))
+        sign_s += time.perf_counter() - t
+        bs.save_block(block, parts, commit)
+        state, _ = await executor.apply_block(state, bid, block)
+        last_commit = commit
+        if h >= P2P_SYNC_BLOCKS - 2:
+            digests[h] = dict(state_db=db_digest(state_db),
+                              app_hash=state.app_hash.hex(),
+                              last_results_hash=state.last_results_hash.hex())
+    await conns.stop()
+    return bs, state, digests, sign_s
+
+
+class _ForgedStore:
+    """A block store that serves `block` at its height in place of the
+    stored one (the forged copy of the chain)."""
+
+    def __init__(self, bs, block):
+        self._bs, self._block = bs, block
+        self.height, self.base = bs.height, bs.base
+
+    def load_block(self, h: int):
+        return self._block if h == self._block.header.height \
+            else self._bs.load_block(h)
+
+
+async def p2p_server(gdoc, state, store, i: int):
+    """A serving peer: a Switch with the blockchain reactor alone over
+    `store` (not syncing)."""
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.p2p.key import NodeKey
+    from tendermint_tpu_torch.p2p.node_info import NodeInfo
+    from tendermint_tpu_torch.p2p.switch import Switch
+    from tendermint_tpu_torch.p2p.transport import Transport
+
+    nk = NodeKey(p2p_key(b"server", i))
+    holder = {}
+
+    def ni():
+        t = holder["transport"]
+        return NodeInfo(node_id=nk.id,
+                        listen_addr=t.listen_addr if t._server else "",
+                        network=gdoc.chain_id, moniker=f"server{i}",
+                        channels=bytes([0x40]))
+
+    transport = Transport(nk, ni)
+    holder["transport"] = transport
+    sw = Switch(transport, ni)
+    sw.add_reactor("blockchain", BlockchainReactor(state, None, store,
+                                                   fast_sync=False))
+    await transport.listen("127.0.0.1", 0)
+    await sw.start()
+    return sw, f"{nk.id}@{transport.listen_addr}"
+
+
+def p2p_servers_child() -> int:
+    """Part B's serving peers (`--phase p2p_servers`): builds the chain
+    (p2p_build_chain, the host route forced), then serves it from
+    P2P_SYNC_SERVERS switches and a copy with one forged signature in
+    block P2P_FORGED_AT's LastCommit from P2P_FORGED_SERVERS more. One
+    `ready` frame (the keys, addresses, block hashes, the digests, the
+    build's times), then serves until `exit`."""
+    import asyncio
+
+    from tendermint_tpu_torch.types.block import Block
+
+    p2p_host_only()
+    t0 = time.perf_counter()
+    keys = [p2p_key(b"sync-val", i) for i in range(P2P_SYNC_VALIDATORS)]
+    pubs = [k.pub_key().bytes() for k in keys]
+    gdoc = p2p_genesis(P2P_SYNC_CHAIN, pubs)
+    keys_s = time.perf_counter() - t0
+    inp, out = sys.stdin.buffer, sys.stdout.buffer
+
+    async def run():
+        t = time.perf_counter()
+        bs, state, digests, sign_s = await p2p_build_chain(gdoc, keys)
+        build_s = time.perf_counter() - t
+        forged = Block.from_bytes(bs.load_block(P2P_FORGED_AT).to_bytes())
+        sig = bytearray(forged.last_commit.signatures[5].signature)
+        sig[7] ^= 0x01
+        forged.last_commit.signatures[5].signature = bytes(sig)
+        fstore = _ForgedStore(bs, forged)
+        servers = [await p2p_server(gdoc, state, bs, i)
+                   for i in range(P2P_SYNC_SERVERS)]
+        servers += [await p2p_server(gdoc, state, fstore,
+                                     P2P_SYNC_SERVERS + i)
+                    for i in range(P2P_FORGED_SERVERS)]
+        cs_frame_write(out, {
+            "op": "ready", "pubs": pubs,
+            "addrs": [a for _, a in servers[:P2P_SYNC_SERVERS]],
+            "forged": [a for _, a in servers[P2P_SYNC_SERVERS:]],
+            "hashes": [bs.load_block(h).hash().hex()
+                       for h in range(1, P2P_SYNC_BLOCKS + 1)],
+            "digests": digests, "keys_s": keys_s, "build_s": build_s,
+            "sign_s": sign_s})
+        await asyncio.get_running_loop().run_in_executor(
+            None, cs_frame_read, inp)  # exit
+        for sw, _ in servers:
+            await sw.stop()
+
+    asyncio.run(run())
+    return 0
+
+
+async def p2p_sync_run(gdoc, addrs, ready, forged=()) -> dict:
+    """One fast sync of Part B: a fresh node (no key, MemDBs, the
+    blockchain reactor syncing) dials the `forged` servers first and,
+    once the reactor has banned each of them, the honest `addrs`; then
+    syncs to within one or two of the servers' height (the pool is
+    caught up within one of the tallest peer, and the last block needs
+    the next one's LastCommit) and hands over to consensus.
+    Its blocks and digests must equal the chain's; the window jobs,
+    the LastCommit checks, the bans and the time split are returned."""
+    import asyncio
+
+    from tendermint_tpu_torch.blockchain.verify_ahead import WindowPipeline
+
+    node = await P2pNode(gdoc, "syncer-forged" if forged else "syncer",
+                         mempool=False, fast_sync=True).start()
+    rec = dict(verify_s=0.0, apply_s=0.0, save_block_s=0.0, windows=[],
+               applied_with_last_commit=0, banned=[])
+    try:
+        pipe = node.bc_reactor.pipeline
+        verdicts = pipe.verdicts
+
+        async def timed_verdicts(vals, chain_id, blocks):
+            t = time.perf_counter()
+            try:
+                return await verdicts(vals, chain_id, blocks)
+            finally:
+                rec["verify_s"] += time.perf_counter() - t
+
+        pipe.verdicts = timed_verdicts
+        job = WindowPipeline._verify_window_job
+
+        def counted_job(vals, chain_id, blocks):
+            rec["windows"].append(len(blocks) - 1)
+            return job(vals, chain_id, blocks)
+
+        pipe._verify_window_job = counted_job
+        apply_block = node.executor.apply_block
+
+        async def timed_apply(state, bid, block):
+            t = time.perf_counter()
+            try:
+                return await apply_block(state, bid, block)
+            finally:
+                rec["apply_s"] += time.perf_counter() - t
+                rec["applied_with_last_commit"] += block.header.height > 1
+
+        node.executor.apply_block = timed_apply
+        save_block = node.bs.save_block
+
+        def timed_save(*a):
+            t = time.perf_counter()
+            try:
+                return save_block(*a)
+            finally:
+                rec["save_block_s"] += time.perf_counter() - t
+
+        node.bs.save_block = timed_save
+        redo = node.bc_reactor.pool.redo_request
+
+        def recorded_redo(h):
+            peer = redo(h)
+            rec["banned"].append((h, peer))
+            return peer
+
+        node.bc_reactor.pool.redo_request = recorded_redo
+        t = time.perf_counter()
+        if forged:
+            ids = {a.split("@")[0] for a in forged}
+            for a in forged:
+                await node.dial(a, persistent=False)
+            await p2p_until(lambda: not ids & set(node.switch.peers),
+                            "the forged servers' bans", fault=node.fault)
+        for a in addrs:
+            await node.dial(a, persistent=False)
+        await node.bc_reactor.wait_synced(timeout=P2P_WAIT_S)
+        rec["sync_s"] = time.perf_counter() - t
+        top = node.bs.height
+        got = [node.bs.load_block(h).hash().hex() for h in range(1, top + 1)]
+        st = node.bc_reactor.state
+        digest = dict(state_db=db_digest(node.dbs[0]),
+                      app_hash=st.app_hash.hex(),
+                      last_results_hash=st.last_results_hash.hex())
+        if top not in ready["digests"] or top == P2P_SYNC_BLOCKS or \
+                st.last_block_height != top or \
+                got != ready["hashes"][:top] or \
+                digest != ready["digests"][top]:
+            raise AssertionError(
+                f"p2p: the synced chain differs (height {top}; digest "
+                f"{digest} against {ready['digests'].get(top)})")
+        await p2p_until(lambda: node.cs.is_running, "the handover",
+                        fault=node.fault)
+        rec.update(height=top, blocks=node.bc_reactor.blocks_synced,
+                   blocks_per_s=node.bc_reactor.blocks_synced / rec["sync_s"],
+                   consensus_height=node.cs.rs.height,
+                   prefetch_hits=pipe.prefetch_hits)
+        rec["network_s"] = rec["sync_s"] - rec["verify_s"] - \
+            rec["apply_s"] - rec["save_block_s"]
+        return rec
+    finally:
+        await node.stop()
+
+
+async def p2p_fastsync(servers) -> dict:
+    """Part B of the p2p phase: a clean sync from the four honest
+    servers (counted), then one from the two forged servers and two
+    honest ones."""
+    ready = await servers.aread(timeout=600)
+    gdoc = p2p_genesis(P2P_SYNC_CHAIN, ready["pubs"])
+    k0 = exec_counts()
+    clean = await p2p_sync_run(gdoc, ready["addrs"], ready)
+    k1 = exec_counts()
+    forged = await p2p_sync_run(gdoc, ready["addrs"][:2], ready,
+                                forged=ready["forged"])
+    k2 = exec_counts()
+    clean["launches"] = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+    forged["launches"] = {k: k2[k] - k1[k] for k in k2 if k2[k] != k1[k]}
+    # K1 once for the set's tables, K3 once a window job and once a
+    # LastCommit apply_block validates, K4 once for the handover's
+    # reconstruct_last_commit (the seen commit, 1,000 lanes)
+    want = dict(build_tables=1, general_verify=1,
+                xverify=len(clean["windows"]) +
+                clean["applied_with_last_commit"])
+    if clean["launches"] != want or clean["blocks"] != clean["height"]:
+        raise AssertionError(f"p2p: the clean sync launched "
+                             f"{clean['launches']}, want {want}")
+    forged_ids = {a.split("@")[0] for a in ready["forged"]}
+    bad = {P2P_FORGED_AT - 1, P2P_FORGED_AT}
+    banned = {p for _, p in forged["banned"] if p}
+    if forged["launches"] != dict(general_verify=1,
+                                  xverify=len(forged["windows"]) +
+                                  forged["applied_with_last_commit"]) or \
+            banned != forged_ids or \
+            {h for h, _ in forged["banned"]} != bad:
+        raise AssertionError(f"p2p: the forged sync: launches "
+                             f"{forged['launches']}, bans {forged['banned']}")
+    return dict(validators=P2P_SYNC_VALIDATORS, blocks=P2P_SYNC_BLOCKS,
+                build=dict(keys_s=ready["keys_s"], build_s=ready["build_s"],
+                           sign_s=ready["sign_s"]),
+                clean=clean, forged=forged,
+                launches={k: clean["launches"].get(k, 0) +
+                          forged["launches"].get(k, 0)
+                          for k in set(clean["launches"]) |
+                          set(forged["launches"])})
+
+
+def p2p_phase(servers=None) -> dict:
+    """p2p on the card (docstring, phase 16), Part B served by `servers`
+    (a started `p2p_servers` child; None: started here, building its
+    chain while Part A runs). Returns the phase's record."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    own = servers is None
+    if own:
+        servers = P2pChild("p2p_servers")
+    home = tempfile.mkdtemp(prefix="p2p-")
+    try:
+        kernels = wrappers()
+        for fn in kernels.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        localnet = asyncio.run(p2p_localnet(home))
+        localnet["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fastsync = asyncio.run(p2p_fastsync(servers))
+        fastsync["seconds"] = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
+        want = {}
+        for part in (localnet, fastsync):
+            for k, n in part["launches"].items():
+                want[k] = want.get(k, 0) + n
+        if launches != want:
+            raise AssertionError(f"p2p: launches {launches}, the parts "
+                                 f"{want}")
+        return dict(localnet=localnet, fastsync=fastsync, launches=launches)
+    finally:
+        if own:
+            servers.close()
+        shutil.rmtree(home, ignore_errors=True)
+
+
+# -- phase 17 ------------------------------------------------------------
 
 
 def timing_phase(vs, commit, dev) -> list[dict]:
@@ -7221,6 +8239,24 @@ def main() -> int:
             return exec_host_child()
         if phase == "consensus_peers":
             return cs_peers_child()
+        if phase == "p2p_peers":
+            return p2p_peers_child(sys.argv[sys.argv.index("--phase") + 2])
+        if phase == "p2p_signer":
+            i = sys.argv.index("--phase")
+            return p2p_signer_child(int(sys.argv[i + 2]), sys.argv[i + 3])
+        if phase == "p2p_servers":
+            return p2p_servers_child()
+        if phase == "p2p":
+            from tendermint_tpu_torch.crypto.cuda import kernels
+
+            kernels.build()
+            state = fallback_state()
+            t0 = time.perf_counter()
+            p2p = p2p_phase()
+            no_fallback("p2p", state)
+            emit(dict(phase="p2p", seconds=time.perf_counter() - t0,
+                      card=nvidia_smi(), **p2p))
+            return 0
         if phase == "consensus":
             from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -7336,12 +8372,24 @@ def main() -> int:
     no_fallback("execution", state)
     emit(dict(phase="execution", seconds=time.perf_counter() - t0,
               card=smi, **execution))
-    t0 = time.perf_counter()
-    state = fallback_state()
-    consensus = consensus_phase()
-    no_fallback("consensus", state)
-    emit(dict(phase="consensus", seconds=time.perf_counter() - t0,
-              card=smi, **consensus))
+    # the p2p phase's serving child builds its chain (host only, one
+    # process) while the consensus phase runs
+    servers = P2pChild("p2p_servers")
+    try:
+        t0 = time.perf_counter()
+        state = fallback_state()
+        consensus = consensus_phase()
+        no_fallback("consensus", state)
+        emit(dict(phase="consensus", seconds=time.perf_counter() - t0,
+                  card=smi, **consensus))
+        t0 = time.perf_counter()
+        state = fallback_state()
+        p2p = p2p_phase(servers)
+        no_fallback("p2p", state)
+        emit(dict(phase="p2p", seconds=time.perf_counter() - t0, card=smi,
+                  **p2p))
+    finally:
+        servers.close()
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -7365,7 +8413,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
-                 light_client, admission, execution, consensus):
+                 light_client, admission, execution, consensus, p2p):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -9,10 +9,9 @@ verified as ONE signature batch across blocks (verify_ahead.py: one
 structured K3 launch a window over the set's cached comb tables), and
 the next window's batch verifies while the caller handles this one.
 
-This slice of the port carries the pure core: the pool, the wire
-messages and the verify-ahead window pipeline. The reactor, which
-needs the p2p stack, the block store and the block executor, comes
-with a later slice.
+The reactor (reactor.py: BlockchainReactor, BLOCKCHAIN_CHANNEL) is
+loaded lazily, as in the reference: it is the only submodule that
+pulls in the p2p stack.
 """
 
 from .msgs import (
@@ -26,8 +25,17 @@ from .msgs import (
 )
 from .pool import BlockPool
 
+
+def __getattr__(name: str):
+    if name in ("BlockchainReactor", "BLOCKCHAIN_CHANNEL"):
+        from . import reactor
+
+        return getattr(reactor, name)
+    raise AttributeError(name)
+
+
 __all__ = [
-    "BlockPool",
+    "BlockPool", "BlockchainReactor", "BLOCKCHAIN_CHANNEL",
     "StatusRequestMessage", "StatusResponseMessage", "BlockRequestMessage",
     "BlockResponseMessage", "NoBlockResponseMessage",
     "encode_bc_msg", "decode_bc_msg",

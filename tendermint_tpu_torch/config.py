@@ -1,5 +1,5 @@
-"""Node configuration (reference: config.py) — only the sections this
-slice of the port reads."""
+"""Node configuration (reference: config.py) — only the sections the
+port reads so far."""
 
 from __future__ import annotations
 
@@ -112,6 +112,76 @@ def fast_consensus_config() -> ConsensusConfig:
         timeout_precommit_ms=200, timeout_precommit_delta_ms=100,
         timeout_commit_ms=20, skip_timeout_commit=True,
     )
+
+
+@dataclass
+class P2PConfig:
+    """reference: config.py:96 P2PConfig (Go config/config.go P2PConfig)."""
+
+    laddr: str = "tcp://0.0.0.0:26656"
+    external_address: str = ""
+    seeds: str = ""
+    persistent_peers: str = ""
+    max_num_inbound_peers: int = 40
+    max_num_outbound_peers: int = 10
+    flush_throttle_ms: int = 100
+    max_packet_msg_payload_size: int = 1024
+    send_rate: int = 5120000
+    recv_rate: int = 5120000
+    pex: bool = True
+    seed_mode: bool = False
+    allow_duplicate_ip: bool = False
+    handshake_timeout_s: int = 20
+    dial_timeout_s: int = 3
+    # PEX ensure-peers cadence (reference: PEXReactor
+    # ensurePeersPeriod, 30s). Short-lived test nets lower it so
+    # seed-bootstrap discovery converges within the run.
+    pex_ensure_period_s: float = 30.0
+    # Slow-peer escalation (p2p/switch.py + libs/overload.py
+    # SlowPeerTracker): a peer whose unsent backlog
+    # (pending_send_bytes) sits at/above the high-water mark for
+    # consecutive scan intervals escalates skip-gossip -> demote ->
+    # disconnect (non-persistent only). 0 high-water disables.
+    slow_peer_pending_bytes: int = 1 << 20
+    slow_peer_check_interval_s: float = 2.0
+    slow_peer_skip_strikes: int = 2
+    slow_peer_demote_strikes: int = 4
+    slow_peer_disconnect_strikes: int = 8
+
+    def validate_basic(self) -> None:
+        if self.max_num_inbound_peers < 0 or self.max_num_outbound_peers < 0:
+            raise ValueError("negative peer limits")
+        if self.flush_throttle_ms < 0:
+            raise ValueError("negative flush throttle")
+        if self.pex_ensure_period_s <= 0:
+            raise ValueError("pex_ensure_period_s must be positive")
+        if self.slow_peer_pending_bytes < 0:
+            raise ValueError("negative slow_peer_pending_bytes")
+        if self.slow_peer_check_interval_s <= 0:
+            raise ValueError("slow_peer_check_interval_s must be positive")
+        if not (0 < self.slow_peer_skip_strikes
+                <= self.slow_peer_demote_strikes
+                <= self.slow_peer_disconnect_strikes):
+            raise ValueError(
+                "slow_peer strikes must satisfy 0 < skip <= demote "
+                "<= disconnect")
+
+
+@dataclass
+class FastSyncConfig:
+    """reference: config.py:248 FastSyncConfig."""
+
+    version: str = "v0"
+    # Verify-ahead window pipelining (blockchain/verify_ahead.py
+    # WindowPipeline): window W+1's commit-signature batch verifies in
+    # an executor thread while window W's blocks execute. Verdicts and
+    # persistence order are identical either way — disable only to
+    # take executor-thread contention off a constrained host.
+    verify_ahead: bool = True
+
+    def validate_basic(self) -> None:
+        if self.version not in ("v0", "v2"):
+            raise ValueError(f"unknown fastsync version {self.version}")
 
 
 @dataclass

@@ -76,6 +76,24 @@ def pubkey_types() -> frozenset[str]:
     return frozenset(_PUBKEY_REGISTRY)
 
 
+def ed25519_privkey_from_json(raw, what: str) -> "PrivKey":
+    """One parse for the repo's flat-hex key files and the Go
+    reference's tmjson form ({'type': 'tendermint/PrivKeyEd25519',
+    'value': base64 of seed||pub}). The tag match is exact: a
+    pubkey-tagged dict fed here would otherwise treat a 32-byte public
+    key as a seed and boot under a new identity."""
+    from . import ed25519
+
+    if isinstance(raw, dict):
+        tag = raw.get("type", "")
+        if tag not in ("tendermint/PrivKeyEd25519", "ed25519"):
+            raise ValueError(f"unsupported {what} key type {tag!r}")
+        import base64
+
+        return ed25519.Ed25519PrivKey(base64.b64decode(raw["value"]))
+    return ed25519.Ed25519PrivKey(bytes.fromhex(raw))
+
+
 def _ensure_registered() -> None:
     """Import every key-type module of the port so its register_pubkey
     ran (the reference's set also has secp256k1, not ported yet)."""

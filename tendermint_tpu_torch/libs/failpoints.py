@@ -3,7 +3,7 @@ points of the device path, the light serving plane, the block store,
 the ABCI connections, the mempool admission plane, the commit
 pipeline (the consensus state machine's commit, the block executor,
 the consensus WAL, the persistent KV stores, the FilePV's last-sign
-state) and the speculation plane, and to the `error`, `delay` and
+state), the speculation plane and the p2p send path, and to the `error`, `delay` and
 `corrupt` actions.
 
     error         raise FailpointError(name) from the call site
@@ -83,6 +83,11 @@ CATALOG: dict[str, bool] = {
     # the FilePV's LastSignState about to be persisted (privval/file_pv.py):
     # an error here must never let an unpersisted signature escape
     "privval.save": False,
+    # a packet about to be written to a peer's MConnection
+    # (p2p/conn/connection.py): `corrupt` is wire garbage the peer must
+    # detect and drop us for, `error` kills the send routine, `delay`
+    # stalls this peer's sends
+    "p2p.send": True,
 }
 
 # The reference's crash sites (its catalog's legacy_index flag: the
@@ -215,7 +220,7 @@ def hit(name: str, payload: bytes | None = None):
 
 
 async def hit_async(name: str, payload: bytes | None = None):
-    """hit() for coroutine call sites (abci.deliver): the `delay` action
+    """hit() for coroutine call sites (abci.deliver, p2p.send): the `delay` action
     awaits asyncio.sleep instead of blocking the event loop, so an
     injected stall slows the targeted component the way a real slow app
     would while the rest of the loop keeps running."""

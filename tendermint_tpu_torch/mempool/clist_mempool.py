@@ -16,8 +16,15 @@ toggles around ApplyBlock's Commit (reference updateMtx).
 The reference's mempool metrics (size, tx bytes, failed txs, recheck
 counts) are the port's ``METRICS`` dict for the two counters (the
 gauges are ``size()`` and ``tx_bytes()``); its observability family
-waits for ROADMAP Queue A item 10. The p2p reactor (mempool/reactor.py)
-waits for the port's p2p stack.
+waits for ROADMAP Queue A item 10. The p2p reactor is
+mempool/reactor.py.
+
+A fix beyond the reference (a recorded divergence): a tx that commits
+while its CheckTx waits in the admission plane's pre-verify is dropped
+when the wait ends, as one that commits while the app checks it is. The
+reference opens that window only after the pre-verify, so such a tx,
+gossiped to a node just as a block carrying it commits there, is put
+back in the pool and committed a second time.
 """
 
 from __future__ import annotations
@@ -327,6 +334,9 @@ class CListMempool(Mempool):
             raise admission_err
 
         key = tx_hash(tx)
+        # a commit of this tx from here on drops it at the end (the
+        # admission pre-verify and the app's CheckTx both await)
+        gen_before = self._update_gen
         if not self.cache.push(key):
             # Record the extra sender for dedup in broadcast
             # (reference clist_mempool.go:257-266).
@@ -362,14 +372,14 @@ class CListMempool(Mempool):
                     code=CODE_ADMISSION_REJECT,
                     log=f"admission: {shed_reason}")
 
-        gen_before = self._update_gen
         res = await self.client.check_tx(abci.RequestCheckTx(tx=tx))
 
-        # The commit window may have opened while we awaited the app:
-        # wait it out, and drop the tx only if it committed during this
-        # CheckTx's in-flight window — an older commit of the same tx
-        # must not blackhole a legitimate resubmission (reference holds
-        # updateMtx.RLock across all of CheckTx).
+        # The commit window may have opened while we awaited the
+        # pre-verify or the app: wait it out, and drop the tx only if it
+        # committed during this CheckTx's in-flight window — an older
+        # commit of the same tx must not blackhole a legitimate
+        # resubmission (reference holds updateMtx.RLock across all of
+        # CheckTx).
         await self._unlocked.wait()
         if self._recently_committed.get(key, -1) > gen_before:
             return res

@@ -24,7 +24,7 @@ import json
 import os
 from dataclasses import dataclass
 
-from ..crypto import ed25519
+from ..crypto import ed25519, ed25519_privkey_from_json
 from ..libs import failpoints
 from ..types.canonical import (
     extract_canonical_timestamp,
@@ -75,19 +75,6 @@ class LastSignState:
         return False
 
 
-def _privkey_from_json(raw) -> ed25519.Ed25519PrivKey:
-    """The repo's flat-hex key, or the Go reference's tmjson form
-    ({'type': 'tendermint/PrivKeyEd25519', 'value': base64 of
-    seed||pub}); the tag match is exact (reference:
-    crypto/__init__.py ed25519_privkey_from_json)."""
-    if isinstance(raw, dict):
-        tag = raw.get("type", "")
-        if tag not in ("tendermint/PrivKeyEd25519", "ed25519"):
-            raise ValueError(f"unsupported privval key type {tag!r}")
-        return ed25519.Ed25519PrivKey(base64.b64decode(raw["value"]))
-    return ed25519.Ed25519PrivKey(bytes.fromhex(raw))
-
-
 class FilePV:
     """Go privval/file.go:151 FilePV."""
 
@@ -114,7 +101,8 @@ class FilePV:
     def load(cls, key_path: str, state_path: str) -> "FilePV":
         with open(key_path) as f:
             d = json.load(f)
-        return cls(_privkey_from_json(d["priv_key"]), key_path, state_path)
+        return cls(ed25519_privkey_from_json(d["priv_key"], "privval"),
+                   key_path, state_path)
 
     @classmethod
     def load_or_generate(cls, key_path: str, state_path: str) -> "FilePV":
