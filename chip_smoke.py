@@ -285,8 +285,9 @@ Phases, each printing one JSON line:
    consensus phase so that its build overlaps it; with `--phase p2p`,
    at the phase's start) builds a
    1,000-validator chain from genesis through BlockExecutor over a
-   kvstore app (32 txs a block, every commit signed by all 1,000, the
-   commit of height 64 in round 1) and serves it from four switches and
+   kvstore app (32 txs a block, each value padded to 2,048 bytes, every
+   commit signed by all 1,000, the commit of height 64 in round 1; the
+   app snapshots every 32 heights) and serves it from four switches and
    a copy with one forged LastCommit signature in block 78 from two
    more. A fresh node here fast-syncs from the four through
    BlockchainReactor and hands over to consensus: its blocks and state
@@ -299,7 +300,44 @@ Phases, each printing one JSON line:
    blocks a second end to end and the split between verify (the
    windows' awaits), apply_block, save_block and the network (the
    rest);
-17. timing — each kernel at the main path's shapes: its device time a
+17. statesync — a fresh node joins Part B's chain (config #3 cut to
+   129 blocks) by a seed, PEX and state sync. The p2p phase's serving
+   child (with `--phase statesync`: started at the phase's start) also
+   serves the chain, and its app's snapshots at 32, 64, 96 and 128
+   (about 12.8 MB of JSON, 195 chunks of 64 KiB at 96), from four
+   honest switches (blockchain, statesync and PEX reactors, their books
+   holding the servers) and a poisoner whose snapshot connection flips
+   one byte of every chunk it serves; a seed (PEX in seed mode, its
+   other reactors over an empty store and app) knows the five. On the
+   card: the node (MemDBs, an empty kvstore app, a BlockchainReactor
+   not yet syncing, the consensus reactor waiting for the sync, a
+   StateSyncReactor whose LightClientStateProvider holds a light Client
+   trusted at height 1 by hash, its primary and witness
+   BlockStoreProviders over the chain's stores as the child ships them,
+   and PEX given only the seed, ensure period 1 s). The expanded-table
+   cache cleared, counters zeroed before the node starts and read after
+   the handover. Checks: the book holds the five with the seed as their
+   source, the seed hangs up, ensure_peers dials the five from the
+   book; every server advertises the
+   four snapshots; 128 is refused by the light client (no block at
+   130: BlockNotFoundError) and never offered, 96 is verified
+   backwards from the trusted head and restored in three attempts
+   (round robin over the five, poisoned; then the poisoner alone, whose
+   id sorts first, named by the app and quarantined; then one honest
+   server); the restored app at height 96 with the chain's app hash
+   and its `kv:` items' digest equal to the chain app's at 96;
+   bootstrap (state store, seen commit), fast sync of the tail from 97
+   to 128 (or 127) with every block hash, the app hash and
+   last_results_hash equal to the chain's, the handover to consensus;
+   K1 once (the set's tables), K3 once a light commit check (four,
+   structured: height 1's, the 1/3 trusting and 2/3 checks of the skip
+   to 128, the adjacent 129), a window job and a LastCommit apply_block
+   validates, K4 once (the handover's reconstruct_last_commit), nothing
+   else. Printed: the discovery time, each light height's and commit
+   check's ms, the snapshot's chunks and bytes, each restore attempt's
+   fetch, apply and bootstrap seconds, the fetch MB/s, the tail's
+   blocks a second, the time from start to handover;
+18. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
    call (`wrapper_us`: CUDA events around as many calls made from
@@ -317,12 +355,12 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-18. fault — in a child (`--phase fault`; a sticky fault poisons the
+19. fault — in a child (`--phase fault`; a sticky fault poisons the
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved;
-19. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
+20. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
@@ -338,7 +376,8 @@ Phases, each printing one JSON line:
 Each child's lines are relayed as {"phase": <child>, "step": ...}; a
 child that fails or outruns its time limit fails the run.
 `python3 chip_smoke.py --phase consensus` builds the kernels and runs
-the consensus phase alone; `--phase p2p` the p2p phase. Every phase
+the consensus phase alone; `--phase p2p` the p2p phase, `--phase
+statesync` the statesync phase. Every phase
 but healing must end with all breakers closed and the host fallbacks,
 rechecks and evictions unchanged. Then the kernels line, the
 nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
@@ -1152,16 +1191,18 @@ def sr_check(n_lanes: int, dev, out: dict, digests: dict):
 def make_commit(n: int):
     """n validators of equal power and a commit signed by all of them
     (bench.py's shape: one block id, per-slot timestamps), and each
-    key's seed."""
+    key's seed. Keys and signatures by Ed25519PrivKey (OpenSSL where the
+    host has it: RFC 8032's bytes, as ed25519_ref gives them)."""
     from tendermint_tpu_torch.crypto import ed25519
-    from tendermint_tpu_torch.crypto import ed25519_ref as ref
     from tendermint_tpu_torch.types.block import (
         BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader)
     from tendermint_tpu_torch.types.validator import Validator
     from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
     seeds = [hashlib.sha256(b"smoke-val-%d" % i).digest() for i in range(n)]
-    pubs = [ref.public_key_from_seed(s) for s in seeds]
+    keys = [ed25519.Ed25519PrivKey(s) for s in seeds]
+    pubs = [k.pub_key().bytes() for k in keys]
+    key_of = dict(zip(pubs, keys))
     vs = ValidatorSet([Validator.new(ed25519.Ed25519PubKey(p), 10)
                        for p in pubs])
     seed_of = {p: s for p, s in zip(pubs, seeds)}
@@ -1171,9 +1212,8 @@ def make_commit(n: int):
           for i, v in enumerate(vs.validators)]
     commit = Commit(123456, 0, bid, cs)
     for i, v in enumerate(vs.validators):
-        pub = v.pub_key.bytes()
-        cs[i].signature = ref.sign(seed_of[pub],
-                                   commit.vote_sign_bytes(CHAIN, i))
+        cs[i].signature = key_of[v.pub_key.bytes()].sign(
+            commit.vote_sign_bytes(CHAIN, i))
     return vs, commit, bid, seed_of
 
 
@@ -1402,23 +1442,25 @@ def speculation_phase(vs, commit, bid):
 def make_mixed_commit(n: int):
     """n validators of equal power, key i sr25519 when i is odd and
     ed25519 when even (the set sorts them by address), and a commit
-    signed by all of them: one block id, per-slot timestamps."""
+    signed by all of them: one block id, per-slot timestamps. The
+    ed25519 keys sign as make_commit's do."""
     from tendermint_tpu_torch.crypto import ed25519, sr25519, vectors
-    from tendermint_tpu_torch.crypto import ed25519_ref as ref
     from tendermint_tpu_torch.crypto import sr25519_ref as sr
     from tendermint_tpu_torch.types.block import (
         BlockID, BlockIDFlag, Commit, CommitSig, PartSetHeader)
     from tendermint_tpu_torch.types.validator import Validator
     from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
-    vals, secret_of = [], {}
+    vals, secret_of, key_of = [], {}, {}
     for i in range(n):
         if i % 2:
             secret = hashlib.sha256(b"smoke-sr-%d" % i).digest()
             pk = sr25519.Sr25519PubKey(sr.public_key_from_mini(secret))
         else:
             secret = hashlib.sha256(b"smoke-val-%d" % i).digest()
-            pk = ed25519.Ed25519PubKey(ref.public_key_from_seed(secret))
+            key = ed25519.Ed25519PrivKey(secret)
+            pk = key.pub_key()
+            key_of[pk.bytes()] = key
         vals.append(Validator.new(pk, 10))
         secret_of[pk.bytes()] = secret
     vs = ValidatorSet(vals)
@@ -1432,8 +1474,8 @@ def make_mixed_commit(n: int):
         if v.pub_key.type_name == "sr25519":
             sr_slots.append(i)
         else:
-            cs[i].signature = ref.sign(secret_of[v.pub_key.bytes()],
-                                       commit.vote_sign_bytes(CHAIN, i))
+            cs[i].signature = key_of[v.pub_key.bytes()].sign(
+                commit.vote_sign_bytes(CHAIN, i))
     sigs = vectors.sr_sign_batch(
         [secret_of[vs.validators[i].pub_key.bytes()] for i in sr_slots],
         [commit.vote_sign_bytes(CHAIN, i) for i in sr_slots])
@@ -4812,9 +4854,10 @@ def exec_genesis(pvs):
                                   for pv in pvs[:-1]])
 
 
-def db_digest(db) -> str:
+def db_digest(db, prefix: bytes | None = None) -> str:
+    """A DB's items (those under `prefix` only, where given), hashed."""
     h = hashlib.sha256()
-    for k, v in db.iterate():
+    for k, v in db.iterate() if prefix is None else db.iterate_prefix(prefix):
         h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big") + v)
     return h.hexdigest()[:16]
 
@@ -6615,12 +6658,22 @@ P2P_DRAIN_HEIGHTS = 8  # the most heights past 12 the txs may take
 P2P_SYNC_VALIDATORS = 1_000
 P2P_SYNC_BLOCKS = 129
 P2P_SYNC_TXS = 32
+P2P_SYNC_VALUE = 2_048  # each tx's value: its number, then filler
 P2P_SYNC_ROUND1 = 64  # the commit of this height is made in round 1
 P2P_SYNC_SERVERS = 4
 P2P_FORGED_AT = 78  # its LastCommit carries one forged signature (a copy)
 P2P_FORGED_SERVERS = 2
 P2P_WAIT_S = 240.0
 P2P_CHILD_CMD = None  # the children's command (None: this script)
+# The statesync phase (17) over Part B's chain: the build's app takes a
+# snapshot every SS_INTERVAL heights and keeps the last SS_KEEP (32, 64,
+# 96, 128), served by four honest switches and a poisoner; a seed knows
+# their addresses.
+SS_INTERVAL = 32
+SS_KEEP = 4
+SS_POISONER_KEY = 56  # its node id sorts before the honest servers'
+SS_ENSURE_S = 1.0     # the joining node's pex_ensure_period_s
+SS_DISCOVERY_S = 2.0  # its syncer's discovery time
 
 
 def p2p_key(kind: bytes, i: int = 0):
@@ -6663,16 +6716,23 @@ class P2pNode:
     admission plane is strict (every tx a signed envelope), a
     BlockExecutor, ConsensusState at ConsensusConfig's defaults signing
     with `pv`, and the consensus, blockchain (`fast_sync`), evidence and
-    mempool reactors."""
+    mempool reactors; with `provider` (a state provider) a
+    StateSyncReactor syncing through it, the consensus reactor waiting
+    for the sync, and with `seeds` a PEXReactor over an empty AddrBook
+    (ensure period SS_ENSURE_S). `instrument(node)` runs once the
+    reactors are wired, before the switch starts."""
 
     CHANNELS = bytes([0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40])
 
     def __init__(self, gdoc, name: str, pv=None, home=None, mempool=True,
-                 fast_sync=False):
+                 fast_sync=False, provider=None, seeds=None,
+                 instrument=None):
         from tendermint_tpu_torch.p2p.key import NodeKey
 
         self.gdoc, self.name, self.pv, self.home = gdoc, name, pv, home
         self.with_mempool, self.fast_sync = mempool, fast_sync
+        self.provider, self.seeds = provider, seeds
+        self.instrument = instrument
         self.node_key = NodeKey(p2p_key(b"node-" + name.encode()))
         self.cs = self.switch = self.mempool = None
 
@@ -6723,7 +6783,8 @@ class P2pNode:
                                  evpool=self.evpool)
         if self.pv is not None:
             self.cs.set_priv_validator(self.pv)
-        self.reactor = ConsensusReactor(self.cs, wait_sync=self.fast_sync)
+        self.reactor = ConsensusReactor(
+            self.cs, wait_sync=self.fast_sync or self.provider is not None)
         self.bc_reactor = BlockchainReactor(
             state, self.executor, self.bs, fast_sync=self.fast_sync,
             consensus_reactor=self.reactor)
@@ -6734,7 +6795,9 @@ class P2pNode:
             return NodeInfo(node_id=self.node_key.id,
                             listen_addr=t.listen_addr if t._server else "",
                             network=self.gdoc.chain_id, moniker=self.name,
-                            channels=self.CHANNELS)
+                            channels=bytes(sorted(
+                                set(self.CHANNELS) |
+                                set(self.switch.channel_ids()))))
 
         transport = Transport(self.node_key, ni)
         holder["transport"] = transport
@@ -6744,6 +6807,23 @@ class P2pNode:
         self.switch.add_reactor("evidence", EvidenceReactor(self.evpool))
         if self.mempool is not None:
             self.switch.add_reactor("mempool", MempoolReactor(self.mempool))
+        if self.provider is not None:
+            from tendermint_tpu_torch.statesync.reactor import \
+                StateSyncReactor
+
+            self.ss_reactor = StateSyncReactor(self.conns.snapshot,
+                                               self.provider, SS_DISCOVERY_S)
+            self.switch.add_reactor("statesync", self.ss_reactor)
+        if self.seeds is not None:
+            from tendermint_tpu_torch.p2p.pex import AddrBook, PEXReactor
+
+            self.book = AddrBook()
+            self.book.add_our_address(self.node_key.id)
+            self.pex = PEXReactor(self.book, seeds=self.seeds,
+                                  ensure_period=SS_ENSURE_S)
+            self.switch.add_reactor("pex", self.pex)
+        if self.instrument is not None:
+            self.instrument(self)
         await transport.listen("127.0.0.1", 0)
         await self.switch.start()
         return self
@@ -7244,7 +7324,11 @@ async def p2p_build_chain(gdoc, keys):
     host has it), in round 1 at P2P_SYNC_ROUND1. The block store, and
     the digests (state store, app hash, last_results_hash) after each of
     the last three blocks, by height (a syncing node stops at the second
-    last or the one before it)."""
+    last or the one before it). Each tx's value is padded to
+    P2P_SYNC_VALUE bytes and the app snapshots every SS_INTERVAL heights
+    (keeping SS_KEEP); `extra` holds the state DB, the app's connections
+    (left running: the statesync servers serve its snapshots) and the app
+    hash after each snapshot height."""
     from tendermint_tpu_torch.abci.client import ClientCreator
     from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
     from tendermint_tpu_torch.consensus.replay import handshake_and_load_state
@@ -7258,15 +7342,19 @@ async def p2p_build_chain(gdoc, keys):
 
     state_db = MemDB()
     ss, bs = Store(state_db), BlockStore(MemDB())
-    conns = AppConns(ClientCreator(app=PersistentKVStoreApp(MemDB())))
+    app = PersistentKVStoreApp(MemDB(), snapshot_interval=SS_INTERVAL,
+                               keep_snapshots=SS_KEEP)
+    conns = AppConns(ClientCreator(app=app))
     await conns.start()
     state = await handshake_and_load_state(None, ss, bs, gdoc, conns)
     feed = _TxFeed()
     executor = BlockExecutor(ss, conns.consensus, mempool=feed)
     key_of = {k.pub_key().address(): k for k in keys}
-    last_commit, sign_s, digests = None, 0.0, {}
+    last_commit, sign_s, digests, app_hashes, kv_digests = \
+        None, 0.0, {}, {}, {}
     for h in range(1, P2P_SYNC_BLOCKS + 1):
-        feed.txs = [b"sync-%d-%d=%d" % (h, j, h * j)
+        feed.txs = [b"sync-%d-%d=" % (h, j) +
+                    (b"%d" % (h * j)).ljust(P2P_SYNC_VALUE, b".")
                     for j in range(P2P_SYNC_TXS)]
         block = executor.create_proposal_block(
             h, state, last_commit, state.validators.get_proposer().address)
@@ -7289,8 +7377,12 @@ async def p2p_build_chain(gdoc, keys):
             digests[h] = dict(state_db=db_digest(state_db),
                               app_hash=state.app_hash.hex(),
                               last_results_hash=state.last_results_hash.hex())
-    await conns.stop()
-    return bs, state, digests, sign_s
+        if h % SS_INTERVAL == 0:
+            app_hashes[h] = state.app_hash.hex()
+            kv_digests[h] = db_digest(app.db, b"kv:")
+    return bs, state, digests, sign_s, dict(state_db=state_db, conns=conns,
+                                            app_hashes=app_hashes,
+                                            kv_digests=kv_digests)
 
 
 class _ForgedStore:
@@ -7306,42 +7398,128 @@ class _ForgedStore:
             else self._bs.load_block(h)
 
 
-async def p2p_server(gdoc, state, store, i: int):
-    """A serving peer: a Switch with the blockchain reactor alone over
-    `store` (not syncing)."""
+async def p2p_server(gdoc, state, store, i: int, kind: bytes = b"server",
+                     snapshots=None, book=None, seed_mode=False):
+    """A serving peer: a Switch with the blockchain reactor over `store`
+    (not syncing); with `snapshots` (an app's snapshot connection) also a
+    StateSyncReactor serving them, and with `book` a PEXReactor over it
+    (in seed mode with `seed_mode`). Its NodeInfo names the channels of
+    its reactors."""
     from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
     from tendermint_tpu_torch.p2p.key import NodeKey
     from tendermint_tpu_torch.p2p.node_info import NodeInfo
+    from tendermint_tpu_torch.p2p.pex import PEXReactor
     from tendermint_tpu_torch.p2p.switch import Switch
     from tendermint_tpu_torch.p2p.transport import Transport
+    from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
 
-    nk = NodeKey(p2p_key(b"server", i))
+    nk = NodeKey(p2p_key(kind, i))
     holder = {}
 
     def ni():
         t = holder["transport"]
         return NodeInfo(node_id=nk.id,
                         listen_addr=t.listen_addr if t._server else "",
-                        network=gdoc.chain_id, moniker=f"server{i}",
-                        channels=bytes([0x40]))
+                        network=gdoc.chain_id, moniker=f"{kind.decode()}{i}",
+                        channels=holder["switch"].channel_ids())
 
     transport = Transport(nk, ni)
     holder["transport"] = transport
-    sw = Switch(transport, ni)
+    sw = holder["switch"] = Switch(transport, ni)
     sw.add_reactor("blockchain", BlockchainReactor(state, None, store,
                                                    fast_sync=False))
+    if snapshots is not None:
+        sw.add_reactor("statesync", StateSyncReactor(snapshots))
+    if book is not None:
+        book.add_our_address(nk.id)
+        sw.add_reactor("pex", PEXReactor(book, seed_mode=seed_mode))
     await transport.listen("127.0.0.1", 0)
     await sw.start()
     return sw, f"{nk.id}@{transport.listen_addr}"
+
+
+class _PoisonedSnapshots:
+    """The poisoner's snapshot connection: the app's, each chunk served
+    with one byte flipped (on the wire, the attack the reference's
+    statesync.serve `corrupt` models; that failpoint is process-wide)."""
+
+    def __init__(self, conn):
+        self._conn = conn
+
+    async def load_snapshot_chunk(self, req):
+        res = await self._conn.load_snapshot_chunk(req)
+        if not res.chunk:
+            return res
+        b = bytearray(res.chunk)
+        b[len(b) // 2] ^= 0x01
+        return type(res)(bytes(b))
+
+    def __getattr__(self, name):
+        return getattr(self._conn, name)
+
+
+async def ss_servers(gdoc, state, bs, extra) -> dict:
+    """The statesync phase's serving side over Part B's chain and app:
+    P2P_SYNC_SERVERS honest switches and a poisoner (blockchain,
+    statesync and PEX reactors; their books hold the five), and a seed (a
+    PEXReactor in seed mode whose book holds the five; its blockchain and
+    statesync reactors run over an empty store and an empty app, as a
+    seed node of the reference does, so a joining node's status and
+    snapshot requests get answers instead of an unknown channel)."""
+    from tendermint_tpu_torch.abci.client import ClientCreator
+    from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.p2p.key import NodeKey
+    from tendermint_tpu_torch.p2p.pex import AddrBook
+    from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.store import BlockStore
+
+    conn = extra["conns"].snapshot
+    ids = [NodeKey(p2p_key(b"ss-server", i)).id
+           for i in range(P2P_SYNC_SERVERS)]
+    if NodeKey(p2p_key(b"ss-poisoner", SS_POISONER_KEY)).id >= min(ids):
+        raise AssertionError("statesync: the poisoner's id must sort first")
+    books = [AddrBook() for _ in range(P2P_SYNC_SERVERS + 2)]
+    servers = [await p2p_server(gdoc, state, bs, i, b"ss-server", conn,
+                                books[i]) for i in range(P2P_SYNC_SERVERS)]
+    servers.append(await p2p_server(gdoc, state, bs, SS_POISONER_KEY,
+                                    b"ss-poisoner", _PoisonedSnapshots(conn),
+                                    books[-2]))
+    empty = AppConns(ClientCreator(app=PersistentKVStoreApp(MemDB())))
+    await empty.start()
+    seed = await p2p_server(gdoc, state, BlockStore(MemDB()), 0, b"ss-seed",
+                            empty.snapshot, books[-1], seed_mode=True)
+    addrs = [a for _, a in servers]
+    for book in books:
+        for a in addrs:
+            book.add_address(a)
+    return dict(switches=[sw for sw, _ in servers] + [seed[0]],
+                conns=[extra["conns"], empty], addrs=addrs[:-1],
+                poisoner=addrs[-1], seed=seed[1])
+
+
+def ss_frame(bs, extra, ss) -> dict:
+    """What the joining node's light provider reads (the chain's block
+    store and state store, key by key), the servers' addresses, and the
+    app hash and the digest of the app's `kv:` items after each snapshot
+    height."""
+    return {"op": "statesync", "addrs": ss["addrs"],
+            "poisoner": ss["poisoner"], "seed": ss["seed"],
+            "block_db": list(bs.db.iterate()),
+            "state_db": list(extra["state_db"].iterate()),
+            "app_hashes": extra["app_hashes"],
+            "kv_digests": extra["kv_digests"]}
 
 
 def p2p_servers_child() -> int:
     """Part B's serving peers (`--phase p2p_servers`): builds the chain
     (p2p_build_chain, the host route forced), then serves it from
     P2P_SYNC_SERVERS switches and a copy with one forged signature in
-    block P2P_FORGED_AT's LastCommit from P2P_FORGED_SERVERS more. One
-    `ready` frame (the keys, addresses, block hashes, the digests, the
-    build's times), then serves until `exit`."""
+    block P2P_FORGED_AT's LastCommit from P2P_FORGED_SERVERS more, and
+    the statesync phase's servers and seed (ss_servers). One `ready`
+    frame (the keys, addresses, block hashes, the digests, the build's
+    times), then serves until `exit`, answering each `statesync` frame
+    with ss_frame's."""
     import asyncio
 
     from tendermint_tpu_torch.types.block import Block
@@ -7356,7 +7534,7 @@ def p2p_servers_child() -> int:
 
     async def run():
         t = time.perf_counter()
-        bs, state, digests, sign_s = await p2p_build_chain(gdoc, keys)
+        bs, state, digests, sign_s, extra = await p2p_build_chain(gdoc, keys)
         build_s = time.perf_counter() - t
         forged = Block.from_bytes(bs.load_block(P2P_FORGED_AT).to_bytes())
         sig = bytearray(forged.last_commit.signatures[5].signature)
@@ -7368,6 +7546,7 @@ def p2p_servers_child() -> int:
         servers += [await p2p_server(gdoc, state, fstore,
                                      P2P_SYNC_SERVERS + i)
                     for i in range(P2P_FORGED_SERVERS)]
+        ss = await ss_servers(gdoc, state, bs, extra)
         cs_frame_write(out, {
             "op": "ready", "pubs": pubs,
             "addrs": [a for _, a in servers[:P2P_SYNC_SERVERS]],
@@ -7376,10 +7555,14 @@ def p2p_servers_child() -> int:
                        for h in range(1, P2P_SYNC_BLOCKS + 1)],
             "digests": digests, "keys_s": keys_s, "build_s": build_s,
             "sign_s": sign_s})
-        await asyncio.get_running_loop().run_in_executor(
-            None, cs_frame_read, inp)  # exit
-        for sw, _ in servers:
+        loop = asyncio.get_running_loop()
+        while (await loop.run_in_executor(None, cs_frame_read, inp)
+               )["op"] == "statesync":
+            cs_frame_write(out, ss_frame(bs, extra, ss))
+        for sw in [sw for sw, _ in servers] + ss["switches"]:
             await sw.stop()
+        for conns in ss["conns"]:
+            await conns.stop()
 
     asyncio.run(run())
     return 0
@@ -7491,7 +7674,7 @@ async def p2p_fastsync(servers) -> dict:
     """Part B of the p2p phase: a clean sync from the four honest
     servers (counted), then one from the two forged servers and two
     honest ones."""
-    ready = await servers.aread(timeout=600)
+    ready = servers.ready = await servers.aread(timeout=600)
     gdoc = p2p_genesis(P2P_SYNC_CHAIN, ready["pubs"])
     k0 = exec_counts()
     clean = await p2p_sync_run(gdoc, ready["addrs"], ready)
@@ -7568,7 +7751,349 @@ def p2p_phase(servers=None) -> dict:
         shutil.rmtree(home, ignore_errors=True)
 
 
-# -- phase 17 ------------------------------------------------------------
+# -- phase 17: statesync -------------------------------------------------
+
+
+class SsProbe:
+    """The joining node's record for the statesync phase, of what the
+    syncer's METRICS, the blockchain reactor and the launch counters do
+    not keep: the peers the switch removed, the light client's heights
+    and commit checks with their times, each restore attempt's fetch
+    (source, bytes, seconds, apply seconds) and the window jobs."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.removed, self.heights, self.checks, self.attempts = [], [], [], []
+        self.apply_s, self.bytes_in, self.windows = 0.0, 0, []
+
+    def at(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def wire(self, node) -> None:
+        """Wrap the node's switch's peer removal and its pipeline's
+        window job (P2pNode's `instrument` hook: before its switch
+        starts)."""
+        from tendermint_tpu_torch.blockchain.verify_ahead import \
+            WindowPipeline
+
+        sw = node.switch
+        remove, job = sw._remove_peer, WindowPipeline._verify_window_job
+
+        async def remove_peer(peer, reason):
+            self.removed.append((peer.id, str(reason), self.at()))
+            return await remove(peer, reason)
+
+        def counted_job(vals, chain_id, blocks):
+            self.windows.append(len(blocks) - 1)
+            return job(vals, chain_id, blocks)
+
+        sw._remove_peer = remove_peer
+        node.bc_reactor.pipeline._verify_window_job = counted_job
+
+    def wire_sync(self, node, lc):
+        """Wrap the light client's height requests, the syncer's fetches
+        and the snapshot connection's applies; returns the undo of the
+        one class attribute (CommitVerifyPlan.execute: a light commit
+        check)."""
+        from tendermint_tpu_torch.types import validator_set
+        from tendermint_tpu_torch.types.sign_batch import StructuredSignBytes
+
+        verify_at = lc.verify_light_block_at_height
+
+        async def timed_verify_at(height, now_ns=None):
+            t = time.perf_counter()
+            try:
+                lb = await verify_at(height, now_ns)
+                self.heights.append((height, "ok", (time.perf_counter() - t)
+                                     * 1e3))
+                return lb
+            except Exception as e:
+                self.heights.append((height, type(e).__name__,
+                                     (time.perf_counter() - t) * 1e3))
+                raise
+
+        lc.verify_light_block_at_height = timed_verify_at
+        plan_cls = validator_set.CommitVerifyPlan
+        execute = plan_cls.execute
+
+        def timed_execute(plan):
+            t = time.perf_counter()
+            try:
+                return execute(plan)
+            finally:
+                self.checks.append(dict(
+                    lanes=len(plan.lanes),
+                    structured=isinstance(plan.msgs, StructuredSignBytes),
+                    ms=(time.perf_counter() - t) * 1e3))
+
+        plan_cls.execute = timed_execute
+        sy = node.ss_reactor.syncer
+        fetch, add_chunk = sy._fetch_and_apply, sy.add_chunk
+
+        async def timed_fetch(snapshot, source=None):
+            t, a0, b0 = time.perf_counter(), self.apply_s, self.bytes_in
+            ok = "ok"
+            try:
+                return await fetch(snapshot, source)
+            except Exception as e:
+                ok = type(e).__name__
+                raise
+            finally:
+                self.attempts.append(dict(
+                    height=snapshot.height, source=source, end=ok,
+                    seconds=time.perf_counter() - t,
+                    apply_s=self.apply_s - a0, bytes=self.bytes_in - b0))
+
+        def counted_chunk(msg, peer_id=""):
+            self.bytes_in += len(msg.chunk)
+            return add_chunk(msg, peer_id)
+
+        sy._fetch_and_apply, sy.add_chunk = timed_fetch, counted_chunk
+        conn = sy.app
+        apply_chunk = conn.apply_snapshot_chunk
+
+        async def timed_apply(req):
+            t = time.perf_counter()
+            try:
+                return await apply_chunk(req)
+            finally:
+                self.apply_s += time.perf_counter() - t
+
+        conn.apply_snapshot_chunk = timed_apply
+
+        def undo():
+            plan_cls.execute = execute
+
+        return undo
+
+
+def ss_provider(gdoc, frame, hashes):
+    """The light client's state provider over the chain's stores as the
+    servers child shipped them: a Client trusted at height 1 by hash,
+    its primary and witness BlockStoreProviders over one copy, on a
+    clock an hour past the chain's last block."""
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.light import (BlockStoreProvider, Client,
+                                            LightStore, TrustOptions)
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.state.store import Store
+    from tendermint_tpu_torch.statesync import LightClientStateProvider
+    from tendermint_tpu_torch.store import BlockStore
+
+    bdb, sdb = MemDB(), MemDB()
+    bdb.write_batch(frame["block_db"])
+    sdb.write_batch(frame["state_db"])
+    bs, ss = BlockStore(bdb), Store(sdb)
+    now = bs.load_block(bs.height).header.time + 3600 * 10**9
+    lc = Client(gdoc.chain_id,
+                TrustOptions(period_ns=168 * 3600 * 10**9, height=1,
+                             hash=bytes.fromhex(hashes[0])),
+                BlockStoreProvider(bs, ss, name="primary"),
+                [BlockStoreProvider(bs, ss, name="witness")],
+                LightStore(MemDB()), now_fn=lambda: now)
+    params = make_genesis_state(gdoc).consensus_params
+    return lc, LightClientStateProvider(lc, consensus_params=params)
+
+
+async def ss_join(servers) -> dict:
+    """The statesync phase (docstring, phase 17): a fresh node on the
+    card, given only the seed, finds the servers by PEX, restores the
+    best snapshot the light client verifies, bootstraps its stores,
+    fast-syncs the tail and hands over to consensus. Counters zeroed
+    just before the node starts, read after the handover."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.statesync import syncer as ssyncer
+
+    ready = getattr(servers, "ready", None)
+    if ready is None:
+        ready = servers.ready = await servers.aread(timeout=600)
+    servers.send({"op": "statesync"})
+    frame = await servers.aread()
+    gdoc = p2p_genesis(P2P_SYNC_CHAIN, ready["pubs"])
+    lc, provider = ss_provider(gdoc, frame, ready["hashes"])
+    server_ids = {a.split("@")[0] for a in frame["addrs"] + [frame["poisoner"]]}
+    seed_id = frame["seed"].split("@")[0]
+    poisoner = frame["poisoner"].split("@")[0]
+    snaps = sorted(h for h in range(SS_INTERVAL, P2P_SYNC_BLOCKS + 1,
+                                    SS_INTERVAL))[-SS_KEEP:]
+    top_snap, want_h = snaps[-1], snaps[-2]
+    probe = SsProbe()
+    with expanded._CACHE_LOCK:
+        expanded._CACHE.clear()  # a fresh node builds its tables
+    met0 = json.loads(json.dumps(ssyncer.METRICS))
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    probe.t0 = time.perf_counter()
+    node = await P2pNode(gdoc, "statesyncer", mempool=False,
+                         provider=provider, seeds=[frame["seed"]],
+                         instrument=probe.wire).start()
+    undo = None
+    try:
+        # 1. discovery: the seed's addresses, then ensure_peers' dials
+        await p2p_until(lambda: server_ids <= set(node.switch.peers),
+                        "the five servers by PEX", fault=node.fault)
+        discovery_s = probe.at()
+        sy = node.ss_reactor.syncer
+        await p2p_until(lambda: len(sy.pool) == SS_KEEP and all(
+            set(sy.pool.peers_of(s)) == server_ids
+            for s in sy.pool._snapshots.values()),
+            "every server's snapshots", fault=node.fault)
+        pool_s = probe.at()
+        undo = probe.wire_sync(node, lc)
+        t = time.perf_counter()
+        state, commit = await asyncio.wait_for(node.ss_reactor.sync(),
+                                               P2P_WAIT_S)
+        sync_s = time.perf_counter() - t
+        undo()
+        undo = None
+        restored = dict(height=node.app.height,
+                        app_hash=node.app.app_hash.hex(),
+                        kv=db_digest(node.app.db, b"kv:"))
+        t = time.perf_counter()
+        node.ss.bootstrap(state)
+        node.bs.save_seen_commit(state.last_block_height, commit)
+        bootstrap_s = time.perf_counter() - t
+        t = time.perf_counter()
+        await node.bc_reactor.switch_to_fast_sync(state)
+        await node.bc_reactor.wait_synced(timeout=P2P_WAIT_S)
+        tail_s = time.perf_counter() - t
+        await p2p_until(lambda: node.cs.is_running, "the handover",
+                        fault=node.fault)
+        total_s = probe.at()
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
+        top = node.bs.height
+        st = node.bc_reactor.state
+        met = {k: (v - met0[k] if isinstance(v, int) else
+                   {r: n - met0[k].get(r, 0) for r, n in v.items()
+                    if n != met0[k].get(r, 0)})
+               for k, v in ssyncer.METRICS.items()}
+        chunks = {s.height: s.chunks for s in sy.pool._snapshots.values()}
+        rec = dict(
+            validators=P2P_SYNC_VALIDATORS, blocks=P2P_SYNC_BLOCKS,
+            snapshots=snaps, node_id=node.node_key.id, seed=seed_id,
+            poisoner=poisoner, discovery_s=discovery_s, pool_s=pool_s,
+            book_src={ka.node_id: ka.src for ka in node.book._addrs.values()},
+            removed=[(p, r[:60], round(t, 3)) for p, r, t in probe.removed],
+            light_heights=probe.heights, light_checks=probe.checks,
+            attempts=probe.attempts,
+            rejected=sorted(k[0] for k in sy.pool._rejected_snapshots),
+            quarantined=sy.quarantined_peers(),
+            chunks=chunks.get(state.last_block_height), restored=restored,
+            metrics=met, sync_s=sync_s,
+            fetch_s=sum(a["seconds"] - a["apply_s"] for a in probe.attempts),
+            apply_s=probe.apply_s, bytes_in=probe.bytes_in,
+            bootstrap_s=bootstrap_s,
+            tail=dict(seconds=tail_s, blocks=node.bc_reactor.blocks_synced,
+                      blocks_per_s=node.bc_reactor.blocks_synced / tail_s,
+                      windows=probe.windows,
+                      height=top),
+            total_s=total_s, launches=launches)
+        rec["fetch_mb_per_s"] = probe.bytes_in / 1e6 / rec["fetch_s"]
+        rec["snapshot_bytes"] = probe.attempts[-1]["bytes"] \
+            if probe.attempts else None
+        try:
+            ss_checks(rec, probe, node, st, ready, frame, server_ids,
+                      top_snap, want_h)
+        except AssertionError:
+            print(json.dumps({"statesync": rec}, default=str),
+                  file=sys.stderr, flush=True)
+            raise
+        return rec
+    finally:
+        if undo is not None:
+            undo()
+        await node.stop()
+
+
+def ss_checks(rec, probe, node, st, ready, frame, server_ids, top_snap,
+              want_h) -> None:
+    """The statesync phase's checks (docstring, phase 17)."""
+    seed_id, poisoner = rec["seed"], rec["poisoner"]
+    # 1. discovery: the seed is the only address given; the book holds
+    # the five with the seed as their source, the seed hung up, and
+    # ensure_peers dialed each of the five (an outbound peer)
+    if node.pex.seeds != [frame["seed"]] or \
+            any(rec["book_src"].get(i) != seed_id for i in server_ids) or \
+            seed_id not in {p for p, _, _ in probe.removed} or \
+            not all(node.switch.peers[i].outbound for i in server_ids):
+        raise AssertionError("statesync: PEX discovery from the seed failed")
+    # 2. the top snapshot refused by the light client (no block at h+2,
+    # never offered), the next verified backwards from the trusted head
+    # (app_hash, then state and commit from the trusted store); every
+    # restore attempt is at want_h
+    nxt = [want_h, want_h + 1, want_h + 2]
+    want_heights = [(top_snap, "ok"), (top_snap + 1, "ok"),
+                    (top_snap + 2, "BlockNotFoundError")] + \
+        [(h, "ok") for h in nxt + nxt + [want_h]]
+    if rec["rejected"] != [top_snap] or \
+            [a["height"] for a in rec["attempts"]] != [want_h] * 3 or \
+            [(h, e) for h, e, _ in rec["light_heights"]] != want_heights:
+        raise AssertionError("statesync: the snapshots' light checks")
+    # 3. the poisoner quarantined by name: the round-robin attempt and
+    # the single-source one on the poisoner (its id sorts first; the app
+    # names it, the only sender) poisoned, the third restores
+    if rec["quarantined"] != [poisoner] or \
+            [a["source"] for a in rec["attempts"]] != [
+                None, poisoner, sorted(server_ids - {poisoner})[0]] or \
+            rec["metrics"]["restore_attempts"] != 3 or \
+            rec["metrics"]["peers_quarantined"] != 1 or \
+            rec["metrics"]["quarantines"] != {"app_rejected_sender": 1}:
+        raise AssertionError("statesync: the poisoner's quarantine")
+    # 4. the restored app: its height, its app hash (the kvstore's is
+    # only its key count) and its `kv:` items, keys and values, against
+    # the chain app's at want_h
+    if rec["restored"] != dict(height=want_h,
+                               app_hash=frame["app_hashes"][want_h],
+                               kv=frame["kv_digests"][want_h]):
+        raise AssertionError("statesync: the restored app")
+    # 5. the tail: every block from want_h + 1 to the top is the chain's,
+    # and the top's app and results hashes
+    top = rec["tail"]["height"]
+    got = [node.bs.load_block(h).hash().hex()
+           for h in range(want_h + 1, top + 1)]
+    digest = ready["digests"].get(top, {})
+    if top not in (P2P_SYNC_BLOCKS - 1, P2P_SYNC_BLOCKS - 2) or \
+            node.bs.base != want_h + 1 or st.last_block_height != top or \
+            got != ready["hashes"][want_h:top] or \
+            st.app_hash.hex() != digest.get("app_hash") or \
+            st.last_results_hash.hex() != digest.get("last_results_hash") or \
+            rec["tail"]["blocks"] != top - want_h:
+        raise AssertionError(f"statesync: the tail differs (top {top})")
+    # 6. the launches the code implies: K1 once (the set's tables), K3
+    # once a light commit check (4, each structured: the trusted block,
+    # 1/3 trusting and 2/3 at the top snapshot, the adjacent step), a
+    # window job and a LastCommit apply_block validates (one a block the
+    # tail applies), K4 once at the handover (reconstruct_last_commit)
+    checks = rec["light_checks"]
+    want = dict(build_tables=1, general_verify=1,
+                xverify=len(checks) + len(rec["tail"]["windows"]) +
+                rec["tail"]["blocks"])
+    if len(checks) != 4 or not all(c["structured"] for c in checks) or \
+            rec["launches"] != want:
+        raise AssertionError(f"statesync: launches {rec['launches']}, "
+                             f"want {want} ({len(checks)} light checks)")
+
+
+def statesync_phase(servers=None) -> dict:
+    """statesync on the card (docstring, phase 17), served by `servers`
+    (the p2p phase's `p2p_servers` child; None: started here)."""
+    import asyncio
+
+    own = servers is None
+    if own:
+        servers = P2pChild("p2p_servers")
+    try:
+        return asyncio.run(ss_join(servers))
+    finally:
+        if own:
+            servers.close()
+
+
+# -- phase 18 ------------------------------------------------------------
 
 
 def timing_phase(vs, commit, dev) -> list[dict]:
@@ -8257,6 +8782,17 @@ def main() -> int:
             emit(dict(phase="p2p", seconds=time.perf_counter() - t0,
                       card=nvidia_smi(), **p2p))
             return 0
+        if phase == "statesync":
+            from tendermint_tpu_torch.crypto.cuda import kernels
+
+            kernels.build()
+            state = fallback_state()
+            t0 = time.perf_counter()
+            statesync = statesync_phase()
+            no_fallback("statesync", state)
+            emit(dict(phase="statesync", seconds=time.perf_counter() - t0,
+                      card=nvidia_smi(), **statesync))
+            return 0
         if phase == "consensus":
             from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -8388,6 +8924,12 @@ def main() -> int:
         no_fallback("p2p", state)
         emit(dict(phase="p2p", seconds=time.perf_counter() - t0, card=smi,
                   **p2p))
+        t0 = time.perf_counter()
+        state = fallback_state()
+        statesync = statesync_phase(servers)
+        no_fallback("statesync", state)
+        emit(dict(phase="statesync", seconds=time.perf_counter() - t0,
+                  card=smi, **statesync))
     finally:
         servers.close()
     state = fallback_state()
@@ -8413,7 +8955,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
-                 light_client, admission, execution, consensus, p2p):
+                 light_client, admission, execution, consensus, p2p,
+                 statesync):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

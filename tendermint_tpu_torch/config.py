@@ -3,7 +3,7 @@ port reads so far."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -165,6 +165,26 @@ class P2PConfig:
             raise ValueError(
                 "slow_peer strikes must satisfy 0 < skip <= demote "
                 "<= disconnect")
+
+
+@dataclass
+class StateSyncConfig:
+    """reference: config.py:232 StateSyncConfig, the fields its node
+    runner reads. `rpc_servers` names the light client's RPC providers,
+    which come with RPC (the port's callers give the client its
+    providers). The chunk fetchers and their timeout are the syncer's
+    constants (statesync/syncer.py CHUNK_FETCHERS, CHUNK_TIMEOUT)."""
+
+    enable: bool = False
+    rpc_servers: list[str] = field(default_factory=list)
+    trust_height: int = 0
+    trust_hash: str = ""
+    trust_period_s: int = 168 * 3600
+    discovery_time_s: int = 15
+
+    def validate_basic(self) -> None:
+        if self.enable and self.trust_height <= 0:
+            raise ValueError("statesync requires trust_height")
 
 
 @dataclass

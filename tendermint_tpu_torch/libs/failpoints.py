@@ -3,8 +3,8 @@ points of the device path, the light serving plane, the block store,
 the ABCI connections, the mempool admission plane, the commit
 pipeline (the consensus state machine's commit, the block executor,
 the consensus WAL, the persistent KV stores, the FilePV's last-sign
-state), the speculation plane and the p2p send path, and to the `error`, `delay` and
-`corrupt` actions.
+state), the speculation plane, the p2p send path and state sync, and to the
+`error`, `delay` and `corrupt` actions.
 
     error         raise FailpointError(name) from the call site
     delay         time.sleep(delay_ms) at the call site (stall shape)
@@ -88,6 +88,22 @@ CATALOG: dict[str, bool] = {
     # detect and drop us for, `error` kills the send routine, `delay`
     # stalls this peer's sends
     "p2p.send": True,
+    # a snapshot chunk accepted from a peer (statesync/syncer.py
+    # add_chunk): `corrupt` is bad chunk bytes the restore must retry
+    # past, never apply
+    "statesync.chunk": True,
+    # a discovered snapshot about to be offered to the app over the
+    # snapshot connection (statesync/syncer.py _sync): `error` here must
+    # leave no partial restore state
+    "statesync.offer": False,
+    # a snapshot chunk about to be applied to the app (statesync/syncer.py
+    # _fetch_and_apply): `corrupt` is a poisoned chunk at the apply
+    # boundary, which the restore must retry with a new peer mix
+    "statesync.apply": True,
+    # a snapshot chunk about to be served to a requesting peer
+    # (statesync/reactor.py): `corrupt` makes this node a chunk
+    # poisoner, which syncing peers must quarantine by name
+    "statesync.serve": True,
 }
 
 # The reference's crash sites (its catalog's legacy_index flag: the

@@ -90,13 +90,24 @@ class Node:
     the kvstore app behind AppConns, MemDB stores, an evidence Pool and
     its reactor, the consensus reactor, the blockchain reactor
     (`fast_sync` drives it), and with `mempool` a CListMempool and its
-    reactor. `pv` None makes a non-validator."""
+    reactor. `pv` None makes a non-validator. The app snapshots every
+    `snapshot_interval` heights (keeping `keep_snapshots`); `statesync`
+    adds a StateSyncReactor (a syncing one with the state provider
+    `state_provider_factory(node)` gives), and `seeds` a PEXReactor over
+    an empty AddrBook (ensure period `ensure_period`)."""
 
     def __init__(self, p, gdoc, pv, moniker: str, fast_sync=False,
                  mempool=False, config=None, block_store=None, app_db=None,
-                 state_db=None, node_key=None):
+                 state_db=None, node_key=None, snapshot_interval=0,
+                 keep_snapshots=4, statesync=False,
+                 state_provider_factory=None, seeds=None,
+                 ensure_period=30.0):
         self.p, self.gdoc, self.pv, self.moniker = p, gdoc, pv, moniker
         self.fast_sync, self.with_mempool = fast_sync, mempool
+        self.snapshots = (snapshot_interval, keep_snapshots)
+        self.statesync = statesync or state_provider_factory is not None
+        self.state_provider_factory = state_provider_factory
+        self.seeds, self.ensure_period = seeds, ensure_period
         self.config = config or p.config.fast_consensus_config()
         self.node_key = p.key.NodeKey(node_key or p.ed25519.Ed25519PrivKey(
             hashlib.sha256(b"node-" + moniker.encode()).digest()))
@@ -108,7 +119,9 @@ class Node:
         p = self.p
         if wait_sync is None:
             wait_sync = self.fast_sync
-        self.app = p.kvstore.PersistentKVStoreApp(self.dbs[1])
+        self.app = p.kvstore.PersistentKVStoreApp(
+            self.dbs[1], snapshot_interval=self.snapshots[0],
+            keep_snapshots=self.snapshots[1])
         self.conns = p.proxy.AppConns(p.client.ClientCreator(app=self.app))
         await self.conns.start()
         self.state_store = p.sstore.Store(self.dbs[0])
@@ -145,7 +158,9 @@ class Node:
                 node_id=self.node_key.id,
                 listen_addr=t.listen_addr if t._server else "",
                 network=self.gdoc.chain_id, moniker=self.moniker,
-                channels=bytes([0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40]))
+                channels=bytes(sorted(
+                    {0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40} |
+                    set(self.switch.channel_ids()))))
 
         transport = p.transport.Transport(self.node_key, ni)
         holder["transport"] = transport
@@ -156,6 +171,20 @@ class Node:
         if self.mempool is not None:
             self.mp_reactor = p.mreactor.MempoolReactor(self.mempool)
             self.switch.add_reactor("mempool", self.mp_reactor)
+        if self.statesync:
+            ssreactor = importlib.import_module(f"{p.name}.statesync.reactor")
+            provider = self.state_provider_factory(self) \
+                if self.state_provider_factory is not None else None
+            self.ss_reactor = ssreactor.StateSyncReactor(self.conns.snapshot,
+                                                         provider)
+            self.switch.add_reactor("statesync", self.ss_reactor)
+        if self.seeds is not None:
+            pex = importlib.import_module(f"{p.name}.p2p.pex")
+            self.book = pex.AddrBook()
+            self.book.add_our_address(self.node_key.id)
+            self.pex = pex.PEXReactor(self.book, seeds=self.seeds,
+                                      ensure_period=self.ensure_period)
+            self.switch.add_reactor("pex", self.pex)
         await transport.listen("127.0.0.1", 0)
         await self.switch.start()
         if not wait_sync:

@@ -194,7 +194,8 @@ def test_a_port_node_fast_syncs_from_reference_nodes(monkeypatch):
         gdoc, _ = genesis(PORT, 4)
         syncer = Node(PORT, gdoc, None, "syncer", fast_sync=True)
         try:
-            await nodes[0].cs.wait_for_height(6, timeout=40)
+            await asyncio.gather(*(n.cs.wait_for_height(6, timeout=40)
+                                   for n in nodes))
             for n in nodes:
                 await n.cs.stop()
             top = min(n.block_store.height for n in nodes)
