@@ -256,31 +256,50 @@ Phases, each printing one JSON line:
    commit and its split, the receive routine's host us per message, the
    vote batches' group sizes, the launches, speculation hits and
    misses and the collector's pauses;
-16. p2p — the p2p stack and the block-path reactors over TCP on
+16. p2p — the node (node/__init__.py Node) and the p2p stack over TCP on
    127.0.0.1, in two parts, counters zeroed before the first and read
    after the second. Part A, BASELINE.json config #1 (`make localnet`'s
    4-validator genesis) at ConsensusConfig's defaults: node A (validator
-   0) here on the card with FileDB stores, every reactor (consensus,
-   mempool, evidence, blockchain) and a strict admission plane (every
-   tx a signed envelope); its key in a FilePV behind a SignerServer in
-   a child (`--phase p2p_signer`) that dials A's SignerClient over a
-   SecretConnection; validators 1-3 in another child (`--phase
-   p2p_peers`), forced to the host, on one event loop; persistent
-   peers, all links through Transport and SecretConnection. While A is
-   at heights 2-10 its client submits bursts of 64 envelopes (concurrent
-   check_tx) every 640 ms, and B's client bursts of 16; D double-prevotes
-   at height 5 (the maverick hooks); after height 8 A's signer link
-   drops once and is re-adopted before A signs again. Checks: the four
-   nodes' blocks, app hashes and last_results_hashes equal to height 12
-   (or to the height where the last tx is committed, at most 8 more),
-   every tx committed exactly once and none refused, one
-   DuplicateVoteEvidence against D committed within two heights and
-   gossiped to A by the evidence reactor, A's FilePV (in the signer
-   child's files) last signed a precommit at the last height, K4 once
-   for each admission flush of 40 or more (the bursts), nothing else on
-   A. Printed: each height's NewHeight to commit, the receive routine's
+   0) here on the card, a Node built by Node.default_new_node from a
+   home directory written as `testnet` writes one (config.toml through
+   Config.save, genesis.json, node_key.json): FileDB stores, the
+   merkle-kvstore app, every reactor, RPC on, a strict admission plane
+   (every tx a signed envelope) at MempoolConfig's defaults;
+   its key in a FilePV behind a SignerServer in a child (`--phase
+   p2p_signer`) that dials the node's `priv_validator_laddr` over a
+   SecretConnection; validators 1-3 are Nodes, each in a child of its
+   own (`--phase p2p_peers <A's address> <i>`), forced to the host, RPC
+   on; persistent peers, all links through Transport and
+   SecretConnection. While A is at heights 2-10 a client in a child of
+   its own (`--phase p2p_clients <A's RPC port>`, A's height from its
+   WS NewBlock events) submits bursts of 64 envelopes every 640 ms over
+   A's RPC (broadcast_tx_sync, one HTTP request each, concurrently) and
+   one broadcast_tx_commit a height, and B's client bursts of 16 over
+   B's RPC; a WS client on A
+   subscribes to NewBlock and Tx; D double-prevotes at height 5 (the
+   maverick hooks); after height 8 A's signer link drops once and is
+   re-adopted before A signs again. Checks: the four nodes' blocks, app
+   hashes and last_results_hashes equal to height 12 (or to the height
+   where the last tx is committed, at most 8 more), every tx committed
+   exactly once and none refused, each broadcast_tx_commit answered
+   with its height, one DuplicateVoteEvidence against D committed
+   within two heights and gossiped to A by the evidence reactor, A's
+   FilePV (in the signer child's files) last signed a precommit at the
+   last height, K4 once for each admission flush of 40 or more (the
+   bursts arrive over the event loop, one request at a time, so their
+   flushes are the 2 ms window's), nothing else on A; over RPC, /block, /commit,
+   /validators, /block_results and /tx_search equal from A and B at
+   every height, every committed tx's /tx?prove=true proof verifying
+   against /block's data hash, /abci_query?prove=true equal at one app
+   height, the WS stream naming every committed tx once; a LightProxy
+   (primary A's RPC, witnesses B's and C's, trusted at height 1 by
+   hash, its 4-lane checks on the host) serving /commit and /block
+   equal to A's and a verified abci_query (a merkle proof of one key).
+   Printed: each height's NewHeight to commit, the receive routine's
    host us a message by channel, bytes a second by channel, the flush
-   sizes, the signer's round trip. Part B, config #3 cut to 129 blocks:
+   sizes, the signer's round trip, each RPC route's p50 ms at its
+   client and its handler's ms on A. Part B,
+   config #3 cut to 129 blocks:
    a child (`--phase p2p_servers`, host only, started before the
    consensus phase so that its build overlaps it; with `--phase p2p`,
    at the phase's start) builds a
@@ -296,47 +315,63 @@ Phases, each printing one JSON line:
    a LastCommit that apply_block validates, K4 once for the handover's
    reconstruct_last_commit. A second fresh node dials the forged
    servers first: the reactor bans both (redo of heights 77 and 78),
-   then syncs from two honest servers to the same digest. Printed:
-   blocks a second end to end and the split between verify (the
-   windows' awaits), apply_block, save_block and the network (the
+   then applies 77-79 from two honest servers and stops there (the
+   heights that decide the ban), its blocks the chain's; K3 as counted.
+   Printed: blocks a second end to end and the split between verify
+   (the windows' awaits), apply_block, save_block and the network (the
    rest);
 17. statesync — a fresh node joins Part B's chain (config #3 cut to
-   129 blocks) by a seed, PEX and state sync. The p2p phase's serving
-   child (with `--phase statesync`: started at the phase's start) also
-   serves the chain, and its app's snapshots at 32, 64, 96 and 128
-   (about 12.8 MB of JSON, 195 chunks of 64 KiB at 96), from four
-   honest switches (blockchain, statesync and PEX reactors, their books
-   holding the servers) and a poisoner whose snapshot connection flips
-   one byte of every chunk it serves; a seed (PEX in seed mode, its
-   other reactors over an empty store and app) knows the five. On the
-   card: the node (MemDBs, an empty kvstore app, a BlockchainReactor
-   not yet syncing, the consensus reactor waiting for the sync, a
-   StateSyncReactor whose LightClientStateProvider holds a light Client
-   trusted at height 1 by hash, its primary and witness
-   BlockStoreProviders over the chain's stores as the child ships them,
-   and PEX given only the seed, ensure period 1 s). The expanded-table
-   cache cleared, counters zeroed before the node starts and read after
-   the handover. Checks: the book holds the five with the seed as their
-   source, the seed hangs up, ensure_peers dials the five from the
-   book; every server advertises the
-   four snapshots; 128 is refused by the light client (no block at
-   130: BlockNotFoundError) and never offered, 96 is verified
-   backwards from the trusted head and restored in three attempts
-   (round robin over the five, poisoned; then the poisoner alone, whose
-   id sorts first, named by the app and quarantined; then one honest
-   server); the restored app at height 96 with the chain's app hash
-   and its `kv:` items' digest equal to the chain app's at 96;
-   bootstrap (state store, seen commit), fast sync of the tail from 97
-   to 128 (or 127) with every block hash, the app hash and
-   last_results_hash equal to the chain's, the handover to consensus;
-   K1 once (the set's tables), K3 once a light commit check (four,
-   structured: height 1's, the 1/3 trusting and 2/3 checks of the skip
-   to 128, the adjacent 129), a window job and a LastCommit apply_block
-   validates, K4 once (the handover's reconstruct_last_commit), nothing
-   else. Printed: the discovery time, each light height's and commit
-   check's ms, the snapshot's chunks and bytes, each restore attempt's
-   fetch, apply and bootstrap seconds, the fetch MB/s, the tail's
-   blocks a second, the time from start to handover;
+   129 blocks) by a seed, PEX and state sync, then a light serving pool
+   answers the chain's clients. The p2p phase's serving child (with
+   `--phase statesync`: started at the phase's start) also serves the
+   chain, and its app's snapshots at 32, 64, 96 and 128 (about 12.8 MB
+   of JSON, 195 chunks of 64 KiB at 96), from four honest switches
+   (blockchain, statesync and PEX reactors, their books holding the
+   servers) and a poisoner whose snapshot connection flips one byte of
+   every chunk it serves; a seed (PEX in seed mode, its other reactors
+   over an empty store and app) knows the five; four RPC servers
+   (rpc/core.py Environment over the chain's stores) and one over the
+   forged copy serve JSON-RPC. On the card: a Node built from a Config
+   with `statesync.enable`, `rpc_servers` two of the RPC servers,
+   `trust_height` 1 and `trust_hash` height 1's hash, `p2p.seeds` the
+   seed (ensure period 1 s): its light client is the node's own
+   (_default_state_provider: a Client over RPCProviders), its join the
+   node's _run_state_sync. The expanded-table cache cleared, counters
+   zeroed before the node starts; the sync starts once every server's
+   snapshots are in the pool. Checks: the book holds the five with the
+   seed as their source, the seed hangs up, ensure_peers dials the five
+   from the book; every server advertises the four snapshots; 128 is
+   refused by the light client (no block at 130: BlockNotFoundError
+   over RPC) and never offered, 96 is verified backwards from the
+   trusted head and restored in three attempts (round robin over the
+   five, poisoned; then the poisoner alone, whose id sorts first, named
+   by the app and quarantined; then one honest server); the restored
+   app at height 96 with the chain's app hash and its `kv:` items'
+   digest equal to the chain app's at 96; bootstrap (state store, seen
+   commit), fast sync of the tail from 97 to 128 (or 127) with every
+   block hash, the app hash and last_results_hash equal to the chain's,
+   the handover to consensus; K1 once (the set's tables), K3 once a
+   light commit check (four, structured: height 1's, the 1/3 trusting
+   and 2/3 checks of the skip to 128, the adjacent 129), a window job
+   and a LastCommit apply_block validates, K4 once (the handover's
+   reconstruct_last_commit), nothing else, read at the handover. Then
+   a ServingPool of four LightProxy workers over one plane (its client
+   over the other two RPC servers, trusted at 1) answers 64 concurrent
+   clients, each asking verified /commit and /validators at its height
+   (2, 4, ..., 128): every answer equal to an honest RPC server's (the
+   commit, header and every signature; each page's addresses, keys and
+   powers, the keys the genesis's), K4 at least once and once for each
+   device flush of the plane's collector (1,000-lane checks), nothing
+   else;
+   and a LightProxy over the forged RPC server, trusted at 76, refuses
+   /commit at 77 (light verification failed). Printed: the discovery
+   time, each light height's and commit check's ms, the snapshot's
+   chunks and bytes, each restore attempt's fetch, apply and bootstrap
+   seconds, the fetch MB/s, the tail's blocks a second, the time from
+   start to handover; the pool's verified requests a second, its route
+   p50s and launches; for the join and for the pool, the RPC servers'
+   handler ms by route and their validator-set decodes (each
+   /validators page decodes the stored set, as the port's route does);
 18. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
@@ -6673,7 +6708,12 @@ SS_INTERVAL = 32
 SS_KEEP = 4
 SS_POISONER_KEY = 56  # its node id sorts before the honest servers'
 SS_ENSURE_S = 1.0     # the joining node's pex_ensure_period_s
-SS_DISCOVERY_S = 2.0  # its syncer's discovery time
+SS_DISCOVERY_S = 2    # its syncer's discovery time (statesync.discovery_time_s)
+# the light clients' trusting period: both chains' genesis time (P2P_T0,
+# the time of their first block) is years before the card's clock
+SS_TRUST_PERIOD_S = 10 * 365 * 86400
+SS_POOL_WORKERS = 4   # the serving pool's LightProxy workers
+SS_POOL_CLIENTS = 64  # its concurrent clients, each /commit + /validators
 
 
 def p2p_key(kind: bytes, i: int = 0):
@@ -6709,47 +6749,34 @@ async def p2p_until(cond, what: str, timeout: float = P2P_WAIT_S,
 
 
 class P2pNode:
-    """A port node of the p2p phase (docstring, phase 16), wired through
-    a Switch and a Transport on 127.0.0.1: the kvstore app behind
-    AppConns, the state and block stores and an evidence Pool (FileDBs
-    under `home`, else MemDBs), with `mempool` a CListMempool whose
-    admission plane is strict (every tx a signed envelope), a
-    BlockExecutor, ConsensusState at ConsensusConfig's defaults signing
-    with `pv`, and the consensus, blockchain (`fast_sync`), evidence and
-    mempool reactors; with `provider` (a state provider) a
-    StateSyncReactor syncing through it, the consensus reactor waiting
-    for the sync, and with `seeds` a PEXReactor over an empty AddrBook
-    (ensure period SS_ENSURE_S). `instrument(node)` runs once the
-    reactors are wired, before the switch starts."""
+    """A port node of Part B's fast syncs (docstring, phase 16), wired
+    through a Switch and a Transport on 127.0.0.1: the kvstore app behind
+    AppConns, the state and block stores and an evidence Pool over
+    MemDBs, a BlockExecutor, ConsensusState at ConsensusConfig's
+    defaults, and the consensus (waiting for the sync), blockchain
+    (syncing) and evidence reactors. No key, no mempool."""
 
     CHANNELS = bytes([0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40])
 
-    def __init__(self, gdoc, name: str, pv=None, home=None, mempool=True,
-                 fast_sync=False, provider=None, seeds=None,
-                 instrument=None):
+    def __init__(self, gdoc, name: str):
         from tendermint_tpu_torch.p2p.key import NodeKey
 
-        self.gdoc, self.name, self.pv, self.home = gdoc, name, pv, home
-        self.with_mempool, self.fast_sync = mempool, fast_sync
-        self.provider, self.seeds = provider, seeds
-        self.instrument = instrument
+        self.gdoc, self.name = gdoc, name
         self.node_key = NodeKey(p2p_key(b"node-" + name.encode()))
-        self.cs = self.switch = self.mempool = None
+        self.cs = self.switch = None
 
     async def start(self):
         from tendermint_tpu_torch.abci.client import ClientCreator
         from tendermint_tpu_torch.abci.kvstore import PersistentKVStoreApp
         from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
-        from tendermint_tpu_torch.config import ConsensusConfig, MempoolConfig
+        from tendermint_tpu_torch.config import ConsensusConfig
         from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
         from tendermint_tpu_torch.consensus.replay import \
             handshake_and_load_state
         from tendermint_tpu_torch.consensus.state import ConsensusState
         from tendermint_tpu_torch.evidence import Pool
         from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
-        from tendermint_tpu_torch.libs.db import FileDB, MemDB
-        from tendermint_tpu_torch.mempool.clist_mempool import CListMempool
-        from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+        from tendermint_tpu_torch.libs.db import MemDB
         from tendermint_tpu_torch.p2p.node_info import NodeInfo
         from tendermint_tpu_torch.p2p.switch import Switch
         from tendermint_tpu_torch.p2p.transport import Transport
@@ -6758,12 +6785,7 @@ class P2pNode:
         from tendermint_tpu_torch.state.store import Store
         from tendermint_tpu_torch.store import BlockStore
 
-        if self.home is not None:
-            os.makedirs(self.home, exist_ok=True)
-            self.dbs = tuple(FileDB(os.path.join(self.home, f"{n}.db"))
-                             for n in ("state", "blocks", "app", "evidence"))
-        else:
-            self.dbs = (MemDB(), MemDB(), MemDB(), MemDB())
+        self.dbs = (MemDB(), MemDB(), MemDB(), MemDB())
         self.app = PersistentKVStoreApp(self.dbs[2])
         self.conns = AppConns(ClientCreator(app=self.app))
         await self.conns.start()
@@ -6771,22 +6793,13 @@ class P2pNode:
         state = await handshake_and_load_state(None, self.ss, self.bs,
                                                self.gdoc, self.conns)
         self.evpool = Pool(self.dbs[3], self.ss, self.bs)
-        if self.with_mempool:
-            self.mempool = CListMempool(MempoolConfig(admission="strict"),
-                                        self.conns.mempool,
-                                        state.last_block_height)
         self.executor = BlockExecutor(self.ss, self.conns.consensus,
-                                      mempool=self.mempool,
                                       evidence_pool=self.evpool)
         self.cs = ConsensusState(ConsensusConfig(), state, self.executor,
-                                 self.bs, mempool=self.mempool,
-                                 evpool=self.evpool)
-        if self.pv is not None:
-            self.cs.set_priv_validator(self.pv)
-        self.reactor = ConsensusReactor(
-            self.cs, wait_sync=self.fast_sync or self.provider is not None)
+                                 self.bs, evpool=self.evpool)
+        self.reactor = ConsensusReactor(self.cs, wait_sync=True)
         self.bc_reactor = BlockchainReactor(
-            state, self.executor, self.bs, fast_sync=self.fast_sync,
+            state, self.executor, self.bs, fast_sync=True,
             consensus_reactor=self.reactor)
         holder = {}
 
@@ -6805,32 +6818,9 @@ class P2pNode:
         self.switch.add_reactor("consensus", self.reactor)
         self.switch.add_reactor("blockchain", self.bc_reactor)
         self.switch.add_reactor("evidence", EvidenceReactor(self.evpool))
-        if self.mempool is not None:
-            self.switch.add_reactor("mempool", MempoolReactor(self.mempool))
-        if self.provider is not None:
-            from tendermint_tpu_torch.statesync.reactor import \
-                StateSyncReactor
-
-            self.ss_reactor = StateSyncReactor(self.conns.snapshot,
-                                               self.provider, SS_DISCOVERY_S)
-            self.switch.add_reactor("statesync", self.ss_reactor)
-        if self.seeds is not None:
-            from tendermint_tpu_torch.p2p.pex import AddrBook, PEXReactor
-
-            self.book = AddrBook()
-            self.book.add_our_address(self.node_key.id)
-            self.pex = PEXReactor(self.book, seeds=self.seeds,
-                                  ensure_period=SS_ENSURE_S)
-            self.switch.add_reactor("pex", self.pex)
-        if self.instrument is not None:
-            self.instrument(self)
         await transport.listen("127.0.0.1", 0)
         await self.switch.start()
         return self
-
-    @property
-    def addr(self) -> str:
-        return f"{self.node_key.id}@{self.switch.transport.listen_addr}"
 
     def fault(self):
         return self.switch.fault or self.cs.fault
@@ -6845,20 +6835,103 @@ class P2pNode:
             await self.cs.stop()
         if self.switch is not None and self.switch.is_running:
             await self.switch.stop()
-        if self.mempool is not None:
-            self.mempool.close()
         await self.conns.stop()
         for db in self.dbs:
             db.close()
 
-    def chain(self, hi: int) -> list:
-        """(block hash, app hash, last_results_hash) at heights 1..hi."""
-        out = []
-        for h in range(1, hi + 1):
-            b = self.bs.load_block(h)
-            out.append((b.hash().hex(), b.header.app_hash.hex(),
-                        b.header.last_results_hash.hex()))
-        return out
+
+def store_chain(bs, hi: int) -> list:
+    """(block hash, app hash, last_results_hash) at heights 1..hi."""
+    out = []
+    for h in range(1, hi + 1):
+        b = bs.load_block(h)
+        out.append((b.hash().hex(), b.header.app_hash.hex(),
+                    b.header.last_results_hash.hex()))
+    return out
+
+
+def node_fault(node):
+    """What halted a Node (its switch's fault, its state machine's)."""
+    return node.switch.fault or node.consensus_state.fault
+
+
+def free_ports(n: int) -> list:
+    """`n` distinct free ports on 127.0.0.1 (all held until all are
+    chosen)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def p2p_config(home: str, name: str):
+    """A localnet node's Config (BASELINE.json config #1, `make
+    localnet`): ConsensusConfig's defaults, the merkle-kvstore app, a
+    strict admission plane (every tx a signed envelope) at
+    MempoolConfig's defaults, FileDB stores under `home`, p2p
+    and RPC on 127.0.0.1 ports from the OS, no PEX (persistent peers),
+    broadcast_tx_commit waiting up to P2P_WAIT_S."""
+    from tendermint_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.base.home = home
+    cfg.base.moniker = name
+    cfg.base.fast_sync = False
+    cfg.base.proxy_app = "merkle-kvstore"
+    cfg.base.db_backend = "filedb"
+    cfg.mempool.admission = "strict"
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.pex = False
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    # a tx gossiped one a message may wait out a backlog of heights
+    cfg.rpc.timeout_broadcast_tx_commit_ms = int(P2P_WAIT_S * 1000)
+    return cfg
+
+
+def p2p_home(cfg, gdoc, node_key):
+    """Write a node's home as `testnet` does (config.toml, genesis.json,
+    node_key.json) and load its Config back from the file."""
+    from tendermint_tpu_torch.config import Config
+    from tendermint_tpu_torch.p2p.key import NodeKey
+
+    path = cfg.base.resolve("config/config.toml")
+    cfg.save(path)
+    gdoc.save(cfg.base.resolve(cfg.base.genesis_file))
+    NodeKey(node_key).save(cfg.base.resolve(cfg.base.node_key_file))
+    return Config.load(path)
+
+
+class TimedRpc:
+    """An HTTPClient (rpc/jsonrpc.py) that records each call's ms by
+    route into `record`."""
+
+    def __init__(self, port: int, record: dict):
+        from tendermint_tpu_torch.rpc.jsonrpc import HTTPClient
+
+        self.http = HTTPClient("127.0.0.1", port, timeout=60.0)
+        self.host, self.port = "127.0.0.1", port
+        self.record = record
+
+    async def call(self, method: str, **params):
+        t = time.perf_counter()
+        try:
+            return await self.http.call(method, **params)
+        finally:
+            self.record.setdefault(method, []).append(
+                (time.perf_counter() - t) * 1e3)
+
+
+def _b64(b: bytes) -> str:
+    import base64
+
+    return base64.b64encode(b).decode()
+
 
 
 class P2pChild:
@@ -6914,12 +6987,13 @@ def p2p_host_only() -> None:
     admission.AdmissionCollector.__init__ = host_collector
 
 
-async def p2p_submit(mempool, tag: bytes, burst: int, every_s: float,
+async def p2p_submit(rpc, tag: bytes, burst: int, every_s: float,
                      height_of, signers) -> tuple[list, list]:
     """A client: bursts of `burst` signed envelopes (kvstore txs), each by
-    concurrent check_tx, every `every_s` while the node is at a height
-    in P2P_TX_HEIGHTS. The txs check_tx took, and every response code
-    (an exception's name where check_tx refused the tx)."""
+    concurrent broadcast_tx_sync over `rpc` (one HTTP request a tx),
+    every `every_s` while the node is at a height in P2P_TX_HEIGHTS. The
+    txs the node answered, and every answer's code (an RPC error's class
+    and code where the request was refused)."""
     import asyncio
 
     from tendermint_tpu_torch.types import tx_envelope
@@ -6933,78 +7007,179 @@ async def p2p_submit(mempool, tag: bytes, burst: int, every_s: float,
         batch = [tx_envelope.sign_tx(signers[(len(txs) + j) % len(signers)],
                                      b"%s%06d=%d" % (tag, len(txs) + j, j))
                  for j in range(burst)]
-        res = await asyncio.gather(*(mempool.check_tx(tx) for tx in batch),
+        res = await asyncio.gather(*(rpc.call("broadcast_tx_sync",
+                                              tx=_b64(tx)) for tx in batch),
                                    return_exceptions=True)
         for tx, r in zip(batch, res):
-            if isinstance(r, Exception):  # refused (mempool full, ...)
-                codes.append(type(r).__name__)
+            if isinstance(r, Exception):  # refused (mempool busy, ...)
+                codes.append(f"{type(r).__name__}:{getattr(r, 'code', '')}")
             else:
                 txs.append(tx)
-                codes.append(r.code)
+                codes.append(r["code"])
         nxt += every_s
         await asyncio.sleep(max(0.0, nxt - time.perf_counter()))
     return txs, codes
 
 
-def p2p_peers_child(a_addr: str) -> int:
-    """The localnet's validators 1-3 (`--phase p2p_peers <A's address>`):
-    three port nodes on one event loop, forced to the host, each dialing
-    A and the others as persistent peers; D double-prevotes at
-    P2P_MAVERICK_H (consensus/misbehavior.py DoublePrevote). Frames on
-    stdin/stdout: `ready` (their addresses) once the mesh is up; on
-    `go` their consensus starts and B's client submits; on `txs`, once
-    B's client is done, its txs and codes; on `stop` (a height) each
-    node's chain to it and any fault."""
+async def p2p_commit_txs(rpc, height_of, signer) -> tuple[list, list]:
+    """One broadcast_tx_commit a height while the node is at a height in
+    P2P_TX_HEIGHTS: the txs, and (height asked at, height committed,
+    CheckTx code, DeliverTx code) for each."""
     import asyncio
 
+    from tendermint_tpu_torch.types import tx_envelope
+
+    lo, hi = P2P_TX_HEIGHTS
+    txs, res = [], []
+    h = lo
+    while True:
+        while height_of() < h:
+            await asyncio.sleep(0.01)
+        at = height_of()
+        if at >= hi:
+            return txs, res
+        tx = tx_envelope.sign_tx(signer, b"commit-%06d=%d" % (at, at))
+        r = await rpc.call("broadcast_tx_commit", tx=_b64(tx))
+        txs.append(tx)
+        res.append((at, int(r["height"]), r["check_tx"]["code"],
+                    r["deliver_tx"].get("code")))
+        h = at + 1
+
+
+def p2p_peers_child(a_addr: str, i: int) -> int:
+    """Validator `i` (1-3) of the localnet (`--phase p2p_peers <A's
+    address> <i>`): a port Node (stores in memory, RPC on), forced to
+    the host, one a process as a localnet's validators are; D (3)
+    double-prevotes at P2P_MAVERICK_H (consensus/misbehavior.py
+    DoublePrevote). Frames on stdin/stdout: `up` (its p2p address and
+    RPC port) once started; on `dial` it dials A and the given
+    addresses as persistent peers, `ready` once it has its three peers;
+    on `go` B's (1) client submits over B's RPC; on `txs`, once that
+    client is done, its txs and codes (none for C and D); on `stop` (a
+    height) its chain to it and any fault."""
+    import asyncio
+    import shutil
+    import tempfile
+
     from tendermint_tpu_torch.consensus.misbehavior import DoublePrevote
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.p2p.key import NodeKey
     from tendermint_tpu_torch.types.priv_validator import MockPV
 
     p2p_host_only()
-    keys = [p2p_key(b"val", i) for i in range(P2P_VALIDATORS)]
+    keys = [p2p_key(b"val", k) for k in range(P2P_VALIDATORS)]
     gdoc = p2p_genesis(P2P_CHAIN, [k.pub_key().bytes() for k in keys])
     inp, out = sys.stdin.buffer, sys.stdout.buffer
+    home = tempfile.mkdtemp(prefix="p2p-peer-")
 
     async def run():
         loop = asyncio.get_running_loop()
-        nodes = [await P2pNode(gdoc, f"val{i}", pv=MockPV(keys[i])).start()
-                 for i in range(1, P2P_VALIDATORS)]
-        nodes[-1].cs.misbehaviors[P2P_MAVERICK_H] = DoublePrevote()
-        addrs = [n.addr for n in nodes]
-        for i, n in enumerate(nodes):
-            for other in [a_addr] + addrs[i + 1:]:
-                await n.dial(other)
-        await p2p_until(lambda: all(n.switch.n_peers() == P2P_VALIDATORS - 1
-                                    for n in nodes), "the peers' mesh")
-        cs_frame_write(out, {"op": "ready", "addrs": addrs})
-        await loop.run_in_executor(None, cs_frame_read, inp)  # go
-        for n in nodes:
-            await n.cs.start()
-        b = nodes[0]
-        client = loop.create_task(p2p_submit(
-            b.mempool, b"b-", P2P_PEER_BURST, P2P_PEER_BURST_S,
-            lambda: b.cs.rs.height, adm_signers(P2P_SIGNERS)))
-        await loop.run_in_executor(None, cs_frame_read, inp)  # txs
+
+        async def frame():
+            return await loop.run_in_executor(None, cs_frame_read, inp)
+
+        name = f"val{i}"
+        node = Node(p2p_config(home, name), priv_validator=MockPV(keys[i]),
+                    node_key=NodeKey(p2p_key(b"node-" + name.encode())),
+                    genesis_doc=gdoc, in_memory=True)
+        if i == P2P_VALIDATORS - 1:
+            node.misbehaviors[P2P_MAVERICK_H] = DoublePrevote()
+        await node.start()
+        cs_frame_write(out, {"op": "up", "addr": node.p2p_addr,
+                             "rpc": node.rpc_port})
+        for other in [a_addr] + (await frame())["addrs"]:
+            node.switch.add_persistent_peers([other])
+            await node.switch.dial_peer(other, persistent=True)
+        await p2p_until(lambda: node.switch.n_peers() == P2P_VALIDATORS - 1,
+                        f"{name}'s three peers",
+                        fault=lambda: node_fault(node))
+        cs_frame_write(out, {"op": "ready"})
+        await frame()  # go
+        client = None
+        if i == 1:
+            client = loop.create_task(p2p_submit(
+                TimedRpc(node.rpc_port, {}), b"b-", P2P_PEER_BURST,
+                P2P_PEER_BURST_S, lambda: node.consensus_state.rs.height,
+                adm_signers(P2P_SIGNERS)))
+        await frame()  # txs
         try:
-            txs, codes = await client
+            txs, codes = (await client) if client is not None else ([], [])
             rep = {"op": "txs", "txs": txs, "codes": codes}
         except Exception as e:  # noqa: BLE001 - reported to the parent
             rep = {"op": "txs", "error": repr(e)}
         cs_frame_write(out, rep)
-        req = await loop.run_in_executor(None, cs_frame_read, inp)  # stop
-        faults = [repr(n.fault()) for n in nodes if n.fault() is not None]
+        req = await frame()  # stop
+        faults = [repr(node_fault(node))] if node_fault(node) else []
         try:
-            for n in nodes:
-                await n.cs.wait_for_height(req["upto"], timeout=60)
-            rep = {"op": "chains", "chains": [n.chain(req["upto"])
-                                              for n in nodes],
+            await node.consensus_state.wait_for_height(req["upto"],
+                                                       timeout=60)
+            rep = {"op": "chains",
+                   "chains": [store_chain(node.block_store, req["upto"])],
                    "faults": faults}
         except Exception as e:  # noqa: BLE001 - reported to the parent
             rep = {"op": "chains", "error": repr(e), "faults": faults}
         cs_frame_write(out, rep)
+        await frame()  # exit
+        await node.stop()
+
+    try:
+        asyncio.run(run())
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    return 0
+
+
+def p2p_clients_child(port: int) -> int:
+    """A's clients (`--phase p2p_clients <A's RPC port>`), in a process
+    of their own so that their signing and their HTTP and JSON work do
+    not share A's event loop. Started with A's peers; on `rpc` (A's RPC
+    listening) it follows A's height by its WS NewBlock events and
+    answers `up` once subscribed; on `go` the burst client
+    (p2p_submit) and the broadcast_tx_commit client (p2p_commit_txs)
+    over A's RPC; then one `txs` frame with each client's txs and
+    answers and every call's ms by route."""
+    import asyncio
+
+    from tendermint_tpu_torch.rpc.jsonrpc import WSClient
+
+    inp, out = sys.stdin.buffer, sys.stdout.buffer
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, cs_frame_read, inp)  # rpc
+        record: dict = {}
+        rpc = TimedRpc(port, record)
+        ws = WSClient("127.0.0.1", port)
+        await ws.connect()
+        await ws.call("subscribe", query="tm.event='NewBlock'")
+        st = await rpc.http.call("status")
+        height = [int(st["sync_info"]["latest_block_height"]) + 1]
+
+        async def follow():
+            while True:
+                d = (await ws.events.get())["result"]["data"]
+                if d["type"] == "NewBlock":
+                    height[0] = max(height[0],
+                                    int(d["block"]["header"]["height"]) + 1)
+
+        follower = loop.create_task(follow())
+        cs_frame_write(out, {"op": "up"})
+        await loop.run_in_executor(None, cs_frame_read, inp)  # go
+        try:
+            (a_txs, a_codes), (c_txs, c_res) = await asyncio.gather(
+                p2p_submit(rpc, b"a-", P2P_BURST, P2P_BURST_S,
+                           lambda: height[0], adm_signers(P2P_SIGNERS)),
+                p2p_commit_txs(rpc, lambda: height[0],
+                               p2p_key(b"commit-client")))
+            rep = {"op": "txs", "a_txs": a_txs, "a_codes": a_codes,
+                   "c_txs": c_txs, "c_res": c_res, "routes": record}
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            rep = {"op": "txs", "error": repr(e)}
+        finally:
+            follower.cancel()
+            ws.close()
+        cs_frame_write(out, rep)
         await loop.run_in_executor(None, cs_frame_read, inp)  # exit
-        for n in nodes:
-            await n.stop()
 
     asyncio.run(run())
     return 0
@@ -7038,14 +7213,19 @@ def p2p_signer_child(port: int, home: str) -> int:
 
 
 async def p2p_localnet(home: str) -> dict:
-    """Part A of the p2p phase: A (validator 0) on the card, its key in
-    the signer child, validators 1-3 in the peers child; 12 heights."""
+    """Part A of the p2p phase: A (validator 0) on the card, a Node built
+    by Node.default_new_node from its home directory with its key in the
+    signer child, validators 1-3 each a Node in a peers child; 12
+    heights, txs over RPC."""
     import asyncio
     import collections
 
     from tendermint_tpu_torch.mempool import admission
+    from tendermint_tpu_torch.node import Node
     from tendermint_tpu_torch.p2p.conn import connection
-    from tendermint_tpu_torch.privval import FilePV, SignerClient
+    from tendermint_tpu_torch.p2p.key import NodeKey
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.rpc.jsonrpc import WSClient
 
     keys = [p2p_key(b"val", i) for i in range(P2P_VALIDATORS)]
     gdoc = p2p_genesis(P2P_CHAIN, [k.pub_key().bytes() for k in keys])
@@ -7053,16 +7233,31 @@ async def p2p_localnet(home: str) -> dict:
     os.makedirs(pv_home)
     FilePV(keys[0], os.path.join(pv_home, "pv_key.json"),
            os.path.join(pv_home, "pv_state.json")).save_key()
-    client = SignerClient(P2P_CHAIN, timeout=60.0,
-                          conn_key=p2p_key(b"node-link"),
-                          expected_signer_addr=p2p_key(
-                              b"signer-link").pub_key().address())
-    port = await client.listen()
-    signer = P2pChild("p2p_signer", port, pv_home)
-    node = await P2pNode(gdoc, "val0", home=os.path.join(home, "a")).start()
-    peers = None
+    signer_port, a_port, rpc_port = free_ports(3)
+    cfg = p2p_config(os.path.join(home, "a"), "val0")
+    cfg.p2p.laddr = f"tcp://127.0.0.1:{a_port}"
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
+    cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{signer_port}"
+    cfg.base.priv_validator_signer_id = \
+        p2p_key(b"signer-link").pub_key().address().hex()
+    cfg = p2p_home(cfg, gdoc, p2p_key(b"node-link"))
+    signer = P2pChild("p2p_signer", signer_port, pv_home)
+    # the peers start while A builds; they dial A once it listens
+    a_addr = f"{NodeKey(p2p_key(b'node-link')).id}@127.0.0.1:{a_port}"
+    peers = [P2pChild("p2p_peers", a_addr, i)
+             for i in range(1, P2P_VALIDATORS)]
+    clients = P2pChild("p2p_clients", rpc_port)
+    node = Node.default_new_node(cfg)
+    ws = None
     out: dict = {}
+    routes: dict = {}
     try:
+        t = time.perf_counter()
+        await node._build()  # listens for the signer and waits for it
+        out["build_s"] = time.perf_counter() - t
+        client = node._signer_client
+        client.timeout = 5.0
+        cs = node.consensus_state
         # the receive routine's host time a message, by channel
         recv_us, recv_n = collections.Counter(), collections.Counter()
         on_receive = node.switch._on_peer_receive
@@ -7103,8 +7298,8 @@ async def p2p_localnet(home: str) -> dict:
         collector._verify_batch = timed_batch
         # NewHeight (update_to_state) and commit (_enter_commit) times
         steps: dict = {}
-        update_to_state = node.cs.update_to_state
-        enter_commit = node.cs._enter_commit
+        update_to_state = cs.update_to_state
+        enter_commit = cs._enter_commit
 
         def timed_update(state):
             steps.setdefault(("new_height", state.last_block_height + 1),
@@ -7115,30 +7310,53 @@ async def p2p_localnet(home: str) -> dict:
             steps.setdefault(("commit", height), time.perf_counter())
             return await enter_commit(height, commit_round)
 
-        node.cs.update_to_state = timed_update
-        node.cs._enter_commit = timed_commit
-        peers = P2pChild("p2p_peers", node.addr)
-        t = time.perf_counter()
-        await client.wait_connected()
-        client.timeout = 5.0
-        out["signer_connect_s"] = time.perf_counter() - t
-        node.cs.set_priv_validator(client)
-        ready = await peers.aread()
-        node.switch.add_persistent_peers(ready["addrs"])
+        cs.update_to_state = timed_update
+        cs._enter_commit = timed_commit
+        await node.start()  # RPC, the switch, consensus (alone till peers)
+        # A's route handlers timed (the server's share of each call)
+        handlers: dict = {}
+        time_routes(node.rpc_server, handlers)
+        if node.rpc_port != rpc_port:
+            raise AssertionError(f"p2p: A's RPC listens at {node.rpc_port}")
+        clients.send({"op": "rpc"})  # A's RPC is up
+
+        def fault():
+            return node_fault(node)
+
+        if node.p2p_addr != a_addr:
+            raise AssertionError(f"p2p: A listens at {node.p2p_addr}")
+        ups = [await p.aread() for p in peers]
+        for k, p in enumerate(peers):
+            p.send({"op": "dial", "addrs": [u["addr"] for u in ups[k + 1:]]})
+        for p in peers:
+            await p.aread()  # ready
+        node.switch.add_persistent_peers([u["addr"] for u in ups])
         await p2p_until(lambda: node.switch.n_peers() == P2P_VALIDATORS - 1,
-                        "A's three peers", fault=node.fault)
+                        "A's three peers", fault=fault)
+        await clients.aread()  # up
+        a_rpc = TimedRpc(node.rpc_port, routes)
+        b_rpc = TimedRpc(ups[0]["rpc"], {})
+        ws = WSClient("127.0.0.1", node.rpc_port)
+        await ws.connect()
+        for q in ("tm.event='NewBlock'", "tm.event='Tx'"):
+            await ws.call("subscribe", query=q)
+        events: list = []
+
+        async def drain():
+            while True:
+                events.append(await ws.events.get())
+
+        loop = asyncio.get_running_loop()
+        drainer = loop.create_task(drain())
         net0 = json.loads(json.dumps(connection.METRICS))
         adm0 = json.loads(json.dumps(admission.METRICS))
         k0 = exec_counts()
-        peers.send({"op": "go"})
+        for p in peers + [clients]:
+            p.send({"op": "go"})
         t_run = time.perf_counter()
-        steps[("new_height", 1)] = t_run
-        await node.cs.start()
-        a_client = asyncio.get_running_loop().create_task(p2p_submit(
-            node.mempool, b"a-", P2P_BURST, P2P_BURST_S,
-            lambda: node.cs.rs.height, adm_signers(P2P_SIGNERS)))
+        steps.setdefault(("new_height", 1), t_run)
         # the signer link drops once after height P2P_DROP_AFTER commits
-        await node.cs.wait_for_height(P2P_DROP_AFTER, timeout=P2P_WAIT_S)
+        await cs.wait_for_height(P2P_DROP_AFTER, timeout=P2P_WAIT_S)
         t = time.perf_counter()
         client._link.close()
         lost = None
@@ -7147,40 +7365,88 @@ async def p2p_localnet(home: str) -> dict:
         except Exception as e:  # noqa: BLE001 - the drop is the point
             lost = f"{type(e).__name__}: {e}"
         await p2p_until(lambda: not client._conn_q.empty(),
-                        "the signer's redial", fault=node.fault)
+                        "the signer's redial", fault=fault)
         await client.ping()
-        out["signer_drop"] = dict(at_height=node.cs.rs.height, lost=lost,
+        out["signer_drop"] = dict(at_height=cs.rs.height, lost=lost,
                                   readopt_ms=(time.perf_counter() - t) * 1e3)
-        await node.cs.wait_for_height(P2P_HEIGHTS, timeout=P2P_WAIT_S)
+        await cs.wait_for_height(P2P_HEIGHTS, timeout=P2P_WAIT_S)
         mempool_at_12 = node.mempool.size()
-        a_txs, a_codes = await a_client
-        peers.send({"op": "txs"})
-        b_rep = await peers.aread()
-        if "error" in b_rep:
-            raise AssertionError(f"p2p: B's client: {b_rep['error']}")
+        a_rep = await clients.aread()
+        if "error" in a_rep:
+            raise AssertionError(f"p2p: A's clients: {a_rep['error']}")
+        a_txs, a_codes = a_rep["a_txs"], a_rep["a_codes"]
+        c_txs, c_res = a_rep["c_txs"], a_rep["c_res"]
+        for r, ms in a_rep["routes"].items():
+            routes.setdefault(r, []).extend(ms)
+        for p in peers:
+            p.send({"op": "txs"})
+        b_rep, *others = [await p.aread() for p in peers]
+        if "error" in b_rep or any(r.get("txs") for r in others):
+            raise AssertionError(f"p2p: B's client: {b_rep.get('error')}")
         # every tx committed exactly once, nothing else: the gossip of
         # one tx a message may leave a backlog past height 12, which the
         # next heights' proposers drain
-        submitted = collections.Counter(a_txs + b_rep["txs"])
+        submitted = collections.Counter(a_txs + c_txs + b_rep["txs"])
         committed = collections.Counter()
         top = 0
+        bs = node.block_store
         while True:
-            while top < node.bs.height:
+            while top < bs.height:
                 top += 1
-                committed.update(node.bs.load_block(top).data.txs)
+                committed.update(bs.load_block(top).data.txs)
             if top >= P2P_HEIGHTS and not submitted - committed:
                 break
             if top >= P2P_HEIGHTS + P2P_DRAIN_HEIGHTS:
                 break
-            await node.cs.wait_for_height(top + 1, timeout=P2P_WAIT_S)
+            await cs.wait_for_height(top + 1, timeout=P2P_WAIT_S)
         run_s = time.perf_counter() - t_run
-        k1 = exec_counts()
+        # A's FilePV (in the signer child's files) before A signs for
+        # the next height (the commit timeout, 1 s, holds it back)
+        lss = FilePV.load(os.path.join(pv_home, "pv_key.json"),
+                          os.path.join(pv_home, "pv_state.json")
+                          ).last_sign_state
+        out["signer_last_sign"] = [lss.height, lss.round, lss.step]
         net1 = json.loads(json.dumps(connection.METRICS))
-        peers.send({"op": "stop", "upto": top})
-        rep = await peers.aread()
-        if "error" in rep or rep["faults"] or node.fault() is not None:
+        # the RPC of A and B, the WS stream and the light proxy, with
+        # both nodes past `top` (every commit to `top` canonical)
+        await cs.wait_for_height(top + 1, timeout=P2P_WAIT_S)
+
+        async def b_past_top():
+            while True:
+                st = await b_rpc.call("status")
+                if int(st["sync_info"]["latest_block_height"]) > top:
+                    return
+                await asyncio.sleep(0.05)
+
+        await asyncio.wait_for(b_past_top(), P2P_WAIT_S)
+        t = time.perf_counter()
+        rpc = await p2p_rpc_checks(a_rpc, b_rpc, top, committed)
+        rpc["seconds"] = time.perf_counter() - t
+        drainer.cancel()
+        rpc["ws"] = p2p_ws_checks(events, top, committed)
+        t = time.perf_counter()
+        rpc["light_proxy"] = await p2p_light_proxy(
+            gdoc, node.rpc_port, [u["rpc"] for u in ups[:2]], a_rpc, top,
+            committed, routes)
+        rpc["light_proxy"]["seconds"] = time.perf_counter() - t
+        rpc["routes_p50_ms"] = {r: statistics.median(ms)
+                                for r, ms in sorted(routes.items())}
+        rpc["route_calls"] = {r: len(ms) for r, ms in sorted(routes.items())}
+        rpc["handlers_ms"] = ms_summary(handlers)
+        rpc["broadcast_tx_commit"] = c_res
+        out["rpc"] = rpc
+        k1 = exec_counts()
+        for p in peers:
+            p.send({"op": "stop", "upto": top})
+        reps = [await p.aread() for p in peers]
+        rep = {"chains": [c for r in reps for c in r.get("chains", [])],
+               "faults": [f for r in reps for f in r["faults"]]}
+        errors = [r["error"] for r in reps if "error" in r]
+        if errors:
+            rep["error"] = errors
+        if "error" in rep or rep["faults"] or fault() is not None:
             raise AssertionError(f"p2p: a node failed: {rep.get('error')} "
-                                 f"{rep['faults']} {node.fault()!r}")
+                                 f"{rep['faults']} {fault()!r}")
         launches = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
         device = [n for n, dev, _ in flushes if dev]
         by_lanes = collections.Counter(n for n, _, _ in flushes)
@@ -7188,11 +7454,11 @@ async def p2p_localnet(home: str) -> dict:
         for h in range(1, top + 1):
             nh = steps.get(("new_height", h))
             cm = steps.get(("commit", h))
-            b = node.bs.load_block(h)
+            b = bs.load_block(h)
             heights.append(dict(
                 height=h, txs=len(b.data.txs),
                 proposer=b.header.proposer_address.hex()[:8],
-                commit_round=node.bs.load_seen_commit(h).round,
+                commit_round=bs.load_seen_commit(h).round,
                 new_height_to_commit_ms=(cm - nh) * 1e3
                 if nh and cm else None))
         chans = sorted(set(net1["peer_receive_bytes"]) |
@@ -7206,7 +7472,7 @@ async def p2p_localnet(home: str) -> dict:
         out.update(
             validators=P2P_VALIDATORS, a=keys[0].pub_key().address().hex()[:8],
             heights=heights, run_s=run_s, last_height=top,
-            txs=dict(a=len(a_txs), b=len(b_rep["txs"]),
+            txs=dict(a=len(a_txs), commit=len(c_txs), b=len(b_rep["txs"]),
                      committed=sum(committed.values()),
                      missing=sum((submitted - committed).values()),
                      refused=dict(refused),
@@ -7229,39 +7495,209 @@ async def p2p_localnet(home: str) -> dict:
                          device_ms_p50=statistics.median(
                              [ms for n, dev, ms in flushes if dev])
                          if device else None),
+            speculation=dict(hits=node.speculation.hits,
+                             misses={k: v for k, v in
+                                     node.speculation.misses.items() if v})
+            if node.speculation is not None else None,
             launches=launches)
         try:
             p2p_localnet_checks(node, rep, top, keys, submitted, committed,
-                                refused, net0, net1, pv_home, flushes,
-                                launches, device, adm0, out)
+                                refused, net0, net1, flushes, launches,
+                                device, adm0, c_res, out)
         except AssertionError:
             print(json.dumps({"p2p_localnet": out}, default=str),
                   file=sys.stderr, flush=True)
             raise
         return out
     finally:
-        await node.stop()
-        client.close()
-        if peers is not None:
-            peers.close()
+        if ws is not None:
+            ws.close()
+        if node.is_running:
+            await node.stop()
+        for p in peers + [clients]:
+            p.close()
         signer.proc.terminate()
         signer.proc.wait(timeout=30)
 
 
+async def p2p_rpc_checks(a, b, top: int, committed) -> dict:
+    """A's and B's RPC (TimedRpc clients): /block, /commit, /validators,
+    /block_results and /tx_search equal at every height to `top`; every
+    committed tx's /tx?prove=true proof verifies against /block's data
+    hash; /abci_query?prove=true equal at one app height for keys of
+    several heights and an absent key."""
+    import asyncio
+    import base64
+
+    from tendermint_tpu_torch.crypto import merkle
+
+    data_hash, height_of = {}, {}
+    search_retries = 0
+    for h in range(1, top + 1):
+        for route in ("block", "commit", "validators", "block_results"):
+            ja, jb = await asyncio.gather(a.call(route, height=h),
+                                          b.call(route, height=h))
+            if ja != jb:
+                raise AssertionError(f"p2p: /{route} at {h}: A and B differ")
+            if route == "block":
+                data_hash[h] = bytes.fromhex(ja["block"]["header"]["data_hash"])
+                for tx in ja["block"]["data"]["txs"]:
+                    height_of[base64.b64decode(tx)] = h
+            if route == "commit" and not ja["canonical"]:
+                raise AssertionError(f"p2p: /commit at {h} not canonical")
+        page, got = 1, {"A": [], "B": []}
+        while True:
+            for retry in range(100):
+                # each node's indexer takes a block's Tx events after the
+                # commit, from its event bus: wait until both have
+                ja, jb = await asyncio.gather(*(
+                    c.call("tx_search", query=f"tx.height={h}", page=page,
+                           per_page=100) for c in (a, b)))
+                if ja == jb and int(ja["total_count"]) == sum(
+                        1 for hh in height_of.values() if hh == h):
+                    break
+                search_retries += 1
+                await asyncio.sleep(0.05)
+            if ja != jb:
+                diff = next((k for k, (x, y) in enumerate(
+                    zip(ja["txs"], jb["txs"])) if x != y), None)
+                raise AssertionError(
+                    f"p2p: /tx_search at {h} page {page}: A and B differ "
+                    f"({ja['total_count']} / {jb['total_count']} txs, "
+                    f"{len(ja['txs'])} / {len(jb['txs'])} on the page, "
+                    f"first difference at {diff}: "
+                    f"{ja['txs'][diff] if diff is not None else ''} / "
+                    f"{jb['txs'][diff] if diff is not None else ''})")
+            got["A"] += ja["txs"]
+            if len(got["A"]) >= int(ja["total_count"]) or not ja["txs"]:
+                break
+            page += 1
+        if sorted(base64.b64decode(t["tx"]) for t in got["A"]) != \
+                sorted(tx for tx, hh in height_of.items() if hh == h):
+            raise AssertionError(f"p2p: /tx_search at {h} misses txs")
+    if set(height_of) != set(committed):
+        raise AssertionError("p2p: the blocks' txs are not the committed ones")
+    proved = 0
+    txs = sorted(committed)
+    for i in range(0, len(txs), 64):
+        res = await asyncio.gather(*(
+            a.call("tx", hash=hashlib.sha256(tx).hexdigest(), prove=True)
+            for tx in txs[i:i + 64]))
+        for tx, r in zip(txs[i:i + 64], res):
+            pj = r["proof"]["proof"]
+            proof = merkle.Proof(
+                total=pj["total"], index=pj["index"],
+                leaf_hash=base64.b64decode(pj["leaf_hash"]),
+                aunts=[base64.b64decode(x) for x in pj["aunts"]])
+            h = int(r["height"])
+            if h != height_of[tx] or base64.b64decode(r["tx"]) != tx or \
+                    not proof.verify(data_hash[h], tx):
+                raise AssertionError("p2p: a /tx proof does not verify")
+            proved += 1
+    keys = sorted({tx.partition(b"=")[0] for tx in txs})
+    picks = [keys[0], keys[len(keys) // 2], keys[-1], b"absent-key"]
+    queries = []
+    for key in picks:
+        for _ in range(400):
+            ja, jb = await asyncio.gather(*(
+                c.call("abci_query", data=key.hex(), prove=True)
+                for c in (a, b)))
+            if ja["response"]["height"] == jb["response"]["height"]:
+                break
+            await asyncio.sleep(0.05)
+        if ja != jb or not ja["response"]["proof_ops"]["ops"]:
+            raise AssertionError(f"p2p: /abci_query {key!r}: A and B differ")
+        queries.append((ja["response"]["height"], ja["response"]["log"]))
+    if [q[1] for q in queries] != ["exists"] * 3 + ["does not exist"]:
+        raise AssertionError(f"p2p: /abci_query answers {queries}")
+    return dict(heights=top, txs_proved=proved, queries=queries,
+                tx_search_retries=search_retries)
+
+
+def p2p_ws_checks(events: list, top: int, committed) -> dict:
+    """The WS stream of A (NewBlock and Tx): every committed tx named
+    exactly once, a NewBlock for every height from the first seen."""
+    import base64
+    import collections
+
+    tx_ev = collections.Counter()
+    blocks = []
+    for e in events:
+        d = e["result"]["data"]
+        if d["type"] == "Tx" and int(d["height"]) <= top:
+            tx_ev[base64.b64decode(d["tx"])] += 1
+        elif d["type"] == "NewBlock":
+            blocks.append(int(d["block"]["header"]["height"]))
+    if tx_ev != committed:
+        raise AssertionError("p2p: the WS stream's txs are not the "
+                             "committed ones, once each")
+    if not blocks or blocks != list(range(blocks[0], blocks[0] + len(blocks))) \
+            or blocks[-1] < top:
+        raise AssertionError(f"p2p: the WS NewBlock heights {blocks}")
+    return dict(events=len(events), tx_events=sum(tx_ev.values()),
+                new_blocks=[blocks[0], blocks[-1]])
+
+
+async def p2p_light_proxy(gdoc, a_port: int, witness_ports, a, top: int,
+                          committed, routes: dict) -> dict:
+    """A LightProxy whose primary is A's RPC and whose witnesses are B's
+    and C's, trusted at height 1 by hash: its /commit and /block at
+    `top` equal A's, and its verified abci_query proves a committed key
+    against the verified header's app hash."""
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.light import (Client, LightStore, RPCProvider,
+                                            TrustOptions)
+    from tendermint_tpu_torch.light.proxy import LightProxy
+    from tendermint_tpu_torch.rpc.jsonrpc import HTTPClient
+
+    first = await a.call("block", height=1)
+    lc = Client(gdoc.chain_id,
+                TrustOptions(period_ns=SS_TRUST_PERIOD_S * 10**9, height=1,
+                             hash=bytes.fromhex(first["block_id"]["hash"])),
+                RPCProvider("127.0.0.1", a_port, name="A"),
+                [RPCProvider("127.0.0.1", p, name=n)
+                 for p, n in zip(witness_ports, "BC")],
+                LightStore(MemDB()))
+    faults: list = []
+    proxy = LightProxy(lc, forward_client=HTTPClient("127.0.0.1", a_port),
+                       on_fault=faults.append)
+    port = await proxy.listen("127.0.0.1", 0)
+    try:
+        lp = TimedRpc(port, {})
+        got = {}
+        for route in ("commit", "block"):
+            got[route] = await lp.call(route, height=top)
+            if got[route] != await a.call(route, height=top):
+                raise AssertionError(f"p2p: the light proxy's /{route} at "
+                                     f"{top} is not A's")
+        key = sorted(committed)[0].partition(b"=")[0]
+        q = await lp.call("abci_query", data=key.hex())
+        if q["response"]["log"] != "exists" or faults:
+            raise AssertionError(f"p2p: the light proxy's abci_query {q} "
+                                 f"{faults}")
+        for r, ms in lp.record.items():
+            routes.setdefault("light_proxy." + r, []).extend(ms)
+        return dict(trusted_height=lc.store.latest_height(),
+                    query_height=q["response"]["height"],
+                    witnesses=len(lc.witnesses))
+    finally:
+        proxy.close()
+
+
 def p2p_localnet_checks(node, rep, top, keys, submitted, committed,
-                        refused, net0, net1, pv_home, flushes, launches,
-                        device, adm0, out) -> None:
-    """Part A's checks (docstring, phase 16); adds the evidence and the
-    signer's last-sign state to `out`."""
+                        refused, net0, net1, flushes, launches, device, adm0,
+                        c_res, out) -> None:
+    """Part A's checks (docstring, phase 16); adds the evidence to
+    `out`."""
     from tendermint_tpu_torch.mempool import admission
-    from tendermint_tpu_torch.privval import FilePV
     from tendermint_tpu_torch.privval.file_pv import STEP_PRECOMMIT
     from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
 
-    if "error" in rep or rep["faults"] or node.fault() is not None:
+    if "error" in rep or rep["faults"] or node_fault(node) is not None:
         raise AssertionError(f"p2p: a node failed: {rep.get('error')} "
-                             f"{rep['faults']} {node.fault()!r}")
-    chain = node.chain(top)
+                             f"{rep['faults']} {node_fault(node)!r}")
+    bs = node.block_store
+    chain = store_chain(bs, top)
     if any(c != chain for c in rep["chains"]):
         raise AssertionError("p2p: the four nodes' chains differ")
     if refused or committed != submitted or max(submitted.values()) != 1:
@@ -7269,8 +7705,11 @@ def p2p_localnet_checks(node, rep, top, keys, submitted, committed,
             f"p2p: {sum(submitted.values())} txs submitted, "
             f"{sum(committed.values())} committed to height {top}; "
             f"refused {dict(refused)}")
+    if not c_res or any(ch != 0 or dl != 0 or hc < at
+                        for at, hc, ch, dl in c_res):
+        raise AssertionError(f"p2p: broadcast_tx_commit answers {c_res}")
     evidence = [(h, ev) for h in range(1, top + 1)
-                for ev in node.bs.load_block(h).evidence.evidence]
+                for ev in bs.load_block(h).evidence.evidence]
     d_addr = keys[-1].pub_key().address()
     if len(evidence) != 1 or \
             not isinstance(evidence[0][1], DuplicateVoteEvidence) or \
@@ -7284,14 +7723,10 @@ def p2p_localnet_checks(node, rep, top, keys, submitted, committed,
                            gossiped_to_a=gossiped)
     if not gossiped:
         raise AssertionError("p2p: no evidence message reached A")
-    lss = FilePV.load(os.path.join(pv_home, "pv_key.json"),
-                      os.path.join(pv_home, "pv_state.json")).last_sign_state
-    out["signer_last_sign"] = [lss.height, lss.round, lss.step]
-    last = node.bs.load_seen_commit(top)
-    if (lss.height, lss.round, lss.step) != (top, last.round,
-                                             STEP_PRECOMMIT):
+    last = bs.load_seen_commit(top)
+    if out["signer_last_sign"] != [top, last.round, STEP_PRECOMMIT]:
         raise AssertionError(f"p2p: A's FilePV last signed "
-                             f"{(lss.height, lss.round, lss.step)}")
+                             f"{out['signer_last_sign']}")
     if launches != ({"general_verify": len(device)} if device else {}):
         raise AssertionError(f"p2p: A launched {launches} for "
                              f"{len(device)} device flushes")
@@ -7387,7 +7822,8 @@ async def p2p_build_chain(gdoc, keys):
 
 class _ForgedStore:
     """A block store that serves `block` at its height in place of the
-    stored one (the forged copy of the chain)."""
+    stored one, and its LastCommit as the commit of the height before
+    (the forged copy of the chain, over p2p and over RPC)."""
 
     def __init__(self, bs, block):
         self._bs, self._block = bs, block
@@ -7396,6 +7832,73 @@ class _ForgedStore:
     def load_block(self, h: int):
         return self._block if h == self._block.header.height \
             else self._bs.load_block(h)
+
+    def load_block_commit(self, h: int):
+        return self._block.last_commit \
+            if h == self._block.header.height - 1 \
+            else self._bs.load_block_commit(h)
+
+    def __getattr__(self, name):
+        return getattr(self._bs, name)
+
+
+class _TimedSets:
+    """A state store that records each validator set's load (the stored
+    JSON decoded, state/store.py load_validators) in ms into
+    `record["decode"]`; it keeps nothing."""
+
+    def __init__(self, ss, record: dict):
+        self._ss, self._record = ss, record
+
+    def load_validators(self, h: int):
+        t = time.perf_counter()
+        try:
+            return self._ss.load_validators(h)
+        finally:
+            self._record.setdefault("decode", []).append(
+                (time.perf_counter() - t) * 1e3)
+
+    def __getattr__(self, name):
+        return getattr(self._ss, name)
+
+
+def time_routes(srv, record: dict) -> None:
+    """Each route of a JSONRPCServer records its handler's ms (the
+    server's own time for the call, without the HTTP and JSON around
+    it) into `record` by route."""
+
+    def timed(name, fn):
+        async def handler(ctx, **params):
+            t = time.perf_counter()
+            try:
+                return await fn(ctx, **params)
+            finally:
+                record.setdefault(name, []).append(
+                    (time.perf_counter() - t) * 1e3)
+        return handler
+
+    srv.routes = {n: timed(n, fn) for n, fn in srv.routes.items()}
+
+
+def ms_summary(record: dict) -> dict:
+    """{name: {n, p50, sum}} of a record of ms lists."""
+    return {k: dict(n=len(v), p50=statistics.median(v), sum=sum(v))
+            for k, v in sorted(record.items()) if v}
+
+
+async def rpc_server(bs, sets, record: dict):
+    """A JSON-RPC server (rpc/core.py Environment, the node's routes) over
+    a chain's block store and state store (`sets`, a _TimedSets), its
+    handlers timed into `record`; the server and its 'host:port'."""
+    from tendermint_tpu_torch.config import Config
+    from tendermint_tpu_torch.rpc.core import Environment, serve
+
+    env = Environment(types.SimpleNamespace(block_store=bs,
+                                            state_store=sets,
+                                            config=Config()))
+    srv, port = await serve(env, "127.0.0.1", 0)
+    time_routes(srv, record)
+    return srv, f"127.0.0.1:{port}"
 
 
 async def p2p_server(gdoc, state, store, i: int, kind: bytes = b"server",
@@ -7461,7 +7964,8 @@ class _PoisonedSnapshots:
 async def ss_servers(gdoc, state, bs, extra) -> dict:
     """The statesync phase's serving side over Part B's chain and app:
     P2P_SYNC_SERVERS honest switches and a poisoner (blockchain,
-    statesync and PEX reactors; their books hold the five), and a seed (a
+    statesync and PEX reactors; their books hold the five), as many RPC
+    servers over the chain's stores (rpc/core.py Environment), and a seed (a
     PEXReactor in seed mode whose book holds the five; its blockchain and
     statesync reactors run over an empty store and an empty app, as a
     seed node of the reference does, so a joining node's status and
@@ -7472,6 +7976,7 @@ async def ss_servers(gdoc, state, bs, extra) -> dict:
     from tendermint_tpu_torch.p2p.key import NodeKey
     from tendermint_tpu_torch.p2p.pex import AddrBook
     from tendermint_tpu_torch.proxy import AppConns
+    from tendermint_tpu_torch.state.store import Store
     from tendermint_tpu_torch.store import BlockStore
 
     conn = extra["conns"].snapshot
@@ -7493,20 +7998,24 @@ async def ss_servers(gdoc, state, bs, extra) -> dict:
     for book in books:
         for a in addrs:
             book.add_address(a)
+    record: dict = {}
+    sets = _TimedSets(Store(extra["state_db"]), record)
+    rpcs = [await rpc_server(bs, sets, record)
+            for _ in range(P2P_SYNC_SERVERS)]
     return dict(switches=[sw for sw, _ in servers] + [seed[0]],
                 conns=[extra["conns"], empty], addrs=addrs[:-1],
-                poisoner=addrs[-1], seed=seed[1])
+                poisoner=addrs[-1], seed=seed[1], sets=sets, record=record,
+                rpc_servers=[srv for srv, _ in rpcs],
+                rpc=[a for _, a in rpcs])
 
 
-def ss_frame(bs, extra, ss) -> dict:
-    """What the joining node's light provider reads (the chain's block
-    store and state store, key by key), the servers' addresses, and the
-    app hash and the digest of the app's `kv:` items after each snapshot
-    height."""
+def ss_frame(extra, ss, forged_rpc: str) -> dict:
+    """The servers' p2p addresses, their RPC addresses and the forged RPC
+    server's, and the app hash and the digest of the app's `kv:` items
+    after each snapshot height."""
     return {"op": "statesync", "addrs": ss["addrs"],
             "poisoner": ss["poisoner"], "seed": ss["seed"],
-            "block_db": list(bs.db.iterate()),
-            "state_db": list(extra["state_db"].iterate()),
+            "rpc": ss["rpc"], "forged_rpc": forged_rpc,
             "app_hashes": extra["app_hashes"],
             "kv_digests": extra["kv_digests"]}
 
@@ -7515,11 +8024,14 @@ def p2p_servers_child() -> int:
     """Part B's serving peers (`--phase p2p_servers`): builds the chain
     (p2p_build_chain, the host route forced), then serves it from
     P2P_SYNC_SERVERS switches and a copy with one forged signature in
-    block P2P_FORGED_AT's LastCommit from P2P_FORGED_SERVERS more, and
-    the statesync phase's servers and seed (ss_servers). One `ready`
+    block P2P_FORGED_AT's LastCommit from P2P_FORGED_SERVERS more (and
+    from one RPC server), and the statesync phase's servers and seed
+    (ss_servers). One `ready`
     frame (the keys, addresses, block hashes, the digests, the build's
     times), then serves until `exit`, answering each `statesync` frame
-    with ss_frame's."""
+    with ss_frame's and each `rpc_stats` frame with its RPC servers'
+    handler ms by route and validator-set decodes since the last
+    (ms_summary)."""
     import asyncio
 
     from tendermint_tpu_torch.types.block import Block
@@ -7547,6 +8059,8 @@ def p2p_servers_child() -> int:
                                      P2P_SYNC_SERVERS + i)
                     for i in range(P2P_FORGED_SERVERS)]
         ss = await ss_servers(gdoc, state, bs, extra)
+        forged_rpc, forged_addr = await rpc_server(fstore, ss["sets"],
+                                                   ss["record"])
         cs_frame_write(out, {
             "op": "ready", "pubs": pubs,
             "addrs": [a for _, a in servers[:P2P_SYNC_SERVERS]],
@@ -7556,9 +8070,17 @@ def p2p_servers_child() -> int:
             "digests": digests, "keys_s": keys_s, "build_s": build_s,
             "sign_s": sign_s})
         loop = asyncio.get_running_loop()
-        while (await loop.run_in_executor(None, cs_frame_read, inp)
-               )["op"] == "statesync":
-            cs_frame_write(out, ss_frame(bs, extra, ss))
+        while True:
+            op = (await loop.run_in_executor(None, cs_frame_read, inp))["op"]
+            if op == "statesync":
+                cs_frame_write(out, ss_frame(extra, ss, forged_addr))
+            elif op == "rpc_stats":
+                cs_frame_write(out, ms_summary(ss["record"]))
+                ss["record"].clear()
+            else:
+                break
+        for srv in ss["rpc_servers"] + [forged_rpc]:
+            srv.close()
         for sw in [sw for sw, _ in servers] + ss["switches"]:
             await sw.stop()
         for conns in ss["conns"]:
@@ -7571,20 +8093,28 @@ def p2p_servers_child() -> int:
 async def p2p_sync_run(gdoc, addrs, ready, forged=()) -> dict:
     """One fast sync of Part B: a fresh node (no key, MemDBs, the
     blockchain reactor syncing) dials the `forged` servers first and,
-    once the reactor has banned each of them, the honest `addrs`; then
-    syncs to within one or two of the servers' height (the pool is
-    caught up within one of the tallest peer, and the last block needs
-    the next one's LastCommit) and hands over to consensus.
+    once the reactor has banned each of them, the honest `addrs`. A
+    clean run syncs to within one or two of the servers' height (the
+    pool is caught up within one of the tallest peer, and the last block
+    needs the next one's LastCommit) and hands over to consensus; a
+    forged run stops once the banned heights are applied from honest
+    peers (its apply_block holds every later block back, and the
+    window jobs in flight finish before the counts are read).
     Its blocks and digests must equal the chain's; the window jobs,
     the LastCommit checks, the bans and the time split are returned."""
     import asyncio
+    import threading
 
     from tendermint_tpu_torch.blockchain.verify_ahead import WindowPipeline
 
-    node = await P2pNode(gdoc, "syncer-forged" if forged else "syncer",
-                         mempool=False, fast_sync=True).start()
+    node = await P2pNode(gdoc, "syncer-forged" if forged else "syncer"
+                         ).start()
     rec = dict(verify_s=0.0, apply_s=0.0, save_block_s=0.0, windows=[],
                applied_with_last_commit=0, banned=[])
+    stop_at = P2P_FORGED_AT + 1 if forged else None
+    held = asyncio.Event()
+    in_job = [0]
+    lock = threading.Lock()
     try:
         pipe = node.bc_reactor.pipeline
         verdicts = pipe.verdicts
@@ -7600,13 +8130,22 @@ async def p2p_sync_run(gdoc, addrs, ready, forged=()) -> dict:
         job = WindowPipeline._verify_window_job
 
         def counted_job(vals, chain_id, blocks):
-            rec["windows"].append(len(blocks) - 1)
-            return job(vals, chain_id, blocks)
+            with lock:
+                rec["windows"].append(len(blocks) - 1)
+                in_job[0] += 1
+            try:
+                return job(vals, chain_id, blocks)
+            finally:
+                with lock:
+                    in_job[0] -= 1
 
         pipe._verify_window_job = counted_job
         apply_block = node.executor.apply_block
 
         async def timed_apply(state, bid, block):
+            if stop_at is not None and block.header.height > stop_at:
+                held.set()
+                await asyncio.Event().wait()  # held until the node stops
             t = time.perf_counter()
             try:
                 return await apply_block(state, bid, block)
@@ -7642,26 +8181,39 @@ async def p2p_sync_run(gdoc, addrs, ready, forged=()) -> dict:
                             "the forged servers' bans", fault=node.fault)
         for a in addrs:
             await node.dial(a, persistent=False)
-        await node.bc_reactor.wait_synced(timeout=P2P_WAIT_S)
+        if forged:
+            await p2p_until(held.is_set, f"height {stop_at}",
+                            fault=node.fault)
+            await p2p_until(lambda: in_job[0] == 0 and (
+                pipe._prefetch is None or pipe._prefetch[1].done()),
+                "the window jobs", fault=node.fault)
+        else:
+            await node.bc_reactor.wait_synced(timeout=P2P_WAIT_S)
         rec["sync_s"] = time.perf_counter() - t
-        top = node.bs.height
+        # the applied height (a forged run has saved the held block)
+        top = node.bc_reactor.state.last_block_height
         got = [node.bs.load_block(h).hash().hex() for h in range(1, top + 1)]
-        st = node.bc_reactor.state
-        digest = dict(state_db=db_digest(node.dbs[0]),
-                      app_hash=st.app_hash.hex(),
-                      last_results_hash=st.last_results_hash.hex())
-        if top not in ready["digests"] or top == P2P_SYNC_BLOCKS or \
-                st.last_block_height != top or \
-                got != ready["hashes"][:top] or \
-                digest != ready["digests"][top]:
-            raise AssertionError(
-                f"p2p: the synced chain differs (height {top}; digest "
-                f"{digest} against {ready['digests'].get(top)})")
-        await p2p_until(lambda: node.cs.is_running, "the handover",
-                        fault=node.fault)
+        if forged:
+            if top != stop_at or got != ready["hashes"][:top]:
+                raise AssertionError(f"p2p: the forged run's chain differs "
+                                     f"(height {top})")
+        else:
+            st = node.bc_reactor.state
+            digest = dict(state_db=db_digest(node.dbs[0]),
+                          app_hash=st.app_hash.hex(),
+                          last_results_hash=st.last_results_hash.hex())
+            if top not in ready["digests"] or top == P2P_SYNC_BLOCKS or \
+                    st.last_block_height != top or \
+                    got != ready["hashes"][:top] or \
+                    digest != ready["digests"][top]:
+                raise AssertionError(
+                    f"p2p: the synced chain differs (height {top}; digest "
+                    f"{digest} against {ready['digests'].get(top)})")
+            await p2p_until(lambda: node.cs.is_running, "the handover",
+                            fault=node.fault)
+            rec["consensus_height"] = node.cs.rs.height
         rec.update(height=top, blocks=node.bc_reactor.blocks_synced,
                    blocks_per_s=node.bc_reactor.blocks_synced / rec["sync_s"],
-                   consensus_height=node.cs.rs.height,
                    prefetch_hits=pipe.prefetch_hits)
         rec["network_s"] = rec["sync_s"] - rec["verify_s"] - \
             rec["apply_s"] - rec["save_block_s"]
@@ -7672,7 +8224,8 @@ async def p2p_sync_run(gdoc, addrs, ready, forged=()) -> dict:
 
 async def p2p_fastsync(servers) -> dict:
     """Part B of the p2p phase: a clean sync from the four honest
-    servers (counted), then one from the two forged servers and two
+    servers (counted), then one from the two forged servers that stops
+    once the bans are decided and the banned heights applied from two
     honest ones."""
     ready = servers.ready = await servers.aread(timeout=600)
     gdoc = p2p_genesis(P2P_SYNC_CHAIN, ready["pubs"])
@@ -7696,8 +8249,7 @@ async def p2p_fastsync(servers) -> dict:
     forged_ids = {a.split("@")[0] for a in ready["forged"]}
     bad = {P2P_FORGED_AT - 1, P2P_FORGED_AT}
     banned = {p for _, p in forged["banned"] if p}
-    if forged["launches"] != dict(general_verify=1,
-                                  xverify=len(forged["windows"]) +
+    if forged["launches"] != dict(xverify=len(forged["windows"]) +
                                   forged["applied_with_last_commit"]) or \
             banned != forged_ids or \
             {h for h, _ in forged["banned"]} != bad:
@@ -7867,52 +8419,48 @@ class SsProbe:
         return undo
 
 
-def ss_provider(gdoc, frame, hashes):
-    """The light client's state provider over the chain's stores as the
-    servers child shipped them: a Client trusted at height 1 by hash,
-    its primary and witness BlockStoreProviders over one copy, on a
-    clock an hour past the chain's last block."""
-    from tendermint_tpu_torch.libs.db import MemDB
-    from tendermint_tpu_torch.light import (BlockStoreProvider, Client,
-                                            LightStore, TrustOptions)
-    from tendermint_tpu_torch.state import make_genesis_state
-    from tendermint_tpu_torch.state.store import Store
-    from tendermint_tpu_torch.statesync import LightClientStateProvider
-    from tendermint_tpu_torch.store import BlockStore
+def ss_config(home: str, frame: dict, ready: dict):
+    """The joining node's Config: state sync on, its light client over
+    two of the serving child's RPC servers, trusting height 1 by hash
+    (a trusting period that spans the chain's genesis time), PEX given
+    only the seed (ensure period SS_ENSURE_S), fast sync for the tail,
+    stores in memory, RPC on."""
+    from tendermint_tpu_torch.config import Config
 
-    bdb, sdb = MemDB(), MemDB()
-    bdb.write_batch(frame["block_db"])
-    sdb.write_batch(frame["state_db"])
-    bs, ss = BlockStore(bdb), Store(sdb)
-    now = bs.load_block(bs.height).header.time + 3600 * 10**9
-    lc = Client(gdoc.chain_id,
-                TrustOptions(period_ns=168 * 3600 * 10**9, height=1,
-                             hash=bytes.fromhex(hashes[0])),
-                BlockStoreProvider(bs, ss, name="primary"),
-                [BlockStoreProvider(bs, ss, name="witness")],
-                LightStore(MemDB()), now_fn=lambda: now)
-    params = make_genesis_state(gdoc).consensus_params
-    return lc, LightClientStateProvider(lc, consensus_params=params)
+    cfg = Config()
+    cfg.base.home = home
+    cfg.base.moniker = "statesyncer"
+    cfg.base.db_backend = "memdb"
+    cfg.statesync.enable = True
+    cfg.statesync.rpc_servers = frame["rpc"][:2]
+    cfg.statesync.trust_height = 1
+    cfg.statesync.trust_hash = ready["hashes"][0]
+    cfg.statesync.trust_period_s = SS_TRUST_PERIOD_S
+    cfg.statesync.discovery_time_s = SS_DISCOVERY_S
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.seeds = frame["seed"]
+    cfg.p2p.pex_ensure_period_s = SS_ENSURE_S
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    return cfg
 
 
-async def ss_join(servers) -> dict:
-    """The statesync phase (docstring, phase 17): a fresh node on the
-    card, given only the seed, finds the servers by PEX, restores the
-    best snapshot the light client verifies, bootstraps its stores,
-    fast-syncs the tail and hands over to consensus. Counters zeroed
-    just before the node starts, read after the handover."""
+async def ss_join(frame, ready, gdoc) -> dict:
+    """The join of the statesync phase (docstring, phase 17): a fresh
+    Node on the card, given only the seed, finds the servers by PEX and
+    state-syncs through its own light client over RPCProviders (the
+    node's _default_state_provider): it restores the best snapshot the
+    light client verifies, bootstraps its stores, fast-syncs the tail
+    and hands over to consensus (the node's _run_state_sync). Launch
+    counts read after the handover."""
     import asyncio
+    import shutil
+    import tempfile
 
     from tendermint_tpu_torch.crypto.cuda import expanded
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.p2p.key import NodeKey
     from tendermint_tpu_torch.statesync import syncer as ssyncer
 
-    ready = getattr(servers, "ready", None)
-    if ready is None:
-        ready = servers.ready = await servers.aread(timeout=600)
-    servers.send({"op": "statesync"})
-    frame = await servers.aread()
-    gdoc = p2p_genesis(P2P_SYNC_CHAIN, ready["pubs"])
-    lc, provider = ss_provider(gdoc, frame, ready["hashes"])
     server_ids = {a.split("@")[0] for a in frame["addrs"] + [frame["poisoner"]]}
     seed_id = frame["seed"].split("@")[0]
     poisoner = frame["poisoner"].split("@")[0]
@@ -7923,49 +8471,83 @@ async def ss_join(servers) -> dict:
     with expanded._CACHE_LOCK:
         expanded._CACHE.clear()  # a fresh node builds its tables
     met0 = json.loads(json.dumps(ssyncer.METRICS))
-    kernels = wrappers()
-    for fn in kernels.values():
-        fn.launches = 0
+    home = tempfile.mkdtemp(prefix="ss-join-")
+    node = Node(ss_config(home, frame, ready),
+                node_key=NodeKey(p2p_key(b"node-statesyncer")),
+                genesis_doc=gdoc, in_memory=True)
+    k0 = exec_counts()
     probe.t0 = time.perf_counter()
-    node = await P2pNode(gdoc, "statesyncer", mempool=False,
-                         provider=provider, seeds=[frame["seed"]],
-                         instrument=probe.wire).start()
-    undo = None
+    t: dict = {}
+
+    def fault():
+        return node_fault(node)
+
     try:
-        # 1. discovery: the seed's addresses, then ensure_peers' dials
-        await p2p_until(lambda: server_ids <= set(node.switch.peers),
-                        "the five servers by PEX", fault=node.fault)
-        discovery_s = probe.at()
+        await node._build()
+        probe.wire(node)
         sy = node.ss_reactor.syncer
-        await p2p_until(lambda: len(sy.pool) == SS_KEEP and all(
-            set(sy.pool.peers_of(s)) == server_ids
-            for s in sy.pool._snapshots.values()),
-            "every server's snapshots", fault=node.fault)
-        pool_s = probe.at()
-        undo = probe.wire_sync(node, lc)
-        t = time.perf_counter()
-        state, commit = await asyncio.wait_for(node.ss_reactor.sync(),
-                                               P2P_WAIT_S)
-        sync_s = time.perf_counter() - t
-        undo()
-        undo = None
-        restored = dict(height=node.app.height,
-                        app_hash=node.app.app_hash.hex(),
-                        kv=db_digest(node.app.db, b"kv:"))
-        t = time.perf_counter()
-        node.ss.bootstrap(state)
-        node.bs.save_seen_commit(state.last_block_height, commit)
-        bootstrap_s = time.perf_counter() - t
-        t = time.perf_counter()
-        await node.bc_reactor.switch_to_fast_sync(state)
+        lc = sy.state_provider.lc
+        app = node.client_creator.app
+        sync = node.ss_reactor.sync
+
+        async def probed_sync():
+            """The node's sync, once every server's snapshots are in the
+            pool (the poisoner's id sorts first, so the attempts are the
+            same in every run), its light heights, checks and fetches
+            recorded; the restored app read before the tail moves it."""
+            await p2p_until(lambda: server_ids <= set(node.switch.peers),
+                            "the five servers by PEX", fault=fault)
+            t["discovery_s"] = probe.at()
+            await p2p_until(lambda: len(sy.pool) == SS_KEEP and all(
+                set(sy.pool.peers_of(s)) == server_ids
+                for s in sy.pool._snapshots.values()),
+                "every server's snapshots", fault=fault)
+            t["pool_s"] = probe.at()
+            undo = probe.wire_sync(node, lc)
+            t0 = time.perf_counter()
+            try:
+                res = await sync()
+            except BaseException as e:
+                t["error"] = repr(e)
+                raise
+            finally:
+                t["sync_s"] = time.perf_counter() - t0
+                undo()
+            t["restored"] = dict(height=app.height,
+                                 app_hash=app.app_hash.hex(),
+                                 kv=db_digest(app.db, b"kv:"))
+            return res
+
+        node.ss_reactor.sync = probed_sync
+        bootstrap = node.state_store.bootstrap
+
+        def timed_bootstrap(state):
+            t0 = time.perf_counter()
+            try:
+                return bootstrap(state)
+            finally:
+                t["bootstrap_s"] = time.perf_counter() - t0
+
+        node.state_store.bootstrap = timed_bootstrap
+        to_fast_sync = node.bc_reactor.switch_to_fast_sync
+
+        async def timed_switch(state):
+            t["tail_t0"] = time.perf_counter()
+            return await to_fast_sync(state)
+
+        node.bc_reactor.switch_to_fast_sync = timed_switch
+        await node.start()  # the node's _run_state_sync runs the join
+        await p2p_until(lambda: "tail_t0" in t or "error" in t,
+                        "the restore", fault=fault)
+        if "error" in t:
+            raise AssertionError(f"statesync: the sync failed: {t['error']}")
         await node.bc_reactor.wait_synced(timeout=P2P_WAIT_S)
-        tail_s = time.perf_counter() - t
-        await p2p_until(lambda: node.cs.is_running, "the handover",
-                        fault=node.fault)
+        tail_s = time.perf_counter() - t["tail_t0"]
+        await p2p_until(lambda: node.consensus_state.is_running,
+                        "the handover", fault=fault)
         total_s = probe.at()
-        launches = {k: fn.launches for k, fn in kernels.items()
-                    if fn.launches}
-        top = node.bs.height
+        launches = exec_delta(k0)
+        top = node.block_store.height
         st = node.bc_reactor.state
         met = {k: (v - met0[k] if isinstance(v, int) else
                    {r: n - met0[k].get(r, 0) for r, n in v.items()
@@ -7975,22 +8557,23 @@ async def ss_join(servers) -> dict:
         rec = dict(
             validators=P2P_SYNC_VALIDATORS, blocks=P2P_SYNC_BLOCKS,
             snapshots=snaps, node_id=node.node_key.id, seed=seed_id,
-            poisoner=poisoner, discovery_s=discovery_s, pool_s=pool_s,
-            book_src={ka.node_id: ka.src for ka in node.book._addrs.values()},
-            removed=[(p, r[:60], round(t, 3)) for p, r, t in probe.removed],
+            poisoner=poisoner, rpc_servers=node.config.statesync.rpc_servers,
+            discovery_s=t["discovery_s"], pool_s=t["pool_s"],
+            book_src={ka.node_id: ka.src
+                      for ka in node.addr_book._addrs.values()},
+            removed=[(p, r[:60], round(s, 3)) for p, r, s in probe.removed],
             light_heights=probe.heights, light_checks=probe.checks,
             attempts=probe.attempts,
             rejected=sorted(k[0] for k in sy.pool._rejected_snapshots),
             quarantined=sy.quarantined_peers(),
-            chunks=chunks.get(state.last_block_height), restored=restored,
-            metrics=met, sync_s=sync_s,
+            chunks=chunks.get(want_h), restored=t["restored"],
+            metrics=met, sync_s=t["sync_s"],
             fetch_s=sum(a["seconds"] - a["apply_s"] for a in probe.attempts),
             apply_s=probe.apply_s, bytes_in=probe.bytes_in,
-            bootstrap_s=bootstrap_s,
+            bootstrap_s=t["bootstrap_s"],
             tail=dict(seconds=tail_s, blocks=node.bc_reactor.blocks_synced,
                       blocks_per_s=node.bc_reactor.blocks_synced / tail_s,
-                      windows=probe.windows,
-                      height=top),
+                      windows=probe.windows, height=top),
             total_s=total_s, launches=launches)
         rec["fetch_mb_per_s"] = probe.bytes_in / 1e6 / rec["fetch_s"]
         rec["snapshot_bytes"] = probe.attempts[-1]["bytes"] \
@@ -8004,19 +8587,19 @@ async def ss_join(servers) -> dict:
             raise
         return rec
     finally:
-        if undo is not None:
-            undo()
-        await node.stop()
+        if node.is_running:
+            await node.stop()
+        shutil.rmtree(home, ignore_errors=True)
 
 
 def ss_checks(rec, probe, node, st, ready, frame, server_ids, top_snap,
               want_h) -> None:
-    """The statesync phase's checks (docstring, phase 17)."""
+    """The join's checks (docstring, phase 17)."""
     seed_id, poisoner = rec["seed"], rec["poisoner"]
     # 1. discovery: the seed is the only address given; the book holds
     # the five with the seed as their source, the seed hung up, and
     # ensure_peers dialed each of the five (an outbound peer)
-    if node.pex.seeds != [frame["seed"]] or \
+    if node.pex_reactor.seeds != [frame["seed"]] or \
             any(rec["book_src"].get(i) != seed_id for i in server_ids) or \
             seed_id not in {p for p, _, _ in probe.removed} or \
             not all(node.switch.peers[i].outbound for i in server_ids):
@@ -8053,11 +8636,11 @@ def ss_checks(rec, probe, node, st, ready, frame, server_ids, top_snap,
     # 5. the tail: every block from want_h + 1 to the top is the chain's,
     # and the top's app and results hashes
     top = rec["tail"]["height"]
-    got = [node.bs.load_block(h).hash().hex()
-           for h in range(want_h + 1, top + 1)]
+    bs = node.block_store
+    got = [bs.load_block(h).hash().hex() for h in range(want_h + 1, top + 1)]
     digest = ready["digests"].get(top, {})
     if top not in (P2P_SYNC_BLOCKS - 1, P2P_SYNC_BLOCKS - 2) or \
-            node.bs.base != want_h + 1 or st.last_block_height != top or \
+            bs.base != want_h + 1 or st.last_block_height != top or \
             got != ready["hashes"][want_h:top] or \
             st.app_hash.hex() != digest.get("app_hash") or \
             st.last_results_hash.hex() != digest.get("last_results_hash") or \
@@ -8078,6 +8661,177 @@ def ss_checks(rec, probe, node, st, ready, frame, server_ids, top_snap,
                              f"want {want} ({len(checks)} light checks)")
 
 
+def rpc_provider(addr: str, name: str):
+    from tendermint_tpu_torch.light import RPCProvider
+
+    host, _, port = addr.rpartition(":")
+    return RPCProvider(host, int(port), name=name)
+
+
+async def ss_serving_pool(gdoc, frame, ready) -> dict:
+    """After the join: a ServingPool of SS_POOL_WORKERS LightProxy workers
+    over one plane, its light client over two of the chain's RPC servers
+    (trusted at height 1 by hash), answers SS_POOL_CLIENTS concurrent
+    clients, each asking verified /commit and /validators at its height
+    (spread over 2..128), every answer held to the chain; then a
+    LightProxy whose primary is the forged RPC server (block 78's
+    LastCommit, one signature forged, served as the commit of 77),
+    trusted at 76, refuses /commit at 77. Launches by part."""
+    import asyncio
+    import base64
+
+    from tendermint_tpu_torch.config import LightConfig
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.light import (Client, LightStore, ServingPool,
+                                            TrustOptions)
+    from tendermint_tpu_torch.light import serving
+    from tendermint_tpu_torch.light.proxy import LightProxy
+    from tendermint_tpu_torch.rpc.jsonrpc import HTTPClient, RPCError
+
+    period = SS_TRUST_PERIOD_S * 10**9
+    faults: list = []
+    lc = Client(gdoc.chain_id,
+                TrustOptions(period_ns=period, height=1,
+                             hash=bytes.fromhex(ready["hashes"][0])),
+                rpc_provider(frame["rpc"][2], "primary"),
+                [rpc_provider(frame["rpc"][3], "witness")],
+                LightStore(MemDB()))
+    k0 = exec_counts()
+    await lc.initialize()
+    init_launches = exec_delta(k0)
+    pool = ServingPool(lc, workers=SS_POOL_WORKERS, config=LightConfig(),
+                       on_fault=faults.append)
+    ports = await pool.listen("127.0.0.1")
+    heights = [2 + (2 * i) % (P2P_SYNC_BLOCKS - 1)
+               for i in range(SS_POOL_CLIENTS)]
+    record: dict = {}
+
+    async def one(i: int, h: int):
+        cl = TimedRpc(ports[i % len(ports)], record)
+        cm = await cl.call("commit", height=h)
+        vals = await cl.call("validators", height=h, per_page=100)
+        return cm, vals
+
+    met0 = json.loads(json.dumps(serving.METRICS))
+    k1 = exec_counts()
+    t0 = time.perf_counter()
+    try:
+        res = await asyncio.gather(*(one(i, h) for i, h in
+                                     enumerate(heights)))
+        pool_s = time.perf_counter() - t0
+    finally:
+        pool.close()
+    pool_launches = exec_delta(k1)
+    met = {k: {b: n - met0[k].get(b, 0) for b, n in v.items()
+               if n != met0[k].get(b, 0)}
+           for k, v in serving.METRICS.items()}
+    # every answer the chain's: the commit (header and every signature)
+    # and the page's validators (address, key, power) as an honest RPC
+    # server reads them from the chain's stores
+    host, _, port = frame["rpc"][0].rpartition(":")
+    honest = HTTPClient(host, int(port))
+    pubs = {base64.b64encode(k).decode() for k in ready["pubs"]}
+    for h, (cm, vals) in zip(heights, res):
+        want_cm = await honest.call("commit", height=h)
+        want_vals = await honest.call("validators", height=h, per_page=100)
+        if cm["signed_header"] != want_cm["signed_header"] or \
+                cm["signed_header"]["commit"]["block_id"]["hash"].lower() \
+                != ready["hashes"][h - 1]:
+            raise AssertionError(f"statesync: the pool's /commit at {h}")
+        if [(v["address"], v["pub_key"], v["voting_power"])
+                for v in vals["validators"]] != \
+                [(v["address"], v["pub_key"], v["voting_power"])
+                 for v in want_vals["validators"]] or \
+                len(vals["validators"]) != 100 or \
+                vals["total"] != want_vals["total"] or \
+                vals["total"] != str(P2P_SYNC_VALIDATORS) or \
+                any(v["pub_key"]["value"] not in pubs
+                    for v in vals["validators"]):
+            raise AssertionError(f"statesync: the pool's /validators at {h}")
+    # at least one K4 launch at the pool's width, one a device flush
+    device = met["verify_launches"].get("device", 0)
+    if faults or pool.fault is not None or device < 1 or \
+            pool_launches != {"general_verify": device}:
+        raise AssertionError(f"statesync: the pool launched {pool_launches} "
+                             f"for {met} ({faults})")
+    # the forged primary
+    trusted = P2P_FORGED_AT - 2
+    flc = Client(gdoc.chain_id,
+                 TrustOptions(period_ns=period, height=trusted,
+                              hash=bytes.fromhex(ready["hashes"][trusted - 1])),
+                 rpc_provider(frame["forged_rpc"], "forged"),
+                 [rpc_provider(frame["rpc"][3], "witness")],
+                 LightStore(MemDB()))
+    k2 = exec_counts()
+    await flc.initialize()
+    fproxy = LightProxy(flc, on_fault=faults.append)
+    port = await fproxy.listen("127.0.0.1", 0)
+    try:
+        await HTTPClient("127.0.0.1", port).call(
+            "commit", height=P2P_FORGED_AT - 1)
+        refused = None
+    except RPCError as e:
+        refused = (e.code, e.message[:160])
+    finally:
+        fproxy.close()
+    forged_launches = exec_delta(k2)
+    if refused is None or refused[0] != -32603 or \
+            "light verification failed" not in refused[1] or faults or \
+            flc.store.latest_height() != trusted:
+        raise AssertionError(f"statesync: the forged commit was not "
+                             f"refused: {refused} {faults}")
+    n_req = 2 * len(heights)
+    return dict(workers=SS_POOL_WORKERS, clients=SS_POOL_CLIENTS,
+                heights=[min(heights), max(heights), len(set(heights))],
+                requests=n_req, seconds=pool_s,
+                verified_per_s=n_req / pool_s,
+                routes_p50_ms={r: statistics.median(ms)
+                               for r, ms in sorted(record.items())},
+                plane=dict(requests=pool.plane.requests,
+                           coalesced=pool.plane.coalesced,
+                           cache_hits=pool.plane.cache_hits,
+                           sheds=dict(pool.plane.sheds)),
+                metrics=met, init_launches=init_launches,
+                launches=pool_launches,
+                forged=dict(trusted=trusted, height=P2P_FORGED_AT - 1,
+                            refused=refused, launches=forged_launches))
+
+
+async def ss_phase(servers) -> dict:
+    """The statesync phase: the join, then the serving pool."""
+    ready = getattr(servers, "ready", None)
+    if ready is None:
+        ready = servers.ready = await servers.aread(timeout=600)
+    servers.send({"op": "statesync"})
+    frame = await servers.aread()
+    gdoc = p2p_genesis(P2P_SYNC_CHAIN, ready["pubs"])
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    servers.send({"op": "rpc_stats"})
+    await servers.aread()  # nothing before the join
+    join = await ss_join(frame, ready, gdoc)
+    join["seconds"] = time.perf_counter() - t
+    servers.send({"op": "rpc_stats"})
+    join["rpc_servers_ms"] = await servers.aread()
+    t = time.perf_counter()
+    pool = await ss_serving_pool(gdoc, frame, ready)
+    pool["phase_s"] = time.perf_counter() - t
+    servers.send({"op": "rpc_stats"})
+    pool["rpc_servers_ms"] = await servers.aread()
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    want: dict = {}
+    for part in (join["launches"], pool["init_launches"], pool["launches"],
+                 pool["forged"]["launches"]):
+        for k, n in part.items():
+            want[k] = want.get(k, 0) + n
+    if launches != want:
+        raise AssertionError(f"statesync: launches {launches}, the parts "
+                             f"{want}")
+    return dict(join=join, serving_pool=pool, launches=launches)
+
+
 def statesync_phase(servers=None) -> dict:
     """statesync on the card (docstring, phase 17), served by `servers`
     (the p2p phase's `p2p_servers` child; None: started here)."""
@@ -8087,7 +8841,7 @@ def statesync_phase(servers=None) -> dict:
     if own:
         servers = P2pChild("p2p_servers")
     try:
-        return asyncio.run(ss_join(servers))
+        return asyncio.run(ss_phase(servers))
     finally:
         if own:
             servers.close()
@@ -8765,7 +9519,11 @@ def main() -> int:
         if phase == "consensus_peers":
             return cs_peers_child()
         if phase == "p2p_peers":
-            return p2p_peers_child(sys.argv[sys.argv.index("--phase") + 2])
+            i = sys.argv.index("--phase")
+            return p2p_peers_child(sys.argv[i + 2], int(sys.argv[i + 3]))
+        if phase == "p2p_clients":
+            i = sys.argv.index("--phase")
+            return p2p_clients_child(int(sys.argv[i + 2]))
         if phase == "p2p_signer":
             i = sys.argv.index("--phase")
             return p2p_signer_child(int(sys.argv[i + 2]), sys.argv[i + 3])

@@ -6,8 +6,9 @@ BeginBlock/DeliverTx/EndBlock/Commit (consensus), and the four
 snapshot methods (statesync). Echo/Flush are transport-level.
 
 Messages are plain dataclasses (types.py) whose JSON wire bytes equal
-the reference's; the transport is in-process (client.LocalClient). The
-socket and gRPC transports wait for a later slice of the port.
+the reference's; the transports are in-process (client.LocalClient)
+and the varint-framed socket (client.SocketClient / server.SocketServer).
+The gRPC transport is not ported (ROADMAP Queue A item 9).
 """
 
 from .types import (  # noqa: F401

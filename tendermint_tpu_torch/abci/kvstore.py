@@ -6,8 +6,9 @@ tx count (matching the reference's size-as-apphash trick).
 PersistentKVStoreApp adds durable state, height tracking for crash
 replay (the Handshaker relies on Info.last_block_height), validator
 updates via "val:<pubkey-hex>!<power>" txs, and statesync snapshots.
-The reference's MerkleKVStoreApp (proof-capable queries, abci/kv_proofs.py)
-waits for the port's RPC layer (ROADMAP Queue A item 7).
+MerkleKVStoreApp makes the app hash a merkle root over the kv pairs and
+answers `query(prove=True)` with the proof ops of abci/kv_proofs.py,
+which the light proxy's verified abci_query checks.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import json
 import struct
 
+from ..crypto import merkle
 from ..libs.db import DB, MemDB
 from . import types as t
 
@@ -324,3 +326,76 @@ class PersistentKVStoreApp(KVStoreApp):
         }).encode()))
         self.db.write_batch(ops)
         return t.ResponseApplySnapshotChunk(t.ApplySnapshotChunkResult.ACCEPT)
+
+
+class MerkleKVStoreApp(PersistentKVStoreApp):
+    """Proof-capable kvstore: the app hash is an RFC-6962 merkle root
+    over the kv pairs sorted by key, and `query(prove=True)` returns
+    value/absence proof ops verifiable against a light-verified
+    header's app_hash (the capability the reference's light RPC
+    client consumes, light/rpc/client.go:104-151 — its example apps
+    delegate the proof format to the application, as here; formats in
+    abci/kv_proofs.py). Rebuilds the tree per commit — O(n log n) per
+    block, fine for an example app."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # Snapshot at construction: nothing is mid-block yet, so the
+        # db IS the committed state (a lazy first-query rebuild could
+        # race a half-applied block and cache an unprovable tree).
+        self._snapshot_committed()
+
+    def _sorted_pairs(self) -> list[tuple[bytes, bytes]]:
+        return sorted(
+            (k[len(b"kv:"):], v) for k, v in self.db.iterate_prefix(b"kv:")
+        )
+
+    def _snapshot_committed(self) -> bytes:
+        """Queries must prove against the last COMMITTED state —
+        deliver_tx writes the live db mid-block, and a proof over
+        half-applied state matches no header's app_hash. The proof
+        tree is built once here, not per query."""
+        from . import kv_proofs
+
+        self._committed_pairs = self._sorted_pairs()
+        root, proofs = merkle.proofs_from_byte_slices(
+            [kv_proofs.kv_leaf(k, v) for k, v in self._committed_pairs])
+        self._committed_proofs = proofs
+        return root
+
+    def _compute_app_hash(self) -> bytes:
+        return self._snapshot_committed()
+
+    def query(self, req: t.RequestQuery) -> t.ResponseQuery:
+        if req.path == "/val" or not req.prove:
+            return super().query(req)
+        from . import kv_proofs
+
+        pairs, proofs = self._committed_pairs, self._committed_proofs
+        keys = [k for k, _ in pairs]
+        import bisect
+
+        j = bisect.bisect_left(keys, req.data)
+        total = len(pairs)
+        if j < total and keys[j] == req.data:
+            op = kv_proofs.KVValueOp.encode(req.data, total, proofs[j])
+            value, log = pairs[j][1], "exists"
+        else:
+            left = (pairs[j - 1][0], pairs[j - 1][1], proofs[j - 1]) \
+                if j > 0 else None
+            right = (pairs[j][0], pairs[j][1], proofs[j]) \
+                if j < total else None
+            op = kv_proofs.KVAbsenceOp.encode(req.data, total, left, right)
+            value, log = b"", "does not exist"
+        return t.ResponseQuery(
+            key=req.data, value=value, log=log, height=self.height,
+            proof_ops=[op],
+        )
+
+    def apply_snapshot_chunk(
+        self, req: t.RequestApplySnapshotChunk
+    ) -> t.ResponseApplySnapshotChunk:
+        resp = super().apply_snapshot_chunk(req)
+        if len(self._restore_chunks) >= self._restore_snapshot.chunks:
+            self._snapshot_committed()  # restored db is the new state
+        return resp

@@ -1,17 +1,24 @@
-"""Node configuration (reference: config.py) — only the sections the
-port reads so far."""
+"""Node configuration (reference: config.py; Go config/config.go:55-68).
+
+One Config of per-module sections with validate_basic on each, saved
+and loaded in the reference's file format (a flat key = value list per
+[section]): a file either package saves loads in the other to an equal
+config. The [crypto] and [instrumentation] sections are carried and
+validated; what they configure (the launch ledger and watchdog, the
+Prometheus listener) is not ported yet (ROADMAP Queue A item 5), and a
+node refuses `instrumentation.prometheus` at construction."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 
 @dataclass
 class BaseConfig:
-    """The base section as far as the stores go (reference: config.py:15
-    BaseConfig): the data directory, the KV backend and its durability.
-    The key files, the ABCI transport and the peer filter come with the
-    node's assembly."""
+    """reference: config.py:15 BaseConfig: the data directory, the KV
+    backend and its durability, the key files, the remote signer's
+    address, the ABCI transport and app, and the peer filter."""
 
     chain_id: str = ""
     moniker: str = "node"
@@ -26,6 +33,35 @@ class BaseConfig:
     # NORMAL/OFF trade the tail of the log for write speed; only safe
     # for replayable non-validator workloads (libs/db.py SqliteDB).
     db_synchronous: str = "FULL"
+    genesis_file: str = "config/genesis.json"
+    priv_validator_key_file: str = "config/priv_validator_key.json"
+    priv_validator_state_file: str = "data/priv_validator_state.json"
+    # When set (e.g. "tcp://127.0.0.1:26659"), the node LISTENS here
+    # for a remote signer to dial in and uses it instead of the file
+    # key (Go reference: config.go PrivValidatorListenAddr, wired at
+    # node.go:663).
+    priv_validator_laddr: str = ""
+    # Pin of the remote signer's LINK identity: hex address of the
+    # signer sidecar's link key. Without it, whoever dials priv_validator_laddr first
+    # wins the pinned slot and the real signer is then rejected — a
+    # liveness attack if the laddr is reachable beyond loopback. Set
+    # this whenever priv_validator_laddr is not loopback/firewalled.
+    priv_validator_signer_id: str = ""
+    node_key_file: str = "config/node_key.json"
+    # builtin | socket (grpc: refused by the node, ROADMAP Queue A
+    # item 9)
+    abci: str = "builtin"
+    proxy_app: str = "kvstore"
+    # gate inbound conns/peers through ABCI /p2p/filter/... queries
+    # (reference config.BaseConfig.FilterPeers, node.go:432-466)
+    filter_peers: bool = False
+    # builtin kvstore: take a state-sync snapshot every N heights
+    # (0 = only advertise the live head; reference e2e app
+    # snapshot_interval)
+    snapshot_interval: int = 0
+
+    def resolve(self, path: str) -> str:
+        return path if os.path.isabs(path) else os.path.join(self.home, path)
 
     def validate_basic(self) -> None:
         if self.db_backend not in ("sqlite", "filedb", "memdb"):
@@ -34,6 +70,36 @@ class BaseConfig:
             raise ValueError(
                 f"db_synchronous must be OFF|NORMAL|FULL, "
                 f"not {self.db_synchronous!r}")
+
+
+@dataclass
+class RPCConfig:
+    """reference: config.py:69 RPCConfig. A node refuses `grpc_laddr`
+    and `pprof_laddr` at construction (ROADMAP Queue A items 9 and 5)."""
+
+    laddr: str = "tcp://127.0.0.1:26657"
+    grpc_laddr: str = ""  # gRPC broadcast API (reference rpc/grpc)
+    unsafe: bool = False  # expose unsafe_* / dial_* routes
+    max_open_connections: int = 900
+    max_subscription_clients: int = 100
+    max_subscriptions_per_client: int = 5
+    timeout_broadcast_tx_commit_ms: int = 10000
+    max_body_bytes: int = 1000000
+    pprof_laddr: str = ""
+    # Overload limiter (rpc/jsonrpc.py): at most this many requests in
+    # flight at once (0 = unlimited), and a token-bucket request rate
+    # with ~1 s of burst (0 = unlimited). Excess requests get a
+    # 429-style JSON-RPC error instead of queueing unboundedly.
+    max_concurrent_requests: int = 256
+    rate_limit_rps: float = 0.0
+
+    def validate_basic(self) -> None:
+        if self.timeout_broadcast_tx_commit_ms < 0:
+            raise ValueError("negative broadcast timeout")
+        if self.max_concurrent_requests < 0:
+            raise ValueError("negative max_concurrent_requests")
+        if self.rate_limit_rps < 0:
+            raise ValueError("negative rate_limit_rps")
 
 
 @dataclass
@@ -100,6 +166,41 @@ class ConsensusConfig:
                      "vote_buf_max"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be positive")
+
+
+@dataclass
+class CryptoConfig:
+    """Verify-backend intent + launch-ledger sizing (reference:
+    config.py:391 CryptoConfig; its crypto/tpu/{watchdog,ledger}.py).
+    Carried and validated: the watchdog and the ledger it configures
+    are not ported yet (ROADMAP Queue A item 5).
+
+    `backend` is the operator's promise, not a dispatch switch: the
+    verify paths keep their own breaker-aware device/host ladder
+    regardless. With the accelerator named, the reference's watchdog
+    degrades its /status device check when launches land on the CPU,
+    raise, go silent past the window or drift past the recorded
+    baseline; "auto" (default) and "cpu" never degrade on it. The
+    values keep the reference's vocabulary ("tpu" names the
+    accelerator) so a file loads in either package."""
+
+    backend: str = "auto"
+    # effective-backend classification window: how long without a
+    # successful device launch before the watchdog calls the plane
+    # idle/degraded
+    watchdog_window_s: float = 60.0
+    # bounded launch-ledger ring (records, process-global; ~1 KB each)
+    ledger_capacity: int = 512
+
+    def validate_basic(self) -> None:
+        if self.backend not in ("auto", "tpu", "cpu"):
+            raise ValueError(
+                f"unknown crypto.backend {self.backend!r} "
+                "(want auto|tpu|cpu)")
+        if self.watchdog_window_s <= 0:
+            raise ValueError("crypto.watchdog_window_s must be positive")
+        if self.ledger_capacity < 16:
+            raise ValueError("crypto.ledger_capacity must be >= 16")
 
 
 def fast_consensus_config() -> ConsensusConfig:
@@ -169,11 +270,10 @@ class P2PConfig:
 
 @dataclass
 class StateSyncConfig:
-    """reference: config.py:232 StateSyncConfig, the fields its node
-    runner reads. `rpc_servers` names the light client's RPC providers,
-    which come with RPC (the port's callers give the client its
-    providers). The chunk fetchers and their timeout are the syncer's
-    constants (statesync/syncer.py CHUNK_FETCHERS, CHUNK_TIMEOUT)."""
+    """reference: config.py:232 StateSyncConfig. `rpc_servers` names the
+    RPC servers the node's light client reads light blocks from
+    (light/provider.py RPCProvider), `trust_height` and `trust_hash`
+    its root of trust."""
 
     enable: bool = False
     rpc_servers: list[str] = field(default_factory=list)
@@ -181,10 +281,19 @@ class StateSyncConfig:
     trust_hash: str = ""
     trust_period_s: int = 168 * 3600
     discovery_time_s: int = 15
+    # the node hands these to its Syncer (the reference's node reads
+    # neither: its syncer runs the constants these defaults equal)
+    chunk_request_timeout_s: int = 10
+    chunk_fetchers: int = 4
 
     def validate_basic(self) -> None:
         if self.enable and self.trust_height <= 0:
             raise ValueError("statesync requires trust_height")
+        if self.chunk_fetchers < 1:
+            raise ValueError("statesync.chunk_fetchers must be at least 1")
+        if self.chunk_request_timeout_s <= 0:
+            raise ValueError(
+                "statesync.chunk_request_timeout_s must be positive")
 
 
 @dataclass
@@ -294,7 +403,10 @@ class SpeculationConfig:
     crypto/cuda/resident.py): commit verification launched
     speculatively as precommits arrive, served at commit time from a
     byte-exact template match — misses fall back to the ordinary
-    verify path, so these knobs tune performance, never correctness."""
+    verify path, so these knobs tune performance, never correctness.
+    `enabled` is read by the node's assembly alone."""
+
+    enabled: bool = True
 
     # ResidentArena capacity in signature lanes (sentinel included):
     # a 10,240-lane commit plus headroom. 134 B a lane resident, so the
@@ -336,6 +448,11 @@ class MeshConfig:
     # replicate while it fits, shard beyond). A set too large for one
     # device shards whatever this says.
     expanded_shard_crossover_keys: int = 0
+    # Split the speculation plane's arena into per-device shards when a
+    # mesh exists (crypto/cuda/resident.py make_arena): each splice
+    # uploads only a device's share of the deltas, and each shard
+    # carries its own known-answer sentinel.
+    arena_shards: bool = True
 
     def validate_basic(self) -> None:
         if self.expanded_shard_crossover_keys < 0:
@@ -344,8 +461,159 @@ class MeshConfig:
 
 
 def apply_mesh(cfg: MeshConfig) -> None:
-    """Apply a [mesh] section before anything builds expanded tables
-    (the reference applies it while assembling the node)."""
-    from .crypto.cuda import expanded
+    """Apply a [mesh] section before anything builds expanded tables or
+    a speculation arena (the node's assembly calls it first)."""
+    from .crypto.cuda import expanded, resident
 
     expanded.set_shard_crossover(cfg.expanded_shard_crossover_keys or None)
+    resident.set_arena_shards(cfg.arena_shards)
+
+
+@dataclass
+class InstrumentationConfig:
+    """reference: config.py:435. A node refuses `prometheus` at
+    construction (ROADMAP Queue A item 5)."""
+
+    prometheus: bool = False
+    prometheus_listen_addr: str = ":26660"
+    namespace: str = "tendermint"
+
+
+@dataclass
+class ChaosConfig:
+    """reference: config.py:442 ChaosConfig. `failpoints` is a
+    libs/failpoints.py spec string — e.g.
+    "wal.fsync=delay:50;nth=3,device.verify=error" — armed at node
+    build time. Config is the STRICT surface: a malformed spec fails
+    validate_basic. The port's spec takes the `nth` and `count`
+    triggers (the env variable, /debug/failpoint and `every=`/`prob=`
+    wait for ROADMAP Queue A item 6)."""
+
+    failpoints: str = ""
+
+    def validate_basic(self) -> None:
+        if self.failpoints:
+            from .libs.failpoints import validate_spec
+
+            # the SAME checks install_spec/arm() enforce (dry run):
+            # anything that would raise at node build must raise here
+            try:
+                validate_spec(self.failpoints)
+            except ValueError as e:
+                raise ValueError(f"[chaos] failpoints: {e}") from None
+
+
+@dataclass
+class TxIndexConfig:
+    """reference: config.py:465 (Go config/config.go:976) — which indexer
+    backs /tx_search and /block_search: "kv" (default) or "null"
+    (indexing disabled; the search RPCs then error)."""
+
+    indexer: str = "kv"
+
+    def validate_basic(self) -> None:
+        if self.indexer not in ("kv", "null"):
+            raise ValueError(f"unknown tx_index.indexer {self.indexer!r}")
+
+
+@dataclass
+class Config:
+    """reference: config.py:478 Config."""
+
+    base: BaseConfig = field(default_factory=BaseConfig)
+    rpc: RPCConfig = field(default_factory=RPCConfig)
+    p2p: P2PConfig = field(default_factory=P2PConfig)
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    light: LightConfig = field(default_factory=LightConfig)
+    statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
+    fastsync: FastSyncConfig = field(default_factory=FastSyncConfig)
+    consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    speculation: SpeculationConfig = field(
+        default_factory=SpeculationConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    crypto: CryptoConfig = field(default_factory=CryptoConfig)
+    tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
+    instrumentation: InstrumentationConfig = field(
+        default_factory=InstrumentationConfig
+    )
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+
+    def validate_basic(self) -> None:
+        self.base.validate_basic()
+        self.rpc.validate_basic()
+        self.p2p.validate_basic()
+        self.mempool.validate_basic()
+        self.light.validate_basic()
+        self.statesync.validate_basic()
+        self.fastsync.validate_basic()
+        self.consensus.validate_basic()
+        self.speculation.validate_basic()
+        self.mesh.validate_basic()
+        self.crypto.validate_basic()
+        self.tx_index.validate_basic()
+        self.chaos.validate_basic()
+
+    # -- file round trip (flat TOML-ish key=value per [section]) --
+
+    def save(self, path: str) -> None:
+        import dataclasses
+
+        lines = []
+        for section_name in ("base", "rpc", "p2p", "mempool", "light",
+                             "statesync", "fastsync", "consensus",
+                             "speculation", "mesh", "crypto",
+                             "tx_index", "instrumentation", "chaos"):
+            section = getattr(self, section_name)
+            lines.append(f"[{section_name}]")
+            for f in dataclasses.fields(section):
+                v = getattr(section, f.name)
+                if isinstance(v, bool):
+                    sv = "true" if v else "false"
+                elif isinstance(v, list):
+                    sv = '"' + ",".join(v) + '"'
+                elif isinstance(v, str):
+                    sv = f'"{v}"'
+                else:
+                    sv = str(v)
+                lines.append(f"{f.name} = {sv}")
+            lines.append("")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines))
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        import dataclasses
+
+        cfg = cls()
+        section = None
+        with open(path) as fh:
+            for raw in fh:
+                line = raw.strip()
+                if not line or line.startswith("#"):
+                    continue
+                if line.startswith("[") and line.endswith("]"):
+                    section = getattr(cfg, line[1:-1], None)
+                    continue
+                if section is None or "=" not in line:
+                    continue
+                key, _, val = line.partition("=")
+                key, val = key.strip(), val.strip()
+                fld = next(
+                    (f for f in dataclasses.fields(section) if f.name == key),
+                    None,
+                )
+                if fld is None:
+                    continue
+                if fld.type in ("bool", bool):
+                    setattr(section, key, val == "true")
+                elif fld.type in ("int", int):
+                    setattr(section, key, int(val))
+                elif fld.type in ("float", float):
+                    setattr(section, key, float(val))
+                elif fld.type.startswith("list") if isinstance(fld.type, str) else False:
+                    s = val.strip('"')
+                    setattr(section, key, [x for x in s.split(",") if x])
+                else:
+                    setattr(section, key, val.strip('"'))
+        return cfg

@@ -924,11 +924,21 @@ class MeshResidentArena:
         return self
 
 
+# Per-device arena shards on or off (the [mesh] section's arena_shards,
+# applied by config.apply_mesh when a node is assembled).
+_ARENA_SHARDS = True
+
+
+def set_arena_shards(on: bool) -> None:
+    global _ARENA_SHARDS
+    _ARENA_SHARDS = bool(on)
+
+
 def make_arena(lanes: int, width: int = WIDTH):
     """The speculation plane's arena factory: arena shards over the
-    effective mesh when there is one, else one ResidentArena on the
-    default device."""
+    effective mesh when there is one (and [mesh] arena_shards is on),
+    else one ResidentArena on the default device."""
     mesh = tv.effective_mesh()
-    if mesh is not None:
+    if _ARENA_SHARDS and mesh is not None:
         return MeshResidentArena(lanes, width, mesh=mesh)
     return ResidentArena(lanes, width)

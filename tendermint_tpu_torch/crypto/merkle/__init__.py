@@ -1,8 +1,8 @@
 """RFC-6962-style merkle tree with domain-separated leaf/inner hashing
 (reference: crypto/merkle/tree.go:9,62 for the root that validator-set,
 commit and header hashes use; crypto/merkle/proof.go:35,52 for the
-proofs a block's part set carries). The proof-operator runtime comes
-with a caller (RPC, light client)."""
+proofs a block's part set carries; proof_op.go for the composable
+proof operators an app's query proofs are checked with)."""
 
 from __future__ import annotations
 
@@ -137,3 +137,83 @@ def _trails_from_byte_slices(items: list[bytes]):
     right_root.parent = root
     right_root.left = left_root
     return lefts + rights, root
+
+
+# --- Proof operator composition (reference: crypto/merkle/proof_op.go) -------
+
+
+class ProofOp:
+    """One step of a composable proof: key + typed verification."""
+
+    def __init__(self, op_type: str, key: bytes, data: bytes):
+        self.op_type = op_type
+        self.key = key
+        self.data = data
+
+
+class ProofOperator:
+    """Structural interface for one composable proof step."""
+
+    def run(self, values: list[bytes]) -> list[bytes]:  # pragma: no cover
+        raise NotImplementedError
+
+    def get_key(self) -> bytes:  # pragma: no cover
+        raise NotImplementedError
+
+
+class ProofOperators(list):
+    def verify_value(self, root: bytes, keypath: list[bytes], value: bytes) -> bool:
+        return self.verify(root, keypath, [value])
+
+    def verify(self, root: bytes, keypath: list[bytes], args: list[bytes]) -> bool:
+        keys = list(keypath)
+        for op in self:
+            key = op.get_key()
+            if key:
+                if not keys or keys[-1] != key:
+                    return False
+                keys.pop()
+            try:
+                args = op.run(args)
+            except Exception:
+                return False
+        return bool(args) and args[0] == root and not keys
+
+
+class ProofRuntime:
+    """Registry of ProofOp decoders (reference:
+    crypto/merkle/proof_op.go ProofRuntime): apps emit wire-level
+    `ProofOp(type, key, data)` triples; verifiers decode each through
+    the decoder registered for its type and run the resulting
+    operator chain. Keypaths here are `list[bytes]` (innermost key
+    LAST, matching ProofOperators.verify) rather than the reference's
+    URL-escaped KeyPath strings."""
+
+    def __init__(self):
+        self._decoders: dict[str, object] = {}
+
+    def register(self, op_type: str, decoder) -> None:
+        self._decoders[op_type] = decoder
+
+    def decode(self, op: ProofOp) -> ProofOperator:
+        dec = self._decoders.get(op.op_type)
+        if dec is None:
+            raise ValueError(f"unregistered proof op type {op.op_type!r}")
+        return dec(op)
+
+    def _operators(self, ops: list[ProofOp]) -> ProofOperators:
+        return ProofOperators(self.decode(op) for op in ops)
+
+    def verify_value(self, ops: list[ProofOp], root: bytes,
+                     keypath: list[bytes], value: bytes) -> bool:
+        try:
+            return self._operators(ops).verify_value(root, keypath, value)
+        except ValueError:
+            return False
+
+    def verify_absence(self, ops: list[ProofOp], root: bytes,
+                       keypath: list[bytes]) -> bool:
+        try:
+            return self._operators(ops).verify(root, keypath, [])
+        except ValueError:
+            return False

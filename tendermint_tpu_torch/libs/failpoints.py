@@ -14,9 +14,14 @@ state), the speculation plane, the p2p send path and state sync, and to the
 
 A trigger decides which armed hits fire: ``nth=N`` only the N-th
 (1-based), ``count=N`` disarm after N fires; with none, every hit
-fires. Arm with ``arm(name, action, nth=..., delay_ms=...)``;
+fires. Arm with ``arm(name, action, nth=..., delay_ms=...)``, or a
+whole spec string ("name=action[:arg][;trig=val...]", comma-separated)
+with ``install_spec`` — the config surface (``[chaos] failpoints``),
+strict: a malformed entry raises, and ``validate_spec`` is its dry run.
 ``hit(name, payload)`` is the call-site hook, a dict lookup when
 nothing is armed; ``hit_async`` is its form for coroutine call sites.
+The reference's env variable, ``/debug/failpoint`` and its ``every``
+and ``prob`` triggers are not ported (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -160,6 +165,14 @@ def arm(name: str, action: str, *, delay_ms: float = 0.0,
         nth: int | None = None, count: int | None = None) -> None:
     """Arm `name` with `action`. Raises ValueError on an unknown point,
     action, delay or trigger."""
+    _check(name, action, delay_ms, nth, count)
+    with _lock:
+        _ACTIVE[name] = _Armed(action, delay_ms, nth, count)
+    logger.warning("failpoint armed: %s %s", name, action)
+
+
+def _check(name: str, action: str, delay_ms: float = 0.0,
+           nth: int | None = None, count: int | None = None) -> None:
     if name not in CATALOG:
         raise ValueError(f"unknown failpoint {name!r}")
     if action not in ACTIONS:
@@ -169,9 +182,70 @@ def arm(name: str, action: str, *, delay_ms: float = 0.0,
     for label, v in (("nth", nth), ("count", count)):
         if v is not None and v < 1:
             raise ValueError(f"{label} must be >= 1")
-    with _lock:
-        _ACTIVE[name] = _Armed(action, delay_ms, nth, count)
-    logger.warning("failpoint armed: %s %s", name, action)
+
+
+def parse_spec(spec: str) -> list[tuple[str, dict]]:
+    """Parse "name=action[:arg][;trig=val...]" comma-separated entries
+    into [(name, arm-kwargs)] (reference: libs/failpoints.py
+    parse_spec). Raises ValueError on the first bad entry."""
+    out: list[tuple[str, dict]] = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        head, *trigs = entry.split(";")
+        name, sep, action = head.partition("=")
+        if not sep:
+            raise ValueError(f"missing '=' in failpoint entry {entry!r}")
+        name, action = name.strip(), action.strip()
+        kwargs: dict = {}
+        action, colon, arg = action.partition(":")
+        if action == "delay":
+            kwargs["delay_ms"] = float(arg) if colon else 100.0
+        elif colon:
+            raise ValueError(
+                f"action {action!r} takes no argument ({entry!r})")
+        for trig in trigs:
+            k, sep2, v = trig.partition("=")
+            k, v = k.strip(), v.strip()
+            if not sep2 or k not in ("nth", "count"):
+                raise ValueError(f"bad trigger {trig!r} in {entry!r}")
+            kwargs[k] = int(v)
+        out.append((name, {"action": action, **kwargs}))
+    return out
+
+
+def validate_spec(spec: str) -> None:
+    """Dry run of install_spec: the grammar and every check arm()
+    makes, so config validation refuses what arming would."""
+    for name, kwargs in parse_spec(spec):
+        _check(name, **kwargs)
+
+
+def install_spec(spec: str, source: str = "config",
+                 strict: bool = True) -> int:
+    """Arm every entry of a spec string; the number armed. strict=True
+    raises on the first malformed entry (the config surface);
+    strict=False logs and skips it."""
+    try:
+        entries = parse_spec(spec)
+    except ValueError as e:
+        if strict:
+            raise
+        logger.warning("ignoring malformed %s failpoint spec: %s",
+                       source, e)
+        return 0
+    armed = 0
+    for name, kwargs in entries:
+        try:
+            arm(name, **kwargs)
+            armed += 1
+        except ValueError as e:
+            if strict:
+                raise
+            logger.warning("ignoring bad %s failpoint entry %r: %s",
+                           source, name, e)
+    return armed
 
 
 def disarm(name: str) -> bool:

@@ -1,9 +1,18 @@
-"""Retry backoff (reference: libs/net.py, trimmed to the policy the
-device breakers use)."""
+"""Address and retry helpers (reference: libs/net.py): the node, its
+RPC and the ABCI app creator split listen addresses; the device
+breakers, the ABCI client's re-dial and p2p back off."""
 
 from __future__ import annotations
 
 import random
+
+
+def split_laddr(laddr: str,
+                default_host: str = "0.0.0.0") -> tuple[str, int]:
+    """'tcp://host:port' or 'host:port' -> (host, port)."""
+    addr = laddr[len("tcp://"):] if laddr.startswith("tcp://") else laddr
+    host, _, port = addr.rpartition(":")
+    return host or default_host, int(port)
 
 
 def jittered_backoff(attempt: int, base: float, cap: float) -> float:

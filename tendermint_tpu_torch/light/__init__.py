@@ -7,8 +7,9 @@ continuity, distant headers by the +1/3-trust overlap rule with
 bisection (Go reference light/client.go:114, verifier.go:33,102).
 Every commit check rides the batched surfaces of ValidatorSet, and the
 serving plane's verify collector (serving.py) pools the checks of many
-requests into one wide launch. The serving pool, the proxy and the
-JSON-RPC provider come with the port's RPC layer."""
+requests into one wide launch; the light proxy (proxy.py) serves
+verified RPC, and ServingPool puts several proxies in front of one
+plane. RPCProvider fetches light blocks over a node's JSON-RPC."""
 
 from .client import Client, TrustOptions
 from .errors import (
@@ -18,11 +19,12 @@ from .errors import (
     OutsideTrustingPeriodError,
     VerificationFailedError,
 )
-from .provider import BlockStoreProvider, Provider
+from .provider import BlockStoreProvider, Provider, RPCProvider
 from .serving import (
     LightServingShedError,
     LightVerifyCollector,
     ServingPlane,
+    ServingPool,
     VerifiedHeaderCache,
     verify_through,
 )
@@ -39,7 +41,8 @@ from .verifier import (
 __all__ = [
     "Client", "TrustOptions", "LightBlock", "SignedHeader",
     "LightClientAttackEvidence", "LightStore", "Provider",
-    "BlockStoreProvider", "ServingPlane", "VerifiedHeaderCache",
+    "BlockStoreProvider", "RPCProvider", "ServingPlane", "ServingPool",
+    "VerifiedHeaderCache",
     "LightVerifyCollector", "LightServingShedError", "verify_through",
     "verify", "verify_adjacent", "verify_non_adjacent", "verify_backwards",
     "DEFAULT_TRUST_LEVEL", "LightClientError", "VerificationFailedError",

@@ -28,8 +28,9 @@ Counts go into ``METRICS``, a plain dict (crypto/batch.py's
 convention): verify launches and lanes by backend ("device", "host",
 "host_recheck"). The plane keeps its request, coalescing, cache and
 shed tallies on itself (read by ``status_check``). The degrades also
-move crypto.batch.METRICS as every device path of the port does. The
-serving pool and the proxy come with the port's RPC layer.
+move crypto.batch.METRICS as every device path of the port does.
+ServingPool puts N LightProxy workers (light/proxy.py) in front of one
+plane.
 """
 
 from __future__ import annotations
@@ -699,3 +700,59 @@ class ServingPlane:
                 out["detail"] = ("ed25519 breaker open: light plane "
                                  "verifying on host")
         return out
+
+
+class ServingPool:
+    """N LightProxy workers sharing ONE plane (one client, one trusted
+    store, one verify collector, one cache) — the horizontally
+    scalable serving face: more workers add RPC accept/parse
+    capacity, while every verification still coalesces in the shared
+    plane. A port fault (UNCAUGHT) met under any worker's request is
+    the pool's `fault` and goes to `on_fault` (light/proxy.py)."""
+
+    def __init__(self, client, workers: int | None = None, config=None,
+                 forward_clients=None, proof_runtime=None, on_fault=None):
+        from ..config import LightConfig
+        from .proxy import LightProxy
+
+        cfg = config or LightConfig()
+        n = cfg.workers if workers is None else workers
+        if n < 1:
+            raise ValueError("serving pool needs at least one worker")
+        self.plane = ServingPlane(client, cfg)
+        fwds = forward_clients or [None] * n
+        if len(fwds) != n:
+            raise ValueError(
+                f"{len(fwds)} forward clients for {n} workers")
+        self.fault: BaseException | None = None
+        self._on_fault = on_fault
+        self.proxies = [
+            LightProxy(client, forward_client=fwds[i],
+                       proof_runtime=proof_runtime, plane=self.plane,
+                       on_fault=self._fault)
+            for i in range(n)
+        ]
+        self.ports: list[int] = []
+
+    def _fault(self, exc: BaseException) -> None:
+        if self.fault is None:
+            self.fault = exc
+        if self._on_fault is not None:
+            self._on_fault(exc)
+
+    async def listen(self, host: str,
+                     ports: list[int] | None = None) -> list[int]:
+        ports = ports or [0] * len(self.proxies)
+        if len(ports) != len(self.proxies):
+            raise ValueError(
+                f"{len(ports)} ports for {len(self.proxies)} workers")
+        self.ports = [await proxy.listen(host, port)
+                      for proxy, port in zip(self.proxies, ports)]
+        logger.info("light serving pool: %d workers on %s:%s",
+                    len(self.proxies), host, self.ports)
+        return self.ports
+
+    def close(self) -> None:
+        for proxy in self.proxies:
+            proxy.close()
+        self.plane.close()

@@ -46,7 +46,7 @@ _MAX_ADVERTISED = 10  # reference recentSnapshots
 
 class StateSyncReactor(Reactor):
     def __init__(self, app_snapshot_conn, state_provider=None,
-                 discovery_time: float = 2.0):
+                 discovery_time: float = 2.0, **syncer_opts):
         super().__init__("statesync")
         self.app = app_snapshot_conn
         self.syncer: Syncer | None = None
@@ -54,7 +54,8 @@ class StateSyncReactor(Reactor):
             self.syncer = Syncer(app_snapshot_conn, state_provider,
                                  self._request_chunk, discovery_time,
                                  request_snapshots=self._request_snapshots,
-                                 on_strike=self._strike_peer)
+                                 on_strike=self._strike_peer,
+                                 **syncer_opts)
 
     def _strike_peer(self, peer_id: str, reason: str) -> None:
         """Route a syncer-detected fault (quarantined poisoner,

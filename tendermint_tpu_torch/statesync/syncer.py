@@ -135,7 +135,9 @@ def active_syncer() -> "Syncer | None":
 class Syncer:
     def __init__(self, app_snapshot_conn, state_provider,
                  request_chunk, discovery_time: float = DISCOVERY_TIME,
-                 request_snapshots=None, on_strike=None):
+                 request_snapshots=None, on_strike=None,
+                 chunk_fetchers: int = CHUNK_FETCHERS,
+                 chunk_timeout: float = CHUNK_TIMEOUT):
         self.app = app_snapshot_conn
         self.state_provider = state_provider
         self.request_chunk = request_chunk  # async (peer_id, snapshot, idx)
@@ -146,6 +148,11 @@ class Syncer:
         # the behaviour reporter (trust strike); wired by the reactor
         self.on_strike = on_strike
         self.discovery_time = discovery_time
+        # the chunks in flight at once, and the seconds before a chunk
+        # not yet answered is asked again (statesync.chunk_fetchers,
+        # statesync.chunk_request_timeout_s)
+        self.chunk_fetchers = chunk_fetchers
+        self.chunk_timeout = chunk_timeout
         self.pool = SnapshotPool(on_peer_overflow=self._on_pool_overflow)
         self._chunks: dict[int, bytes] = {}
         self._chunk_senders: dict[int, str] = {}
@@ -435,10 +442,10 @@ class Syncer:
             for idx in range(applied, snapshot.chunks):
                 if idx in self._chunks:
                     continue
-                if outstanding >= CHUNK_FETCHERS:
+                if outstanding >= self.chunk_fetchers:
                     break
                 last = requested.get(idx, 0.0)
-                due = last == 0.0 or now - last > CHUNK_TIMEOUT
+                due = last == 0.0 or now - last > self.chunk_timeout
                 if due and now >= not_before.get(idx, 0.0):
                     n = attempts.get(idx, 0)
                     if n >= CHUNK_RETRIES:
@@ -481,7 +488,7 @@ class Syncer:
                     continue  # work arrived before the clear: no wait
                 # wake early if a backed-off chunk comes due before the
                 # fetch timeout — backoff must not turn into a stall
-                wait = CHUNK_TIMEOUT
+                wait = self.chunk_timeout
                 now = loop.time()
                 for idx, nb in not_before.items():
                     if idx not in self._chunks and nb > now:

@@ -1,7 +1,7 @@
 """Port parity for the ABCI layer (abci/types.py, abci/client.py,
 abci/kvstore.py, proxy/__init__.py, libs/service.py), against the JAX
-package, in the shapes of tests/test_abci.py (all but the socket and
-gRPC transports, which wait for a later slice of the port).
+package, in the shapes of tests/test_abci.py (the socket transport is
+in tests/test_torch_abci_socket.py; the gRPC one is not ported).
 
 Every message kind is built from one numpy seed in both packages: the
 encoded bytes must be equal, and each package must decode the other's
@@ -310,10 +310,15 @@ def test_local_client_in_flight_counts_lock_waiters():
 
 
 def test_client_creator_with_an_address_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        pclient.ClientCreator(addr=("127.0.0.1", 26658))
-    with pytest.raises(NotImplementedError):
-        pclient.ClientCreator(unix_path="/nonexistent.sock")
+    """Only a gRPC address raises now (ROADMAP Queue A item 9); a socket
+    address or a unix socket makes SocketClients, as in the reference
+    (tests/test_torch_abci_socket.py drives them)."""
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        pclient.ClientCreator(grpc_addr=("127.0.0.1", 26658))
+    for kw in ({"addr": ("127.0.0.1", 26658)},
+               {"unix_path": "/nonexistent.sock"}):
+        assert type(pclient.ClientCreator(**kw).new_client()) is \
+            pclient.SocketClient
 
 
 @pytest.mark.parametrize("package", sorted(PACKAGES))

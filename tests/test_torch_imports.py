@@ -1,7 +1,7 @@
 """The port stands alone: no module of tendermint_tpu_torch, and neither
 chip_smoke.py nor sweep_warps.py, imports jax or anything of the JAX package; a CPU
 verify_commit and a CPU sr25519 batch verify in a fresh interpreter
-load neither."""
+load neither. No port module imports grpc, which the GPU machine lacks."""
 
 import ast
 import os
@@ -40,10 +40,23 @@ def test_port_sources_import_no_jax_and_no_reference():
         "libs/net", "libs/failpoints", "statesync/__init__",
         "statesync/messages", "statesync/snapshots", "statesync/stateprovider",
         "statesync/syncer", "statesync/reactor", "p2p/pex/__init__",
-        "p2p/pex/addrbook", "p2p/pex/reactor")} <= names
+        "p2p/pex/addrbook", "p2p/pex/reactor", "rpc/__init__",
+        "rpc/jsonrpc", "rpc/core", "light/proxy", "abci/server",
+        "abci/kv_proofs", "abci/counter", "node/__init__")} <= names
     bad = {str(f.relative_to(ROOT)): sorted(n for n in _imported(f)
                                              if _forbidden(n))
            for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_port_sources_import_no_grpc():
+    """The gRPC transports are not ported (ROADMAP Queue A item 9): no
+    module the chip script can reach may import grpc."""
+    files = sorted((ROOT / "tendermint_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = {str(f.relative_to(ROOT)): sorted(
+        n for n in _imported(f) if n == "grpc" or n.startswith("grpc."))
+        for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
 

@@ -121,29 +121,92 @@ def test_messages_roundtrip_and_refusals(p):
 
 def test_statesync_config_is_the_reference_fields_its_node_reads():
     """The port's StateSyncConfig: the reference's fields with their
-    defaults, less the chunk fetchers and their timeout, which the
-    syncer takes from its constants in both packages; validate_basic
-    refuses what the reference's refuses."""
+    defaults (the config file carries them all since the port's Config
+    saves and loads the reference's format). The port's node hands the
+    chunk fetchers and their timeout to its Syncer, where the
+    reference's node reads neither and its syncer runs the constants
+    that the defaults equal (a recorded divergence); validate_basic
+    refuses what the reference's refuses, and a value of either that
+    would stall the fetch loop."""
     import dataclasses
 
+    import test_torch_node as node_harness
     from tendermint_tpu import config as rconfig
     from tendermint_tpu_torch import config as pconfig
 
     port, ref = pconfig.StateSyncConfig(), rconfig.StateSyncConfig()
     names = [f.name for f in dataclasses.fields(port)]
     assert names == ["enable", "rpc_servers", "trust_height", "trust_hash",
-                     "trust_period_s", "discovery_time_s"]
+                     "trust_period_s", "discovery_time_s",
+                     "chunk_request_timeout_s", "chunk_fetchers"]
+    assert names == [f.name for f in dataclasses.fields(ref)]
     assert {n: getattr(port, n) for n in names} == \
         {n: getattr(ref, n) for n in names}
-    assert PORT.syncer.CHUNK_FETCHERS == ref.chunk_fetchers
-    assert PORT.syncer.CHUNK_TIMEOUT == ref.chunk_request_timeout_s
+    assert PORT.syncer.CHUNK_FETCHERS == ref.chunk_fetchers == \
+        port.chunk_fetchers
+    assert PORT.syncer.CHUNK_TIMEOUT == ref.chunk_request_timeout_s == \
+        port.chunk_request_timeout_s
     for kw in (dict(enable=True), dict(enable=True, trust_height=-1)):
         with pytest.raises(ValueError, match="trust_height"):
             pconfig.StateSyncConfig(**kw).validate_basic()
         with pytest.raises(ValueError, match="trust_height"):
             rconfig.StateSyncConfig(**kw).validate_basic()
-    pconfig.StateSyncConfig(enable=True, trust_height=1).validate_basic()
-    pconfig.StateSyncConfig().validate_basic()
+    for kw in (dict(chunk_fetchers=0), dict(chunk_request_timeout_s=0)):
+        with pytest.raises(ValueError, match=next(iter(kw))):
+            pconfig.StateSyncConfig(**kw).validate_basic()
+
+    async def node_syncer(settings):
+        node = node_harness.make_node(
+            node_harness.PORT, tmp, 0, 2, base={"fast_sync": True},
+            statesync={"enable": True, "trust_height": 1, **settings})
+        node.state_provider_factory = lambda n: object()
+        await node._build()
+        return node.ss_reactor.syncer
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        import pathlib
+        tmp = pathlib.Path(d)
+        default = run(node_syncer({}))
+        assert (default.chunk_fetchers, default.chunk_timeout) == \
+            (PORT.syncer.CHUNK_FETCHERS, PORT.syncer.CHUNK_TIMEOUT)
+        got = run(node_syncer({"chunk_fetchers": 7,
+                               "chunk_request_timeout_s": 3}))
+        assert (got.chunk_fetchers, got.chunk_timeout) == (7, 3.0)
+    # and the syncer keeps to them: each chunk is answered only when
+    # asked a second time, so one fetcher asks 0, 0, 1, 1, 2, 2, each
+    # again after the timeout, and three ask 0, 1, 2 at once
+    for fetchers, first in ((1, [0, 0, 1]), (3, [0, 1, 2])):
+        asked = chunk_asks(fetchers, 0.2)
+        assert [i for i, _ in asked[:3]] == first
+        assert sorted(i for i, _ in asked) == [0, 0, 1, 1, 2, 2]
+        for idx in range(3):
+            t = [at for i, at in asked if i == idx]
+            assert t[1] - t[0] >= 0.2
+
+
+def chunk_asks(fetchers: int, timeout: float) -> list:
+    """A port Syncer with `fetchers` chunk fetchers and a `timeout`
+    restores a 3-chunk snapshot whose peer answers a chunk only when it
+    is asked again: the (index, time) of each request."""
+    chunks = [b"c0", b"c1", b"c2"]
+    app = ScriptedApp(PORT, chunks)
+    sy = PORT.syncer.Syncer(app, FakeStateProvider(), request_chunk=None,
+                            chunk_fetchers=fetchers, chunk_timeout=timeout)
+    asked: list = []
+
+    async def request(peer_id, snapshot, idx):
+        asked.append((idx, time.monotonic()))
+        if [i for i, _ in asked].count(idx) > 1:
+            sy.add_chunk(PORT.messages.ChunkResponseMessage(
+                snapshot.height, snapshot.format, idx, chunks[idx]),
+                peer_id)
+
+    sy.request_chunk = request
+    sy.add_snapshot("p1", _snap(PORT, 6, chunks=3))
+    assert run(sync_trace(PORT, sy, app))["result"] == ("state@6",
+                                                        "commit@6")
+    return asked
 
 
 # -- the pool -----------------------------------------------------------------
