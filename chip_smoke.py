@@ -57,6 +57,18 @@ Phases, each printing one JSON line:
    K4 and K9 once per shard with the mixed phase's outcomes and
    rejections. Counters zeroed before, read after. Then, outside that
    run, the sharded verdicts lane for lane against the one-card set's;
+6b. observe — the launch ledger, the watchdog and the tracer, on the
+   slice and mixed commits (`observe_phase`; alone: `--phase observe`):
+   K3 structured at 10,240 lanes, K4 at 128 (against its plain version)
+   and at the mixed commit's 8,192 bucket, K9 at 5,120, K7 at 10,241 of
+   12,288 after a K6 splice and K5 on four logical shards, each under a
+   workload tag. One record per launch (equal to the wrappers'
+   .launches deltas), each gpu with the card's name, its lanes and
+   capacity, verdict ok; the HBM registry equal to the tables' and the
+   arena's bytes; the watchdog gpu, degraded by drift against a tenth
+   of K3's exec; each exec p50 beside its row's device_ms (positive, at
+   most 3x, checked after the timing phase); the p50 cost of a span and
+   of a record (us);
 8. healing — the self-healing fabric on the fabric phase's mesh, with
    the port's clock advanced past each cooldown: K8 (the per-shard
    arena: K6's splice and K7's verify once per device over its block
@@ -258,7 +270,13 @@ Phases, each printing one JSON line:
    misses and the collector's pauses;
 16. p2p — the node (node/__init__.py Node) and the p2p stack over TCP on
    127.0.0.1, in two parts, counters zeroed before the first and read
-   after the second. Part A, BASELINE.json config #1 (`make localnet`'s
+   after the second. Node A also serves its debug server
+   (`rpc.pprof_laddr`) and Prometheus listener: its /metrics must count
+   one admission ledger record on the card per device flush of Part A,
+   /debug/launches hold them, /status read the watchdog at gpu, and a
+   mid-run /debug/trace?seconds=10 hold consensus.height,
+   state.apply_block and crypto.* spans (the p50 share of apply_block
+   in a height and of crypto.device_exec in apply_block printed). Part A, BASELINE.json config #1 (`make localnet`'s
    4-validator genesis) at ConsensusConfig's defaults: node A (validator
    0) here on the card, a Node built by Node.default_new_node from a
    home directory written as `testnet` writes one (config.toml through
@@ -394,7 +412,12 @@ Phases, each printing one JSON line:
    context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
-   kernel-fault code (700), every breaker closed, no counter moved;
+   kernel-fault code (700), every breaker closed, no counter moved,
+   and the launch ledger's last record `raised`. Before it, the
+   watchdog with the card promised and a 3 s window: one K4 launch of
+   the plain version on the CPU turns it cpu_fallback, one card launch
+   restores gpu, and after the window the raised launch alone turns it
+   cpu_fallback again;
 20. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
@@ -1819,6 +1842,215 @@ def k4_row(name, gargs, live: int) -> dict:
 # -- phase 7 -------------------------------------------------------------
 
 
+# -- the observe phase: the launch ledger, the watchdog, the tracer -----
+
+# Which wrapper's launch count each ledger kernel stands for.
+LEDGER_KERNELS = {"structured": "xverify", "expanded": "xverify",
+                  "general": "general_verify", "sr25519": "sr_verify",
+                  "resident": "arena_verify",
+                  "structured_sharded": "shard_verify",
+                  "expanded_sharded": "shard_verify",
+                  "resident_mesh": "mesh_arena_verify"}
+# The kernels-line row whose device_ms is timed at each observed shape.
+OBSERVE_ROWS = {("structured", 10_240): "xverify",
+                ("general", 128): "general_verify",
+                ("general", 8_192): "general_verify_mixed",
+                ("sr25519", 5_120): "sr_verify",
+                ("resident", 12_288): "arena_verify"}
+
+
+def observe_phase(vs, commit, bid, mvs, mcommit, mbid, dev) -> dict:
+    """The launch ledger on the card: K3 structured at 10,240 lanes, K4
+    at 128 and at the mixed commit's 8,192 bucket, K9 at 5,120, K7 at
+    10,241 of 12,288 after a K6 splice and K5 on a four-shard mesh of
+    this card, each through its dispatch site under a workload tag.
+    One record per launch (the counts equal the wrappers' .launches
+    deltas), each stamped gpu with the card's name, its lanes and
+    capacity those of the launch, verdict ok and its ok lanes the plain
+    version's (K4 at 128) or the oracle's; the HBM registry's bytes
+    those of the tensors held; the watchdog at gpu, degraded by drift
+    against a tenth of K3's exec; the cost of a span and a record."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto.cuda import (expanded, kernels, ledger,
+                                                  verify, watchdog)
+    from tendermint_tpu_torch.libs import tracing
+
+    name = torch.cuda.get_device_name(0)
+    ledger.set_capacity(4096)
+    n0 = len(ledger.snapshot())
+    wr = wrappers()
+    before = {k: f.launches for k, f in wr.items()}
+    plan = []  # (kernel, capacity, lanes, expected ok lanes)
+    with ledger.workload("bench"):
+        h = commit.height
+        vs.verify_commit(CHAIN, bid, h, commit)
+        n = len(vs.validators)
+        plan.append(("structured", 10_240, n, n))
+        pubs = [v.pub_key.bytes() for v in vs.validators[:64]]
+        msgs = [commit.vote_sign_bytes(CHAIN, i) for i in range(64)]
+        sigs = [commit.signatures[i].signature for i in range(64)]
+        got = verify.verify_batch(pubs, msgs, sigs)
+        oracle = np.array([ref.verify(p, m, s)
+                           for p, m, s in zip(pubs, msgs, sigs)])
+        t = verify.to_device(verify.pack_batch(
+            pubs + [verify._dummy_triple()[0]] * 64,
+            msgs + [verify._dummy_triple()[1]] * 64,
+            sigs + [verify._dummy_triple()[2]] * 64), dev)
+        plain = verify.general_verify_plain(
+            t["ab"], t["sb"], t["msg"], t["nblocks"], t["s_ok"],
+            verify._btab(dev)).cpu().numpy()[:64]
+        if not ((got == oracle).all() and (plain == oracle).all()):
+            raise AssertionError("observe: K4 at 128 against its plain "
+                                 "version and the oracle")
+        plan.append(("general", 128, 64, int(plain.sum())))
+        mvs.verify_commit(CHAIN, mbid, mcommit.height, mcommit)
+        half = len(mvs.validators) // 2
+        plan.append(("sr25519", 5_120, half, half))
+        plan.append(("general", 8_192, half, half))
+        arena = spec_arena(vs, commit, bid, dev)
+        verd = arena.launch()
+        plan.append(("resident", arena.capacity, arena.active_lanes,
+                     int(verd.sum())))
+        expanded.set_shard_crossover(FABRIC_CROSSOVER)
+        tdevice.set_mesh([str(dev)] * LOGICAL_SHARDS)
+        try:
+            sexp = expanded.get_expanded([v.pub_key.bytes()
+                                          for v in vs.validators])
+            if not sexp.sharded:
+                raise AssertionError("observe: the set did not shard")
+            vs.verify_commit(CHAIN, bid, h, commit)
+            per = n // LOGICAL_SHARDS
+            plan += [("structured_sharded", verify.lane_bucket(per), per,
+                      per)] * LOGICAL_SHARDS
+            shard_bytes = {}
+            for shard in sexp.shards:
+                for x in shard:
+                    shard_bytes[x.data_ptr()] = x.nbytes
+            table_shard = sum(shard_bytes.values())
+            hbm = ledger.hbm_snapshot()
+        finally:
+            tdevice.set_mesh(None)
+            expanded.set_shard_crossover(None)
+            with expanded._CACHE_LOCK:  # the fabric phase builds its own
+                for key in [k for k, e in expanded._CACHE.items()
+                            if e.sharded]:
+                    del expanded._CACHE[key]
+    delta = {k: f.launches - before[k] for k, f in wr.items()
+             if f.launches != before[k]}
+    recs = ledger.snapshot()[n0:]
+    by_kernel: dict = {}
+    for r in recs:
+        by_kernel[r["kernel"]] = by_kernel.get(r["kernel"], 0) + 1
+    want_counts: dict = {}
+    for kernel, count in by_kernel.items():
+        w = LEDGER_KERNELS[kernel]
+        want_counts[w] = want_counts.get(w, 0) + count
+    if want_counts != {k: v for k, v in delta.items()
+                       if k not in ("build_tables", "splice")}:
+        raise AssertionError(f"observe: records {by_kernel} against "
+                             f"launches {delta}")
+    got_plan = [(r["kernel"], r["capacity"], r["lanes"], r["ok_lanes"])
+                for r in recs]
+    if sorted(got_plan) != sorted(plan):
+        raise AssertionError(f"observe: records {got_plan}, want {plan}")
+    for r in recs:
+        if (r["backend"], r["device"], r["device_name"], r["verdict"],
+                r["workload"], r["n_devices"], r["compile_cache"]) != \
+                ("gpu", "cuda:0", name, "ok", "bench", 1, "hit") or \
+                not r["stages_ms"].get("exec", 0) > 0:
+            raise AssertionError(f"observe: a record {r}")
+    shards = [r for r in recs if r["kernel"] == "structured_sharded"]
+    if [r["shard"] for r in shards] != [f"cuda:0/{d}" for d in
+                                        range(LOGICAL_SHARDS)] or \
+            any(r["shard_lanes"] != [per] * LOGICAL_SHARDS for r in shards):
+        raise AssertionError(f"observe: the K5 records {shards}")
+    exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
+    comb = sum(x.nbytes for x in (exp.akeys, exp.tables, exp.key_ok))
+    dev_hbm = hbm.get("cuda:0", {})
+    if dev_hbm.get("comb_tables") != comb or \
+            dev_hbm.get("arena") != arena.arena_bytes() or \
+            dev_hbm.get("table_shard") != table_shard:
+        raise AssertionError(f"observe: HBM registry {hbm}, want "
+                             f"{comb} / {arena.arena_bytes()} / {table_shard}")
+    shapes = {}
+    for r in recs:
+        key = (r["kernel"], r["capacity"])
+        if key in OBSERVE_ROWS and key not in shapes:
+            row = OBSERVE_ROWS[key]
+            export, count = SHAPE_EXPORTS[ROW_KERNEL.get(row, row)]
+            form = (1,) if export == "tm_xverify_shape" else ()
+            shapes[key] = kernels.launch_shapes(export, r["capacity"], *form,
+                                                launches=count)[0]
+    exec_ms = {}
+    for (kernel, cap), row in OBSERVE_ROWS.items():
+        vals = [r["stages_ms"]["exec"] for r in recs
+                if (r["kernel"], r["capacity"]) == (kernel, cap)]
+        exec_ms[row] = statistics.median(vals)
+    # the watchdog: the card promised, then drift against a tenth of K3
+    watchdog.configure(backend="gpu")
+    ok = watchdog.verdict()
+    if (ok["status"], ok["effective_backend"]) != ("ok", "gpu"):
+        raise AssertionError(f"observe: watchdog {ok}")
+    os.environ["TM_TPU_SILICON_BASELINE_MS"] = str(exec_ms["xverify"] / 10)
+    try:
+        drift = watchdog.verdict()
+    finally:
+        del os.environ["TM_TPU_SILICON_BASELINE_MS"]
+    if drift["status"] != "degraded" or "drifted" not in drift["reason"]:
+        raise AssertionError(f"observe: no drift {drift} (exec {exec_ms})")
+    if watchdog.verdict()["status"] != "ok":
+        raise AssertionError("observe: the watchdog did not recover")
+    # the cost of an armed span (global tracer, metrics bridge on) and
+    # of a ledger record, on this host
+    span_us, rec_us = [], []
+    for _ in range(2000):
+        t0 = time.perf_counter_ns()
+        with tracing.TRACER.span(tracing.CRYPTO_PACK, lanes=1):
+            pass
+        span_us.append((time.perf_counter_ns() - t0) / 1e3)
+    with ledger.workload("bench"):
+        for _ in range(2000):
+            t0 = time.perf_counter_ns()
+            ledger.record(kernel="general", device="cuda:0", verdict="ok",
+                          lanes=1, capacity=128)
+            rec_us.append((time.perf_counter_ns() - t0) / 1e3)
+    ledger.reset()
+    ledger.set_capacity(ledger.DEFAULT_CAPACITY)
+    tracing.TRACER.clear()
+    return dict(
+        records=[{k: r[k] for k in ("kernel", "lanes", "capacity", "shard",
+                                    "stages_ms", "bytes_h2d", "bytes_d2h",
+                                    "ok_lanes", "compile_cache")}
+                 for r in recs],
+        launches=delta, by_kernel=by_kernel,
+        ok_lanes_digest=digest(np.array(sorted(
+            p[3] for p in got_plan)).tobytes()),
+        plain_ok_lanes_digest=digest(np.array(sorted(
+            p[3] for p in plan)).tobytes()),
+        shapes={f"{k} {c}": s for (k, c), s in shapes.items()},
+        exec_ms_p50=exec_ms, hbm=hbm,
+        watchdog=dict(ok=ok["effective_backend"], drift=drift["reason"]),
+        span_us_p50=statistics.median(span_us),
+        record_us_p50=statistics.median(rec_us), device=name)
+
+
+def observe_against_rows(observe: dict, rows: list) -> dict:
+    """Each observed kernel's ledger exec p50 beside its row's device_ms
+    at the same shape: positive and at most 3x."""
+    ms = {r["name"]: r["ms"] for r in rows}
+    out = {}
+    for row, ex in observe["exec_ms_p50"].items():
+        if not 0 < ex <= 3 * ms[row]:
+            raise AssertionError(f"observe: {row} exec {ex} ms against "
+                                 f"device_ms {ms[row]}")
+        out[row] = dict(exec_ms_p50=ex, device_ms=ms[row])
+    return out
+
+
 def fabric_mesh() -> tuple[list[str], str]:
     """Every CUDA device when there are at least two, else
     LOGICAL_SHARDS logical shards of cuda:0."""
@@ -2141,6 +2373,39 @@ class PhaseClock:
         self.t += max(b.cooldown_remaining() for b in brs) + 1.0
 
 
+def _by(counter, label: str) -> dict:
+    """A metric family's values keyed by one of its labels."""
+    return {dict(k)[label]: int(v) for k, v in list(counter._values.items())}
+
+
+def metrics_view(plane: str) -> dict:
+    """A plane's counters, read from the port's metric families
+    (libs/metrics.py), as plain dicts the phases take deltas of."""
+    from tendermint_tpu_torch.libs import metrics as M
+
+    if plane == "light":
+        return {"verify_launches": _by(M.light_metrics().verify_launches,
+                                       "backend")}
+    if plane == "admission":
+        a = M.admission_metrics()
+        return {"verify_launches": _by(a.launches, "backend"),
+                "sheds": _by(a.sheds, "reason"),
+                "admitted": _by(a.admitted, "signed")}
+    if plane == "p2p":
+        p2p = M.p2p_metrics()
+        return {f: _by(getattr(p2p, f), "ch") for f in (
+            "peer_send_bytes", "peer_receive_bytes", "message_send",
+            "message_receive", "send_drops")}
+    if plane == "statesync":
+        ss = M.statesync_metrics()
+        out = {f: int(getattr(ss, f).value()) for f in (
+            "snapshots_discovered", "chunks_received", "chunks_served",
+            "chunk_retries", "peers_quarantined", "restore_attempts")}
+        out["chunks_refetched"] = _by(ss.chunks_refetched, "reason")
+        return out
+    raise ValueError(plane)
+
+
 def fallback_state() -> dict:
     """The breakers' states and the fallback counters, to compare a
     phase's end with its start."""
@@ -2150,7 +2415,7 @@ def fallback_state() -> dict:
 
     return {"breakers": cbatch.breaker_states(),
             "device_breakers": cbatch.device_breaker_states(),
-            "metrics": copy.deepcopy(cbatch.METRICS)}
+            "metrics": cbatch.counters()}
 
 
 def no_fallback(phase: str, before: dict) -> None:
@@ -2559,7 +2824,7 @@ def _healing(vs, commit, bid, seed_of, mvs, mcommit, spec, dev, single,
         raise AssertionError("degraded sr25519 verdicts differ from K9's")
     launches = {k: kernels[k].launches for k in kernels}  # the path's alone
     # the counters moved by exactly what the phase injected
-    m1 = cbatch.METRICS
+    m1 = cbatch.counters()
     moved = {"host_fallbacks": m1["host_fallbacks"] - m0["host_fallbacks"],
              "host_rechecks": m1["host_rechecks"] - m0["host_rechecks"],
              "evictions": {f"{k[0]} {k[1]}": v - m0["evictions"].get(k, 0)
@@ -3753,7 +4018,7 @@ def light_phase(dev):
                 for r in res]
 
     kernels = wrappers()
-    metrics0 = dict(serving.METRICS["verify_launches"])
+    metrics0 = metrics_view("light")["verify_launches"]
     for fn in kernels.values():
         fn.launches = 0
     adjacent_ms, skip_ms = [], []
@@ -3775,7 +4040,7 @@ def light_phase(dev):
     launches = {k: f.launches for k, f in kernels.items() if f.launches}
     coll_launches = {k: launches[k] - direct.get(k, 0) for k in launches}
     metrics = {k: n - metrics0.get(k, 0)
-               for k, n in serving.METRICS["verify_launches"].items()
+               for k, n in metrics_view("light")["verify_launches"].items()
                if n != metrics0.get(k, 0)}
     lanes = [f["lanes"] for f in flushes]
     pooled_faults = dict(zip(faults, pooled_res[LIGHT_REQUESTS:]))
@@ -4148,7 +4413,7 @@ def light_client_phase(dev):
         return out
 
     kernels = wrappers()
-    metrics0 = dict(serving.METRICS["verify_launches"])
+    metrics0 = metrics_view("light")["verify_launches"]
     client_mod.verify = traced_verify
     vset_mod.CommitVerifyPlan.execute = counted_execute
     try:
@@ -4162,7 +4427,7 @@ def light_client_phase(dev):
         client_mod.verify = real_verify
         vset_mod.CommitVerifyPlan.execute = real_execute
     metrics = {k: n - metrics0.get(k, 0)
-               for k, n in serving.METRICS["verify_launches"].items()
+               for k, n in metrics_view("light")["verify_launches"].items()
                if n != metrics0.get(k, 0)}
     div = res["divergence"]
     evs = div.evidence if div is not None else []
@@ -4716,7 +4981,7 @@ def admission_phase(dev):
             await st.conns.stop()
 
     kernels = wrappers()
-    metrics0 = {k: dict(v) for k, v in adm.METRICS.items()}
+    metrics0 = metrics_view("admission")
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -4727,7 +4992,7 @@ def admission_phase(dev):
         st.close()
     metrics = {k: {b: n - metrics0[k].get(b, 0) for b, n in v.items()
                    if n != metrics0[k].get(b, 0)}
-               for k, v in adm.METRICS.items()}
+               for k, v in metrics_view("admission").items()}
     flushes = [f for st in stacks.values() for f in st.flushes]
 
     # the host oracle on every enveloped tx's verdict
@@ -5463,7 +5728,8 @@ def execution_phase():
                                keys=len(pubkeys), end=time.perf_counter(),
                                ms=(time.perf_counter() - t) * 1e3))
 
-        metrics0 = dict(execution.METRICS["block_processing_seconds"])
+        metrics0 = execution.state_metrics().block_processing_seconds
+        metrics0 = {"count": metrics0.count, "sum": metrics0.sum}
 
         async def run():
             node = await ExecNode(pvs).start()
@@ -5550,7 +5816,8 @@ def execution_phase():
         if not launches.get(name):
             raise AssertionError(f"{name} did not launch: {launches}")
     verified = [r["apply_block_ms"] for r in records[1:EXEC_HEIGHTS]]
-    metrics = execution.METRICS["block_processing_seconds"]
+    metrics = execution.state_metrics().block_processing_seconds
+    metrics = {"count": metrics.count, "sum": metrics.sum}
     return dict(
         validators=EXEC_VALIDATORS, setup_s=setup_s, heights=records,
         apply_block_p50_ms=statistics.median(verified),
@@ -6354,7 +6621,7 @@ def consensus_phase():
         batches: list = []
         sites = CsSites()
         reporter = PeerReporter()
-        adm0 = json.loads(json.dumps(admission.METRICS))
+        adm0 = metrics_view("admission")
         rng = np.random.default_rng(15)
         out: dict = {"node_key": node_k, "setup_s": setup_s,
                      "peer_keys_s": peers.first["keys_s"]}
@@ -6602,7 +6869,7 @@ def consensus_phase():
     k3_votes = [n for site, _, n in sites.k3 if site == "votes"]
     before = [h for stage, h in sites.commit_checks if stage == "before"]
     after = [h for stage, h in sites.commit_checks if stage == "after"]
-    adm = admission.METRICS["verify_launches"].get("device", 0) - \
+    adm = metrics_view("admission")["verify_launches"].get("device", 0) - \
         adm0["verify_launches"].get("device", 0)
     k4 = {site: sites.count("k4", site) for site in
           ("votes", "serve", "commit", "reconstruct", "other")}
@@ -7233,10 +7500,14 @@ async def p2p_localnet(home: str) -> dict:
     os.makedirs(pv_home)
     FilePV(keys[0], os.path.join(pv_home, "pv_key.json"),
            os.path.join(pv_home, "pv_state.json")).save_key()
-    signer_port, a_port, rpc_port = free_ports(3)
+    signer_port, a_port, rpc_port, pprof_port, prom_port = free_ports(5)
     cfg = p2p_config(os.path.join(home, "a"), "val0")
     cfg.p2p.laddr = f"tcp://127.0.0.1:{a_port}"
     cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
+    # A's debug server and Prometheus listener (libs/debugsrv.py)
+    cfg.rpc.pprof_laddr = f"tcp://127.0.0.1:{pprof_port}"
+    cfg.instrumentation.prometheus = True
+    cfg.instrumentation.prometheus_listen_addr = f"127.0.0.1:{prom_port}"
     cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{signer_port}"
     cfg.base.priv_validator_signer_id = \
         p2p_key(b"signer-link").pub_key().address().hex()
@@ -7348,8 +7619,12 @@ async def p2p_localnet(home: str) -> dict:
 
         loop = asyncio.get_running_loop()
         drainer = loop.create_task(drain())
-        net0 = json.loads(json.dumps(connection.METRICS))
-        adm0 = json.loads(json.dumps(admission.METRICS))
+        net0 = metrics_view("p2p")
+        adm0 = metrics_view("admission")
+        from tendermint_tpu_torch.libs.metrics import tpu_metrics
+
+        ledger0 = tpu_metrics().launch_ledger_records.value(
+            workload="admission", backend="gpu")
         k0 = exec_counts()
         for p in peers + [clients]:
             p.send({"op": "go"})
@@ -7357,6 +7632,9 @@ async def p2p_localnet(home: str) -> dict:
         steps.setdefault(("new_height", 1), t_run)
         # the signer link drops once after height P2P_DROP_AFTER commits
         await cs.wait_for_height(P2P_DROP_AFTER, timeout=P2P_WAIT_S)
+        # A's own trace of the last 10 s, mid-run, from its debug server
+        trace = json.loads(await http_get(
+            node.pprof_port, "/debug/trace?seconds=10"))
         t = time.perf_counter()
         client._link.close()
         lost = None
@@ -7406,7 +7684,7 @@ async def p2p_localnet(home: str) -> dict:
                           os.path.join(pv_home, "pv_state.json")
                           ).last_sign_state
         out["signer_last_sign"] = [lss.height, lss.round, lss.step]
-        net1 = json.loads(json.dumps(connection.METRICS))
+        net1 = metrics_view("p2p")
         # the RPC of A and B, the WS stream and the light proxy, with
         # both nodes past `top` (every commit to `top` canonical)
         await cs.wait_for_height(top + 1, timeout=P2P_WAIT_S)
@@ -7449,6 +7727,8 @@ async def p2p_localnet(home: str) -> dict:
                                  f"{rep['faults']} {fault()!r}")
         launches = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
         device = [n for n, dev, _ in flushes if dev]
+        out["observability"] = await p2p_observe(node, ledger0, t_run,
+                                                 len(device), trace)
         by_lanes = collections.Counter(n for n, _, _ in flushes)
         heights = []
         for h in range(1, top + 1):
@@ -7518,6 +7798,77 @@ async def p2p_localnet(home: str) -> dict:
             p.close()
         signer.proc.terminate()
         signer.proc.wait(timeout=30)
+
+
+async def http_get(port: int, path: str) -> bytes:
+    """One HTTP/1.0 GET on 127.0.0.1: the body."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    return data.partition(b"\r\n\r\n")[2]
+
+
+def trace_shares(trace: dict) -> dict:
+    """From a node's Chrome trace: each height's state.apply_block share
+    of its consensus.height span, and the crypto.device_exec share of
+    each state.apply_block (the spans inside its interval); p50s."""
+    ev = trace["traceEvents"]
+    heights = {e["args"].get("height"): e for e in ev
+               if e["name"] == "consensus.height"}
+    applies = [e for e in ev if e["name"] == "state.apply_block"]
+    execs = [e for e in ev if e["name"] == "crypto.device_exec"]
+    in_height = [a["dur"] / heights[a["args"]["height"]]["dur"]
+                 for a in applies
+                 if a["args"].get("height") in heights
+                 and heights[a["args"]["height"]]["dur"] > 0]
+    in_apply = [sum(x["dur"] for x in execs
+                    if a["ts"] <= x["ts"] <= a["ts"] + a["dur"]) / a["dur"]
+                for a in applies if a["dur"] > 0]
+    return dict(
+        heights=len(heights), apply_blocks=len(applies),
+        crypto_spans=sum(e["name"].startswith("crypto.") for e in ev),
+        apply_share_of_height_p50=(statistics.median(in_height)
+                                   if in_height else None),
+        device_exec_share_of_apply_p50=(statistics.median(in_apply)
+                                        if in_apply else None))
+
+
+async def p2p_observe(node, ledger0: float, t_run: float, device: int,
+                      trace: dict) -> dict:
+    """A's observability over Part A: /metrics on its Prometheus
+    listener counts one admission ledger record on the card per device
+    flush (K4 launch); /debug/launches holds them; /status's device
+    check reads the watchdog at gpu; the mid-run /debug/trace holds
+    the height, apply_block and crypto spans."""
+    import re
+
+    text = (await http_get(node.prometheus_port, "/metrics")).decode()
+    m = re.search(r'^tpu_launch_ledger_records_total\{backend="gpu",'
+                  r'workload="admission"\} (\S+)$', text, re.M)
+    counted = (float(m.group(1)) if m else 0.0) - ledger0
+    launches = json.loads(await http_get(
+        node.pprof_port, "/debug/launches?workload=admission"))
+    t_mono = time.monotonic() - (time.perf_counter() - t_run)
+    recs = [r for r in launches["records"] if r["mono"] >= t_mono]
+    status = json.loads(await http_get(node.pprof_port, "/status"))
+    dev = status["checks"]["device"]
+    names = {e["name"] for e in trace["traceEvents"]}
+    out = dict(admission_records=counted, device_flushes=device,
+               ledger_records=len(recs),
+               effective_backend=dev["effective_backend"],
+               trace=trace_shares(trace),
+               trace_dropped=trace["tm_tpu"]["dropped"])
+    if counted != device or len(recs) != device or \
+            any((r["kernel"], r["backend"]) != ("general", "gpu")
+                for r in recs) or dev["effective_backend"] != "gpu" or \
+            not {"consensus.height", "state.apply_block"} <= names or \
+            not any(n.startswith("crypto.") for n in names):
+        raise AssertionError(f"p2p: A's observability {out}")
+    return out
 
 
 async def p2p_rpc_checks(a, b, top: int, committed) -> dict:
@@ -7730,7 +8081,7 @@ def p2p_localnet_checks(node, rep, top, keys, submitted, committed,
     if launches != ({"general_verify": len(device)} if device else {}):
         raise AssertionError(f"p2p: A launched {launches} for "
                              f"{len(device)} device flushes")
-    if admission.METRICS["verify_launches"].get("device", 0) - \
+    if metrics_view("admission")["verify_launches"].get("device", 0) - \
             adm0["verify_launches"].get("device", 0) != len(device):
         raise AssertionError("p2p: the admission counts disagree")
 
@@ -8308,7 +8659,7 @@ def p2p_phase(servers=None) -> dict:
 
 class SsProbe:
     """The joining node's record for the statesync phase, of what the
-    syncer's METRICS, the blockchain reactor and the launch counters do
+    syncer's metric family, the blockchain reactor and the launch counters do
     not keep: the peers the switch removed, the light client's heights
     and commit checks with their times, each restore attempt's fetch
     (source, bytes, seconds, apply seconds) and the window jobs."""
@@ -8470,7 +8821,7 @@ async def ss_join(frame, ready, gdoc) -> dict:
     probe = SsProbe()
     with expanded._CACHE_LOCK:
         expanded._CACHE.clear()  # a fresh node builds its tables
-    met0 = json.loads(json.dumps(ssyncer.METRICS))
+    met0 = metrics_view("statesync")
     home = tempfile.mkdtemp(prefix="ss-join-")
     node = Node(ss_config(home, frame, ready),
                 node_key=NodeKey(p2p_key(b"node-statesyncer")),
@@ -8552,7 +8903,8 @@ async def ss_join(frame, ready, gdoc) -> dict:
         met = {k: (v - met0[k] if isinstance(v, int) else
                    {r: n - met0[k].get(r, 0) for r, n in v.items()
                     if n != met0[k].get(r, 0)})
-               for k, v in ssyncer.METRICS.items()}
+               for k, v in metrics_view("statesync").items()}
+        met["quarantines"] = dict(sy.quarantine_kinds)
         chunks = {s.height: s.chunks for s in sy.pool._snapshots.values()}
         rec = dict(
             validators=P2P_SYNC_VALIDATORS, blocks=P2P_SYNC_BLOCKS,
@@ -8712,7 +9064,7 @@ async def ss_serving_pool(gdoc, frame, ready) -> dict:
         vals = await cl.call("validators", height=h, per_page=100)
         return cm, vals
 
-    met0 = json.loads(json.dumps(serving.METRICS))
+    met0 = metrics_view("light")
     k1 = exec_counts()
     t0 = time.perf_counter()
     try:
@@ -8724,7 +9076,7 @@ async def ss_serving_pool(gdoc, frame, ready) -> dict:
     pool_launches = exec_delta(k1)
     met = {k: {b: n - met0[k].get(b, 0) for b, n in v.items()
                if n != met0[k].get(b, 0)}
-           for k, v in serving.METRICS.items()}
+           for k, v in metrics_view("light").items()}
     # every answer the chain's: the commit (header and every signature)
     # and the page's validators (address, key, power) as an honest RPC
     # server reads them from the chain's stores
@@ -9225,6 +9577,9 @@ F32_ROWS = ("build_tables", "xverify", "general_verify",
             "general_verify_mixed", "sr_verify", "shard_verify",
             "arena_verify", "mesh_arena_verify")
 CHILD_TIMEOUT_S = {"f32": 700, "fault": 240, "execution_host": 400}
+# The fault check's watchdog window: short, so that one launch decides
+# the classification.
+FAULT_WINDOW_S = 3.0
 
 # A test-only kernel that stores through an address no allocation owns:
 # its launch succeeds and it faults while it runs
@@ -9288,7 +9643,8 @@ def fault_child() -> int:
     from tendermint_tpu_torch.crypto import batch as cbatch
     from tendermint_tpu_torch.crypto import ed25519
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
-    from tendermint_tpu_torch.crypto.cuda import kernels, verify
+    from tendermint_tpu_torch.crypto.cuda import (kernels, ledger, verify,
+                                                  watchdog)
 
     out_dir = kernels.BUILD_ROOT.parent / "fault_check"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -9313,6 +9669,22 @@ def fault_child() -> int:
 
     if not verify_all()[0]:
         raise AssertionError("the clean call rejected its lanes")
+    # the watchdog with the card promised and a short window: one launch
+    # landing on the CPU degrades it to cpu_fallback, one card launch
+    # restores it (reference tests/test_ledger.py:346, on the card)
+    watchdog.configure("gpu", FAULT_WINDOW_S)
+    time.sleep(FAULT_WINDOW_S + 0.5)
+    verify.verify_batch([ref.public_key_from_seed(seeds[0])],
+                        [lanes[0][1]], [sigs[0]], device="cpu")
+    v_cpu = watchdog.verdict()
+    if (v_cpu["status"], v_cpu["effective_backend"]) != \
+            ("degraded", "cpu_fallback"):
+        raise AssertionError(f"one CPU launch did not degrade: {v_cpu}")
+    verify_all()
+    v_ok = watchdog.verdict()
+    if (v_ok["status"], v_ok["effective_backend"]) != ("ok", "gpu"):
+        raise AssertionError(f"one card launch did not restore: {v_ok}")
+    time.sleep(FAULT_WINDOW_S + 0.5)
     real = verify.general_verify
 
     def faulting(*a):
@@ -9336,8 +9708,21 @@ def fault_child() -> int:
     code = int(message.split("CUDA error ")[1].split()[0])
     if code not in kernels.KERNEL_FAULTS:
         raise AssertionError(f"not a kernel fault: {message}")
+    # the faulting launch's record: raised, then the fault propagated
+    last = ledger.snapshot()[-1]
+    if (last["kernel"], last["verdict"], last["backend"]) != \
+            ("general", "raised", "gpu") or "KernelError" not in last["error"]:
+        raise AssertionError(f"the fault's record: {last}")
+    v_raised = watchdog.verdict()
+    if (v_raised["status"], v_raised["effective_backend"]) != \
+            ("degraded", "cpu_fallback"):
+        raise AssertionError(f"a raising launch did not degrade: {v_raised}")
     emit({"phase": "fault", "raised": "KernelError", "code": code,
-          "message": message})
+          "message": message, "record": {k: last[k] for k in (
+              "kernel", "verdict", "backend", "device_name", "error")},
+          "watchdog": dict(cpu_launch=v_cpu["effective_backend"],
+                           card_launch=v_ok["effective_backend"],
+                           raised=v_raised["effective_backend"])})
     return 0
 
 
@@ -9540,6 +9925,29 @@ def main() -> int:
             emit(dict(phase="p2p", seconds=time.perf_counter() - t0,
                       card=nvidia_smi(), **p2p))
             return 0
+        if phase == "observe":
+            from tendermint_tpu_torch.crypto.cuda import kernels
+
+            kernels.lib()
+            t0 = time.perf_counter()
+            vs, commit, bid, _ = make_commit(N_VALIDATORS)
+            mvs, mcommit, mbid, _ = make_mixed_commit(N_VALIDATORS)
+            vs.warm_device_tables().join()
+            # the main run's earlier phases launch these first: a
+            # kernel's first launch in a process also loads its module
+            # (CUDA's lazy loading), inside the ledger's exec events
+            vs.verify_commit(CHAIN, bid, commit.height, commit)
+            mvs.verify_commit(CHAIN, mbid, mcommit.height, mcommit)
+            setup_s = time.perf_counter() - t0
+            state = fallback_state()
+            t0 = time.perf_counter()
+            observe = observe_phase(vs, commit, bid, mvs, mcommit, mbid,
+                                    torch.device("cuda"))
+            no_fallback("observe", state)
+            emit(dict(phase="observe", setup_s=setup_s,
+                      seconds=time.perf_counter() - t0, card=nvidia_smi(),
+                      **observe))
+            return 0
         if phase == "statesync":
             from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -9615,6 +10023,13 @@ def main() -> int:
     no_fallback("mixed", state)
     emit(dict(phase="mixed", validators=N_VALIDATORS, setup_s=setup_s,
               seconds=time.perf_counter() - t0, card=smi, **mixed))
+    t0 = time.perf_counter()
+    state = fallback_state()
+    observe = observe_phase(vs, commit, bid, mvs, mcommit, mbid,
+                            torch.device("cuda"))
+    no_fallback("observe", state)
+    emit(dict(phase="observe", seconds=time.perf_counter() - t0, card=smi,
+              **observe))
     t0 = time.perf_counter()
     state = fallback_state()
     fabric, k5 = fabric_phase(vs, commit, bid, mvs, mcommit, mbid,
@@ -9700,6 +10115,8 @@ def main() -> int:
     rows += [window_row, votes_row, *light_rows, *light_client_rows,
              admission_row]
     no_fallback("timing", state)
+    emit({"phase": "observe", "step": "exec_vs_device_ms", "card": smi,
+          "rows": observe_against_rows(observe, rows)})
     t0 = time.perf_counter()
     run_child("fault")
     emit({"phase": "fault", "seconds": time.perf_counter() - t0, "card": smi})

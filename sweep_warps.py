@@ -3,7 +3,8 @@
 TM_XV_WARPS, TM_X4_LANES and TM_X4_WARPS; time K7 in both fields, and
 K6/K8's splice and clear.
 
-    python3 sweep_warps.py [xv | x4 | k7 | k6] [--tree DIR] [--warps W]
+    python3 sweep_warps.py [xv | x4 | k7 | k6 | commit] [--tree DIR]
+                           [--warps W]
 
 With no argument the xv and x4 families are swept; `xv` sweeps K3 and
 K5 only, `x4` K4 and K9 only, `k7` times K7 alone, `k6` K6 and K8's
@@ -63,6 +64,14 @@ MeshResidentArena of the same lanes over four logical shards of cuda:0
 (chip_smoke.py's healing shapes), each against its plain version; and
 the host milliseconds of the arenas' whole splice of that burst (pack,
 upload, K6), median of 20.
+`commit` times, in the i32 child, `ValidatorSet.verify_commit` on
+chip_smoke.py's 10,240-validator commit with its tables built, host
+milliseconds a call (median of COMMIT_RUNS after one warm call): on one
+card, then on four logical shards of cuda:0 at the fabric phase's
+crossover (one K5 launch a shard). Run with `--tree` on the parent in
+the same call (parent, this tree, this tree, parent) it shows what a
+change to the verify path's host side costs.
+
 `--tree DIR` runs the children on the tendermint_tpu_torch package of
 another checkout (an older commit unpacked with git archive), built
 into that checkout's build/ directory: the way to time the parent's
@@ -87,10 +96,11 @@ import chip_smoke as cs
 CANDIDATES = {"i32": (4, 8, 16), "f32": (4, 8)}
 X4_CANDIDATES = {"i32": ((8, 4), (16, 6), (32, 7), (32, 8)),
                  "f32": ((8, 4), (16, 6), (32, 8))}
-FAMILIES = ("xv", "x4", "k7", "k6")
+FAMILIES = ("xv", "x4", "k7", "k6", "commit")
 DEFAULT_FAMILIES = ("xv", "x4")
 CHILD_TIMEOUT_S = 600
 ROUNDS = 5  # device-time measurements of each kernel, in turns
+COMMIT_RUNS = 21  # verify_commit calls a placement (after a warm one)
 
 
 def warps_to_sweep(field: str) -> tuple:
@@ -135,7 +145,41 @@ def child(field: str, families) -> int:
         rc |= k7_child(field)
     if "k6" in families and field == "i32":  # K6 and K8 have no field
         rc |= k6_child()
+    if "commit" in families and field == "i32":
+        rc |= commit_child()
     return rc
+
+
+def commit_child() -> int:
+    """verify_commit's host ms a call on the 10,240-validator commit, on
+    one card and on four logical shards of it (see the docstring)."""
+    import time
+
+    import tendermint_tpu_torch
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.crypto.cuda import expanded
+
+    vs, commit, bid, _ = cs.make_commit(cs.N_VALIDATORS)
+
+    def p50() -> float:
+        vs.warm_device_tables().join()
+        runs = []
+        for _ in range(COMMIT_RUNS + 1):
+            t0 = time.perf_counter()
+            vs.verify_commit(cs.CHAIN, bid, commit.height, commit)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs[1:])
+
+    one_card = p50()
+    expanded.set_shard_crossover(cs.FABRIC_CROSSOVER)
+    tdevice.set_mesh(["cuda"] * cs.LOGICAL_SHARDS)
+    sharded = p50()
+    print(json.dumps({"family": "commit", "runs": COMMIT_RUNS,
+                      "verify_commit_p50_ms": one_card,
+                      "sharded_verify_commit_p50_ms": sharded,
+                      "package": os.path.dirname(
+                          tendermint_tpu_torch.__file__)}), flush=True)
+    return 0
 
 
 def xv_child(field: str) -> int:

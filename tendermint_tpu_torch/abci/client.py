@@ -8,9 +8,8 @@ by the response reader (Go socket_client.go:36,128,167). ClientCreator
 hands proxy.AppConns its four clients. The gRPC transport is not ported
 (ROADMAP Queue A item 9): a ClientCreator given a gRPC address raises.
 
-Reconnects are counted in ``METRICS`` (a plain dict, the port's
-convention until the metric families are ported): ``client_reconnects``
-by result ("ok", "failed").
+Reconnects are counted in the reference's
+``abci_client_reconnects_total`` by result ("ok", "failed").
 """
 
 from __future__ import annotations
@@ -25,12 +24,10 @@ from . import types as t
 
 logger = logging.getLogger("abci.client")
 
-METRICS: dict = {"client_reconnects": {}}
-
-
 def _count_reconnect(result: str) -> None:
-    m = METRICS["client_reconnects"]
-    m[result] = m.get(result, 0) + 1
+    from ..libs.metrics import abci_metrics
+
+    abci_metrics().client_reconnects.inc(result=result)
 
 
 class ABCIClientError(Exception):

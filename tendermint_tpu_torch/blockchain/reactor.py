@@ -14,8 +14,8 @@ then validates each block as the reference does (state/validation.py:
 its LastCommit re-verified, one structured K3 launch a block at 128
 validators or more).
 
-The reference's blockchain and consensus metric families are kept in
-``METRICS``, a plain dict (the convention of crypto/batch.py METRICS).
+Progress records into the reference's blockchain family and the
+consensus family's fast_syncing gauge (libs/metrics.py).
 
 Divergence, the port's rule for its own faults (crypto/batch.py
 UNCAUGHT): a KernelError or NoDeviceError in the pool routine (a
@@ -31,6 +31,7 @@ import logging
 import time
 
 from ..crypto.batch import UNCAUGHT
+from ..libs.metrics import blockchain_metrics, consensus_metrics
 from ..p2p.conn.connection import ChannelDescriptor
 from ..p2p.switch import Reactor
 from .msgs import (
@@ -54,18 +55,6 @@ STATUS_UPDATE_INTERVAL = 10.0     # reference statusUpdateTicker
 SWITCH_TO_CONSENSUS_INTERVAL = 1.0
 SYNC_TIMEOUT = 60.0               # reference syncTimeout: no progress →
                                   # give up waiting and run consensus
-
-# The reference's blockchain_metrics() families and its consensus
-# fast_syncing gauge, as plain values.
-METRICS: dict = {
-    "pool_height": 0,
-    "pending_requests": 0,
-    "num_peers": 0,
-    "blocks_synced": 0,
-    "block_bytes_received": 0,
-    "fast_syncing": 0,
-}
-
 
 class BlockchainReactor(Reactor):
     def __init__(self, state, block_exec, block_store,
@@ -103,7 +92,7 @@ class BlockchainReactor(Reactor):
 
     async def start(self) -> None:
         if self.fast_sync and self._task is None:
-            METRICS["fast_syncing"] = 1
+            consensus_metrics().fast_syncing.set(1)
             self._task = asyncio.get_running_loop().create_task(
                 self._pool_routine(), name="blockchain-pool")
 
@@ -167,7 +156,7 @@ class BlockchainReactor(Reactor):
         elif isinstance(msg, NoBlockResponseMessage):
             self.pool.no_block(peer.id, msg.height)
         elif isinstance(msg, BlockResponseMessage):
-            METRICS["block_bytes_received"] += len(msgb)
+            blockchain_metrics().block_bytes_received.inc(len(msgb))
             self.pool.add_block(peer.id, msg.block, len(msgb))
         else:
             raise ValueError(f"unknown blockchain msg {type(msg)}")
@@ -180,9 +169,10 @@ class BlockchainReactor(Reactor):
         try:
             while True:
                 now = time.monotonic()
-                METRICS["pool_height"] = self.pool.height
-                METRICS["pending_requests"] = len(self.pool.requests)
-                METRICS["num_peers"] = len(self.pool.peers)
+                bmet = blockchain_metrics()
+                bmet.pool_height.set(self.pool.height)
+                bmet.pending_requests.set(len(self.pool.requests))
+                bmet.num_peers.set(len(self.pool.peers))
                 # expire slow/dead peers
                 for pid in self.pool.tick(now):
                     self.pool.remove_peer(pid)
@@ -224,7 +214,7 @@ class BlockchainReactor(Reactor):
                                     "(%d blocks)", self.pool.height - 1,
                                     self.blocks_synced)
                         self.synced.set()
-                        METRICS["fast_syncing"] = 0
+                        consensus_metrics().fast_syncing.set(0)
                         if self.consensus_reactor is not None:
                             await self.consensus_reactor.\
                                 switch_to_consensus(self.state)
@@ -295,7 +285,7 @@ class BlockchainReactor(Reactor):
                 self.state, bid, first)
             self.blocks_synced += 1
             applied += 1
-            METRICS["blocks_synced"] += 1
+            blockchain_metrics().blocks_synced.inc()
             if self.state.validators.hash() != assumed_vals_hash:
                 # validator set changed mid-window: the remaining
                 # verdicts were computed against the wrong set — leave

@@ -23,9 +23,9 @@ blocks. Verdicts are computed by the same `_batch_verify_window`
 either way, the consumer awaits them before using them, and a
 prefetched window is keyed on (valset hash, heights, commit
 identities) so a validator-set change or a re-fetched block discards
-the stale verdicts instead of trusting them. The reference's launch
-ledger workload tag and tracer wrap come with the port's ledger and
-tracer.
+the stale verdicts instead of trusting them. A window's launches are
+tagged ``workload("fastsync")`` in the launch ledger, and the executor
+job runs under ``TRACER.wrap`` so its spans parent under the caller's.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ from __future__ import annotations
 import asyncio
 import logging
 
+from ..crypto.cuda import ledger as _ledger
+from ..libs import tracing
 from ..types.block import BlockID
 from ..types.validator_set import VerificationError
 
@@ -120,7 +122,8 @@ def _window_lane_verdicts(vals, chain_id, lanes_all, sigs_all, per_commit):
         lambda: [c.vote_sign_bytes(chain_id, s)
                  for c, slots in per_commit for s in slots],
     )
-    _, verdicts = vals._batch_verify_lanes(lanes_all, msgs, sigs_all)
+    with _ledger.workload("fastsync"):
+        _, verdicts = vals._batch_verify_lanes(lanes_all, msgs, sigs_all)
     return verdicts
 
 
@@ -211,7 +214,8 @@ class WindowPipeline:
             pf[1].add_done_callback(self._retrieve_stale)
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
-            None, self._verify_window_job, vals, chain_id, blocks)
+            None, tracing.TRACER.wrap(self._verify_window_job), vals,
+            chain_id, blocks)
 
     def start_ahead(self, vals, chain_id, peek, skip: int) -> None:
         """Launch the NEXT window's commit verification concurrently
@@ -226,5 +230,6 @@ class WindowPipeline:
             return
         key = self.window_key(vals, nxt)
         fut = asyncio.get_running_loop().run_in_executor(
-            None, self._verify_window_job, vals, chain_id, nxt)
+            None, tracing.TRACER.wrap(self._verify_window_job), vals,
+            chain_id, nxt)
         self._prefetch = (key, fut, nxt)

@@ -3,10 +3,9 @@
 One Config of per-module sections with validate_basic on each, saved
 and loaded in the reference's file format (a flat key = value list per
 [section]): a file either package saves loads in the other to an equal
-config. The [crypto] and [instrumentation] sections are carried and
-validated; what they configure (the launch ledger and watchdog, the
-Prometheus listener) is not ported yet (ROADMAP Queue A item 5), and a
-node refuses `instrumentation.prometheus` at construction."""
+config. The [crypto] section configures the launch ledger and the
+watchdog (crypto/cuda/ledger.py, watchdog.py), [instrumentation] the
+Prometheus listener (libs/debugsrv.py)."""
 
 from __future__ import annotations
 
@@ -74,8 +73,9 @@ class BaseConfig:
 
 @dataclass
 class RPCConfig:
-    """reference: config.py:69 RPCConfig. A node refuses `grpc_laddr`
-    and `pprof_laddr` at construction (ROADMAP Queue A items 9 and 5)."""
+    """reference: config.py:69 RPCConfig. A node refuses `grpc_laddr` at
+    construction (ROADMAP Queue A item 9); `pprof_laddr` starts the
+    debug server (libs/debugsrv.py)."""
 
     laddr: str = "tcp://127.0.0.1:26657"
     grpc_laddr: str = ""  # gRPC broadcast API (reference rpc/grpc)
@@ -171,18 +171,16 @@ class ConsensusConfig:
 @dataclass
 class CryptoConfig:
     """Verify-backend intent + launch-ledger sizing (reference:
-    config.py:391 CryptoConfig; its crypto/tpu/{watchdog,ledger}.py).
-    Carried and validated: the watchdog and the ledger it configures
-    are not ported yet (ROADMAP Queue A item 5).
+    config.py:391 CryptoConfig), for crypto/cuda/{watchdog,ledger}.py.
 
     `backend` is the operator's promise, not a dispatch switch: the
     verify paths keep their own breaker-aware device/host ladder
-    regardless. With the accelerator named, the reference's watchdog
-    degrades its /status device check when launches land on the CPU,
-    raise, go silent past the window or drift past the recorded
-    baseline; "auto" (default) and "cpu" never degrade on it. The
-    values keep the reference's vocabulary ("tpu" names the
-    accelerator) so a file loads in either package."""
+    regardless. With the accelerator named, the watchdog degrades the
+    /status device check when launches land on the CPU, raise, go
+    silent past the window or drift past a baseline; "auto" (default)
+    and "cpu" never degrade on it. "gpu" names the card; the
+    reference's "tpu" is read as the same promise, so that a file
+    loads in either package."""
 
     backend: str = "auto"
     # effective-backend classification window: how long without a
@@ -193,10 +191,10 @@ class CryptoConfig:
     ledger_capacity: int = 512
 
     def validate_basic(self) -> None:
-        if self.backend not in ("auto", "tpu", "cpu"):
+        if self.backend not in ("auto", "gpu", "tpu", "cpu"):
             raise ValueError(
                 f"unknown crypto.backend {self.backend!r} "
-                "(want auto|tpu|cpu)")
+                "(want auto|gpu|tpu|cpu)")
         if self.watchdog_window_s <= 0:
             raise ValueError("crypto.watchdog_window_s must be positive")
         if self.ledger_capacity < 16:
@@ -471,8 +469,8 @@ def apply_mesh(cfg: MeshConfig) -> None:
 
 @dataclass
 class InstrumentationConfig:
-    """reference: config.py:435. A node refuses `prometheus` at
-    construction (ROADMAP Queue A item 5)."""
+    """reference: config.py:435. `prometheus` starts a listener on
+    `prometheus_listen_addr` serving GET /metrics (libs/debugsrv.py)."""
 
     prometheus: bool = False
     prometheus_listen_addr: str = ":26660"

@@ -13,11 +13,11 @@ reference's internal event switch. All inbound consensus messages are
 funneled into the consensus state's single serialized receive queue
 (`add_peer_msg`), preserving the reference's one-event-loop invariant.
 
-Lifecycle messages carry the origin tag (libs/tracing.py, field 15),
-stamped with span id 0 as the reference stamps with no live span; the
-label is ``trace_node`` or the first 16 characters of the node id. The
-receiver does not read it (the reference folds it into its
-``p2p.recv_msg`` span, which waits for the port's tracing).
+Lifecycle messages carry the origin tag (libs/tracing.py, field 15):
+the span id live at send time (0 with none, as in the reference), and
+the label ``trace_node`` (the ConsensusState's, which the node sets to
+its moniker) or the first 16 characters of the node id. The receiver
+folds a received tag into its live ``p2p.recv_msg`` span.
 
 Divergence, the port's rule for its own faults (crypto/batch.py
 UNCAUGHT): a gossip routine that meets a KernelError or NoDeviceError
@@ -279,16 +279,13 @@ class ConsensusReactor(Reactor):
         # into the trust metric (behaviour.SwitchReporter) without
         # knowing about the p2p layer.
         cs.reporter_fn = lambda: getattr(self.switch, "reporter", None)
-        # the origin tag's node label (the reference keeps it on
-        # ConsensusState as trace_node)
-        self.trace_node = ""
 
     # -- origin stamping (height forensics) --
 
     def _origin_label(self) -> str:
         """Node label carried on outgoing lifecycle messages: the
-        builder-set trace_node, falling back to our p2p node id."""
-        label = self.trace_node
+        cs.trace_node the node sets, falling back to our p2p node id."""
+        label = getattr(self.cs, "trace_node", "")
         if label:
             return label
         sw = self.switch
@@ -399,6 +396,12 @@ class ConsensusReactor(Reactor):
 
     async def receive(self, chan_id: int, peer, msgb: bytes) -> None:
         msg = m.decode_consensus_msg(msgb)
+        # origin rehydration: the connection's recv routine runs us
+        # inside a live p2p.recv_msg span — fold the sender's tag (node,
+        # height, round, send-side span id) into its attrs
+        origin = getattr(msg, "origin", None)
+        if origin is not None:
+            tracing.rehydrate_origin(origin)
         ps = self.peer_states.get(peer.id)
         if ps is None:
             return

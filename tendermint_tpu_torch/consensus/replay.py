@@ -11,10 +11,9 @@ The Handshaker doubles as an explicit RECONCILER: every legal
 cross-store skew a commit-pipeline crash can leave (see
 libs/failpoints.py COMMIT_PIPELINE) is enumerated, healed, and recorded in a
 RecoveryReport — each repair named from the closed REPAIR_KINDS
-catalog and counted in METRICS, a plain dict standing for the
-reference's `recovery` metrics namespace (its `recovery_metrics()`
-waits for the port's metrics layer; its GET /status surface for the
-node's assembly)."""
+catalog and counted in the reference's recovery family
+(libs/metrics.py recovery_metrics: repairs by kind, blocks replayed,
+quarantined files); the node keeps the report for GET /status."""
 
 from __future__ import annotations
 
@@ -34,12 +33,6 @@ from ..store import BlockStore
 from ..types.genesis import GenesisDoc
 
 logger = logging.getLogger("consensus.replay")
-
-# the reference's recovery_metrics(): repairs by kind, blocks replayed,
-# and the quarantine files the last startup scan found
-METRICS: dict = {"repairs": {}, "blocks_replayed": 0,
-                 "quarantined_files": 0}
-
 
 class HandshakeError(Exception):
     pass
@@ -85,8 +78,15 @@ class RecoveryReport:
         self.repairs.append({"kind": kind, "detail": detail})
         self.blocks_replayed += blocks
         logger.warning("startup recovery: %s — %s", kind, detail)
-        METRICS["repairs"][kind] = METRICS["repairs"].get(kind, 0) + 1
-        METRICS["blocks_replayed"] += blocks
+        try:
+            from ..libs.metrics import recovery_metrics
+
+            m = recovery_metrics()
+            m.repairs.inc(kind=kind)
+            if blocks:
+                m.blocks_replayed.inc(blocks)
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
 
     def to_dict(self) -> dict:
         return {
@@ -351,7 +351,7 @@ def _reconcile_wal(wal_path: str, report: RecoveryReport) -> None:
 def _scan_quarantine(dirs, report: RecoveryReport) -> None:
     """List corruption-evidence files (`*.corrupt.NNN` from FileDB
     replay and WAL repair — including the one a _reconcile_wal call
-    just wrote) into the report and METRICS["quarantined_files"], so
+    just wrote) into the report and recovery_quarantined_files, so
     accumulated evidence is seen instead of discovered by du(1) years
     later."""
     found: list[str] = []
@@ -362,7 +362,9 @@ def _scan_quarantine(dirs, report: RecoveryReport) -> None:
             if ".corrupt." in name:
                 found.append(os.path.join(d, name))
     report.quarantined_files = found
-    METRICS["quarantined_files"] = len(found)
+    from ..libs.metrics import recovery_metrics
+
+    recovery_metrics().quarantined_files.set(len(found))
 
 
 async def reconcile_and_handshake(

@@ -48,10 +48,12 @@ goes on, a KernelError or NoDeviceError ends the flusher; the plane
 keeps it as ``fault`` and re-raises it at the next feed, so the state
 machine that feeds the plane stops with it.
 
-Reference: consensus/speculation.py. Not in this slice of the port:
-tracing spans and metrics (the plain counters ``hits``, ``misses`` and
-``patched_lanes`` stand for them); ``status_check`` is the body the
-reference's GET /status check serves.
+Reference: consensus/speculation.py, with its spans
+(speculation.speculate around a launch batch, speculation.patch around
+the splice, speculation.reconcile around the commit-time serve), its
+speculation family (hits, misses by reason, patched lanes, launches by
+backend, overlap) and ``workload("speculation")`` around the arena
+launch; ``status_check`` is the body GET /status serves.
 """
 
 from __future__ import annotations
@@ -59,11 +61,14 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from collections import deque
 
 import numpy as np
 
-from ..libs import failpoints
+from ..crypto.cuda import ledger as _ledger
+from ..libs import failpoints, tracing
+from ..libs.metrics import crypto_metrics, speculation_metrics
 from ..types import canonical
 from ..types.vote import VoteType
 
@@ -109,7 +114,7 @@ class _HeightSpec:
 
     __slots__ = ("chain_id", "height", "round", "block_id", "valset",
                  "valset_hash", "pre", "suf", "lanes", "other",
-                 "pending")
+                 "pending", "launch_done")
 
     def __init__(self, chain_id, height, round_, block_id, valset):
         self.chain_id = chain_id
@@ -123,6 +128,7 @@ class _HeightSpec:
         self.lanes: dict[int, _Lane] = {}
         self.other: set[int] = set()  # voted nil / a different block
         self.pending: list[tuple[int, int, bytes]] = []  # idx, ts, sig
+        self.launch_done: float | None = None  # monotonic, last launch
 
 
 class SpeculationPlane:
@@ -262,6 +268,7 @@ class SpeculationPlane:
         entry.lanes[idx] = lane
         entry.pending.append((idx, vote.timestamp, vote.signature))
         self.patched_lanes += 1
+        speculation_metrics().patched_lanes.inc()
 
     def retire_below(self, height: int) -> None:
         """Consensus moved to `height`: commits below height-1 can no
@@ -284,8 +291,9 @@ class SpeculationPlane:
             evt.clear()
             for entry, batch in self._drain():
                 try:
-                    await loop.run_in_executor(None, self._launch_batch,
-                                               entry, batch)
+                    await loop.run_in_executor(
+                        None, tracing.TRACER.wrap(self._launch_batch),
+                        entry, batch)
                 except asyncio.CancelledError:
                     raise
                 except UNCAUGHT as e:
@@ -314,6 +322,11 @@ class SpeculationPlane:
             self._launch_batch(entry, batch)
 
     def _launch_batch(self, entry: _HeightSpec, batch: list) -> None:
+        with tracing.TRACER.span(tracing.SPECULATION_SPECULATE,
+                                 lanes=len(batch), height=entry.height):
+            self._speculate(entry, batch)
+
+    def _speculate(self, entry: _HeightSpec, batch: list) -> None:
         kept: list[tuple[int, int, bytes]] = []
         for idx, ts, sig in batch:
             try:
@@ -364,15 +377,16 @@ class SpeculationPlane:
                     "speculative device launch failed (%d lanes); "
                     "breaker open %.1fs, degrading to host", n,
                     cbatch.breaker("ed25519").cooldown_remaining())
-                cbatch.count("host_fallbacks")
+                cbatch.host_fallback()
         elif want_dev:
             # the device wanted but the breaker refused (open/probing)
-            cbatch.count("host_fallbacks")
+            cbatch.host_fallback()
         return self._host_verify(entry, kept)
 
     def _host_verify(self, entry, kept):
         from ..crypto.batch import BatchVerifier
 
+        speculation_metrics().launches.inc(backend="host")
         try:
             bv = BatchVerifier(use_device=False)
             for idx, ts, sig in kept:
@@ -427,11 +441,18 @@ class SpeculationPlane:
                     "speculative structured sign-bytes self-check "
                     "failed")
             failpoints.hit("device.verify")
-            arena.splice([idx + 1 for idx, _, _ in kept],
-                         np.frombuffer(b"".join(s for _, _, s in kept),
-                                       np.uint8).reshape(n, 64),
-                         patch, split, patch_len, group)
-            out = arena.launch()
+            crypto_metrics().device_launches.inc()
+            with tracing.TRACER.span(tracing.SPECULATION_PATCH, lanes=n):
+                arena.splice([idx + 1 for idx, _, _ in kept],
+                             np.frombuffer(b"".join(s for _, _, s in kept),
+                                           np.uint8).reshape(n, 64),
+                             patch, split, patch_len, group)
+            with _ledger.workload("speculation"):
+                out = arena.launch()
+            entry.launch_done = time.monotonic()
+            speculation_metrics().launches.inc(backend="device")
+            crypto_metrics().batch_lanes.inc(n, backend="gpu")
+            speculation_metrics().arena_bytes.set(arena.arena_bytes())
             if not out[0]:
                 # a wrong-verdict device: open a breaker and re-verify
                 # on the host rather than keep garbage verdicts. A mesh
@@ -448,8 +469,8 @@ class SpeculationPlane:
                     " on " + ", ".join(f"shard {i} ({name})"
                                        for i, name in failed)
                     if failed else "")
-                cbatch.count("host_rechecks")
-                cbatch.count("host_fallbacks")
+                speculation_metrics().launches.inc(backend="host_recheck")
+                cbatch.host_fallback()
                 return self._host_verify(entry, kept)
             return [bool(out[idx + 1]) for idx, _, _ in kept]
 
@@ -498,17 +519,35 @@ class SpeculationPlane:
         was speculated for this commit; True means the commit was fully
         checked here — with verify_commit's exact error behavior
         (VerificationError on bad signatures / insufficient power)."""
-        from ..types.validator_set import VerificationError
-
+        met = speculation_metrics()
         with self._lock:
             entry = self._heights.get(height)
             if entry is None or entry.chain_id != chain_id \
                     or entry.round != commit.round \
                     or entry.block_id != commit.block_id \
                     or entry.valset_hash != valset.hash():
+                met.misses.inc(reason=MISS_NO_PLAN)
                 self.misses[MISS_NO_PLAN] += 1
                 return False
             lanes = dict(entry.lanes)
+            launch_done = entry.launch_done
+        with tracing.TRACER.span(tracing.SPECULATION_RECONCILE,
+                                 height=height):
+            hit = self._reconcile(valset, chain_id, block_id, height,
+                                  commit, lanes)
+        if hit:
+            self.hits += 1
+            met.hits.inc()
+            if launch_done is not None:
+                met.overlap_seconds.observe(time.monotonic() - launch_done)
+        return True
+
+    def _reconcile(self, valset, chain_id, block_id, height, commit,
+                   lanes) -> bool:
+        """serve_commit's check over the speculated `lanes`; True when
+        every lane was served from a launch (a hit)."""
+        from ..types.validator_set import VerificationError
+
         valset._check_commit_basics(block_id, height, commit)
         tallied = 0
         slots: list[int] = []
@@ -534,7 +573,9 @@ class SpeculationPlane:
                 verd[idx] = lane.verdict
             else:
                 miss.append(idx)
-                self.misses[self._miss_reason(cs, lane)] += 1
+                reason = self._miss_reason(cs, lane)
+                self.misses[reason] += 1
+                speculation_metrics().misses.inc(reason=reason)
         if miss:
             # per-lane fallback batch: one mismatched lane costs one
             # lane of re-verification; its batchmates keep their
@@ -552,9 +593,7 @@ class SpeculationPlane:
             raise VerificationError(
                 f"insufficient voting power: {tallied} of "
                 f"{valset.total_voting_power()}")
-        if not miss:
-            self.hits += 1
-        return True
+        return not miss
 
     @staticmethod
     def _miss_reason(cs, lane) -> str:

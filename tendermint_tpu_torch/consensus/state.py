@@ -26,10 +26,14 @@ vote cannot be tallied against a different key than it was verified
 with. The reference keeps the scheduler's state on ConsensusState; here
 VoteScheduler owns it and takes the tally step as a callable.
 
-The reference's tracing spans, its `trace_node` label and its
-tpu_metrics() gauges wait for the port's tracing; the consensus metrics
-_record_commit_metrics writes are kept in METRICS, a plain dict (the
-convention of state.execution.METRICS).
+The reference's trace timeline is kept: one consensus.height root span
+per height, a step span per RoundStep (parented on the root by handle),
+a consensus.vote_batch span per scheduler batch (TRACER.wrap carries it
+and the launch-ledger workload into the executor thread), and the
+commit step span attached around finalize so wal.fsync and
+state.apply_block nest under it. `trace_node` labels the spans and the
+consensus wire's origin tags. _record_commit_metrics writes the
+reference's consensus family (libs/metrics.py).
 
 Divergences, the port's rule for its own faults (crypto/batch.py
 UNCAUGHT): a KernelError or NoDeviceError is never degraded to the
@@ -52,6 +56,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time as _time
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,7 +64,9 @@ import numpy as np
 from ..config import ConsensusConfig
 from ..crypto.batch import UNCAUGHT
 from ..libs import clock as _clock
+from ..libs import tracing
 from ..libs.failpoints import hit as _failpoint
+from ..libs.metrics import consensus_metrics, tpu_metrics
 from ..libs.overload import CONTROLLER, PriorityFunnel
 from ..libs.service import Service
 from ..mempool import Mempool, NopMempool
@@ -214,6 +221,7 @@ class VoteScheduler:
         # structured path (validator-index lanes against the SAME set
         # pk was resolved from).
         self._vote_buf.append((vote, peer_id, pk, vals))
+        tpu_metrics().verify_queue_depth.set(len(self._vote_buf))
         self._vote_pending.set()
         return True
 
@@ -265,8 +273,10 @@ class VoteScheduler:
 
     async def run(self) -> None:
         loop = asyncio.get_running_loop()
+        met = consensus_metrics()
         while True:
             await self._vote_pending.wait()
+            t_window = _time.perf_counter()
             window = self.config.vote_batch_window_ms / 1e3
             # Early flush under pressure: once the buffer passes half
             # its bound, waiting out the batching window only deepens
@@ -277,8 +287,11 @@ class VoteScheduler:
                 await asyncio.sleep(window)
             batch, self._vote_buf = self._vote_buf, []
             self._vote_pending.clear()
+            tpu_metrics().verify_queue_depth.set(0)
             if not batch:
                 continue
+            met.vote_batch_wait_seconds.observe(
+                _time.perf_counter() - t_window)
             self._in_batch = True
             try:
                 await self._verify_and_commit_batch(batch, loop)
@@ -296,13 +309,20 @@ class VoteScheduler:
                 self._in_batch = False
 
     async def _verify_and_commit_batch(self, batch, loop) -> None:
-        if len(batch) > 1:
-            # Device (or host-oracle) verify OFF the event loop: gossip,
-            # RPC and timeouts keep running during a 10k-lane burst.
-            verdicts = await loop.run_in_executor(
-                None, batch_verdicts, batch, self.chain_id)
-        else:
-            verdicts = batch_verdicts(batch, self.chain_id)
+        consensus_metrics().vote_batch_size.observe(len(batch))
+        with tracing.TRACER.span(tracing.CONSENSUS_VOTE_BATCH,
+                                 lanes=len(batch)):
+            if len(batch) > 1:
+                # Device (or host-oracle) verify OFF the event loop:
+                # gossip, RPC and timeouts keep running during a
+                # 10k-lane burst. TRACER.wrap carries the vote-batch
+                # span (and the launch-ledger workload) into the
+                # executor thread.
+                verdicts = await loop.run_in_executor(
+                    None, tracing.TRACER.wrap(batch_verdicts), batch,
+                    self.chain_id)
+            else:
+                verdicts = batch_verdicts(batch, self.chain_id)
         await self._commit(batch, verdicts, "batch-verify")
 
     async def _host_verify_and_commit(self, batch, loop) -> None:
@@ -362,21 +382,6 @@ class VoteScheduler:
                                      peer_id)
 
 
-# the reference's consensus_metrics() (Go consensus/metrics.go), as
-# _record_commit_metrics sets them: gauges hold their last value,
-# counters count, and the block-interval histogram is an observation
-# count and a sum of seconds
-METRICS: dict = {
-    "height": 0, "rounds": 0, "validators": 0, "validators_power": 0,
-    "missing_validators": 0, "missing_validators_power": 0,
-    "byzantine_validators": 0, "byzantine_validators_power": 0,
-    "validator_power": 0, "validator_last_signed_height": 0,
-    "validator_missed_blocks": 0, "num_txs": 0, "total_txs": 0,
-    "block_size_bytes": 0, "block_parts": 0,
-    "block_interval_seconds": {"count": 0, "sum": 0.0},
-}
-
-
 @dataclass
 class _QueuedMsg:
     msg: object
@@ -385,6 +390,17 @@ class _QueuedMsg:
 
 class ConsensusState(Service):
     """One consensus instance (Go consensus/state.go:85 State)."""
+
+    # Span handles of the per-height trace timeline. Class-level
+    # defaults because update_to_state (which rolls them) runs inside
+    # __init__ before any instance attribute could be assigned.
+    _ht_span = None
+    _step_span = None
+    # Node label for height forensics: when non-empty, every height/
+    # step span carries node=<label> and outgoing lifecycle messages
+    # are origin-stamped with it. Set by the node (its moniker) after
+    # construction; "" disables both.
+    trace_node = ""
 
     def __init__(self, config: ConsensusConfig, state: SmState,
                  block_exec: BlockExecutor, block_store: BlockStore,
@@ -554,6 +570,25 @@ class ConsensusState(Service):
                                   last_precommits)
         if self.speculation is not None:
             self.speculation.retire_below(height)
+        self._trace_new_height(height)
+
+    def _trace_new_height(self, height: int) -> None:
+        """Roll the per-height trace timeline: seal the previous height's
+        step and root spans, open the next root. Managed by hand (not a
+        with-block): a height's lifetime spans many handler invocations
+        across two tasks (the receive routine and the vote scheduler)."""
+        t = tracing.TRACER
+        if self._step_span is not None:
+            self._step_span.end()
+            self._step_span = None
+        if self._ht_span is not None:
+            self._ht_span.end()
+        # parent=NOOP_SPAN pins the root parentless: update_to_state can
+        # run inside the vote scheduler's active vote_batch span
+        self._ht_span = t.begin(tracing.CONSENSUS_HEIGHT,
+                                parent=tracing.NOOP_SPAN, height=height)
+        if self.trace_node:
+            self._ht_span.set_attr("node", self.trace_node)
 
     def reconstruct_last_commit(self) -> None:
         """Rebuild rs.last_commit from the stored seen commit (Go
@@ -724,6 +759,13 @@ class ConsensusState(Service):
 
     def _new_step(self, step: RoundStep) -> None:
         self.rs.step = step
+        if self._step_span is not None:
+            self._step_span.end()
+        self._step_span = tracing.TRACER.begin(
+            tracing.consensus_step_kind(step.name), parent=self._ht_span,
+            height=self.rs.height, round=self.rs.round)
+        if self.trace_node:
+            self._step_span.set_attr("node", self.trace_node)
         rsm = RoundStateMessage(self.rs.height, self.rs.round, int(step))
         self._wal_write(rsm)
         if self.event_bus is not None:
@@ -820,6 +862,9 @@ class ConsensusState(Service):
         except Exception as e:
             self.logger.error("failed to sign proposal: %r", e)
             return
+        # forensics anchor: this node built the block for this round
+        if self._step_span is not None:
+            self._step_span.set_attr("proposer", True)
         self._send_internal(m.ProposalMessage(proposal))
         for i in range(parts.total):
             self._send_internal(m.BlockPartMessage(height, round_,
@@ -992,6 +1037,10 @@ class ConsensusState(Service):
             return
         rs.commit_round = commit_round
         rs.commit_time = _clock.monotonic()
+        # forensics anchor: the instant the precommit quorum landed here
+        if self._ht_span is not None:
+            self._ht_span.set_attr("precommit_quorum_ns",
+                                   _time.perf_counter_ns())
         self._new_step(RoundStep.COMMIT)
 
         precommits = rs.votes.precommits(commit_round)
@@ -1034,7 +1083,11 @@ class ConsensusState(Service):
         routine or from a vote scheduler tally; a failure here halts the
         node from either."""
         try:
-            await self._commit_height(height)
+            # the commit step span is attached by handle (finalize runs
+            # from the receive routine or the vote scheduler), so
+            # wal.fsync and state.apply_block nest under it either way
+            with tracing.TRACER.attach(self._step_span):
+                await self._commit_height(height)
         except BaseException as e:
             if not isinstance(e, asyncio.CancelledError):
                 self._halt(e)
@@ -1080,48 +1133,47 @@ class ConsensusState(Service):
 
     def _record_commit_metrics(self, block, precommits, parts=None) -> None:
         """Go consensus/metrics.go recording (state.go:1612
-        recordMetrics), into METRICS."""
-        met = METRICS
-        met["height"] = block.header.height
-        met["rounds"] = self.rs.round
+        recordMetrics), into the consensus family."""
+        met = consensus_metrics()
+        met.height.set(block.header.height)
+        met.rounds.set(self.rs.round)
         vals = self.rs.validators
-        met["validators"] = len(vals)
-        met["validators_power"] = vals.total_voting_power()
+        met.validators.set(len(vals))
+        met.validators_power.set(vals.total_voting_power())
         missing = missing_power = 0
         for i in range(len(vals)):
             if precommits.get_by_index(i) is None:
                 missing += 1
                 missing_power += vals.validators[i].voting_power
-        met["missing_validators"] = missing
-        met["missing_validators_power"] = missing_power
+        met.missing_validators.set(missing)
+        met.missing_validators_power.set(missing_power)
         # evidence in THIS block tallies byzantine signers (set
         # unconditionally: the gauges drop back to 0 on evidence-free
         # blocks, like the reference's)
         byz = {e.vote_a.validator_address
                for e in block.evidence.evidence
                if hasattr(e, "vote_a")}
-        met["byzantine_validators"] = len(byz)
-        met["byzantine_validators_power"] = sum(
-            v.voting_power for v in vals.validators if v.address in byz)
+        met.byzantine_validators.set(len(byz))
+        met.byzantine_validators_power.set(sum(
+            v.voting_power for v in vals.validators if v.address in byz))
         if self.priv_validator_address is not None and \
                 vals.has_address(self.priv_validator_address):
             idx, own = vals.get_by_address(self.priv_validator_address)
-            met["validator_power"] = own.voting_power
+            met.validator_power.set(own.voting_power)
             if precommits.get_by_index(idx) is not None:
-                met["validator_last_signed_height"] = block.header.height
+                met.validator_last_signed_height.set(block.header.height)
             else:
-                met["validator_missed_blocks"] += 1
+                met.validator_missed_blocks.inc()
         ntx = len(block.data.txs)
-        met["num_txs"] = ntx
-        met["total_txs"] += ntx
+        met.num_txs.set(ntx)
+        met.total_txs.inc(ntx)
         # the part set already holds the serialized size
         if parts is not None:
-            met["block_size_bytes"] = parts.byte_size
+            met.block_size_bytes.set(parts.byte_size)
         prev = self.block_store.load_block_meta(block.header.height - 1)
         if prev is not None:
-            h = met["block_interval_seconds"]
-            h["count"] += 1
-            h["sum"] += max(block.header.time - prev.header.time, 0) / 1e9
+            met.block_interval_seconds.observe(
+                max(block.header.time - prev.header.time, 0) / 1e9)
 
     # -- proposals & parts --
 
@@ -1164,7 +1216,7 @@ class ConsensusState(Service):
             return False
         added = rs.proposal_block_parts.add_part(msg.part)
         if added:
-            METRICS["block_parts"] += 1
+            consensus_metrics().block_parts.inc()
         if added and rs.proposal_block_parts.is_complete():
             data = rs.proposal_block_parts.assemble()
             block = Block.from_bytes(data)
@@ -1181,6 +1233,12 @@ class ConsensusState(Service):
                 raise VoteSetError(
                     "completed block hash != proposal block id")
             rs.proposal_block = block
+            # forensics anchor: the first full part set on this node
+            prior = getattr(self._ht_span, "attrs", None) or {}
+            if self._ht_span is not None and \
+                    "parts_complete_ns" not in prior:
+                self._ht_span.set_attr("parts_complete_ns",
+                                       _time.perf_counter_ns())
             if self.event_bus is not None:
                 self.event_bus.publish_complete_proposal(EventDataRoundState(
                     rs.height, rs.round, "CompleteProposal"

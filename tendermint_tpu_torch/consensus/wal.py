@@ -6,8 +6,8 @@ to rebuild in-flight round state. Record framing matches the
 reference's shape (wal.go:288): crc32 + length + payload, with a hard
 per-message size bound. An EndHeightMessage delimits each committed
 height (wal.go:42); recovery seeks the last one (wal.go:231). The
-records are byte-equal with the reference's; its tracing span around
-the fsync comes with the port's tracing."""
+records are byte-equal with the reference's; each write_sync's fsync is
+a wal.fsync span."""
 
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from dataclasses import dataclass
 logger = logging.getLogger("wal")
 
 from ..encoding.proto import Reader, Writer
-from ..libs import failpoints
+from ..libs import failpoints, tracing
 
 MAX_MSG_SIZE = 1 << 20  # 1MB, reference wal.go maxMsgSizeBytes
 
@@ -255,7 +255,8 @@ class WAL:
 
     def write_sync(self, msg: object, time_ns: int = 0) -> None:
         self.write(msg, time_ns)
-        self.flush_and_sync()
+        with tracing.TRACER.span(tracing.WAL_FSYNC):
+            self.flush_and_sync()
 
     def flush_and_sync(self) -> None:
         failpoints.hit("wal.fsync")

@@ -33,9 +33,13 @@ else (an injected ``device.verify`` failpoint, a device-health code
 such as an uncorrectable ECC error or a lost device) or that returns a
 wrong known-answer verdict.
 
-Counters: ``METRICS`` — host_fallbacks, evictions by (entry, reason),
-probes by (backend, result), host_rechecks (a plain dict; the
-reference's metrics library is not ported).
+Counters are the reference's metric families (libs/metrics.py):
+crypto_breaker_state / _opens_total / _probes_total by backend,
+tpu_device_breaker_state and tpu_mesh_evictions_total by entry name,
+tpu_mesh_active_devices, tpu_host_fallbacks_total; ``counters()`` reads
+them back as one dict. A probe's launches are tagged
+``workload("probe")`` in the launch ledger; a verify() call is a
+crypto.batch span, a host verify a crypto.host_verify span.
 """
 
 from __future__ import annotations
@@ -49,7 +53,10 @@ import numpy as np
 
 from . import PubKey
 from ..device import NoDeviceError
-from ..libs import clock
+from ..libs import clock, tracing
+from ..libs.metrics import (admission_metrics, crypto_metrics,
+                            light_metrics, speculation_metrics, tpu_metrics)
+from .cuda import ledger as _ledger
 from .cuda.kernels import KernelError
 
 logger = logging.getLogger("crypto.batch")
@@ -75,9 +82,7 @@ BREAKER_MAX_COOLDOWN_S = 300.0
 PROBE_LANES = 8  # synthetic lanes per half-open probe
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
-
-METRICS: dict = {"host_fallbacks": 0, "evictions": {}, "probes": {},
-                 "host_rechecks": 0}
+_STATE_CODE = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
 
 # Host-only override (reference crypto/batch.py:413): every batch
 # verification routes to the host oracle, with no device in the loop —
@@ -99,12 +104,36 @@ def host_forced() -> bool:
     return _FORCE_HOST
 
 
-def count(key: str, sub=None) -> None:
-    """Add one to METRICS[key] (to METRICS[key][sub] for a keyed one)."""
-    if sub is None:
-        METRICS[key] += 1
-    else:
-        METRICS[key][sub] = METRICS[key].get(sub, 0) + 1
+def host_fallback() -> None:
+    """A batch that wanted the device verified on the host
+    (tpu_host_fallbacks_total)."""
+    try:
+        tpu_metrics().host_fallbacks.inc()
+    except Exception:  # pragma: no cover - metrics never fatal
+        pass
+
+
+def _labelled(counter, *names) -> dict:
+    return {tuple(dict(key)[n] for n in names): int(v)
+            for key, v in list(counter._values.items())}
+
+
+def counters() -> dict:
+    """The breaker ladder's counters, read from their families:
+    host_fallbacks, evictions by (entry, reason), probes by (backend,
+    result), and host_rechecks (the planes' sentinel-failure rechecks,
+    each plane's verify_launches / launches with backend
+    "host_recheck")."""
+    tm, cm = tpu_metrics(), crypto_metrics()
+    return {
+        "host_fallbacks": int(tm.host_fallbacks.value()),
+        "evictions": _labelled(tm.mesh_evictions, "device", "reason"),
+        "probes": _labelled(cm.breaker_probes, "backend", "result"),
+        "host_rechecks": int(
+            admission_metrics().launches.value(backend="host_recheck")
+            + light_metrics().verify_launches.value(backend="host_recheck")
+            + speculation_metrics().launches.value(backend="host_recheck")),
+    }
 
 
 class CircuitBreaker:
@@ -133,6 +162,14 @@ class CircuitBreaker:
             return 0.0
         return max(0.0, self._open_until - clock.monotonic())
 
+    def _set_state(self, state: str) -> None:
+        self.state = state
+        try:
+            crypto_metrics().breaker_state.set(_STATE_CODE[state],
+                                               backend=self.backend)
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
+
     def _open_locked(self) -> None:
         from ..libs.net import jittered_backoff
 
@@ -140,7 +177,12 @@ class CircuitBreaker:
                               BREAKER_BASE_COOLDOWN_S,
                               BREAKER_MAX_COOLDOWN_S)
         self._open_until = clock.monotonic() + cd
-        self.state = OPEN
+        if self.state != OPEN:
+            try:
+                crypto_metrics().breaker_opens.inc(backend=self.backend)
+            except Exception:  # pragma: no cover - metrics never fatal
+                pass
+        self._set_state(OPEN)
         logger.warning("device breaker OPEN (%s): failure #%d, cooldown "
                        "%.1fs", self._label, self.consecutive_failures, cd)
 
@@ -161,23 +203,27 @@ class CircuitBreaker:
             if self._probing or clock.monotonic() < self._open_until:
                 return False
             self._probing = True
-            self.state = HALF_OPEN
+            self._set_state(HALF_OPEN)
         try:
             ok = bool(self._probe())
         except UNCAUGHT:
             with self._lock:
                 self._probing = False
-                self.state = OPEN
+                self._set_state(OPEN)
             raise
         except Exception:
             logger.exception("half-open probe raised (%s)", self._label)
             ok = False
-        count("probes", (self.backend, "ok" if ok else "failed"))
+        try:
+            crypto_metrics().breaker_probes.inc(
+                backend=self.backend, result="ok" if ok else "failed")
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
         with self._lock:
             self._probing = False
             if ok:
                 self.consecutive_failures = 0
-                self.state = CLOSED
+                self._set_state(CLOSED)
                 logger.warning("device breaker CLOSED (%s): probe "
                                "succeeded", self._label)
             else:
@@ -190,7 +236,7 @@ class CircuitBreaker:
             self.consecutive_failures = 0
             self._open_until = 0.0
             self._probing = False
-            self.state = CLOSED
+            self._set_state(CLOSED)
 
 
 @functools.cache
@@ -213,8 +259,9 @@ def _probe_ed25519(device=None) -> bool:
 
     failpoints.hit("device.verify")
     p, m, s = _ed_probe_triple()
-    out = tv.verify_batch([p] * PROBE_LANES, [m] * PROBE_LANES,
-                          [s] * PROBE_LANES, device=device)
+    with _ledger.workload("probe"):
+        out = tv.verify_batch([p] * PROBE_LANES, [m] * PROBE_LANES,
+                              [s] * PROBE_LANES, device=device)
     return bool(np.asarray(out).all())
 
 
@@ -233,8 +280,9 @@ def _probe_sr25519(device=None) -> bool:
 
     failpoints.hit("device.verify")
     p, m, s = _sr_probe_triple()
-    out = sr_verify.verify_batch_sr([p] * PROBE_LANES, [m] * PROBE_LANES,
-                                    [s] * PROBE_LANES, device=device)
+    with _ledger.workload("probe"):
+        out = sr_verify.verify_batch_sr([p] * PROBE_LANES, [m] * PROBE_LANES,
+                                        [s] * PROBE_LANES, device=device)
     return bool(np.asarray(out).all())
 
 
@@ -244,6 +292,9 @@ _BREAKERS: dict[str, CircuitBreaker] = {
 }
 
 _BACKEND_PROBES = {"ed25519": _probe_ed25519, "sr25519": _probe_sr25519}
+# crypto_batch_lanes_total's backend label of a device launch (the
+# reference's "tpu" / "tpu-sr25519", in crypto/cuda/backend.py's word)
+_DEVICE_LABELS = {"ed25519": "gpu", "sr25519": "gpu-sr25519"}
 
 
 class DeviceBreaker(CircuitBreaker):
@@ -261,6 +312,14 @@ class DeviceBreaker(CircuitBreaker):
         self.device = device  # the entry's name (verify.Mesh.names)
         self._label = f"{backend} {device}"
         self._probe = self._device_probe
+
+    def _set_state(self, state: str) -> None:
+        self.state = state
+        try:
+            tpu_metrics().device_breaker_state.set(_STATE_CODE[state],
+                                                   device=self.device)
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
 
     def _device_probe(self) -> bool:
         from .cuda import verify as tv
@@ -374,13 +433,20 @@ def mark_device_failed(backend: str = "ed25519", device=None,
     MeshResidentArena.failed_shards()) only the named entries' breakers
     open and the fabric reshards over the survivors; when every entry
     of the mesh is out, the backend breaker opens too."""
+    try:
+        crypto_metrics().device_failures.inc()
+    except Exception:  # pragma: no cover - metrics never fatal
+        pass
     if not device:
         _BREAKERS[backend].record_failure()
         return
     names = [device] if isinstance(device, str) else list(device)
     for name in names:
         device_breaker(backend, name).record_failure()
-        count("evictions", (name, reason))
+        try:
+            tpu_metrics().mesh_evictions.inc(device=name, reason=reason)
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
         logger.error("mesh entry %s evicted (%s backend, reason=%s); "
                      "resharding over the survivors", name, backend,
                      reason)
@@ -389,15 +455,32 @@ def mark_device_failed(backend: str = "ed25519", device=None,
         logger.error("all %d mesh entries evicted (%s backend); opening "
                      "the backend breaker", len(mesh_devs), backend)
         _BREAKERS[backend].record_failure()
+    _set_active_devices(backend)
 
 
-def host_verify(items) -> np.ndarray:
+def _set_active_devices(backend: str = "ed25519") -> None:
+    """tpu_mesh_active_devices: the mesh's entries minus the evicted."""
+    devs = _mesh_device_strs()
+    if not devs:
+        return
+    try:
+        evicted = set(evicted_devices(backend))
+        tpu_metrics().mesh_active_devices.set(
+            len([d for d in devs if d not in evicted]))
+    except Exception:  # pragma: no cover - metrics never fatal
+        pass
+
+
+def host_verify(items, backend: str = "host") -> np.ndarray:
     """Per-lane verdicts of (pub_key, msg, sig) triples on the host: the
     per-key verify (ed25519: OpenSSL strict accept, else the ZIP-215
-    oracle, crypto/ed25519.py; sr25519: the oracle, crypto/sr25519.py)."""
-    return np.fromiter(
-        (len(s) == 64 and pk.verify_signature(m, s) for pk, m, s in items),
-        bool, count=len(items))
+    oracle, crypto/ed25519.py; sr25519: the oracle, crypto/sr25519.py),
+    in a crypto.host_verify span."""
+    with tracing.TRACER.span(tracing.CRYPTO_HOST_VERIFY, lanes=len(items),
+                             backend=backend):
+        return np.fromiter(
+            (len(s) == 64 and pk.verify_signature(m, s)
+             for pk, m, s in items), bool, count=len(items))
 
 
 class BatchVerifier:
@@ -427,13 +510,20 @@ class BatchVerifier:
         n = len(self._items)
         if n == 0:
             return True, np.zeros(0, bool)
+        m = crypto_metrics()
         verdicts = np.zeros(n, bool)
-        by_type: dict[str, list[int]] = {}
-        for i, (pk, _, _) in enumerate(self._items):
-            by_type.setdefault(pk.type_name, []).append(i)
-        for type_name, idxs in by_type.items():
-            items = [self._items[i] for i in idxs]
-            verdicts[np.asarray(idxs)] = self._verify_group(type_name, items)
+        with m.batch_seconds.time(), \
+                tracing.TRACER.span(tracing.CRYPTO_BATCH, lanes=n):
+            by_type: dict[str, list[int]] = {}
+            for i, (pk, _, _) in enumerate(self._items):
+                by_type.setdefault(pk.type_name, []).append(i)
+            for type_name, idxs in by_type.items():
+                items = [self._items[i] for i in idxs]
+                verdicts[np.asarray(idxs)] = self._verify_group(type_name,
+                                                                items)
+        bad = int(n - verdicts.sum())
+        if bad:
+            m.invalid_sigs.inc(bad)
         return bool(verdicts.all()), verdicts
 
     def _device_group(self, backend: str, device_verify, items):
@@ -445,9 +535,13 @@ class BatchVerifier:
                 from ..libs import failpoints
 
                 failpoints.hit("device.verify")
-                return device_verify([pk.bytes() for pk, _, _ in items],
-                                     [m for _, m, _ in items],
-                                     [s for _, _, s in items])
+                crypto_metrics().device_launches.inc()
+                out = device_verify([pk.bytes() for pk, _, _ in items],
+                                    [m for _, m, _ in items],
+                                    [s for _, _, s in items])
+                crypto_metrics().batch_lanes.inc(
+                    len(items), backend=_DEVICE_LABELS[backend])
+                return out
             except UNCAUGHT:
                 raise
             except Exception:
@@ -456,7 +550,7 @@ class BatchVerifier:
                     "device %s batch failed (%d lanes); breaker open "
                     "%.1fs, degrading to host", backend, len(items),
                     breaker(backend).cooldown_remaining())
-        count("host_fallbacks")
+        host_fallback()
         return None
 
     def _verify_group(self, type_name, items) -> np.ndarray:
@@ -471,6 +565,7 @@ class BatchVerifier:
                 out = self._device_group("ed25519", verify_batch, items)
                 if out is not None:
                     return out
+            crypto_metrics().batch_lanes.inc(len(items), backend="host")
             return host_verify(items)
         if type_name == "sr25519":
             if use_dev is None:
@@ -487,13 +582,31 @@ class BatchVerifier:
                 # explicit use_device=False keeps the oracle).
                 if len(items) >= _CPU_JIT_THRESHOLD_SR:
                     try:
-                        return verify_batch_sr(
+                        out = verify_batch_sr(
                             [pk.bytes() for pk, _, _ in items],
                             [m for _, m, _ in items],
                             [s for _, _, s in items], device="cpu")
+                        crypto_metrics().batch_lanes.inc(
+                            len(items), backend="cpu-fallback-sr25519")
+                        return out
                     except Exception:
                         logger.exception(
                             "CPU sr25519 batch failed (%d lanes); "
                             "falling back to the per-signature oracle",
                             len(items))
-        return host_verify(items)
+        crypto_metrics().batch_lanes.inc(len(items),
+                                         backend=f"host-{type_name}")
+        return host_verify(items, backend=f"host-{type_name}")
+
+
+# The watchdog (crypto/cuda/watchdog.py) reports mesh_degraded off this
+# pure read (no probes); registering here keeps the dependency
+# one-directional.
+def _register_watchdog() -> None:
+    from .cuda import watchdog as _watchdog
+
+    _watchdog.register_evicted_supplier(
+        lambda: evicted_devices("ed25519", probe=False))
+
+
+_register_watchdog()

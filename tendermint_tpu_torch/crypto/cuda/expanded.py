@@ -51,9 +51,11 @@ import numpy as np
 import torch
 
 from ...device import default_device
+from ...libs import tracing
 from . import edwards as ed
 from .fieldsel import F as fe
 from . import kernels
+from . import ledger as _ledger
 from . import scalar as sc
 from . import sha512 as sh
 from . import verify as tv
@@ -414,6 +416,29 @@ class ExpandedKeys:
         self.shards = [(self.akeys.to(dev), self.tables.to(dev),
                         self.key_ok.to(dev))
                        for dev in self.mesh or (self.device,)]
+        self._register_hbm()
+
+    def _register_hbm(self) -> None:
+        """Claim the tables' bytes in the launch ledger's HBM registry,
+        per device (comb_tables when replicated, table_shard when split
+        by key range): each distinct tensor once, so a logical mesh on
+        one card claims its one copy. Releases the previous placement's
+        claims first (a live reshard)."""
+        for key in getattr(self, "_hbm_keys", ()):
+            _ledger.register_hbm(*key, 0)
+        kind = "table_shard" if self.sharded else "comb_tables"
+        per_dev: dict[str, int] = {}
+        seen = set()
+        for shard in self.shards:
+            for t in shard:
+                if t.data_ptr() in seen:
+                    continue
+                seen.add(t.data_ptr())
+                dev = str(t.device)
+                per_dev[dev] = per_dev.get(dev, 0) + t.nbytes
+        self._hbm_keys = [(kind, dev) for dev in per_dev]
+        for dev, nbytes in per_dev.items():
+            _ledger.register_hbm(kind, dev, nbytes)
 
     def _build_sharded(self, a_raw: np.ndarray) -> None:
         """Key-range-sharded build: pad the set to D*K keys and build each
@@ -443,6 +468,7 @@ class ExpandedKeys:
         self.n_shards = len(shards)
         self.keys_per_shard = k
         self.akeys = self.tables = self.key_ok = None
+        self._register_hbm()
 
     def _maybe_reshard(self) -> None:
         """Live reshard: when the effective mesh no longer matches the
@@ -450,9 +476,9 @@ class ExpandedKeys:
         half-open probe re-admitted one — move the placement onto the
         surviving entries in place. Key-range-sharded tables rebuild
         D -> D' ranges from the kept key bytes (one K1 launch a new
-        range); replicated tables are re-placed. Verdicts do not change:
-        same keys, same kernels. (The reference also releases the old
-        placement's bytes from its HBM registry; the port has none.)
+        range); replicated tables are re-placed, and the HBM registry's claims
+        move with them. Verdicts do not change: same keys, same
+        kernels.
         The identity check is the lock-free fast path."""
         if self.mesh is None:
             return
@@ -478,6 +504,10 @@ class ExpandedKeys:
             else:
                 self._replicate()
             self.last_reshard_s = time.perf_counter() - t0
+            try:
+                _tpu_metrics().reshard_seconds.observe(self.last_reshard_s)
+            except Exception:  # pragma: no cover - metrics never fatal
+                pass
             logger.warning("live reshard: %d-key tables placed over %d "
                            "entries in %.3fs", len(self.pubkeys),
                            len(want), self.last_reshard_s)
@@ -630,6 +660,7 @@ class ExpandedKeys:
             slot[sel] = d * n_local + np.arange(counts[d])
             off += counts[d]
         tv.count_shard_lanes(self.mesh, n_local * d_n)
+        self._observe_occupancy(bucket, n_local * d_n)
         return local_idx, routed, slot
 
     def _k5_args(self, d, dev, lidx, routed, templates=None, width=0):
@@ -650,28 +681,51 @@ class ExpandedKeys:
                 tv._btab(dev)), form
 
     def _sharded_launch(self, idx, per_lane, templates=None,
-                        width=0) -> torch.Tensor:
+                        width=0, grp=None) -> torch.Tensor:
         """One K5 launch per entry over the routed lanes, on the entry's
-        device and stream; the verdicts back in lane order."""
+        device and stream; the verdicts back in lane order. With a
+        launch-ledger group, each entry's launch adds its record (the
+        lanes routed to it)."""
         lidx, routed, slot = self._route(idx, per_lane)
+        n_local = lidx.shape[1]
+        home = idx // self.keys_per_shard
+        sels = [np.flatnonzero(home == d) for d in range(self.n_shards)]
+        counts = [len(sel) for sel in sels]
 
         def one(d, dev):
             args, form = self._k5_args(d, dev, lidx, routed, templates, width)
-            return shard_verify(*args, **form)
+            if grp is None:
+                return shard_verify(*args, **form)
+            with grp.launch(dev, capacity=n_local, sel=sels[d],
+                            bytes_h2d=_ledger.nbytes_of(
+                                [lidx[d]] + [a[d] for a in routed.values()]),
+                            **tv.mesh_fields(self.mesh, d, counts)):
+                return shard_verify(*args, **form)
 
         return _routed_verdicts(tv.run_shards(self.mesh, one), slot)
 
-    def _launch(self, idx, packed) -> torch.Tensor:
+    def _launch(self, idx, packed, grp=None) -> torch.Tensor:
         if self.sharded:
-            return self._sharded_launch(idx, packed)
+            return self._sharded_launch(idx, packed, grp=grp)
         idx, packed, shard = self._shard_args(idx, packed)
 
         def launch(d, t):
             return self._xverify(d, t, msg=t["msg"], nblocks=t["nblocks"])
 
+        arrays = dict(packed, idx=idx)
         if shard:
-            return tv.launch_lanes(self.mesh, dict(packed, idx=idx), launch)
-        return launch(0, tv.to_device(dict(packed, idx=idx), self.device))
+            return tv.launch_lanes(self.mesh, arrays, launch, grp=grp)
+        return self._launch_one(launch, arrays, grp)
+
+    def _launch_one(self, launch, arrays, grp) -> torch.Tensor:
+        """launch(0, tensors) of `arrays` on this set's device, recorded
+        in `grp` when there is one."""
+        t = tv.to_device(arrays, self.device)
+        if grp is None:
+            return launch(0, t)
+        with grp.launch(self.device, capacity=arrays["idx"].shape[0],
+                        bytes_h2d=_ledger.nbytes_of(arrays)):
+            return launch(0, t)
 
     def _xverify(self, d, t, **form) -> torch.Tensor:
         """One K3 launch over lanes `t` on entry d's copy of the tables,
@@ -687,9 +741,45 @@ class ExpandedKeys:
         if n == 0:
             return np.zeros(0, bool)
         self._maybe_reshard()
-        idx, packed, well_formed = self._prepare(indices, msgs, sigs)
-        full = kernels.readback(self._launch(idx, packed))
-        return full[:n] & well_formed
+
+        def prepare():
+            idx, packed, well_formed = self._prepare(indices, msgs, sigs)
+            return (idx, packed), well_formed
+
+        return self._traced_verify(n, "expanded", prepare, self._launch)
+
+    def _traced_verify(self, n, backend, prepare, launch) -> np.ndarray:
+        """The span and ledger choreography of both verify forms: one
+        crypto.verify span with pack / dispatch / device_exec / readback
+        children, and one launch-ledger record per kernel launch
+        (kernel `backend`, or `backend`_sharded on key-range-sharded
+        tables). `prepare` returns (launch_args, well_formed);
+        `launch(*launch_args, grp=...)` the verdict tensor."""
+        if not self.sharded:
+            # the sharded path observes occupancy in _route, against the
+            # per-entry bucket it runs
+            self._observe_occupancy(n, self._bucket(n))
+        t = tracing.TRACER
+        kernel = backend + ("_sharded" if self.sharded else "")
+        with _ledger.group(kernel) as grp, \
+                t.span(tracing.CRYPTO_VERIFY, lanes=n, backend=backend):
+            with grp.stage("pack"), t.span(tracing.CRYPTO_PACK, lanes=n):
+                launch_args, well_formed = prepare()
+            with t.span(tracing.CRYPTO_DISPATCH, lanes=n):
+                out = launch(*launch_args, grp=grp)
+            full = tv.sync_readback(grp, out, n)
+            res = full[:n] & well_formed
+            grp.settle(res)
+            return res
+
+    @staticmethod
+    def _observe_occupancy(lanes: int, capacity: int) -> None:
+        try:
+            from ...libs.metrics import tpu_metrics
+
+            tpu_metrics().batch_occupancy.observe(lanes / capacity)
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
 
     def _prepare_structured(self, indices, sbatch, sigs):
         n = len(indices)
@@ -731,14 +821,15 @@ class ExpandedKeys:
         )
         return idx, fields, well_formed, width
 
-    def _launch_structured(self, idx, fields, width) -> torch.Tensor:
+    def _launch_structured(self, idx, fields, width,
+                           grp=None) -> torch.Tensor:
         dev0 = self.device if self.mesh is None else self.mesh[0]
         tpl = tv.to_device({k: fields[k] for k in self._S_REPL}, dev0)
         templates = tuple(tpl[k] for k in self._S_REPL)
         per_lane = {k: v for k, v in fields.items() if k not in self._S_REPL}
         if self.sharded:
             return self._sharded_launch(idx, per_lane, templates=templates,
-                                        width=width)
+                                        width=width, grp=grp)
         idx, per_lane, shard = self._shard_args(idx, per_lane)
 
         def structured(d, t):
@@ -748,11 +839,10 @@ class ExpandedKeys:
                 patches=(t["patch"], t["split"], t["patch_len"], t["group"]),
                 width=width)
 
+        arrays = dict(per_lane, idx=idx)
         if shard:
-            return tv.launch_lanes(self.mesh, dict(per_lane, idx=idx),
-                                   structured)
-        return structured(0, tv.to_device(dict(per_lane, idx=idx),
-                                          self.device))
+            return tv.launch_lanes(self.mesh, arrays, structured, grp=grp)
+        return self._launch_one(structured, arrays, grp)
 
     def verify_structured(self, indices, sbatch, sigs) -> np.ndarray:
         """verify() for commit votes in structured form: identical
@@ -765,10 +855,14 @@ class ExpandedKeys:
         if n == 0:
             return np.zeros(0, bool)
         self._maybe_reshard()
-        idx, fields, well_formed, width = self._prepare_structured(
-            indices, sbatch, sigs)
-        full = kernels.readback(self._launch_structured(idx, fields, width))
-        return full[:n] & well_formed
+
+        def prepare():
+            idx, fields, well_formed, width = self._prepare_structured(
+                indices, sbatch, sigs)
+            return (idx, fields, width), well_formed
+
+        return self._traced_verify(n, "structured", prepare,
+                                   self._launch_structured)
 
 
 def _routed_verdicts(outs, slot: np.ndarray) -> torch.Tensor:
@@ -826,14 +920,22 @@ def _placement(n_keys: int) -> tuple:
             _splits(n_keys, mesh))
 
 
+def _tpu_metrics():
+    from ...libs.metrics import tpu_metrics
+
+    return tpu_metrics()
+
+
 def get_expanded(pubkeys: list[bytes]) -> ExpandedKeys:
     dev = default_device()
     key = (_placement(len(pubkeys)), hashlib.sha256(b"".join(pubkeys)).digest())
+    tmet = _tpu_metrics()
     while True:
         with _CACHE_LOCK:
             exp = _CACHE.get(key)
             if exp is not None:
                 _CACHE.move_to_end(key)
+                tmet.expanded_cache.inc(event="hit")
                 return exp
             ev = _BUILDS.get(key)
             if ev is None:
@@ -842,7 +944,9 @@ def get_expanded(pubkeys: list[bytes]) -> ExpandedKeys:
                 break  # this thread builds
         ev.wait()  # another thread builds this set: wait, then re-check
     try:
-        exp = ExpandedKeys(pubkeys, device=dev)
+        tmet.expanded_cache.inc(event="miss")
+        with tmet.expanded_build_seconds.time():
+            exp = ExpandedKeys(pubkeys, device=dev)
         with _CACHE_LOCK:
             _CACHE[key] = exp
             while len(_CACHE) > _CACHE_MAX:

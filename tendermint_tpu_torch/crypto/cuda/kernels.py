@@ -34,6 +34,7 @@ import threading
 import time
 from pathlib import Path
 
+from . import ledger as _ledger
 from .fieldsel import CHOICE as FIELD
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -192,11 +193,13 @@ def load(path: Path) -> ctypes.CDLL:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; the launch
+    ledger counts each load, its compile_cache "miss")."""
     global _LIB
     with _LOCK:
         if _LIB is None:
             _LIB = load(build())
+            _ledger.LIBRARY_LOADS[0] += 1
         return _LIB
 
 
@@ -206,6 +209,7 @@ def use_library(path: Path | None) -> None:
     global _LIB
     with _LOCK:
         _LIB = None if path is None else load(path)
+        _ledger.LIBRARY_LOADS[0] += path is not None
 
 
 def launch_shapes(export: str, *args, launches: int = 1) -> list[dict]:

@@ -56,6 +56,7 @@ from ...types.sign_batch import PATCH_W
 from .. import batch as cbatch
 from . import expanded as ex
 from . import kernels
+from . import ledger as _ledger
 from . import verify as tv
 
 logger = logging.getLogger("crypto.cuda.resident")
@@ -379,6 +380,9 @@ class ResidentArena:
         # host mirror of `active` (the kernels never read it back)
         self._live = active
         self.reupload_bytes = 0
+        self._launched_bytes = 0  # reupload_bytes at the last launch
+        _ledger.register_hbm("arena", str(self._ab.device),
+                             self.arena_bytes())
 
     # -- sizes ----------------------------------------------------------
 
@@ -483,9 +487,23 @@ class ResidentArena:
         """Verify every active lane (sentinel included) in one K7
         launch. Returns (capacity,) verdicts — inactive lanes read
         False; callers check verdict[0] (the sentinel) before trusting
-        the rest."""
-        return kernels.readback(arena_verify(*self.launch_args(),
-                                             width=self.width))
+        the rest. One launch-ledger record ("resident"), whose bytes_h2d
+        is what the splices and templates shipped since the last
+        launch."""
+        with _ledger.group("resident") as grp:
+            args = self.launch_args()
+            with grp.launch(self.device, capacity=self.capacity,
+                            bytes_h2d=self.reupload_bytes
+                            - self._launched_bytes) as rec:
+                out = arena_verify(*args, width=self.width)
+            self._launched_bytes = self.reupload_bytes
+            with grp.stage("readback"):
+                res = kernels.readback(out)
+            rec.lanes = self.active_lanes
+            rec.bytes_d2h = int(res.nbytes)
+            rec.ok_lanes = int(res.sum())
+            rec.verdict = "ok" if bool(res[0]) else "sentinel_failed"
+        return res
 
     def buffer_pointer(self, name: str = "sb") -> int:
         """data_ptr() of a resident buffer: a splice leaves it as it
@@ -677,7 +695,19 @@ class MeshResidentArena:
         self._live[:, 0] = True
         self.reupload_bytes = 0
         self._shard_reupload = np.zeros(d_n, np.int64)
+        self._launched_shard = np.zeros(d_n, np.int64)
         self.last_reshard_s: float | None = None
+        self._register_hbm()
+
+    def _register_hbm(self) -> None:
+        """Claim each device's block in the launch ledger's HBM registry
+        (arena_shard), releasing a previous layout's claims first."""
+        for dev in getattr(self, "_hbm_devs", ()):
+            _ledger.register_hbm("arena_shard", dev, 0)
+        self._hbm_devs = [str(blk["device"]) for blk in self._blocks]
+        for blk in self._blocks:
+            _ledger.register_hbm("arena_shard", str(blk["device"]), sum(
+                t.numel() * t.element_size() for t in blk["bufs"].values()))
 
     # -- sizes and views ------------------------------------------------
 
@@ -860,20 +890,48 @@ class MeshResidentArena:
         stream, joined. Returns (capacity,) verdicts in global slot
         order; slot 0 is the AND of the shards' sentinels, which
         ``sentinel_ok`` holds one by one."""
-        args = [self.launch_args(b) for b in range(len(self._blocks))]
-        outs = tv.run_shards(
-            [blk["device"] for blk in self._blocks],
-            lambda b, _dev: mesh_arena_verify(*args[b], width=self.width))
         d_n, per = self.n_shards, self.shard_capacity
-        tv.sync_shards(outs)
-        blocks = [o.cpu().numpy().reshape(-1, per) for o in outs]
-        o = np.stack([blocks[self._block_of[d]][self._off_of[d] // per]
-                      for d in range(d_n)])
-        self.sentinel_ok = [bool(o[d, 0]) for d in range(d_n)]
+        devices = [blk["device"] for blk in self._blocks]
+        with _ledger.group("resident_mesh") as grp:
+            args = [self.launch_args(b) for b in range(len(self._blocks))]
+            shipped = self._shard_reupload - self._launched_shard
+            self._launched_shard = self._shard_reupload.copy()
+
+            def one(b, dev):
+                shards = self._blocks[b]["shards"]
+                with grp.launch(dev, capacity=len(shards) * per,
+                                bytes_h2d=int(shipped[shards].sum()),
+                                n_devices=len(set(devices)),
+                                shard_lanes=[per] * d_n,
+                                active_devices=list(self.names)):
+                    return mesh_arena_verify(*args[b], width=self.width)
+
+            outs = tv.run_shards(devices, one)
+            tv.sync_shards(outs)
+            with grp.stage("readback"):
+                blocks = [o.cpu().numpy().reshape(-1, per) for o in outs]
+            o = np.stack([blocks[self._block_of[d]][self._off_of[d] // per]
+                          for d in range(d_n)])
+            self.sentinel_ok = [bool(o[d, 0]) for d in range(d_n)]
+            for b, rec in enumerate(grp.records):
+                shards = self._blocks[b]["shards"]
+                rec.lanes = int(self._live[shards].sum())
+                rec.bytes_d2h = int(blocks[b].nbytes)
+                rec.ok_lanes = int(blocks[b].sum())
+                rec.verdict = ("ok" if all(self.sentinel_ok[d] for d in shards)
+                               else "sentinel_failed")
         verd = np.zeros(self.capacity, bool)
         verd[0] = all(self.sentinel_ok)
         for d in range(d_n):
             verd[1 + d::d_n] = o[d, 1:]
+        try:
+            from ...libs.metrics import tpu_metrics
+
+            tmet = tpu_metrics()
+            for name in self.names:
+                tmet.shard_lanes.inc(per, device=name)
+        except Exception:  # pragma: no cover - metrics never fatal
+            pass
         return verd
 
     def failed_shards(self) -> list[tuple[int, str]]:

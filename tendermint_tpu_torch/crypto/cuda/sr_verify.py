@@ -30,6 +30,7 @@ from ...device import default_device
 from . import edwards as ed
 from .fieldsel import F as fe
 from . import kernels
+from . import ledger as _ledger
 from . import ristretto as rs
 from . import verify as tv
 
@@ -191,19 +192,28 @@ def verify_batch_sr(pubs, msgs, sigs, ctx: bytes = b"",
         return np.zeros(0, bool)
     mesh = tv.effective_mesh() if device is None else None
     device = default_device() if device is None else torch.device(device)
-    packed, well_formed = pack_batch_sr(pubs, msgs, sigs, ctx)
-    bucket = tv.lane_bucket(n)
-    if mesh is None or bucket < tv._SHARD_MIN:
-        t = tv.to_device(packed, device)
-        out = sr_verify(t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"],
-                        t["r_pre"], t["s_ok"], comb_table(device))
-        return kernels.readback(out) & well_formed
-    pad = tv.mesh_lane_pad(bucket, mesh) - n
-    nibbles = {"kdig": 1, "sdig": 1}
-    packed = {k: np.pad(v, [(0, 0), (0, pad)] if k in nibbles else
-                        [(0, pad)] + [(0, 0)] * (v.ndim - 1))
-              for k, v in packed.items()}
-    out = tv.launch_lanes(mesh, packed, lambda d, t: sr_verify(
-        t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"], t["r_pre"],
-        t["s_ok"], comb_table(t["ab"].device)), lane_axis=nibbles)
-    return kernels.readback(out)[:n] & well_formed
+    with _ledger.group("sr25519") as grp:
+        with grp.stage("pack"):
+            packed, well_formed = pack_batch_sr(pubs, msgs, sigs, ctx)
+        bucket = tv.lane_bucket(n)
+        if mesh is None or bucket < tv._SHARD_MIN:
+            t = tv.to_device(packed, device)
+            with grp.launch(device, capacity=packed["ab"].shape[0],
+                            bytes_h2d=_ledger.nbytes_of(packed)):
+                out = sr_verify(t["ab"], t["rb"], t["kdig"], t["sdig"],
+                                t["a_pre"], t["r_pre"], t["s_ok"],
+                                comb_table(device))
+        else:
+            pad = tv.mesh_lane_pad(bucket, mesh) - n
+            nibbles = {"kdig": 1, "sdig": 1}
+            packed = {k: np.pad(v, [(0, 0), (0, pad)] if k in nibbles else
+                                [(0, pad)] + [(0, 0)] * (v.ndim - 1))
+                      for k, v in packed.items()}
+            out = tv.launch_lanes(mesh, packed, lambda d, t: sr_verify(
+                t["ab"], t["rb"], t["kdig"], t["sdig"], t["a_pre"],
+                t["r_pre"], t["s_ok"], comb_table(t["ab"].device)),
+                lane_axis=nibbles, grp=grp)
+        with grp.stage("readback"):
+            res = kernels.readback(out)[:n] & well_formed
+        grp.settle(res)
+    return res

@@ -25,9 +25,11 @@ import torch
 from .. import ed25519_ref as ref
 from ... import device as _device
 from ...device import default_device
+from ...libs import tracing
 from . import edwards as ed
 from .fieldsel import F as fe
 from . import kernels
+from . import ledger as _ledger
 from . import scalar as sc
 from . import sha512 as sh
 
@@ -304,10 +306,19 @@ SHARD_LANES: dict[str, int] = {}
 
 
 def count_shard_lanes(mesh: Mesh, lanes: int) -> None:
-    """Count `lanes` split evenly over the mesh into SHARD_LANES."""
+    """Count `lanes` split evenly over the mesh into SHARD_LANES and
+    tpu_shard_lanes_total{device=<entry name>}."""
     per = lanes // len(mesh)
     for name in mesh.names:
         SHARD_LANES[name] = SHARD_LANES.get(name, 0) + per
+    try:
+        from ...libs.metrics import tpu_metrics
+
+        tmet = tpu_metrics()
+        for name in mesh.names:
+            tmet.shard_lanes.inc(per, device=name)
+    except Exception:  # pragma: no cover - metrics never fatal
+        pass
 
 
 _STREAMS: dict[tuple[int, str], torch.cuda.Stream] = {}
@@ -363,12 +374,15 @@ def gather(outs) -> torch.Tensor:
 
 
 def launch_lanes(mesh, arrays: dict[str, np.ndarray], launch,
-                 lane_axis: dict[str, int] | None = None) -> torch.Tensor:
+                 lane_axis: dict[str, int] | None = None,
+                 grp: _ledger.LaunchGroup | None = None) -> torch.Tensor:
     """Lane-sharded launch: split the per-lane host arrays evenly over
     the mesh (their lane count is a multiple of its size), upload each
     share to its entry's device and run launch(d, tensors) there, then
     gather the verdicts in lane order. Arrays named in `lane_axis` keep
-    their lanes on that axis (default 0)."""
+    their lanes on that axis (default 0). With a launch-ledger group,
+    each entry's launch adds its record (lanes [d*per, (d+1)*per) of
+    the call's verdicts)."""
     axis = lane_axis or {}
     lanes = next(v.shape[axis.get(k, 0)] for k, v in arrays.items())
     per = lanes // len(mesh)
@@ -377,10 +391,36 @@ def launch_lanes(mesh, arrays: dict[str, np.ndarray], launch,
         part = {k: np.take(v, np.arange(d * per, (d + 1) * per),
                            axis=axis.get(k, 0))
                 for k, v in arrays.items()}
-        return launch(d, to_device(part, dev))
+        tensors = to_device(part, dev)
+        if grp is None:
+            return launch(d, tensors)
+        with grp.launch(dev, capacity=per, sel=slice(d * per, (d + 1) * per),
+                        bytes_h2d=_ledger.nbytes_of(part),
+                        **mesh_fields(mesh, d, [per] * len(mesh))):
+            return launch(d, tensors)
 
     count_shard_lanes(mesh, lanes)
     return gather(run_shards(mesh, one))
+
+
+def mesh_fields(mesh, d: int, shard_lanes: list[int]) -> dict:
+    """The ledger fields of a launch on entry d of `mesh`: its name, the
+    physical devices the mesh spans (four logical shards of one card are
+    one device), the per-entry lane split and the entries."""
+    return dict(shard=mesh.names[d], n_devices=len(set(mesh)),
+                shard_lanes=shard_lanes, active_devices=list(mesh.names))
+
+
+def sync_readback(grp, out: torch.Tensor, lanes: int) -> np.ndarray:
+    """The verdicts of a dispatch site's launches on the host: wait for
+    them (crypto.device_exec: the synchronisation before every readback,
+    after which the ledger reads its exec events), then copy them
+    (crypto.readback)."""
+    t = tracing.TRACER
+    with t.span(tracing.CRYPTO_DEVICE_EXEC, lanes=lanes):
+        kernels.sync(out.device)
+    with grp.stage("readback"), t.span(tracing.CRYPTO_READBACK, lanes=lanes):
+        return out.cpu().numpy()
 
 
 @functools.cache
@@ -445,25 +485,54 @@ def verify_batch(pubs, msgs, sigs, device=None) -> np.ndarray:
         sigs = [s if ok else ds for s, ok in zip(sigs, well_formed)]
     out = np.empty(n, bool)
     start = 0
-    for size in _chunks(n):
-        end = min(start + size, n)
-        shard = mesh is not None and size >= _SHARD_MIN
-        if shard:
-            size = mesh_lane_pad(size, mesh)
-        p, m, s = list(pubs[start:end]), list(msgs[start:end]), list(sigs[start:end])
-        if size > end - start:
-            dp, dm, ds = _dummy_triple()
-            pad = size - (end - start)
-            p, m, s = p + [dp] * pad, m + [dm] * pad, s + [ds] * pad
-        packed = pack_batch(p, m, s)
-        if shard:
-            res = launch_lanes(mesh, packed, lambda d, t: general_verify(
-                t["ab"], t["sb"], t["msg"], t["nblocks"], t["s_ok"],
-                _btab(t["ab"].device)))
-        else:
-            t = to_device(packed, device)
-            res = general_verify(t["ab"], t["sb"], t["msg"], t["nblocks"],
-                                 t["s_ok"], _btab(device))
-        out[start:end] = kernels.readback(res)[: end - start]
-        start = end
+    sizes = _chunks(n)
+    _observe_batch(n, sizes)
+    t = tracing.TRACER
+    with t.span(tracing.CRYPTO_VERIFY, lanes=n, backend="general"):
+        for size in sizes:
+            end = min(start + size, n)
+            shard = mesh is not None and size >= _SHARD_MIN
+            if shard:
+                size = mesh_lane_pad(size, mesh)
+            with _ledger.group("general") as grp:
+                with grp.stage("pack"), t.span(tracing.CRYPTO_PACK,
+                                               lanes=size):
+                    p, m, s = (list(pubs[start:end]), list(msgs[start:end]),
+                               list(sigs[start:end]))
+                    if size > end - start:
+                        dp, dm, ds = _dummy_triple()
+                        pad = size - (end - start)
+                        p, m, s = p + [dp] * pad, m + [dm] * pad, s + [ds] * pad
+                    packed = pack_batch(p, m, s)
+                with t.span(tracing.CRYPTO_DISPATCH, lanes=size):
+                    if shard:
+                        res = launch_lanes(
+                            mesh, packed, lambda d, tt: general_verify(
+                                tt["ab"], tt["sb"], tt["msg"], tt["nblocks"],
+                                tt["s_ok"], _btab(tt["ab"].device)), grp=grp)
+                    else:
+                        tt = to_device(packed, device)
+                        with grp.launch(device, capacity=size,
+                                        bytes_h2d=_ledger.nbytes_of(packed)):
+                            res = general_verify(
+                                tt["ab"], tt["sb"], tt["msg"], tt["nblocks"],
+                                tt["s_ok"], _btab(device))
+                host = sync_readback(grp, res, size)[: end - start]
+                out[start:end] = host
+                grp.settle(host)
+            start = end
     return out & well_formed
+
+
+def _observe_batch(n: int, sizes: list[int]) -> None:
+    """tpu_batch_occupancy_ratio and tpu_batch_splits_total of one
+    verify_batch call."""
+    try:
+        from ...libs.metrics import tpu_metrics
+
+        tmet = tpu_metrics()
+        tmet.batch_occupancy.observe(n / sum(sizes))
+        if len(sizes) > 1:
+            tmet.batch_splits.inc()
+    except Exception:  # pragma: no cover - metrics never fatal
+        pass

@@ -11,24 +11,20 @@ re-admission forever; expiry prunes pending entries per the consensus
 params' max-age (both height AND time must exceed, reference
 pool.go:576 isExpired).
 
-The reference's pool gauges and counters (evidence_metrics()) are the
-port's ``METRICS`` dict; the evidence reactor waits for the port's p2p
-stack."""
+The pool records into the reference's evidence family
+(libs/metrics.py: pool size and bytes, verified and committed
+counts)."""
 
 from __future__ import annotations
 
 import logging
 
 from ..libs.clist import CList
+from ..libs.metrics import evidence_metrics
 from ..types.evidence import Evidence, evidence_from_bytes
 from .verify import EvidenceError, verify_evidence
 
 logger = logging.getLogger("evidence")
-
-# the last pool's size and pending bytes; process totals of the
-# verified and committed pieces
-METRICS: dict = {"pool_size": 0, "pool_bytes": 0, "verified": 0,
-                 "committed": 0}
 
 _PENDING = b"\x00"
 _COMMITTED = b"\x01"
@@ -54,8 +50,9 @@ class Pool:
         self._set_pool_gauges()
 
     def _set_pool_gauges(self) -> None:
-        METRICS["pool_size"] = len(self.evidence_list)
-        METRICS["pool_bytes"] = self._pending_bytes
+        met = evidence_metrics()
+        met.pool_size.set(len(self.evidence_list))
+        met.pool_bytes.set(self._pending_bytes)
 
     # -- queries --
 
@@ -85,7 +82,7 @@ class Pool:
             return
         ev.validate_basic()
         verify_evidence(ev, self.state, self.state_store, self.block_store)
-        METRICS["verified"] += 1
+        evidence_metrics().verified.inc()
         self._persist_pending(ev)
         logger.info("added evidence %s h=%d", type(ev).__name__, ev.height())
 
@@ -129,7 +126,7 @@ class Pool:
         """Mark committed, drop from pending, prune expired
         (reference: pool.go Update)."""
         self.state = state
-        METRICS["committed"] += len(committed)
+        evidence_metrics().committed.inc(len(committed))
         for ev in committed:
             self.db.set(_key(_COMMITTED, ev), b"\x01")
             self._remove_pending(ev)

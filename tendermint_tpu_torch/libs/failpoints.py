@@ -20,8 +20,11 @@ with ``install_spec`` — the config surface (``[chaos] failpoints``),
 strict: a malformed entry raises, and ``validate_spec`` is its dry run.
 ``hit(name, payload)`` is the call-site hook, a dict lookup when
 nothing is armed; ``hit_async`` is its form for coroutine call sites.
-The reference's env variable, ``/debug/failpoint`` and its ``every``
-and ``prob`` triggers are not ported (ROADMAP Queue A item 6).
+``state()`` is the GET /debug/failpoint body (libs/debugsrv.py), whose
+POST arms through ``arm``. Evaluations and fires count in the
+failpoint family (failpoint_hits_total, failpoint_fires_total). The
+reference's env variable and its ``every`` and ``prob`` triggers are
+not ported (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -266,6 +269,27 @@ def any_armed() -> list[str]:
         return sorted(_ACTIVE)
 
 
+def state() -> dict:
+    """{name: {armed: {action, delay_ms, nth, count} | None, hits}} over
+    the whole catalog (hits: evaluations since the point was armed)."""
+    with _lock:
+        active = {k: ({"action": v.action, "delay_ms": v.delay_ms,
+                       "nth": v.nth, "count": v.count}, v.hits)
+                  for k, v in _ACTIVE.items()}
+    return {name: {"armed": active[name][0] if name in active else None,
+                   "hits": active[name][1] if name in active else 0}
+            for name in sorted(CATALOG)}
+
+
+def _count_metric(family: str, **labels) -> None:
+    try:
+        from .metrics import failpoint_metrics
+
+        getattr(failpoint_metrics(), family).inc(**labels)
+    except Exception:  # pragma: no cover - metrics never fatal
+        pass
+
+
 def _corrupt_bytes(data: bytes) -> bytes:
     """Flip one bit mid-payload and drop the final byte (if any)."""
     b = bytearray(data)
@@ -285,11 +309,17 @@ def _fires(name: str) -> _Armed | None:
             return None
         armed.hits += 1
         if armed.nth is not None and armed.hits != armed.nth:
-            return None
-        if armed.count is not None:
-            armed.count -= 1
-            if armed.count <= 0:
-                _ACTIVE.pop(name, None)
+            fires = False
+        else:
+            fires = True
+            if armed.count is not None:
+                armed.count -= 1
+                if armed.count <= 0:
+                    _ACTIVE.pop(name, None)
+    _count_metric("hits", point=name)
+    if not fires:
+        return None
+    _count_metric("fires", point=name, action=armed.action)
     logger.warning("failpoint firing: %s action=%s", name, armed.action)
     return armed
 

@@ -13,10 +13,9 @@ mempool (``mempool.pool``, mempool/clist_mempool.py) and its admission
 pre-verify backlog (``mempool.preverify``, mempool/admission.py), and
 the p2p send queues (``p2p.send``, p2p/switch.py).
 
-The reference also exports depth/capacity gauges and a shed counter
-through its metrics library; the port keeps the shed counts in
-``OverloadController.sheds``, a plain dict (crypto/batch.py METRICS
-convention). Advisory sheds (the funnel's already-tallied duplicate
+Sheds count in the reference's overload family (overload_shed_total by
+queue; evaluate() refreshes the depth, capacity and level gauges), and
+each controller also keeps its own tally in ``sheds``. Advisory sheds (the funnel's already-tallied duplicate
 votes, a DropOldestQueue's evictions) count there without driving the
 level, as in the reference, and so do advisory queues: a drop-oldest
 buffer sits full as its normal steady state.
@@ -94,6 +93,9 @@ class OverloadController:
         sheds count but do not drive the level: dropping a vote that is
         already tallied loses nothing."""
         self.sheds[queue] = self.sheds.get(queue, 0) + n
+        from .metrics import overload_metrics
+
+        overload_metrics().shed.inc(n, queue=queue)
         if not advisory:
             self._last_shed = clock.monotonic()
 
@@ -103,7 +105,10 @@ class OverloadController:
     def evaluate(self) -> dict:
         """Every tracked queue's depth and capacity, and the level. A
         depth/capacity callable that raises (its owner was stopped
-        mid-poll) reads as empty."""
+        mid-poll) reads as empty. Refreshes the family's gauges."""
+        from .metrics import overload_metrics
+
+        met = overload_metrics()
         queues: dict[str, dict] = {}
         worst = 0.0
         for t in list(self._queues.values()):
@@ -113,6 +118,8 @@ class OverloadController:
             except Exception:
                 depth, cap = 0.0, 0.0
             fill = depth / cap if cap > 0 else 0.0
+            met.queue_depth.set(depth, queue=t.name)
+            met.queue_capacity.set(cap, queue=t.name)
             queues[t.name] = {"depth": int(depth), "capacity": int(cap),
                               "fill": round(fill, 3)}
             if not t.advisory:
@@ -123,6 +130,7 @@ class OverloadController:
             level = "pressured"
         else:
             level = "ok"
+        met.level.set(("ok", "pressured", "shedding").index(level))
         return {"level": level, "worst_fill": round(worst, 3),
                 "queues": queues}
 

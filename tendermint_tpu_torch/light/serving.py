@@ -24,11 +24,13 @@ through the plane's collector. It keeps the Client's semantics: the
 same pivots, error taxonomy, witness cross-checking and trusted-store
 writes.
 
-Counts go into ``METRICS``, a plain dict (crypto/batch.py's
-convention): verify launches and lanes by backend ("device", "host",
-"host_recheck"). The plane keeps its request, coalescing, cache and
-shed tallies on itself (read by ``status_check``). The degrades also
-move crypto.batch.METRICS as every device path of the port does.
+Counts go into the reference's light family (libs/metrics.py): verify
+launches by backend ("device", "host", "host_recheck"), lanes and
+verify time per flush, cache hits and misses, coalesced requests and
+sheds; the plane also keeps its tallies on itself (read by
+``status_check``). The degrades move tpu_host_fallbacks_total as every
+device path does. The device launch is tagged ``workload("light")`` in
+the launch ledger.
 ServingPool puts N LightProxy workers (light/proxy.py) in front of one
 plane.
 """
@@ -38,10 +40,14 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import time
 from fractions import Fraction
 
 import numpy as np
 
+from ..crypto.cuda import ledger as _ledger
+from ..libs import tracing
+from ..libs.metrics import crypto_metrics, light_metrics
 from ..libs.overload import CONTROLLER
 from ..types.validator_set import CommitVerifyPlan, VerificationError
 from .errors import (
@@ -62,17 +68,14 @@ PENDING_VERIFY_QUEUE = "light.pending_verify"
 SHED_QUEUE_FULL = "queue_full"
 SHED_REASONS = (SHED_QUEUE_FULL,)
 
-METRICS: dict = {"verify_launches": {}, "batch_lanes": {}}
-
-
 def _count(backend: str, lanes: int | None) -> None:
-    """One verify launch on `backend`, and its lanes (None: none
-    counted, as for the sentinel's host recheck)."""
-    m = METRICS["verify_launches"]
-    m[backend] = m.get(backend, 0) + 1
+    """One verify launch on `backend` (light_verify_launches_total), and
+    its lanes in crypto_batch_lanes_total (None: none counted, as for
+    the sentinel's host recheck)."""
+    light_metrics().verify_launches.inc(backend=backend)
     if lanes is not None:
-        m = METRICS["batch_lanes"]
-        m[backend] = m.get(backend, 0) + lanes
+        crypto_metrics().batch_lanes.inc(
+            lanes, backend="gpu" if backend == "device" else backend)
 
 
 class LightServingShedError(LightClientError):
@@ -261,7 +264,8 @@ class LightVerifyCollector:
             self._in_flight = len(batch)
             try:
                 verdicts = await loop.run_in_executor(
-                    None, self._verify_jobs, [j.plan for j in batch])
+                    None, tracing.TRACER.wrap(self._verify_jobs),
+                    [j.plan for j in batch])
                 for job, v in zip(batch, verdicts):
                     if not job.future.done():
                         job.future.set_result(v)
@@ -298,6 +302,15 @@ class LightVerifyCollector:
         # lane, breaker-aware, host fallback. Cross-plan batches mix
         # validator sets, so the general kernel (per-lane keys) is the
         # right tool, not any one set's expanded tables.
+        met = light_metrics()
+        met.batch_lanes.observe(len(triples))
+        t0 = time.perf_counter()
+        try:
+            return self._verify_flush(triples)
+        finally:
+            met.verify_seconds.observe(time.perf_counter() - t0)
+
+    def _verify_flush(self, triples: list[tuple]) -> np.ndarray:
         from ..crypto import batch as cbatch
         from ..libs import failpoints
 
@@ -336,10 +349,12 @@ class LightVerifyCollector:
                 # giving wrong verdicts fails it, so they are detected
                 # POSITIVELY and the batch re-verifies on the host
                 spub, smsg, ssig = cbatch._ed_probe_triple()
-                dv = np.asarray(tv.verify_batch(
-                    [triples[i][0].bytes() for i in ed] + [spub],
-                    [triples[i][1] for i in ed] + [smsg],
-                    [triples[i][2] for i in ed] + [ssig]), bool)
+                crypto_metrics().device_launches.inc()
+                with _ledger.workload("light"):
+                    dv = np.asarray(tv.verify_batch(
+                        [triples[i][0].bytes() for i in ed] + [spub],
+                        [triples[i][1] for i in ed] + [smsg],
+                        [triples[i][2] for i in ed] + [ssig]), bool)
                 # the launch landed: only now does it count as a device
                 # verify (a raising launch counts as one host launch)
                 _count("device", len(ed))
@@ -352,8 +367,7 @@ class LightVerifyCollector:
                     "sentinel; breaker open %.1fs, re-verifying on host",
                     len(ed), cbatch.breaker("ed25519").cooldown_remaining())
                 _count("host_recheck", None)
-                cbatch.count("host_rechecks")
-                cbatch.count("host_fallbacks")
+                cbatch.host_fallback()
                 return self._host_verify(triples, into=out, only=ed)
             except cbatch.UNCAUGHT:
                 raise
@@ -364,7 +378,7 @@ class LightVerifyCollector:
                     "%.1fs, degrading to host", len(ed),
                     cbatch.breaker("ed25519").cooldown_remaining())
         if want_dev:
-            cbatch.count("host_fallbacks")
+            cbatch.host_fallback()
         _count("host", len(ed))
         return self._host_verify(triples, into=out, only=ed)
 
@@ -504,8 +518,10 @@ class ServingPlane:
             lb = self.cache.get(height, now_ns)
             if lb is not None:
                 self.cache_hits += 1
+                light_metrics().cache_hits.inc()
                 return lb
             self.cache_misses += 1
+            light_metrics().cache_misses.inc()
             # trusted-store probe BEFORE the admission gate: a height
             # already verified and inside its period is a READ, not new
             # verification work — it serves even on a saturated plane
@@ -519,6 +535,7 @@ class ServingPlane:
             # join the in-flight verification: no new device work, no
             # queue growth — the whole point of the singleflight map
             self.coalesced += 1
+            light_metrics().requests_coalesced.inc()
             return await self._await_counted(task)
         if self.collector.saturated():
             # shed at ADMISSION: a flood of distinct heights dies here,
@@ -559,6 +576,7 @@ class ServingPlane:
         pending-verify queue (the collector's, never unconditionally
         the process-global one)."""
         self.sheds[reason] += 1
+        light_metrics().shed.inc(reason=reason)
         self.collector._controller.shed(PENDING_VERIFY_QUEUE)
 
     # -- the singleflight body -----------------------------------------
@@ -668,11 +686,11 @@ class ServingPlane:
     def status_check(self) -> dict:
         """The `light` check body: backlog fill, request/coalesce/cache
         tallies, shed breakdown, verify-backend split (this process's
-        METRICS). Shedding is designed behavior — only a saturated
+        light family). Shedding is designed behavior — only a saturated
         pending-verify backlog degrades the check."""
         from ..crypto import batch as cbatch
 
-        launches = METRICS["verify_launches"]
+        launches = light_metrics().verify_launches
         depth = self.collector.depth()
         cap = self.collector.pending_max
         out: dict = {
@@ -686,8 +704,9 @@ class ServingPlane:
             "shed": {r: n for r, n in self.sheds.items() if n},
             "trusted_height": self.client.store.latest_height(),
             "verify_launches": {
-                b: launches[b] for b in ("device", "host", "host_recheck")
-                if launches.get(b)},
+                b: int(launches.value(backend=b))
+                for b in ("device", "host", "host_recheck")
+                if launches.value(backend=b)},
         }
         fill = depth / cap if cap else 0.0
         if fill >= 0.8:

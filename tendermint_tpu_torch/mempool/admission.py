@@ -39,13 +39,12 @@ verify collector's does (light/serving.py), so a slow device (or an
 armed ``mempool.admission.verify`` delay) backs up the bounded queue
 and sheds instead of stalling the event loop.
 
-Counts go into ``METRICS``, a plain dict (crypto/batch.py's
-convention): verify launches and lanes by backend ("device", "host",
-"host_recheck"), sheds by reason, admitted txs by signed "yes"/"no".
-The degrades also move crypto.batch.METRICS (host_fallbacks,
-host_rechecks). The reference's ``tpu_ledger.workload("admission")``
-tag around the launch waits for the port's observability layer
-(ROADMAP Queue A item 10).
+Counts go into the reference's admission family (libs/metrics.py):
+verify launches by backend ("device", "host", "host_recheck"), lanes
+and occupancy per flush, sheds by reason, admitted txs by signed
+"yes"/"no"; crypto_batch_lanes_total and tpu_host_fallbacks_total move
+as for every device path. The device launch is tagged
+``workload("admission")`` in the launch ledger.
 """
 
 from __future__ import annotations
@@ -53,9 +52,13 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import time
 
 import numpy as np
 
+from ..crypto.cuda import ledger as _ledger
+from ..libs import tracing
+from ..libs.metrics import admission_metrics, crypto_metrics
 from ..libs.overload import CONTROLLER
 from ..types import tx_envelope
 
@@ -76,21 +79,14 @@ SHED_QUEUE_FULL = "queue_full"
 SHED_REASONS = (SHED_BAD_SIGNATURE, SHED_MALFORMED, SHED_UNSIGNED,
                 SHED_QUEUE_FULL)
 
-METRICS: dict = {"verify_launches": {}, "batch_lanes": {}, "sheds": {},
-                 "admitted": {}}
-
-
-def _bump(key: str, sub: str, n: int = 1) -> None:
-    m = METRICS[key]
-    m[sub] = m.get(sub, 0) + n
-
-
 def _count(backend: str, lanes: int | None) -> None:
-    """One verify launch on `backend`, and its lanes (None: none
-    counted, as for the sentinel's host recheck)."""
-    _bump("verify_launches", backend)
+    """One verify launch on `backend` (admission_verify_launches_total),
+    and its lanes in crypto_batch_lanes_total (None: none counted, as
+    for the sentinel's host recheck)."""
+    admission_metrics().launches.inc(backend=backend)
     if lanes is not None:
-        _bump("batch_lanes", backend, lanes)
+        crypto_metrics().batch_lanes.inc(
+            lanes, backend="gpu" if backend == "device" else backend)
 
 
 class AdmissionQueueFullError(Exception):
@@ -167,7 +163,7 @@ class AdmissionCollector:
         is at its bound."""
         if self.depth() >= self.queue_max:
             self._controller.shed(PREVERIFY_QUEUE)
-            _bump("sheds", SHED_QUEUE_FULL)
+            admission_metrics().sheds.inc(reason=SHED_QUEUE_FULL)
             raise AdmissionQueueFullError(self.depth(), self.queue_max)
         self._ensure_flusher()
         fut = asyncio.get_running_loop().create_future()
@@ -205,7 +201,7 @@ class AdmissionCollector:
             try:
                 envs = [env for env, _ in batch]
                 verdicts = await loop.run_in_executor(
-                    None, self._verify_batch, envs)
+                    None, tracing.TRACER.wrap(self._verify_batch), envs)
                 for (_, fut), ok in zip(batch, verdicts):
                     if not fut.done():
                         fut.set_result(bool(ok))
@@ -231,6 +227,17 @@ class AdmissionCollector:
         # admission signatures stay out of any invalid-signature count
         # on purpose: a garbage flood is expected bulk (the
         # bad_signature shed tally).
+        met = admission_metrics()
+        n = len(envs)
+        met.batch_lanes.observe(n)
+        met.batch_occupancy.observe(n / self.batch_max)
+        t0 = time.perf_counter()
+        try:
+            return self._verify_flush(envs)
+        finally:
+            met.verify_seconds.observe(time.perf_counter() - t0)
+
+    def _verify_flush(self, envs: list) -> np.ndarray:
         from ..crypto import batch as cbatch
         from ..libs import failpoints
 
@@ -255,11 +262,13 @@ class AdmissionCollector:
                 # flood (sentinel verifies, every real lane invalid) is
                 # trusted and dies at the device
                 spub, smsg, ssig = cbatch._ed_probe_triple()
-                out = np.asarray(tv.verify_batch(
-                    [e.pub_key for e in envs] + [spub],
-                    [tx_envelope.sign_bytes(e.payload) for e in envs]
-                    + [smsg],
-                    [e.signature for e in envs] + [ssig]), bool)
+                crypto_metrics().device_launches.inc()
+                with _ledger.workload("admission"):
+                    out = np.asarray(tv.verify_batch(
+                        [e.pub_key for e in envs] + [spub],
+                        [tx_envelope.sign_bytes(e.payload) for e in envs]
+                        + [smsg],
+                        [e.signature for e in envs] + [ssig]), bool)
                 # the launch landed: only now does it count as a device
                 # verify (a raising launch counts as one host launch)
                 _count("device", n)
@@ -275,8 +284,7 @@ class AdmissionCollector:
                     "re-verifying on host", n,
                     cbatch.breaker("ed25519").cooldown_remaining())
                 _count("host_recheck", None)
-                cbatch.count("host_rechecks")
-                cbatch.count("host_fallbacks")
+                cbatch.host_fallback()
                 return self._host_verify(envs)
             except cbatch.UNCAUGHT:
                 raise
@@ -289,7 +297,7 @@ class AdmissionCollector:
         if want_dev:
             # device wanted (threshold met) but breaker-refused or
             # raised: the same fallback signal as BatchVerifier's
-            cbatch.count("host_fallbacks")
+            cbatch.host_fallback()
         _count("host", n)
         return self._host_verify(envs)
 
@@ -318,8 +326,8 @@ class AdmissionPlane:
             batch_max=config.admission_batch,
             flush_ms=config.admission_flush_ms,
             queue_max=config.admission_queue)
-        # running tallies for the /status admission check (METRICS
-        # keeps the process totals)
+        # running tallies for the /status admission check (the
+        # admission family keeps the process totals)
         self.admitted_signed = 0
         self.admitted_unsigned = 0
         self.sheds: dict[str, int] = {r: 0 for r in SHED_REASONS}
@@ -338,7 +346,7 @@ class AdmissionPlane:
 
     def _shed(self, reason: str) -> str:
         self.sheds[reason] += 1
-        _bump("sheds", reason)
+        admission_metrics().sheds.inc(reason=reason)
         return reason
 
     async def admit(self, tx: bytes) -> str | None:
@@ -354,7 +362,7 @@ class AdmissionPlane:
             if self.mode == "strict":
                 return self._shed(SHED_UNSIGNED)
             self.admitted_unsigned += 1
-            _bump("admitted", "no")
+            admission_metrics().admitted.inc(signed="no")
             return None
         try:
             ok = await self.collector.verify(env)
@@ -366,7 +374,7 @@ class AdmissionPlane:
         if not ok:
             return self._shed(SHED_BAD_SIGNATURE)
         self.admitted_signed += 1
-        _bump("admitted", "yes")
+        admission_metrics().admitted.inc(signed="yes")
         return None
 
     # -- /status -------------------------------------------------------
@@ -374,11 +382,11 @@ class AdmissionPlane:
     def status_check(self) -> dict:
         """The GET /status `admission` check body: mode, backlog fill,
         shed/admit tallies, verify-backend split (process totals, from
-        METRICS). Shedding is designed behavior — only a saturated
-        backlog degrades the check."""
+        the admission family). Shedding is designed behavior — only a
+        saturated backlog degrades the check."""
         from ..crypto import batch as cbatch
 
-        launches = METRICS["verify_launches"]
+        launches = admission_metrics().launches
         depth = self.collector.depth()
         cap = self.collector.queue_max
         out: dict = {
@@ -389,8 +397,9 @@ class AdmissionPlane:
                          "unsigned": self.admitted_unsigned},
             "shed": {r: n for r, n in self.sheds.items() if n},
             "verify_launches": {
-                b: launches[b] for b in ("device", "host", "host_recheck")
-                if launches.get(b)},
+                b: int(launches.value(backend=b))
+                for b in ("device", "host", "host_recheck")
+                if launches.value(backend=b)},
         }
         fill = depth / cap if cap else 0.0
         if fill >= 0.8:

@@ -13,11 +13,9 @@ CheckTx is awaited through the pipelined ABCI client rather than a
 callback chain, and the commit-window lock is an event the executor
 toggles around ApplyBlock's Commit (reference updateMtx).
 
-The reference's mempool metrics (size, tx bytes, failed txs, recheck
-counts) are the port's ``METRICS`` dict for the two counters (the
-gauges are ``size()`` and ``tx_bytes()``); its observability family
-waits for ROADMAP Queue A item 10. The p2p reactor is
-mempool/reactor.py.
+The reference's mempool family (libs/metrics.py: size, tx bytes, tx
+sizes, failed txs, recheck counts) records as the reference's does.
+The p2p reactor is mempool/reactor.py.
 
 A fix beyond the reference (a recorded divergence): a tx that commits
 while its CheckTx waits in the admission plane's pre-verify is dropped
@@ -38,6 +36,7 @@ from dataclasses import dataclass, field
 from ..abci import types as abci
 from ..config import MempoolConfig
 from ..libs.clist import CList
+from ..libs.metrics import mempool_metrics
 from ..libs.overload import CONTROLLER
 from ..types import tx_envelope
 from ..types.tx import tx_hash
@@ -45,9 +44,6 @@ from . import Mempool
 
 
 logger = logging.getLogger("mempool")
-
-METRICS: dict = {"failed_txs": 0, "recheck_times": 0}
-
 
 class TxInMempoolError(Exception):
     pass
@@ -367,7 +363,7 @@ class CListMempool(Mempool):
             if shed_reason is not None:
                 if not self.config.keep_invalid_txs_in_cache:
                     self.cache.remove(key)
-                METRICS["failed_txs"] += 1
+                mempool_metrics().failed_txs.inc()
                 return abci.ResponseCheckTx(
                     code=CODE_ADMISSION_REJECT,
                     log=f"admission: {shed_reason}")
@@ -392,7 +388,7 @@ class CListMempool(Mempool):
         if res.code != abci.CODE_TYPE_OK:
             if not self.config.keep_invalid_txs_in_cache:
                 self.cache.remove(key)
-            METRICS["failed_txs"] += 1
+            mempool_metrics().failed_txs.inc()
             return res
 
         # Re-check capacity: it may have filled while awaiting the app.
@@ -410,6 +406,10 @@ class CListMempool(Mempool):
         e = self.txs.push_back(mtx)
         self.tx_map[key] = e
         self._tx_bytes += len(tx)
+        met = mempool_metrics()
+        met.size.set(self.size())
+        met.tx_bytes.set(self._tx_bytes)
+        met.tx_size_bytes.observe(len(tx))
         if self._wal:
             # buffered; flushed per block in _rewrite_wal (a hard crash
             # loses at most the buffer — the WAL is best-effort refill,
@@ -475,9 +475,12 @@ class CListMempool(Mempool):
                 self._tx_bytes -= len(tx)
 
         if self.config.recheck and self.size() > 0:
-            METRICS["recheck_times"] += self.size()
+            mempool_metrics().recheck_times.inc(self.size())
             await self._recheck_txs()
         self._rewrite_wal()
+        met = mempool_metrics()
+        met.size.set(self.size())
+        met.tx_bytes.set(self._tx_bytes)
         if self.size() == 0:
             self._notify_available.clear()
         else:
@@ -514,6 +517,9 @@ class CListMempool(Mempool):
             if e is not None:
                 self.txs.remove(e)
         self._tx_bytes = 0
+        met = mempool_metrics()
+        met.size.set(0)
+        met.tx_bytes.set(0)
         self.cache.reset()
         self._notify_available.clear()
         self._rewrite_wal()

@@ -20,7 +20,8 @@ import logging
 
 from ..crypto.batch import UNCAUGHT
 from ..encoding.proto import Reader, Writer
-from ..p2p.conn.connection import METRICS, ChannelDescriptor
+from ..libs.metrics import p2p_metrics
+from ..p2p.conn.connection import ChannelDescriptor
 from ..p2p.switch import Reactor
 
 logger = logging.getLogger("mempool.reactor")
@@ -83,7 +84,7 @@ class MempoolReactor(Reactor):
         txs = decode_txs(msgb)
         if not txs:
             raise ValueError("empty mempool message")
-        METRICS["num_txs"] += len(txs)
+        p2p_metrics().num_txs.inc(len(txs))
         for tx in txs:
             try:
                 await self.mempool.check_tx(tx, {"sender": peer.id})

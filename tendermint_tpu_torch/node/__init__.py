@@ -8,11 +8,12 @@ mempool/evidence/executor → blockchain + consensus + statesync reactors
 starts. The RPC server attaches through `rpc_env()` once the node is
 built.
 
-Left out, each refused with NotImplementedError at construction: the
-gRPC broadcast API (`rpc.grpc_laddr`) and ABCI transport
-(`base.abci = "grpc"`), ROADMAP Queue A item 9; the pprof listener
-(`rpc.pprof_laddr`) and the Prometheus listener
-(`instrumentation.prometheus`), item 5.
+The pprof listener (`rpc.pprof_laddr`) and the Prometheus listener
+(`instrumentation.prometheus`) are libs/debugsrv.py servers, started
+after the RPC server; `[crypto]` configures the launch ledger's ring and
+the watchdog. Left out, each refused with NotImplementedError at
+construction: the gRPC broadcast API (`rpc.grpc_laddr`) and ABCI
+transport (`base.abci = "grpc"`), ROADMAP Queue A item 9.
 
 The port's fault rule (crypto/batch.py UNCAUGHT): a ``KernelError`` or
 ``NoDeviceError`` met by an RPC route, by state sync or by any reactor
@@ -68,11 +69,7 @@ def _refuse_unported(config: Config) -> None:
             (config.rpc.grpc_laddr, "rpc.grpc_laddr (the gRPC broadcast "
              "API)", 9),
             (config.base.abci == "grpc", 'base.abci = "grpc" (the gRPC '
-             "ABCI transport)", 9),
-            (config.rpc.pprof_laddr, "rpc.pprof_laddr (the pprof "
-             "listener)", 5),
-            (config.instrumentation.prometheus, "instrumentation.prometheus "
-             "(the Prometheus listener)", 5)):
+             "ABCI transport)", 9)):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported (ROADMAP Queue A item {item})")
@@ -189,6 +186,15 @@ class Node(Service):
 
     async def _build(self) -> None:
         cfg = self.config
+        # MetricsProvider path (Go node.go:110-125): with
+        # instrumentation.prometheus on, every subsystem's metric family
+        # is constructed here, before any subsystem starts, so the first
+        # scrape shows the whole catalog; off, modules materialize
+        # lazily (the Nop analogue).
+        from ..libs.metrics import metrics_provider
+
+        self.metrics = metrics_provider(cfg.instrumentation)(
+            self.genesis_doc.chain_id)
         if cfg.chaos.failpoints:
             # [chaos] failpoints armed before any subsystem starts so
             # boot-path injections (db.set, wal.*) catch the very
@@ -201,11 +207,16 @@ class Node(Service):
         # [mesh] knobs, applied before any subsystem can build expanded
         # tables or a speculation arena. Applied on every build, so a
         # node with the defaults never inherits an earlier in-process
-        # node's settings. [crypto] is carried only (ROADMAP Queue A
-        # item 5: the watchdog and the launch ledger).
+        # node's settings. [crypto]: the watchdog's promise and window,
+        # the launch ledger's ring.
         from ..config import apply_mesh
+        from ..crypto.cuda import ledger as _ledger
+        from ..crypto.cuda import watchdog as _watchdog
 
         apply_mesh(cfg.mesh)
+        _watchdog.configure(cfg.crypto.backend, cfg.crypto.watchdog_window_s)
+        if cfg.crypto.ledger_capacity != _ledger.capacity():
+            _ledger.set_capacity(cfg.crypto.ledger_capacity)
         self.block_store = BlockStore(_db(cfg, "blockstore",
                                           self.in_memory))
         self.state_store = Store(_db(cfg, "state", self.in_memory))
@@ -330,7 +341,7 @@ class Node(Service):
             self.consensus_state, wait_sync=wait_sync,
             gossip_sleep=cfg.consensus.peer_gossip_sleep_ms / 1000.0)
         # the origin tag's node label: the configured moniker
-        self.consensus_reactor.trace_node = cfg.base.moniker
+        self.consensus_state.trace_node = cfg.base.moniker
         self.bc_reactor = BlockchainReactor(
             self.state, self.block_exec, self.block_store,
             fast_sync=fast_sync and not state_sync,
@@ -468,6 +479,23 @@ class Node(Service):
             rhost, rport = _split_laddr(cfg.rpc.laddr)
             self.rpc_server, self.rpc_port = await serve(
                 self.rpc_env(), rhost, rport)
+        # pprof + Prometheus listeners (Go node.go:807-812, :873)
+        self.debug_server = None
+        if cfg.rpc.pprof_laddr:
+            from ..libs.debugsrv import DebugServer
+
+            dhost, dport = _split_laddr(cfg.rpc.pprof_laddr)
+            self.debug_server = DebugServer(dhost, dport, node=self)
+            self.pprof_port = await self.debug_server.start()
+        self.prometheus_server = None
+        if cfg.instrumentation.prometheus:
+            from ..libs.debugsrv import DebugServer
+
+            phost, pport = _split_laddr(
+                cfg.instrumentation.prometheus_listen_addr)
+            self.prometheus_server = DebugServer(phost or "0.0.0.0", pport,
+                                                 node=self)
+            self.prometheus_port = await self.prometheus_server.start()
         host, port = _split_laddr(cfg.p2p.laddr)
         await self.transport.listen(host, port)
         await self.switch.start()
@@ -566,6 +594,9 @@ class Node(Service):
             self._signer_client.close()  # listener socket + link
         if getattr(self, "rpc_server", None) is not None:
             self.rpc_server.close()
+        for name in ("debug_server", "prometheus_server"):
+            if getattr(self, name, None) is not None:
+                getattr(self, name).close()
         if self.indexer_service is not None:
             self.indexer_service.stop()
         if self.consensus_state.is_running:

@@ -9,11 +9,11 @@ least-ratio selection). Ping/pong keepalive with a pong timeout, and
 token-bucket send/recv rate limiting (reference: flowrate.Monitor,
 default 500 KB/s each way).
 
-The reference's p2p metric families are kept in ``METRICS``, a plain
-dict (the convention of crypto/batch.py METRICS): counters by channel
-(``"0x20"``) and the process-wide unsent backlog. The reference's
-``p2p.send_flush`` and ``p2p.recv_msg`` spans wait for the port's
-tracing.
+Counts go into the reference's p2p family (libs/metrics.py): byte and
+message counters by channel (``ch="0x20"``), send drops, and the
+process-wide unsent backlog. Each flush of buffered packets is a
+``p2p.send_flush`` span and each complete received message a
+``p2p.recv_msg`` span around its reactor's receive.
 
 The port's rule for its own faults (crypto/batch.py UNCAUGHT): a
 KernelError or NoDeviceError raised by ``on_receive`` (a reactor's
@@ -29,7 +29,8 @@ import asyncio
 from dataclasses import dataclass, field
 
 from ...crypto.batch import UNCAUGHT
-from ...libs import clock, failpoints, flowrate
+from ...libs import clock, failpoints, flowrate, tracing
+from ...libs.metrics import p2p_metrics
 from ...libs.overload import CONTROLLER
 from ...libs.service import Service
 from .secret_connection import DATA_MAX, SEALED_SIZE, SecretConnection
@@ -41,27 +42,14 @@ _PKT_MSG = 0x03
 
 MAX_PACKET_PAYLOAD = DATA_MAX - 8  # header: type+chan+eof+len(2) < 8
 
-# The reference's p2p metric families (libs/metrics.py p2p_metrics), as
-# plain values: "peers" and "pending_send_bytes" are gauges, the dicts
-# count by channel ("0x20") or by slow-peer action.
-METRICS: dict = {
-    "peers": 0,
-    "pending_send_bytes": 0,
-    "peer_send_bytes": {},
-    "peer_receive_bytes": {},
-    "message_send": {},
-    "message_receive": {},
-    "send_drops": {},
-    "num_txs": 0,
-    "slow_peer_events": {},
-    "reconnect_exhausted": 0,
-}
+def count(family: str, ch: str, n: int = 1) -> None:
+    """Add `n` to a by-channel counter of the p2p family."""
+    getattr(p2p_metrics(), family).inc(n, ch=ch)
 
 
-def count(family: str, key: str, n: int = 1) -> None:
-    """Add `n` to a by-label counter of METRICS."""
-    d = METRICS[family]
-    d[key] = d.get(key, 0) + n
+def _pending(delta: int) -> None:
+    """Move the process-wide p2p_pending_send_bytes gauge."""
+    p2p_metrics().pending_send_bytes.inc(delta)
 
 
 @dataclass
@@ -130,7 +118,7 @@ class _Channel:
             # message into the gauge forever if the conn dies between
             # the final fragment being pulled and the write finishing
             self.pending_bytes -= len(self.sending)
-            METRICS["pending_send_bytes"] -= len(self.sending)
+            _pending(-len(self.sending))
             self.sending = None
             self.sent_pos = 0
         return frag, eof
@@ -193,7 +181,7 @@ class MConnection(Service):
         # process-wide pending gauge forever
         for ch in self.channels.values():
             if ch.pending_bytes:
-                METRICS["pending_send_bytes"] -= ch.pending_bytes
+                _pending(-ch.pending_bytes)
                 ch.pending_bytes = 0
 
     def _error(self, exc: Exception) -> None:
@@ -226,13 +214,13 @@ class MConnection(Service):
         if put not in done or put.cancelled():
             return False
         ch.pending_bytes += len(msg)
-        METRICS["pending_send_bytes"] += len(msg)
+        _pending(len(msg))
         self._send_signal.set()
         return True
 
     def try_send(self, chan_id: int, msg: bytes) -> bool:
         """Non-blocking send; False if the queue is full. Drops are
-        counted (METRICS["send_drops"] and the overload controller's
+        counted (p2p_send_drops_total and the overload controller's
         shed signal): a broadcast quietly losing messages to a full
         channel is the saturation evidence an operator needs."""
         ch = self.channels.get(chan_id)
@@ -245,7 +233,7 @@ class MConnection(Service):
             CONTROLLER.shed("p2p.send")
             return False
         ch.pending_bytes += len(msg)
-        METRICS["pending_send_bytes"] += len(msg)
+        _pending(len(msg))
         self._send_signal.set()
         return True
 
@@ -280,7 +268,8 @@ class MConnection(Service):
                 ch = self._pick_channel()
                 if ch is None:
                     # flush whatever is buffered before going idle
-                    await self.conn.drain()
+                    with tracing.TRACER.span(tracing.P2P_SEND_FLUSH):
+                        await self.conn.drain()
                     self._send_signal.clear()
                     # decay recently_sent while idle (reference: 2x/s)
                     for c in self.channels.values():
@@ -308,7 +297,8 @@ class MConnection(Service):
                 # plus once when the queues run dry above.
                 now = clock.monotonic()
                 if now - last_flush >= throttle:
-                    await self.conn.drain()
+                    with tracing.TRACER.span(tracing.P2P_SEND_FLUSH):
+                        await self.conn.drain()
                     last_flush = now
         except asyncio.CancelledError:
             raise
@@ -348,9 +338,14 @@ class MConnection(Service):
                         msg = bytes(ch.recv_buf)
                         ch.recv_buf = bytearray()
                         count("message_receive", ch.label)
-                        res = self.on_receive(chan_id, msg)
-                        if asyncio.iscoroutine(res):
-                            await res
+                        # one span per COMPLETE message (per-packet
+                        # spans would dominate the ring under load)
+                        with tracing.TRACER.span(tracing.P2P_RECV_MSG,
+                                                 chan=chan_id,
+                                                 nbytes=len(msg)):
+                            res = self.on_receive(chan_id, msg)
+                            if asyncio.iscoroutine(res):
+                                await res
                 else:
                     raise ValueError(f"unknown packet type {t}")
         except asyncio.CancelledError:

@@ -25,7 +25,8 @@ import asyncio
 from ..crypto.batch import UNCAUGHT
 from ..libs.overload import CONTROLLER, SlowPeerPolicy, SlowPeerTracker
 from ..libs.service import Service
-from .conn.connection import METRICS, ChannelDescriptor, MConnConfig, count
+from ..libs.metrics import p2p_metrics
+from .conn.connection import ChannelDescriptor, MConnConfig
 from .node_info import NodeInfo
 from .peer import Peer
 from .transport import Transport
@@ -258,7 +259,7 @@ class Switch(Service):
                 await self.stop_peer_for_error(peer, e)
                 raise
         self.logger.info("added peer %r (%d total)", peer, len(self.peers))
-        METRICS["peers"] = len(self.peers)
+        p2p_metrics().peers.set(len(self.peers))
         return peer
 
     # -- outbound --
@@ -353,7 +354,7 @@ class Switch(Service):
             if action is None:
                 continue
             actions.append((peer.id, action))
-            count("slow_peer_events", action)
+            p2p_metrics().slow_peer_events.inc(action=action)
             peer.slow_level = self.slow_peers.level(peer.id)
             self.logger.warning(
                 "slow peer %r: %s (pending %dB, draining %.0fB/s)",
@@ -374,7 +375,7 @@ class Switch(Service):
             return
         self.logger.info("stopping peer %r: %s", peer, reason)
         await self._remove_peer(peer, reason)
-        METRICS["peers"] = len(self.peers)
+        p2p_metrics().peers.set(len(self.peers))
         if peer.is_persistent() and self.is_running:
             addr = f"{peer.id}@{peer.socket_addr}" if peer.socket_addr else None
             for a in self.persistent_addrs:
@@ -430,7 +431,7 @@ class Switch(Service):
                 "persistent peer %s unreachable after 20 reconnect "
                 "attempts; giving up (flagged in /status)", addr)
             self.reconnect_exhausted.add(addr)
-            METRICS["reconnect_exhausted"] += 1
+            p2p_metrics().reconnect_exhausted.inc()
 
         self._reconnect_tasks[addr] = self.spawn(reconnect(),
                                                  f"reconnect-{addr}")

@@ -7,10 +7,8 @@ slow query can't head-of-line-block consensus. With LocalClients they
 share one app lock.
 
 Every connection's deliver() is wrapped with a latency observer: the
-one choke point all client types share. The reference observes it into
-its `abci_connection_method_seconds{connection, method}` histogram; the
-port keeps the calls and their summed seconds a (connection, method)
-in ``METRICS``, a plain dict (crypto/batch.py's convention).
+one choke point all client types share: it observes the reference's
+`abci_connection_method_seconds{connection, method}` histogram.
 """
 
 from __future__ import annotations
@@ -18,10 +16,8 @@ from __future__ import annotations
 import time
 
 from ..abci.client import Client, ClientCreator
+from ..libs.metrics import abci_metrics
 from ..libs.service import Service
-
-# (connection, method) -> calls, and -> summed seconds
-METRICS: dict = {"method_calls": {}, "method_seconds": {}}
 
 
 def _snake(req_type_name: str) -> str:
@@ -41,15 +37,16 @@ def instrument_client(client: Client, conn_name: str) -> Client:
     path is a dict lookup."""
     from ..libs import failpoints
 
-    calls, seconds = METRICS["method_calls"], METRICS["method_seconds"]
+    hist = abci_metrics().method_seconds
     inner = client.deliver
-    keys: dict[type, tuple[str, str]] = {}
+    keys: dict = {}
 
     async def timed_deliver(req):
         t = type(req)
-        key = keys.get(t)
-        if key is None:
-            keys[t] = key = (conn_name, _snake(t.__name__))
+        ob = keys.get(t)
+        if ob is None:
+            keys[t] = ob = hist.labels(connection=conn_name,
+                                       method=_snake(t.__name__)).observe
         # chaos: the one choke point every client type shares — an
         # armed error here looks exactly like a dead app connection
         # (async variant: a delay stalls THIS call, not the event loop)
@@ -58,8 +55,7 @@ def instrument_client(client: Client, conn_name: str) -> Client:
         try:
             return await inner(req)
         finally:
-            calls[key] = calls.get(key, 0) + 1
-            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            ob(time.perf_counter() - t0)
 
     client.deliver = timed_deliver
     return client

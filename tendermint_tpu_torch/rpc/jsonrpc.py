@@ -11,11 +11,10 @@ One listener serves three surfaces, like the reference:
 Handlers are `async fn(ctx, **params) -> dict`; the registry maps
 method name → handler. Stdlib-only.
 
-Counts go into ``METRICS``, a plain dict (the port's convention until
-the metric families are ported, ROADMAP Queue A item 5): requests
+Counts go into the reference's rpc family (libs/metrics.py): requests
 rejected by reason, the requests in flight, and the websocket events a
-slow client lost. The reference's Prometheus exposition on GET /metrics
-waits for those families: here that path is an unknown method.
+slow client lost. GET /metrics serves the Prometheus exposition of the
+whole catalog here too, for one-port deployments.
 
 The port's fault rule (crypto/batch.py UNCAUGHT): a ``KernelError`` or
 ``NoDeviceError`` raised under a handler answers that request with an
@@ -34,12 +33,10 @@ import time
 import urllib.parse
 
 from ..crypto.batch import UNCAUGHT
+from ..libs.metrics import rpc_metrics
 from ..libs.overload import CONTROLLER, DropOldestQueue
 
 logger = logging.getLogger("rpc.server")
-
-METRICS: dict = {"requests_rejected": {}, "requests_in_flight": 0,
-                 "ws_events_dropped": 0}
 
 _WS_MAGIC = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
 MAX_BODY = 1_000_000
@@ -48,7 +45,7 @@ MAX_BODY = 1_000_000
 # the conventional vocabulary and greppable in client logs).
 CODE_BUSY = 429
 # Bound on a WSClient's buffered notifications: a slow consumer loses
-# the OLDEST events (counted in METRICS["ws_events_dropped"]), never
+# the OLDEST events (counted in rpc_ws_events_dropped_total), never
 # grows memory without limit.
 WS_EVENTS_MAX = 1024
 
@@ -178,14 +175,13 @@ class JSONRPCServer:
         return None
 
     def _reject(self, id_, reason: str) -> dict:
-        m = METRICS["requests_rejected"]
-        m[reason] = m.get(reason, 0) + 1
+        rpc_metrics().requests_rejected.inc(reason=reason)
         CONTROLLER.shed("rpc.http")
         return _rpc_error(id_, CODE_BUSY,
                           "server overloaded; retry later", reason)
 
     def _gauge_in_flight(self) -> None:
-        METRICS["requests_in_flight"] = self._in_flight
+        rpc_metrics().requests_in_flight.set(self._in_flight)
 
     async def listen(self, host: str, port: int) -> int:
         self._server = await asyncio.start_server(self._serve_conn, host,
@@ -209,6 +205,15 @@ class JSONRPCServer:
                 if headers.get("upgrade", "").lower() == "websocket":
                     await self._serve_websocket(reader, writer, headers)
                     return
+                if method == "GET" and target.partition("?")[0] == "/metrics":
+                    # Prometheus text exposition (the reference serves it
+                    # on the instrumentation listener and here too)
+                    keep = headers.get("connection", "").lower() != "close"
+                    self._write_metrics(writer, keep)
+                    await writer.drain()
+                    if not keep:
+                        break
+                    continue
                 reason = self._admit()
                 if reason is not None:
                     resp, keep = self._reject(None, reason), True
@@ -236,6 +241,20 @@ class JSONRPCServer:
                 writer.close()
             except Exception:
                 pass
+
+    @staticmethod
+    def _write_metrics(writer, keep: bool) -> None:
+        from ..libs.metrics import DEFAULT, node_metrics
+
+        node_metrics()  # the full catalog on every scrape
+        text = DEFAULT.render_text().encode()
+        writer.write(
+            b"HTTP/1.1 200 OK\r\n"
+            b"Content-Type: text/plain; version=0.0.4\r\n"
+            + f"Content-Length: {len(text)}\r\n".encode()
+            + (b"Connection: keep-alive\r\n" if keep
+               else b"Connection: close\r\n")
+            + b"\r\n" + text)
 
     async def _read_request(self, reader):
         line = await reader.readline()
@@ -496,7 +515,7 @@ async def relay_events(ws, get_msg, drain_timeout: float = 30.0) -> None:
 
 
 def _count_ws_event_drop() -> None:
-    METRICS["ws_events_dropped"] += 1
+    rpc_metrics().ws_events_dropped.inc()
 
 
 class WSClient:

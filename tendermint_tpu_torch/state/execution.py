@@ -10,17 +10,18 @@ fail.Fail() calls
 (state/execution.go:149-195) so crash-recovery tests can cut the
 process at each boundary.
 
-The reference's `state_metrics()` family waits for the port's metrics
-layer: its four series are kept in METRICS, a plain dict (the
-convention of proxy.METRICS and evidence.METRICS)."""
+apply_block is a state.apply_block span and a
+state_block_processing_seconds observation; validate_block runs in an
+executor thread under TRACER.wrap, so the commit-verify crypto spans
+keep their lineage. The reference's state family (libs/metrics.py)."""
 
 from __future__ import annotations
 
-import time
-
 from ..abci import types as abci_t
 from ..abci.client import Client
+from ..libs import tracing
 from ..libs.failpoints import hit as _failpoint
+from ..libs.metrics import state_metrics
 from ..mempool import Mempool, NopMempool, TxPostCheck, TxPreCheck
 from ..types.block import Block, BlockID, Commit
 from ..types.events import (
@@ -34,21 +35,10 @@ from .store import Store
 from .validation import validate_block
 
 
-# the reference's state_metrics(): the two histograms as an observation
-# count and a sum of seconds, the two counters as counts
-METRICS: dict = {
-    "block_processing_seconds": {"count": 0, "sum": 0.0},
-    "commit_verify_seconds": {"count": 0, "sum": 0.0},
-    "validator_set_updates": 0,
-    "consensus_param_updates": 0,
-}
-
-
 def observe(series: str, seconds: float) -> None:
-    """One observation of a METRICS histogram."""
-    h = METRICS[series]
-    h["count"] += 1
-    h["sum"] += seconds
+    """One observation of a state-family histogram
+    (block_processing_seconds, commit_verify_seconds)."""
+    getattr(state_metrics(), series).observe(seconds)
 
 
 class ExecutionError(Exception):
@@ -155,22 +145,21 @@ class BlockExecutor:
         """validate_block in a worker thread: the LastCommit signature
         batch runs on the device without freezing the event loop
         (gossip, RPC and timeouts stay live during a mega-commit
-        verify). The reference's TRACER.wrap around it comes with the
-        port's tracing."""
+        verify). TRACER.wrap carries the caller's active span and
+        launch-ledger workload into the worker thread."""
         import asyncio
 
         await asyncio.get_running_loop().run_in_executor(
-            None, self.validate_block, state, block
+            None, tracing.TRACER.wrap(self.validate_block), state, block
         )
 
     async def apply_block(self, state: State, block_id: BlockID,
                           block: Block) -> tuple[State, int]:
         """Returns (new_state, retain_height). Raises on invalid block."""
-        t0 = time.perf_counter()
-        try:
+        with state_metrics().block_processing_seconds.time(), \
+                tracing.TRACER.span(tracing.STATE_APPLY_BLOCK,
+                                    height=block.header.height):
             return await self._apply_block(state, block_id, block)
-        finally:
-            observe("block_processing_seconds", time.perf_counter() - t0)
 
     async def _apply_block(self, state: State, block_id: BlockID,
                            block: Block) -> tuple[State, int]:
@@ -187,9 +176,9 @@ class BlockExecutor:
         end_block: abci_t.ResponseEndBlock = abci_responses["end_block"]
         val_updates = validator_updates_from_abci(end_block.validator_updates)
         if val_updates:
-            METRICS["validator_set_updates"] += len(val_updates)
+            state_metrics().validator_set_updates.inc(len(val_updates))
         if end_block.consensus_param_updates:
-            METRICS["consensus_param_updates"] += 1
+            state_metrics().consensus_param_updates.inc()
         new_state = update_state(state, block_id, block, abci_responses,
                                  val_updates)
         if val_updates:

@@ -35,7 +35,8 @@ from .messages import (
     encode_ss_msg,
 )
 from .snapshots import Snapshot
-from .syncer import METRICS, Syncer, count
+from ..libs.metrics import consensus_metrics, statesync_metrics
+from .syncer import Syncer, count
 
 logger = logging.getLogger("statesync.reactor")
 
@@ -96,11 +97,13 @@ class StateSyncReactor(Reactor):
         if sw is not None:
             sw.broadcast(SNAPSHOT_CHANNEL,
                          encode_ss_msg(SnapshotsRequestMessage()))
-        METRICS["state_syncing"] = METRICS["syncing"] = 1
+        consensus_metrics().state_syncing.set(1)
+        statesync_metrics().syncing.set(1)
         try:
             return await self.syncer.sync_any()
         finally:
-            METRICS["state_syncing"] = METRICS["syncing"] = 0
+            consensus_metrics().state_syncing.set(0)
+            statesync_metrics().syncing.set(0)
 
     def _request_snapshots(self) -> None:
         sw = self.switch

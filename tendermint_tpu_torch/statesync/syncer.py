@@ -22,9 +22,9 @@ the snapshot itself is rejected only once RESTORE_ATTEMPTS are
 exhausted or no untried peer mix remains — a poisoner costs bandwidth,
 never liveness.
 
-The reference's statesync metric family is kept in ``METRICS``, a plain
-dict (the convention of crypto/batch.py METRICS), with the quarantines
-also counted by reason.
+Progress records into the reference's statesync family
+(libs/metrics.py statesync_metrics) and the consensus family's
+state_syncing gauge.
 
 Divergence, the port's rule for its own faults (crypto/batch.py
 UNCAUGHT): a KernelError or NoDeviceError raised under the state
@@ -69,29 +69,16 @@ CHUNK_BACKOFF_MAX = 5.0
 # between attempts).
 RESTORE_ATTEMPTS = 4
 
-# The reference's statesync_metrics() family (and its consensus
-# state_syncing gauge), as plain values; the quarantines by reason too.
-METRICS: dict = {
-    "syncing": 0,
-    "state_syncing": 0,
-    "snapshots_discovered": 0,
-    "chunks_received": 0,
-    "chunks_served": 0,
-    "chunk_retries": 0,
-    "chunks_refetched": {},
-    "peers_quarantined": 0,
-    "quarantines": {},
-    "restore_attempts": 0,
-}
+def count(name: str, reason: str | None = None, n: int = 1) -> None:
+    """Add `n` to a counter of the statesync family (to its `reason`
+    label where it is counted by reason)."""
+    from ..libs.metrics import statesync_metrics
 
-
-def count(name: str, label: str | None = None, n: int = 1) -> None:
-    """Add `n` to a counter of METRICS (to its `label` where it is
-    counted by label)."""
-    if label is None:
-        METRICS[name] += n
+    c = getattr(statesync_metrics(), name)
+    if reason is None:
+        c.inc(n)
     else:
-        METRICS[name][label] = METRICS[name].get(label, 0) + n
+        c.inc(n, reason=reason)
 
 
 def _chunk_backoff(attempt: int) -> float:
@@ -160,6 +147,7 @@ class Syncer:
         self._active: Snapshot | None = None
         self._requeue: set[int] = set()  # chunks whose peer said "missing"
         self._quarantined: set[str] = set()
+        self.quarantine_kinds: dict[str, int] = {}  # kind -> peers
         self._restore_attempt = 0
         self._applied_count = 0
 
@@ -224,16 +212,18 @@ class Syncer:
         """Ban a provably-lying snapshot peer: evict it from the pool
         (its advertisements and chunks are dead from here) and strike
         its trust score. Quarantine is BY NAME and permanent for this
-        syncer's life — visible in /status and the quarantine metric,
-        which also counts it under `kind` (the reason by default)."""
+        syncer's life — visible in /status and
+        statesync_peers_quarantined_total; the log names its `kind`
+        (the reason by default)."""
         if not peer_id or peer_id in self._quarantined:
             return
         self._quarantined.add(peer_id)
         self.pool.reject_peer(peer_id)
         count("peers_quarantined")
-        count("quarantines", kind or reason)
-        logger.warning("statesync peer %s quarantined: %s",
-                       peer_id[:8], reason)
+        k = kind or reason
+        self.quarantine_kinds[k] = self.quarantine_kinds.get(k, 0) + 1
+        logger.warning("statesync peer %s quarantined (%s): %s",
+                       peer_id[:8], kind or reason, reason)
         self._strike(peer_id, f"quarantined: {reason}")
 
     def quarantined_peers(self) -> list[str]:

@@ -279,10 +279,15 @@ def test_app_conns_share_one_app_and_count_calls():
     got = {k: run(go(pkg)) for k, pkg in PACKAGES.items()}
     assert got["port"] == got["reference"]
     assert got["port"][1] == [True] * 4 and got["port"][2] == [False] * 4
-    calls = pproxy.METRICS["method_calls"]
-    assert calls[("consensus", "deliver_tx")] >= 9
-    assert calls[("query", "echo")] >= 1
-    assert pproxy.METRICS["method_seconds"][("mempool", "check_tx")] >= 0
+    series = pproxy.abci_metrics().method_seconds._series
+
+    def calls(conn, method):
+        s = series.get((("connection", conn), ("method", method)))
+        return (sum(s.counts), s.sum) if s else (0, 0.0)
+
+    assert calls("consensus", "deliver_tx")[0] >= 9
+    assert calls("query", "echo")[0] >= 1
+    assert calls("mempool", "check_tx")[1] >= 0
     assert [pproxy._snake(n) for n in ("RequestCheckTx",
                                        "RequestApplySnapshotChunk")] == \
         [jproxy._snake(n) for n in ("RequestCheckTx",

@@ -121,7 +121,7 @@ def test_pipelined_responses_equal_the_reference_both_ways(server, client):
 def test_socket_client_reconnects_after_the_server_restarts(package,
                                                              monkeypatch):
     """A lost connection fails what was in flight; the client re-dials
-    and the next request is served (counted in the port's METRICS)."""
+    and the next request is served (counted in the port's abci_client_reconnects_total)."""
     pkg = PACKAGES[package]
     monkeypatch.setattr(pkg.client.SocketClient, "RECONNECT_BASE_S", 0.02)
 
@@ -160,11 +160,13 @@ def test_socket_client_reconnects_after_the_server_restarts(package,
                 await cl.stop()
         return first.message, second.message
 
-    before = dict(pclient.METRICS["client_reconnects"])
+    from tendermint_tpu_torch.libs.metrics import abci_metrics
+
+    reconnects = abci_metrics().client_reconnects
+    before = reconnects.value(result="ok")
     assert run(go()) == ("a", "b")
     if package == "port":
-        assert pclient.METRICS["client_reconnects"].get("ok", 0) == \
-            before.get("ok", 0) + 1
+        assert reconnects.value(result="ok") == before + 1
 
 
 @pytest.mark.parametrize("package", sorted(PACKAGES))

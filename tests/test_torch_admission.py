@@ -76,6 +76,10 @@ def _cpu_and_clean_state():
         pkg.batch.reset_breakers()
         pkg.disarm()
 
+def _by_label(counter, label: str) -> dict:
+    """A port counter family's values keyed by one label."""
+    return {dict(k)[label]: int(v) for k, v in counter._values.items()}
+
 
 def run(coro):
     return asyncio.run(coro)
@@ -242,7 +246,7 @@ def test_mixed_flood_outcomes_equal(monkeypatch):
     assert admitted == (30, 180) and depth == 0
     # 120 envelopes in flushes of <= 64: each flush of >= 40 lanes is one
     # launch with the sentinel lane (+1); none smaller launched
-    launches = padm.METRICS["verify_launches"]
+    launches = _by_label(padm.admission_metrics().launches, "backend")
     assert calls and all(n - 1 >= 40 for n in calls)
     assert sum(n - 1 for n in calls) <= 120 and launches.get("device")
 
@@ -268,7 +272,7 @@ def test_real_k4_plain_launch_at_the_128_bucket():
     verdicts equal to the reference's host path, one device launch."""
     pay = payloads(4, 60)
     got = {}
-    before = dict(padm.METRICS["verify_launches"])
+    before = dict(_by_label(padm.admission_metrics().launches, "backend"))
     for name, pkg in PACKAGES.items():
         key = signer(pkg, 3)
         txs = [pkg.env.encode(key.pub_key().bytes(), bytes(64), p)
@@ -278,7 +282,7 @@ def test_real_k4_plain_launch_at_the_128_bucket():
                                    admission_flush_ms=5000.0)
     assert got["port"] == got["reference"]
     assert got["port"][3]["bad_signature"] == 20
-    after = padm.METRICS["verify_launches"]
+    after = _by_label(padm.admission_metrics().launches, "backend")
     assert after.get("device", 0) - before.get("device", 0) == 1
     assert pverify.lane_bucket(61) == 128
 
@@ -389,19 +393,19 @@ def test_breaker_open_routes_to_host(monkeypatch, package):
         raise AssertionError("device launched through an open breaker")
 
     pkg.batch.breaker("ed25519").record_failure()
-    fb0 = pbatch.METRICS["host_fallbacks"]
+    fb0 = pbatch.counters()["host_fallbacks"]
     oks = _device_case(monkeypatch, package, must_not_launch,
                        [_env(pkg, 0), _env(pkg, 1, garbage=True)])
     assert oks == [True, False]
     if package == "port":
-        assert pbatch.METRICS["host_fallbacks"] == fb0 + 1
+        assert pbatch.counters()["host_fallbacks"] == fb0 + 1
 
 
 @pytest.mark.parametrize("package", sorted(PACKAGES))
 def test_sentinel_false_rechecks_on_host(monkeypatch, package):
     pkg = PACKAGES[package]
-    m0 = dict(pbatch.METRICS)
-    r0 = dict(padm.METRICS["verify_launches"])
+    m0 = dict(pbatch.counters())
+    r0 = dict(_by_label(padm.admission_metrics().launches, "backend"))
     oks = _device_case(
         monkeypatch, package,
         lambda pubs, msgs, sigs, device=None: np.zeros(len(pubs), bool),
@@ -409,11 +413,11 @@ def test_sentinel_false_rechecks_on_host(monkeypatch, package):
     assert oks == [True, True, False]
     assert not pkg.batch.device_available("ed25519")
     if package == "port":
-        r = padm.METRICS["verify_launches"]
+        r = _by_label(padm.admission_metrics().launches, "backend")
         assert r["host_recheck"] == r0.get("host_recheck", 0) + 1
         assert r["device"] == r0.get("device", 0) + 1
-        assert pbatch.METRICS["host_rechecks"] == m0["host_rechecks"] + 1
-        assert pbatch.METRICS["host_fallbacks"] == m0["host_fallbacks"] + 1
+        assert pbatch.counters()["host_rechecks"] == m0["host_rechecks"] + 1
+        assert pbatch.counters()["host_fallbacks"] == m0["host_fallbacks"] + 1
 
 
 @pytest.mark.parametrize("package", sorted(PACKAGES))
@@ -425,12 +429,12 @@ def test_all_garbage_batch_trusted(monkeypatch, package):
         out[-1] = True  # the sentinel rides last and verifies
         return out
 
-    m0 = dict(pbatch.METRICS)
+    m0 = dict(pbatch.counters())
     oks = _device_case(monkeypatch, package, fake,
                        [_env(pkg, i, garbage=True) for i in range(3)])
     assert oks == [False] * 3
     assert pkg.batch.device_available("ed25519")
-    assert pbatch.METRICS == m0
+    assert pbatch.counters() == m0
 
 
 @pytest.mark.parametrize("package", sorted(PACKAGES))
@@ -613,7 +617,7 @@ def test_kernel_error_from_the_launch_reaches_check_tx(monkeypatch):
         raise pkernels.KernelError("illegal address (700)")
 
     monkeypatch.setattr(pverify, "verify_batch", raising)
-    m0 = dict(pbatch.METRICS)
+    m0 = dict(pbatch.counters())
 
     async def go():
         pool, app = make_pool(PACKAGES["port"], admission_batch=3,
@@ -630,7 +634,7 @@ def test_kernel_error_from_the_launch_reaches_check_tx(monkeypatch):
     res, raw, checked = run(go())
     assert all(isinstance(r, pkernels.KernelError) for r in res)
     assert raw.code == 0 and checked == [b"raw=still-fine"]
-    assert pbatch.device_available("ed25519") and pbatch.METRICS == m0
+    assert pbatch.device_available("ed25519") and pbatch.counters() == m0
 
     from tendermint_tpu.crypto.tpu import verify as jtv
 

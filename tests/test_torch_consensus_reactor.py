@@ -251,6 +251,16 @@ def test_a_four_validator_port_net_commits_over_tcp():
 
 
 def test_a_mixed_net_of_port_and_reference_nodes_agrees():
+    """Four validators, two of each package, commit one chain; each
+    package's receive side folds the other's origin tags into its
+    p2p.recv_msg spans (the tags decode across packages)."""
+    import importlib
+
+    tracers = [importlib.import_module(f"{p.name}.libs.tracing").TRACER
+               for p in (PORT, REF)]
+    for t in tracers:
+        t.clear()
+
     async def go():
         nodes = await make_net([PORT, REF, PORT, REF])
         try:
@@ -262,6 +272,11 @@ def test_a_mixed_net_of_port_and_reference_nodes_agrees():
 
     chains = run(go())
     assert all(c == chains[0] for c in chains) and len(chains[0]) == 3
+    for t in tracers:
+        recv = [r[6] for r in t.snapshot()
+                if r[0] == "p2p.recv_msg" and r[6] and "origin_node" in r[6]]
+        assert recv and {a["origin_height"] for a in recv} >= {1, 2}
+        assert len({a["origin_node"] for a in recv}) >= 2
 
 
 def test_a_lagging_port_node_catches_up_by_gossip():
@@ -326,6 +341,22 @@ def test_stamped_lifecycle_messages_are_the_reference_bytes():
         tag = ptracing.decode_origin(msg.origin)
         assert tuple(tag) == tuple(tracing.decode_origin(msg.origin)) == \
             (7, 2, "val0", 0)
+    # with a live span, both stamp its id: the bytes stay equal
+    import itertools
+
+    live = {}
+    for p, tr in ((PORT, ptracing), (REF, tracing)):
+        saved = tr._ids
+        tr._ids = itertools.count(4242)
+        try:
+            with tr.TRACER.span(tr.CONSENSUS_PROPOSE, height=7):
+                live[p.name] = stamped(p)
+        finally:
+            tr._ids = saved
+    assert live[PORT.name] == live[REF.name] != port
+    for raw in live[PORT.name]:
+        msg = REF.messages.decode_consensus_msg(raw)
+        assert tracing.decode_origin(msg.origin).span_id == 4242
 
 
 def test_peer_state_bit_arrays_agree_after_a_scripted_sequence():

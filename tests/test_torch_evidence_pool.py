@@ -137,8 +137,8 @@ def test_pool_refills_from_its_db():
 
     got = both(case)
     assert got[0] == got[1] and got[1][2] == 2 and got[2] == 3
-    assert ppool.METRICS["pool_size"] == 2 and ppool.METRICS["pool_bytes"] \
-        == got[1][3]
+    met = ppool.evidence_metrics()
+    assert met.pool_size.value() == 2 and met.pool_bytes.value() == got[1][3]
 
 
 @pytest.mark.parametrize("ages", [(0, 0), (1, 0), (0, 1), (1, 1)],

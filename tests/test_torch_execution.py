@@ -515,12 +515,17 @@ def test_failpoints_stop_apply_block_where_the_reference_stops():
 
 
 def test_metrics_count_the_pipeline():
-    """state.execution.METRICS: one block_processing and one
-    commit_verify observation a height past the first, and the
-    validator updates counted."""
-    m = PORT.ex.METRICS
-    before = (m["block_processing_seconds"]["count"],
-              m["commit_verify_seconds"]["count"], m["validator_set_updates"])
+    """The state family: one block_processing and one commit_verify
+    observation a height past the first, and the validator updates
+    counted."""
+    m = PORT.ex.state_metrics()
+
+    def counts():
+        return (m.block_processing_seconds.count,
+                m.commit_verify_seconds.count,
+                m.validator_set_updates.value())
+
+    before = counts()
 
     async def go():
         node = await Node(PORT).start()
@@ -529,10 +534,9 @@ def test_metrics_count_the_pipeline():
         await node.stop()
 
     asyncio.run(go())
-    after = (m["block_processing_seconds"]["count"],
-             m["commit_verify_seconds"]["count"], m["validator_set_updates"])
+    after = counts()
     assert [a - b for a, b in zip(after, before)] == [3, 2, 1]
-    assert m["block_processing_seconds"]["sum"] > 0
+    assert m.block_processing_seconds.sum > 0
 
 
 # ----------------------------------------------------- pure functions

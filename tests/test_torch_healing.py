@@ -200,7 +200,7 @@ def test_eviction_matches_reference():
             "sr25519": "closed"}
     assert sorted(cbatch.device_breaker_states().values()) == \
         sorted(jcbatch.device_breaker_states().values()) == ["open"] * D
-    assert cbatch.METRICS["evictions"][(pn[0], "launch_error")] >= 1
+    assert cbatch.counters()["evictions"][(pn[0], "launch_error")] >= 1
 
 
 def test_shard_fail_failpoint_evicts_one_entry_like_reference():
@@ -208,7 +208,7 @@ def test_shard_fail_failpoint_evicts_one_entry_like_reference():
     third entry (reason failpoint) in both packages, and the same call
     already returns the 7 survivors; the backend breaker stays
     closed."""
-    before = dict(cbatch.METRICS["evictions"])
+    before = dict(cbatch.counters()["evictions"])
     failpoints.arm("device.shard_fail", "corrupt", nth=3)
     jfailpoints.arm("device.shard_fail", "corrupt", nth=3)
     pm, jm = tv.effective_mesh(), jtv.effective_mesh()
@@ -219,7 +219,7 @@ def test_shard_fail_failpoint_evicts_one_entry_like_reference():
     assert cbatch.breaker_states()["ed25519"] == "closed"
     assert jcbatch.breaker_states()["ed25519"] == "closed"
     delta = {k: v - before.get(k, 0)
-             for k, v in cbatch.METRICS["evictions"].items()
+             for k, v in cbatch.counters()["evictions"].items()
              if v != before.get(k, 0)}
     assert delta == {("cpu/2", "failpoint"): 1}
     # an `error` point evicts the same way; the payload of every other
@@ -284,9 +284,9 @@ def test_live_reshard_keeps_the_cached_set_and_its_verdicts():
     assert "cpu/5" not in exp.mesh.names
     assert cbatch.breaker_states()["ed25519"] == "closed"
     clk.t += cbatch.device_breaker("ed25519", "cpu/5").cooldown_remaining() + 1
-    probes = dict(cbatch.METRICS["probes"])
+    probes = dict(cbatch.counters()["probes"])
     back = exp.verify(idx, msgs, sigs)  # the dispatch runs the due probe
-    assert cbatch.METRICS["probes"].get(("ed25519", "ok"), 0) == \
+    assert cbatch.counters()["probes"].get(("ed25519", "ok"), 0) == \
         probes.get(("ed25519", "ok"), 0) + 1
     assert cbatch.device_breaker_states() == {"cpu/5": "closed"}
     assert ex.get_expanded(pubs) is exp
@@ -326,7 +326,7 @@ def test_batch_verifier_breaker_ladder_matches_reference(ed_lanes):
     clock.install(clk)
     jclock.install(clk)
     jcbatch.breaker("ed25519")._probe = lambda: True
-    fb = cbatch.METRICS["host_fallbacks"]
+    fb = cbatch.counters()["host_fallbacks"]
     failpoints.arm("device.verify", "error", count=1)
     jfailpoints.arm("device.verify", "error", count=1)
     got = [_bv(m, k, pubs, msgs, sigs)
@@ -334,14 +334,14 @@ def test_batch_verifier_breaker_ladder_matches_reference(ed_lanes):
     assert got[0][1].tolist() == got[1][1].tolist() == expect.tolist()
     assert cbatch.breaker_states() == jcbatch.breaker_states() == {
         "ed25519": "open", "sr25519": "closed"}
-    assert cbatch.METRICS["host_fallbacks"] == fb + 1
+    assert cbatch.counters()["host_fallbacks"] == fb + 1
     calls = []
     real = tv.verify_batch
     tv.verify_batch = lambda *a, **k: calls.append(k) or real(*a, **k)
     try:
         again = _bv(cbatch, ped25519, pubs, msgs, sigs)  # still cooling
         assert calls == [] and again[1].tolist() == expect.tolist()
-        assert cbatch.METRICS["host_fallbacks"] == fb + 2
+        assert cbatch.counters()["host_fallbacks"] == fb + 2
         clk.t += cbatch.breaker("ed25519").cooldown_remaining() + 1
         done = _bv(cbatch, ped25519, pubs, msgs, sigs)
         jdone = _bv(jcbatch, jed25519, pubs, msgs, sigs, use_device=False)
@@ -350,7 +350,7 @@ def test_batch_verifier_breaker_ladder_matches_reference(ed_lanes):
     assert [len(c) for c in calls] == [1, 0]  # the probe, then the batch
     assert done[1].tolist() == jdone[1].tolist() == expect.tolist()
     assert cbatch.breaker_states()["ed25519"] == "closed"
-    assert cbatch.METRICS["host_fallbacks"] == fb + 2
+    assert cbatch.counters()["host_fallbacks"] == fb + 2
 
 
 def _sr_batch(n):
@@ -458,7 +458,7 @@ def test_kernel_error_is_never_swallowed(monkeypatch, ed_lanes, ladder):
         clk.t += cbatch.breaker("ed25519").cooldown_remaining() + 1
     states = cbatch.breaker_states()
     before = {k: (dict(v) if isinstance(v, dict) else v)
-              for k, v in cbatch.METRICS.items()}
+              for k, v in cbatch.counters().items()}
     if ladder in ("batch_verifier", "probe"):
         monkeypatch.setattr(tv, "verify_batch", broken)
         with pytest.raises(kernels.KernelError):
@@ -481,7 +481,7 @@ def test_kernel_error_is_never_swallowed(monkeypatch, ed_lanes, ladder):
             plane.flush_sync()
     assert cbatch.breaker_states() == states
     assert cbatch.device_breaker_states() == {}
-    assert cbatch.METRICS == before
+    assert cbatch.counters() == before
 
 
 @pytest.mark.parametrize("code", [700, 214])
@@ -505,7 +505,7 @@ def test_kernel_fault_at_the_sync_is_classified_by_its_code(
 
     monkeypatch.setattr(kernels, "_stream_sync", lambda device, stream: code)
     before = {k: (dict(v) if isinstance(v, dict) else v)
-              for k, v in cbatch.METRICS.items()}
+              for k, v in cbatch.counters().items()}
     fault = code in kernels.KERNEL_FAULTS
     assert fault != (code in kernels.DEVICE_HEALTH)
     pubs, msgs, sigs, expect = ed_lanes
@@ -539,7 +539,7 @@ def test_kernel_fault_at_the_sync_is_classified_by_its_code(
         assert cbatch.breaker_states() == {"ed25519": "closed",
                                            "sr25519": "closed"}
         assert cbatch.device_breaker_states() == {}
-        assert cbatch.METRICS == before
+        assert cbatch.counters() == before
     else:
         assert cbatch.breaker_states()["ed25519"] == "open"
-        assert cbatch.METRICS["host_fallbacks"] == before["host_fallbacks"] + 1
+        assert cbatch.counters()["host_fallbacks"] == before["host_fallbacks"] + 1

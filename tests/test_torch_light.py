@@ -433,7 +433,8 @@ def _collector_outcomes(p, **kw):
 
 
 def _launches():
-    return dict(pserving.METRICS["verify_launches"])
+    c = pserving.light_metrics().verify_launches
+    return {dict(k)["backend"]: int(v) for k, v in c._values.items()}
 
 
 def _delta(before):
@@ -459,13 +460,13 @@ def test_collector_scatters_verdicts_per_plan_on_the_device_route():
 def test_false_sentinel_rechecks_on_the_host(monkeypatch):
     monkeypatch.setattr(pverify, "verify_batch",
                         lambda pubs, msgs, sigs: np.zeros(len(pubs), bool))
-    before, m0 = _launches(), dict(pbatch.METRICS)
+    before, m0 = _launches(), dict(pbatch.counters())
     port = _collector_outcomes(PORT, device_threshold=1)
     assert port == _collector_outcomes(PACKAGES["reference"])
     assert _delta(before) == {"device": 1, "host_recheck": 1}
     assert not pbatch.device_available("ed25519")
-    assert pbatch.METRICS["host_rechecks"] == m0["host_rechecks"] + 1
-    assert pbatch.METRICS["host_fallbacks"] == m0["host_fallbacks"] + 1
+    assert pbatch.counters()["host_rechecks"] == m0["host_rechecks"] + 1
+    assert pbatch.counters()["host_fallbacks"] == m0["host_fallbacks"] + 1
 
 
 def test_open_breaker_routes_to_the_host(monkeypatch):

@@ -248,11 +248,11 @@ def test_update_recheck_and_replay_guard():
 
         return run(go())
 
-    recheck0 = pcm.METRICS["recheck_times"]
+    recheck0 = pcm.mempool_metrics().recheck_times.value()
     p, r = both(scenario)
     assert p == r
     assert p[13][0] == "TxInMempoolError"
-    assert pcm.METRICS["recheck_times"] - recheck0 == 8 + 8
+    assert pcm.mempool_metrics().recheck_times.value() - recheck0 == 8 + 8
 
 
 def test_commit_during_check_tx_drops_the_tx():

@@ -328,15 +328,15 @@ def test_speculation_names_the_lying_entry():
     assert arena.sentinel_ok == [True] * D
     sb = arena._blocks[0]["bufs"]["sb"]
     sb[int(arena._off_of[1]), 0] ^= 1
-    before = dict(cbatch.METRICS["evictions"]), cbatch.METRICS["host_rechecks"]
+    before = dict(cbatch.counters()["evictions"]), cbatch.counters()["host_rechecks"]
     for v in votes["port"][3:6]:
         plane.observe_precommit(v)
     plane.flush_sync()
     assert arena.failed_shards() == [(1, "cpu/1")]
     assert cbatch.breaker_states()["ed25519"] == "closed"
     assert cbatch.device_breaker_states() == {"cpu/1": "open"}
-    assert cbatch.METRICS["host_rechecks"] == before[1] + 1
-    assert cbatch.METRICS["evictions"].get(("cpu/1", "sentinel"), 0) == \
+    assert cbatch.counters()["host_rechecks"] == before[1] + 1
+    assert cbatch.counters()["evictions"].get(("cpu/1", "sentinel"), 0) == \
         before[0].get(("cpu/1", "sentinel"), 0) + 1
     for v in votes["port"][6:]:
         plane.observe_precommit(v)

@@ -433,6 +433,11 @@ REFUSED = [
 ]
 
 
+# Values the reference refuses and the port takes (ROADMAP Queue C):
+# "gpu" is the port's word for the accelerator promise.
+PORT_TAKES = {("crypto", "backend", "gpu")}
+
+
 @pytest.mark.parametrize("section,field,value", REFUSED,
                          ids=[f"{s}.{f}={v}" for s, f, v in REFUSED])
 def test_validate_basic_refuses_what_the_reference_refuses(section, field,
@@ -441,16 +446,40 @@ def test_validate_basic_refuses_what_the_reference_refuses(section, field,
         cfg = p.config.Config()
         cfg.validate_basic()
         setattr(getattr(cfg, section), field, value)
+        if p is PORT and (section, field, value) in PORT_TAKES:
+            cfg.validate_basic()
+            continue
         with pytest.raises(ValueError):
             cfg.validate_basic()
+
+
+@pytest.mark.parametrize("backend", ["gpu", "tpu"])
+def test_crypto_backend_gpu_and_its_tpu_alias_promise_the_card(backend):
+    """ROADMAP Queue C: the port reads "gpu" and the reference's "tpu"
+    as one promise of the accelerator, so a config file loads in either
+    package; the watchdog degrades on CPU launches under both."""
+    from tendermint_tpu_torch.crypto.cuda import ledger, watchdog
+
+    cfg = PORT.config.Config()
+    cfg.crypto.backend = backend
+    cfg.validate_basic()
+    ledger.reset()
+    try:
+        watchdog.configure(backend)
+        ledger.record(kernel="general", device="cpu", verdict="ok",
+                      lanes=8, capacity=128)
+        v = watchdog.verdict(budget_bytes=1 << 40)
+        assert v["effective_backend"] == "cpu_fallback"
+        assert v["status"] == "degraded" and backend in v["reason"]
+    finally:
+        watchdog.configure("auto")
+        ledger.reset()
 
 
 # -- surfaces that are not ported ----------------------------------------
 
 UNPORTED = [("rpc", "grpc_laddr", "tcp://127.0.0.1:0", "item 9"),
-            ("base", "abci", "grpc", "item 9"),
-            ("rpc", "pprof_laddr", "tcp://127.0.0.1:0", "item 5"),
-            ("instrumentation", "prometheus", True, "item 5")]
+            ("base", "abci", "grpc", "item 9")]
 
 
 @pytest.mark.parametrize("section,field,value,item", UNPORTED,
@@ -459,6 +488,102 @@ def test_the_node_refuses_what_is_not_ported(section, field, value, item,
                                              tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         make_node(PORT, tmp_path, 0, 1, **{section: {field: value}})
+
+
+# -- the debug server and the Prometheus listener ------------------------
+
+
+async def _get(port: int, path: str) -> bytes:
+    """One HTTP/1.0 GET on 127.0.0.1; the body."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.0\r\nConnection: close\r\n\r\n"
+                 .encode())
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    return data.partition(b"\r\n\r\n")[2]
+
+
+def _listeners(tmp_path, **sections):
+    return make_node(PORT, tmp_path, 0, 1,
+                     rpc={"pprof_laddr": "tcp://127.0.0.1:0"},
+                     instrumentation={"prometheus": True,
+                                      "prometheus_listen_addr":
+                                      "127.0.0.1:0"}, **sections)
+
+
+def test_the_node_serves_metrics_on_both_listeners(tmp_path):
+    """instrumentation.prometheus starts a listener whose GET /metrics,
+    like the RPC port's, renders the whole catalog under the
+    reference's names; consensus_height follows the chain."""
+    async def go():
+        node = _listeners(tmp_path)
+        await node.start()
+        try:
+            await _until(lambda: node.block_store.height >= 2, "height 2")
+            prom = (await _get(node.prometheus_port, "/metrics")).decode()
+            rpc = (await _get(node.rpc_port, "/metrics")).decode()
+            return prom, rpc
+        finally:
+            await node.stop()
+
+    prom, rpc = run(go())
+    for text in (prom, rpc):
+        assert "# TYPE consensus_height gauge" in text
+        assert "# TYPE tpu_launch_ledger_records_total counter" in text
+        height = next(float(line.split()[1]) for line in text.splitlines()
+                      if line.startswith("consensus_height "))
+        assert height >= 1
+    assert "tracing_span_seconds_bucket" in prom
+
+
+def test_the_node_serves_its_launches_status_and_trace(tmp_path,
+                                                        monkeypatch):
+    """rpc.pprof_laddr starts the debug server: an admission flush's K4
+    launch (its plain version on the CPU) is one ledger record tagged
+    admission and stamped cpu-fallback in /debug/launches; /status
+    carries the watchdog's view; /debug/trace is Chrome-trace JSON with
+    the node's consensus.height and state.apply_block spans."""
+    import json
+
+    from tendermint_tpu_torch.crypto.cuda import ledger
+
+    async def go():
+        node = _listeners(tmp_path, mempool={"admission_flush_ms": 0.0})
+        await node.start()
+        try:
+            node.mempool.admission.collector.device_threshold = 1
+            ledger.reset()
+            cl = PORT.jsonrpc.HTTPClient("127.0.0.1", node.rpc_port)
+            tx = PORT.envelope.sign_tx(
+                PORT.ed25519.Ed25519PrivKey(_seed("client", 2)), b"a=b")
+            await cl.call("broadcast_tx_sync",
+                          tx=base64.b64encode(tx).decode())
+            await _until(lambda: node.block_store.height >= 3, "height 3")
+            port = node.pprof_port
+            launches = json.loads(await _get(port, "/debug/launches"))
+            status = json.loads(await _get(port, "/status"))
+            trace = json.loads(await _get(port, "/debug/trace?seconds=60"))
+            return launches, status, trace
+        finally:
+            await node.stop()
+
+    launches, status, trace = run(go())
+    recs = [r for r in launches["records"] if r["workload"] == "admission"]
+    assert len(recs) == 1
+    assert recs[0]["kernel"] == "general"
+    assert recs[0]["backend"] == "cpu-fallback"
+    assert recs[0]["lanes"] == 2 and recs[0]["capacity"] == 128
+    assert recs[0]["verdict"] == "ok" and recs[0]["ok_lanes"] == 2
+    assert launches["rollup"]["workloads"]["admission"]["launches"] == 1
+    assert launches["watchdog"]["effective_backend"] == "cpu_fallback"
+    dev = status["checks"]["device"]
+    assert dev["effective_backend"] == "cpu_fallback"
+    assert dev["configured_backend"] == "auto" and dev["status"] == "ok"
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"consensus.height", "consensus.commit", "state.apply_block",
+            "crypto.verify"} <= names
+    assert trace["tm_tpu"]["dropped"] == 0
 
 
 # -- the fault rule ----------------------------------------------------------

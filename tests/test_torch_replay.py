@@ -129,7 +129,7 @@ def test_reconciler_heals_each_crash_point_as_the_reference(tmp_path, point):
 def test_torn_wal_tail_and_reapply_equal_reference(tmp_path):
     """A torn WAL head tail is quarantined and reported before the
     handshake's state_reapply; the WAL's end height, the quarantine
-    inventory and the port's METRICS follow."""
+    inventory and the port's recovery family follow."""
     async def go(p, d):
         wal_path = os.path.join(d, "wal", "wal")
         w = p.wal.WAL(wal_path)
@@ -160,8 +160,12 @@ def test_torn_wal_tail_and_reapply_equal_reference(tmp_path):
         return (d, state.last_block_height, state.app_hash,
                 [m.msg.height for m in p.wal.WAL.decode_all(wal_path)])
 
-    metrics = PORT.replay.METRICS
-    before = (dict(metrics["repairs"]), metrics["blocks_replayed"])
+    from tendermint_tpu_torch.libs.metrics import recovery_metrics
+
+    met = recovery_metrics()
+    before = ({k: met.repairs.value(kind=k)
+               for k in ("wal_torn_tail", "state_reapply")},
+              met.blocks_replayed.value())
     got = {k: asyncio.run(go(p, str(tmp_path / k)))
            for k, p in PACKAGES.items()}
     assert got["port"] == got["reference"]
@@ -172,9 +176,9 @@ def test_torn_wal_tail_and_reapply_equal_reference(tmp_path):
     assert d["quarantined_files"] == ["wal.corrupt.000"]
     assert height == 2 and heights == [1, 2]
     for kind in ("wal_torn_tail", "state_reapply"):
-        assert metrics["repairs"][kind] == before[0].get(kind, 0) + 1
-    assert metrics["blocks_replayed"] == before[1] + 1
-    assert metrics["quarantined_files"] == 1
+        assert met.repairs.value(kind=kind) == before[0][kind] + 1
+    assert met.blocks_replayed.value() == before[1] + 1
+    assert met.quarantined_files.value() == 1
 
 
 def test_wal_end_height_survives_rotation(tmp_path):

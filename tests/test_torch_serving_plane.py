@@ -47,8 +47,9 @@ NOW = 1_700_000_000 * 1_000_000_000 + 100 * 1_000_000_000
 
 
 def _port_launches(backend=None):
-    m = pserving.METRICS["verify_launches"]
-    return m.get(backend, 0) if backend else sum(m.values())
+    met = pserving.light_metrics()
+    return int(sum(met.verify_launches.value(backend=b)
+                   for b in ((backend,) if backend else BACKENDS)))
 
 
 def _ref_launches(backend=None):
@@ -58,7 +59,8 @@ def _ref_launches(backend=None):
 
 
 def _port_lanes():
-    return sum(pserving.METRICS["batch_lanes"].values())
+    s = pserving.light_metrics().batch_lanes._series.get(())
+    return s.sum if s else 0.0
 
 
 def _ref_lanes():

@@ -286,12 +286,12 @@ def test_failed_sentinel_opens_breaker_and_rechecks_on_host(monkeypatch):
         return out
 
     monkeypatch.setattr(resident, "arena_verify", broken)
-    rechecks = cbatch.METRICS["host_rechecks"]
+    rechecks = cbatch.counters()["host_rechecks"]
     try:
         plane.flush_sync()
         assert cbatch.breaker_states()["ed25519"] == "open"
         assert cbatch.device_breaker_states() == {}
-        assert cbatch.METRICS["host_rechecks"] == rechecks + 1
+        assert cbatch.counters()["host_rechecks"] == rechecks + 1
     finally:
         cbatch.reset_breakers()
     lanes = plane._heights[H].lanes

@@ -66,11 +66,12 @@ def run(coro, deadline: float = DEADLINE_S):
 
 
 def metric(p, name: str) -> int:
-    """A counter of the statesync family: the port's plain dict, the
-    reference's metrics registry."""
+    """A counter of the statesync family, from each package's own
+    metrics registry."""
     if p is PORT:
-        return p.syncer.METRICS[name]
-    from tendermint_tpu.libs.metrics import statesync_metrics
+        from tendermint_tpu_torch.libs.metrics import statesync_metrics
+    else:
+        from tendermint_tpu.libs.metrics import statesync_metrics
 
     return int(getattr(statesync_metrics(), name).value())
 

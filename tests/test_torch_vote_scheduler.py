@@ -368,12 +368,12 @@ def test_breaker_cooldown_and_recovery(monkeypatch):
         monkeypatch.setattr(pverify, "verify_batch", boom)
         # the port's clock stands still: the cooldown cannot pass
         clock.install(types.SimpleNamespace(monotonic=lambda: 1000.0))
-        fb0 = pbatch.METRICS["host_fallbacks"]
+        fb0 = pbatch.counters()["host_fallbacks"]
         assert await burst(sched, vals, so, 0) == want
         assert calls == [40] and not pbatch.device_available("ed25519")
         assert await burst(sched, vals, so, 1) == want
         assert calls == [40]  # open: the host path, no launch
-        assert pbatch.METRICS["host_fallbacks"] == fb0 + 2
+        assert pbatch.counters()["host_fallbacks"] == fb0 + 2
         pbatch.reset_breakers()  # what a passing probe does
         monkeypatch.setattr(pverify, "verify_batch", oracle)
         sched.votes.set_round(2)
