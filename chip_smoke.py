@@ -243,17 +243,17 @@ Phases, each printing one JSON line:
    seen commit): it signs each round's proposal, parts, prevotes and
    precommits, which the parent decodes (decode_consensus_msg) and hands
    to add_peer_msg in shuffled bursts from 8 peer ids, as a reactor
-   would. Eight heights: 1; 2 with one peer's forged prevote and another
-   peer's equivocating precommit; 3 proposed and signed by the node,
-   carrying the DuplicateVoteEvidence; 4 whose round-0 proposer stays
-   silent (timeout_propose, 10,000-wide nil prevotes and precommits,
-   round 1 commits); 5 and 6 with 64 signed envelopes and 32 raw txs
-   admitted by the node's mempool (one K4 flush each) and carried by
-   the peers' blocks; 7, whose commit an `error` at
+   would. Seven heights: 1; 2 with one peer's forged prevote and
+   another peer's equivocating precommit; 3 proposed and signed by
+   the node, carrying the DuplicateVoteEvidence; 4 whose round-0
+   proposer stays silent (timeout_propose, 10,000-wide nil prevotes and
+   precommits, round 1 commits); 5 with 64 signed envelopes and 32 raw
+   txs admitted by the node's mempool (one K4 flush) and carried by the
+   peers' block; 6, whose commit an `error` at
    consensus.commit.wal_delimited ends (the node halts, wait_for_height
    re-raises it); a restart from the disks (reconcile_and_handshake
    repairs with state_reapply, reconstruct_last_commit, _catchup_replay)
-   that commits 8. Counters zeroed before and read after: every height
+   that commits 7. Counters zeroed before and read after: every height
    committed, K1 once (the genesis set's tables), every K3 and K4
    launch named by the step it served (vote groups of 128 lanes or more
    K3, of 40-127 K4; admission flushes K4; reconstruct_last_commit one
@@ -390,6 +390,40 @@ Phases, each printing one JSON line:
    p50s and launches; for the join and for the pool, the RPC servers'
    handler ms by route and their validator-set decodes (each
    /validators page decodes the stored set, as the port's route does);
+17b. cli — the command line (`python -m tendermint_tpu_torch.cmd`),
+   after statesync with its servers still up (alone: `--phase cli`).
+   `testnet --v 4` writes BASELINE.json config #1's four homes; node0's
+   config.toml is edited through Config.load/save (RPC, pprof_laddr, a
+   strict admission plane, priv_validator_laddr pinned to its signer's
+   link key). Node0's key is served by `signer --connect` in a child;
+   node0 is `start` in a child on the card, with no flag; nodes 1-3 are
+   `start --device cpu`, node3 with `--misbehavior double-prevote@5`
+   (TM_TPU_ENABLE_MAVERICK=1). Bursts of 64 signed envelopes go over
+   node0's RPC at heights 2-8: every tx committed once, the four nodes'
+   blocks and app hashes equal, one DuplicateVoteEvidence against node3
+   committed; node0's /metrics counts one admission ledger record on
+   the card per flush of 40 or more (its device route), each record in
+   /debug/launches gpu with the card's name (the peers' flushes, on
+   their plain K4 when 40 or more, are printed). Node1 is stopped and
+   started under TM_TPU_FAILPOINTS='state.apply.app_committed=crash;
+   nth=2': it must exit 1 by the crash action; started again it heals
+   and rejoins at equal app hashes. `debug dump` on node0 writes a
+   bundle with every artifact, its metrics.txt holding the same record
+   count; `light --once` (primary node0, witnesses nodes 1 and 2,
+   trusted at height 1 by hash) prints a verified height, and so does
+   `light --laddr`, whose /commit below its head equals node0's. Node2
+   is stopped: `replay-console` and `replay` run on copies of its home,
+   `unsafe-reset-all` on a third, which starts as node2 and fast-syncs
+   back to equal blocks. `start` under CUDA_VISIBLE_DEVICES="" without
+   `--device cpu` must exit non-zero naming NoDeviceError and bind no
+   port; `debug kill` on node0 writes its bundle and ends it. Then, in
+   this process, counters zeroed before and read after: a BatchVerifier
+   of 64 ed25519 and 8 secp256k1 lanes (one bad signature of each type)
+   launches K4 once, the secp256k1 lanes verified on the host, verdicts
+   the keys' own; and `cmd.main(["light", ..., "--once"])` over two of
+   the statesync phase's RPC servers (config #3's 1,000-validator chain)
+   with the table cache cleared: K1, K3 (K2 inside) and K4 as its
+   checks need. Each command's wall time and the phase's total;
 18. timing — each kernel at the main path's shapes: its device time a
    call (`ms`: back-to-back calls captured in a CUDA graph and the
    replay timed by CUDA events, no host gaps) and its wrapper's time a
@@ -435,7 +469,7 @@ Each child's lines are relayed as {"phase": <child>, "step": ...}; a
 child that fails or outruns its time limit fails the run.
 `python3 chip_smoke.py --phase consensus` builds the kernels and runs
 the consensus phase alone; `--phase p2p` the p2p phase, `--phase
-statesync` the statesync phase. Every phase
+statesync` the statesync phase, `--phase cli` the cli phase. Every phase
 but healing must end with all breakers closed and the host fallbacks,
 rechecks and evictions unchanged. Then the kernels line, the
 nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
@@ -717,17 +751,17 @@ EXEC_T0 = 1_760_000_000_000_000_000
 # raw txs through the node's mempool; CS_CRASH_POINT errors while
 # CS_CRASH_H commits, and the node restarts from its disks.
 CS_VALIDATORS = 10_000
-CS_HEIGHTS = 8
+CS_HEIGHTS = 7
 CS_PEERS = 8
 CS_BURST = (256, 1024)
 CS_WORKERS = 4
 CS_FORGE_H = 2
 CS_OWN_H = 3
 CS_SILENT_H = 4
-CS_TX_HEIGHTS = (5, 6)
+CS_TX_HEIGHTS = (5,)
 CS_ENVELOPES = 64
 CS_RAW = 32
-CS_CRASH_H = 7
+CS_CRASH_H = 6
 CS_CRASH_POINT = "consensus.commit.wal_delimited"
 CS_T0 = 1_760_100_000_000_000_000
 CS_PEERS_ARGV = None  # the peers child's command (None: this script's)
@@ -7255,17 +7289,18 @@ def p2p_host_only() -> None:
 
 
 async def p2p_submit(rpc, tag: bytes, burst: int, every_s: float,
-                     height_of, signers) -> tuple[list, list]:
+                     height_of, signers,
+                     heights=P2P_TX_HEIGHTS) -> tuple[list, list]:
     """A client: bursts of `burst` signed envelopes (kvstore txs), each by
     concurrent broadcast_tx_sync over `rpc` (one HTTP request a tx),
-    every `every_s` while the node is at a height in P2P_TX_HEIGHTS. The
-    txs the node answered, and every answer's code (an RPC error's class
-    and code where the request was refused)."""
+    every `every_s` while the node is at a height in `heights` [lo, hi).
+    The txs the node answered, and every answer's code (an RPC error's
+    class and code where the request was refused)."""
     import asyncio
 
     from tendermint_tpu_torch.types import tx_envelope
 
-    lo, hi = P2P_TX_HEIGHTS
+    lo, hi = heights
     while height_of() < lo:
         await asyncio.sleep(0.01)
     txs, codes = [], []
@@ -9199,6 +9234,650 @@ def statesync_phase(servers=None) -> dict:
             servers.close()
 
 
+# -- phase 17b: the command line --------------------------------------------
+
+CLI_CHAIN = "cli-localnet"
+CLI_VALIDATORS = 4
+CLI_TX_HEIGHTS = (2, 9)  # node0's client submits while node0 is at [2, 9)
+CLI_BURST, CLI_BURST_S = 64, 0.640
+CLI_MAVERICK_H = 5  # node3 double-prevotes here (start --misbehavior)
+CLI_CRASH_NTH = 2  # node1's restart crashes at its second app commit
+CLI_WAIT_S = 180.0
+CLI_ROOT = os.path.dirname(os.path.abspath(__file__))
+# The device flag of the commands that run on the card (node0's start,
+# the signer, light, replay): none, their default. A CPU rehearsal of the
+# phase sets ["--device", "cpu"], and the backend its records stamp.
+CLI_DEVICE: list = []
+CLI_BACKEND = "gpu"
+
+
+def cli_env(extra=None) -> dict:
+    """A command's environment: this checkout on PYTHONPATH, unbuffered
+    output, no failpoint, maverick or field variable but `extra`'s."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [CLI_ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+    for k in ("TM_TPU_FAILPOINTS", "FAIL_TEST_INDEX", "TM_TPU_ENABLE_MAVERICK",
+              "TM_TPU_FIELD"):
+        env.pop(k, None)
+    env.update(extra or {})
+    return env
+
+
+def cli_step(what: str) -> None:
+    """A progress line on stderr (stdout carries the phases' JSON)."""
+    print(f"cli: {time.strftime('%H:%M:%S')} {what}", file=sys.stderr,
+          flush=True)
+
+
+def cli_argv(argv) -> list:
+    return [sys.executable, "-m", "tendermint_tpu_torch.cmd",
+            *map(str, argv)]
+
+
+class CliProc:
+    """`python -m tendermint_tpu_torch.cmd <argv>` in a child, from the
+    repo's root, its output in `<logs>/<name>.log`."""
+
+    def __init__(self, name: str, argv, logs: str, env=None):
+        self.name = name
+        self.path = os.path.join(logs, f"{name}.log")
+        self.t0 = time.perf_counter()
+        with open(self.path, "w") as log:
+            self.proc = subprocess.Popen(
+                cli_argv(argv), cwd=CLI_ROOT, env=cli_env(env), stdout=log,
+                stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+
+    def text(self) -> str:
+        with open(self.path, errors="replace") as f:
+            return f.read()
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode
+
+
+def cli_run(times: dict, name: str, argv, timeout: float = 300.0, env=None,
+            stdin: str = "") -> tuple[int, str]:
+    """One command run to its end: (exit code, output); its wall time
+    into times[name]."""
+    t = time.perf_counter()
+    res = subprocess.run(cli_argv(argv), cwd=CLI_ROOT, env=cli_env(env),
+                         input=stdin, capture_output=True, text=True,
+                         timeout=timeout)
+    times[name] = time.perf_counter() - t
+    return res.returncode, res.stdout + res.stderr
+
+
+def cli_free_base(n: int) -> int:
+    """A starting port for `testnet`: base..base+n-1 (p2p) and
+    base+1000..base+1000+n-1 (RPC) all free on 127.0.0.1."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid())
+    for _ in range(500):
+        base = rng.randrange(20_000, 40_000)
+        socks = []
+        try:
+            for p in [base + i for i in range(n)] + \
+                    [base + 1000 + i for i in range(n)]:
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+        return base
+    raise AssertionError("cli: no free port range for testnet")
+
+
+def prom_values(text: str, name: str) -> dict:
+    """{label string: value} of metric `name` in a Prometheus exposition."""
+    out = {}
+    for m in re.finditer(rf"^{re.escape(name)}(\{{[^}}]*\}})? (\S+)$", text,
+                         re.M):
+        out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def cli_admission(text: str) -> dict:
+    """A node's admission flushes by backend and its admission ledger
+    records by backend, from its /metrics."""
+    return dict(
+        launches={k: v for k, v in prom_values(
+            text, "admission_verify_launches_total").items() if v},
+        records={k: v for k, v in prom_values(
+            text, "tpu_launch_ledger_records_total").items()
+            if 'workload="admission"' in k and v},
+        flush_lanes_sum=sum(prom_values(
+            text, "admission_batch_lanes_sum").values()),
+        flushes=sum(prom_values(text, "admission_batch_lanes_count").values()))
+
+
+def cli_get(port: int, path: str) -> bytes:
+    """One HTTP GET on 127.0.0.1 (the RPC server's /metrics answers with
+    a length and keeps the connection; http_get reads to its end)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return resp.read()
+
+
+async def cli_height(port: int) -> int:
+    from tendermint_tpu_torch.rpc.jsonrpc import HTTPClient
+
+    try:
+        st = await HTTPClient("127.0.0.1", port, timeout=10).call("status")
+        return int(st["sync_info"]["latest_block_height"])
+    except Exception:  # noqa: BLE001 - not up yet, or gone
+        return -1
+
+
+async def cli_wait(port: int, h: int, what: str, procs=(),
+                   timeout: float = CLI_WAIT_S) -> int:
+    """Node at `port` past height h - 1; fails early if a child died."""
+    import asyncio
+
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = await cli_height(port)
+        if got >= h:
+            return got
+        for p in procs:
+            if p.proc.poll() is not None:
+                raise AssertionError(f"cli: {p.name} exited "
+                                     f"{p.proc.returncode} waiting for "
+                                     f"{what}: {p.text()[-3000:]}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"cli: {what}: height {got} < {h}")
+        await asyncio.sleep(0.2)
+
+
+async def cli_blocks(port: int, lo: int, hi: int) -> list:
+    """(block hash, app hash, txs, evidence) at heights lo..hi over RPC."""
+    import base64
+
+    from tendermint_tpu_torch.rpc.jsonrpc import HTTPClient
+
+    cli = HTTPClient("127.0.0.1", port, timeout=30)
+    out = []
+    for h in range(lo, hi + 1):
+        r = await cli.call("block", height=h)
+        b = r["block"]
+        out.append((r["block_id"]["hash"], b["header"]["app_hash"],
+                    [base64.b64decode(t) for t in b["data"]["txs"]],
+                    [(e["type"], base64.b64decode(e["bytes"]))
+                     for e in b["evidence"]["evidence"]]))
+    return out
+
+
+async def cli_same_chain(ports, hi: int, what: str, procs=()) -> None:
+    """Every node's blocks and app hashes equal to height hi (each node
+    waited for until it is there)."""
+    for i, p in enumerate(ports):
+        await cli_wait(p, hi, f"node{i} at {hi} ({what})", procs)
+    chains = [[(bh, ah) for bh, ah, _, _ in await cli_blocks(p, 1, hi)]
+              for p in ports]
+    if any(c != chains[0] for c in chains):
+        raise AssertionError(f"cli: {what}: the nodes' chains differ to "
+                             f"height {hi}")
+
+
+def cli_phase(servers=None) -> dict:
+    """The command line (docstring, phase 17b): a localnet written by
+    `testnet` and run by `start`, `signer`, `debug`, `light`, `replay`,
+    `replay-console` and `unsafe-reset-all` in children, node0 on the
+    card; a mixed secp256k1 BatchVerifier; `light` in this process over
+    the statesync phase's 1,000-validator RPC servers (`servers`, the
+    p2p phase's serving child; None: started here)."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    own = servers is None
+    if own:
+        servers = P2pChild("p2p_servers")
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cli-")
+    logs = os.path.join(work, "logs")
+    os.makedirs(logs)
+    times: dict = {}
+    out: dict = {"times_s": times}
+    procs: list = []
+    try:
+        out["localnet"] = asyncio.run(cli_localnet(work, logs, times, procs))
+        out["secp256k1"] = cli_secp256k1()
+        out["light_full"] = cli_light_full(servers, times)
+    finally:
+        for p in procs:
+            p.stop()
+        if own:
+            servers.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {}
+    for part in (out["secp256k1"]["launches"],
+                 out["light_full"]["launches"]):
+        for k, n in part.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def cli_no_device(work: str, times: dict) -> dict:
+    """(g): `start` on a fresh home with no CUDA device visible and no
+    `--device cpu` must exit non-zero naming NoDeviceError, bind neither
+    of its ports and write no store."""
+    import socket
+
+    from tendermint_tpu_torch.config import Config
+
+    cli_step("(g) no silent CPU")
+    spare = os.path.join(work, "spare")
+    rc, text = cli_run(times, "init", ["--home", spare, "init", "--chain-id",
+                                       CLI_CHAIN])
+    if rc:
+        raise AssertionError(f"cli: init {rc}: {text[-2000:]}")
+    scfg_path = os.path.join(spare, "config", "config.toml")
+    scfg = Config.load(scfg_path)
+    sp2p, srpc = free_ports(2)
+    scfg.p2p.laddr = f"tcp://127.0.0.1:{sp2p}"
+    scfg.rpc.laddr = f"tcp://127.0.0.1:{srpc}"
+    scfg.save(scfg_path)
+    rc, text = cli_run(times, "start_no_device", ["--home", spare, "start"],
+                       env={"CUDA_VISIBLE_DEVICES": ""})
+    for port in (sp2p, srpc):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", port))  # raises if the start bound it
+    if rc == 0 or "NoDeviceError" not in text or os.path.exists(
+            os.path.join(spare, "data", "blockstore.db")):
+        raise AssertionError(f"cli: start without a device {rc}: "
+                             f"{text[-2000:]}")
+    return dict(exit_code=rc, line=text.strip().splitlines()[-1])
+
+
+async def cli_localnet(work: str, logs: str, times: dict, procs: list) -> dict:
+    """(a)-(g) of the phase: the localnet of `testnet`, its load, the
+    crash and heal, debug bundles, light, replay, the reset and no
+    silent CPU. Every child it starts goes into `procs`."""
+    import asyncio
+    import shutil
+    import socket
+    import tarfile
+
+    from tendermint_tpu_torch.config import Config
+    from tendermint_tpu_torch.p2p.key import NodeKey
+    from tendermint_tpu_torch.rpc.jsonrpc import HTTPClient
+    from tendermint_tpu_torch.types.evidence import (DuplicateVoteEvidence,
+                                                     evidence_from_bytes)
+
+    out: dict = {}
+    # (a) the homes: `make localnet`'s four (BASELINE.json config #1)
+    net = os.path.join(work, "net")
+    base = cli_free_base(CLI_VALIDATORS)
+    rc, text = cli_run(times, "testnet", [
+        "testnet", "--v", CLI_VALIDATORS, "--o", net, "--chain-id", CLI_CHAIN,
+        "--starting-port", base])
+    if rc or "Successfully initialized 4 node directories" not in text:
+        raise AssertionError(f"cli: testnet {rc}: {text[-2000:]}")
+    homes = [os.path.join(net, f"node{i}") for i in range(CLI_VALIDATORS)]
+    rpc = [base + 1000 + i for i in range(CLI_VALIDATORS)]
+    signer_port, pprof = free_ports(2)
+    path0 = os.path.join(homes[0], "config", "config.toml")
+    cfg = Config.load(path0)
+    cfg.rpc.pprof_laddr = f"tcp://127.0.0.1:{pprof}"
+    cfg.mempool.admission = "strict"
+    cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{signer_port}"
+    # the signer's link key is node0's node key (cmd signer): pin it
+    cfg.base.priv_validator_signer_id = NodeKey.load(
+        cfg.base.resolve(cfg.base.node_key_file)).priv_key.pub_key(
+        ).address().hex()
+    cfg.save(path0)
+    vals = []
+    for h in homes:
+        with open(os.path.join(h, "config", "priv_validator_key.json")) as f:
+            vals.append(bytes.fromhex(json.load(f)["address"]))
+    # (g) runs beside the net: it needs a fresh home and no card
+    no_device = asyncio.get_running_loop().run_in_executor(
+        None, cli_no_device, work, times)
+    cli_step("(b) the net")
+    # (b) the net: node0's key in a signer child, node0 on the card, nodes
+    # 1-3 on the CPU, node3 a maverick
+    signer = CliProc("signer", ["--home", homes[0], "signer", "--connect",
+                                f"tcp://127.0.0.1:{signer_port}",
+                                *CLI_DEVICE], logs)
+    procs.append(signer)
+    nodes = [CliProc("node0", ["--home", homes[0], "start", *CLI_DEVICE],
+                     logs)]
+    for i in range(1, CLI_VALIDATORS):
+        argv = ["--home", homes[i], "start", "--device", "cpu"]
+        env = None
+        if i == CLI_VALIDATORS - 1:
+            argv += ["--misbehavior", f"double-prevote@{CLI_MAVERICK_H}"]
+            env = {"TM_TPU_ENABLE_MAVERICK": "1"}
+        nodes.append(CliProc(f"node{i}", argv, logs, env))
+    procs.extend(nodes)
+    await asyncio.gather(*(cli_wait(rpc[i], 1, f"node{i}'s first height",
+                                    [nodes[i], signer])
+                           for i in range(CLI_VALIDATORS)))
+    times["localnet_to_height_1"] = time.perf_counter() - nodes[0].t0
+    cli_step("(c) the load")
+    # (c) the load: bursts of 64 signed envelopes over node0's RPC at
+    # heights 2-8
+    height = [await cli_height(rpc[0])]
+
+    async def follow():
+        while True:
+            height[0] = max(height[0], await cli_height(rpc[0]))
+            await asyncio.sleep(0.05)
+
+    follower = asyncio.get_running_loop().create_task(follow())
+    t = time.perf_counter()
+    try:
+        txs, codes = await p2p_submit(
+            TimedRpc(rpc[0], {}), b"cli-", CLI_BURST, CLI_BURST_S,
+            lambda: height[0], adm_signers(P2P_SIGNERS),
+            heights=CLI_TX_HEIGHTS)
+    finally:
+        follower.cancel()
+    times["load"] = time.perf_counter() - t
+    if not txs or any(c != 0 for c in codes):
+        raise AssertionError(f"cli: node0 refused txs: {codes}")
+    cli_step("the load's commits")
+    # every tx committed once, within a few heights of the last burst
+    top = await cli_height(rpc[0])
+    committed: list = []
+    got = 0
+    while True:
+        h = await cli_wait(rpc[0], got + 1, "the load's commits", nodes)
+        for blk in await cli_blocks(rpc[0], got + 1, h):
+            committed.extend(blk[2])
+        got = h
+        if set(txs) <= set(committed) or got > top + P2P_DRAIN_HEIGHTS:
+            break
+    if sorted(committed) != sorted(set(committed)) or \
+            set(committed) != set(txs):
+        raise AssertionError(f"cli: {len(txs)} txs submitted, "
+                             f"{len(committed)} committed to {got}")
+    top = max(got, CLI_MAVERICK_H + 3)
+    await cli_same_chain(rpc, top, "after the load", nodes)
+    evidence = [(h, evidence_from_bytes(raw))
+                for h, blk in enumerate(await cli_blocks(rpc[0], 1, top), 1)
+                for _, raw in blk[3]]
+    if len(evidence) != 1 or \
+            not isinstance(evidence[0][1], DuplicateVoteEvidence) or \
+            evidence[0][1].vote_a.validator_address != vals[-1] or \
+            evidence[0][1].height() != CLI_MAVERICK_H:
+        raise AssertionError(f"cli: evidence in the chain {evidence}")
+    cli_step("node0's records")
+    # node0's admission records on the card, one a flush of 40 or more
+    m0 = cli_admission(cli_get(rpc[0], "/metrics").decode())
+    launches = json.loads(cli_get(
+        pprof, "/debug/launches?workload=admission"))["records"]
+    device = m0["launches"].get('{backend="device"}', 0)
+    recs = m0["records"].get(f'{{backend="{CLI_BACKEND}",'
+                             'workload="admission"}', 0)
+    card = cli_card_name()
+    if not device or recs != device or len(launches) != device or any(
+            (r["kernel"], r["backend"], r["device_name"]) !=
+            ("general", CLI_BACKEND, card) or r["lanes"] < 40
+            for r in launches):
+        raise AssertionError(f"cli: node0's admission records {m0} "
+                             f"{launches[:3]}")
+    peers = {}
+    for i in range(1, CLI_VALIDATORS):
+        peers[f"node{i}"] = cli_admission(
+            cli_get(rpc[i], "/metrics").decode())
+    out["load"] = dict(
+        txs=len(txs), top=top, evidence_height=evidence[0][0],
+        node0=dict(m0, lanes=[r["lanes"] for r in launches],
+                   device_name=card), peers=peers)
+    cli_step("(d) the crash")
+    # (d) the crash: node1 restarted under a crash failpoint exits by it;
+    # restarted again, it heals and rejoins
+    nodes[1].stop()
+    h_down = await cli_height(rpc[0])
+    await cli_wait(rpc[0], h_down + 3, "three heights without node1", nodes[:1])
+    crash_env = {"TM_TPU_FAILPOINTS":
+                 f"state.apply.app_committed=crash;nth={CLI_CRASH_NTH}"}
+    rc, text = cli_run(times, "node1_crash",
+                       ["--home", homes[1], "start", "--device", "cpu"],
+                       timeout=CLI_WAIT_S, env=crash_env)
+    if rc != 1 or "failpoint firing: state.apply.app_committed " \
+                  "action=crash" not in text:
+        raise AssertionError(f"cli: node1 under the crash failpoint exited "
+                             f"{rc}: {text[-3000:]}")
+    nodes[1] = CliProc("node1_healed", ["--home", homes[1], "start",
+                                        "--device", "cpu"], logs)
+    procs.append(nodes[1])
+    h_heal = await cli_height(rpc[0])
+    await cli_wait(rpc[1], h_heal + 1, "node1 healed", nodes)
+    times["node1_heal"] = time.perf_counter() - nodes[1].t0
+    await cli_same_chain(rpc, h_heal + 1, "after node1's crash", nodes)
+    healed = re.findall(r"recover\w*[^\n]*", nodes[1].text())[:3]
+    out["crash"] = dict(exit_code=rc, down_at=h_down, healed_at=h_heal + 1,
+                        log=healed)
+    cli_step("(e) debug and light")
+    # (e) debug dump on node0, light --once, light --laddr
+    dump_dir = os.path.join(work, "dump")
+    rc, text = cli_run(times, "debug_dump", [
+        "--home", homes[0], "debug", "dump", dump_dir, "--count", 1,
+        "--rpc-laddr", f"127.0.0.1:{rpc[0]}",
+        "--pprof-laddr", f"127.0.0.1:{pprof}"])
+    (bundle,) = os.listdir(dump_dir) if rc == 0 else (None,)
+    if bundle is None:
+        raise AssertionError(f"cli: debug dump {rc}: {text[-2000:]}")
+    with tarfile.open(os.path.join(dump_dir, bundle)) as tar:
+        names = set(tar.getnames())
+        dumped = cli_admission(tar.extractfile("metrics.txt").read().decode())
+    want = {"status.json", "net_info.json", "consensus_state.json",
+            "goroutine.txt", "heap.txt", "trace.json", "trace_rollup.json",
+            "metrics.txt", "node_health.json", "config.toml", "cs.wal"}
+    if not want <= names or "INCOMPLETE.txt" in names or \
+            dumped["records"] != m0["records"]:
+        raise AssertionError(f"cli: debug bundle {sorted(names)} "
+                             f"{dumped['records']} != {m0['records']}")
+    h1 = (await HTTPClient("127.0.0.1", rpc[0], timeout=30).call(
+        "commit", height=1))["signed_header"]["commit"]["block_id"]["hash"]
+    light = ["light", CLI_CHAIN, "--primary", f"127.0.0.1:{rpc[0]}",
+             "--witnesses", f"127.0.0.1:{rpc[1]},127.0.0.1:{rpc[2]}",
+             "--trust-height", 1, "--trust-hash", h1, *CLI_DEVICE]
+    (lport,) = free_ports(1)
+    proxy = CliProc("light_proxy", [*light, "--laddr",
+                                    f"127.0.0.1:{lport}"], logs)
+    procs.append(proxy)
+    rc, text = await asyncio.to_thread(cli_run, times, "light_once",
+                                       [*light, "--once"])
+    verified = re.findall(r"^verified height (\d+): ", text, re.M)
+    if rc or not verified:
+        raise AssertionError(f"cli: light --once {rc}: {text[-2000:]}")
+    deadline = time.perf_counter() + CLI_WAIT_S
+    while not re.search(r"^verified height \d+", proxy.text(), re.M):
+        if proxy.proc.poll() is not None or time.perf_counter() > deadline:
+            raise AssertionError(f"cli: light --laddr: {proxy.text()[-2000:]}")
+        await asyncio.sleep(0.1)
+    times["light_proxy_to_verified"] = time.perf_counter() - proxy.t0
+    ph = int(re.findall(r"^verified height (\d+)", proxy.text(), re.M)[-1])
+    # the height below the proxy's head: its canonical commit (the next
+    # block's LastCommit) is what both serve now; at the head the proxy
+    # keeps the commit node0 had seen when it verified it
+    via = await HTTPClient("127.0.0.1", lport, timeout=60).call(
+        "commit", height=ph - 1)
+    direct = await HTTPClient("127.0.0.1", rpc[0], timeout=30).call(
+        "commit", height=ph - 1)
+    if via["signed_header"] != direct["signed_header"]:
+        raise AssertionError(f"cli: the proxy's /commit at {ph - 1} "
+                             f"differs")
+    proxy.stop()
+    out["light"] = dict(once_verified=int(verified[-1]), proxy_height=ph)
+    cli_step("(f) replay and reset")
+    # (f) replay-console and replay on copies of node2's stopped home,
+    # unsafe-reset-all on a third, which starts again as node2 and
+    # fast-syncs back
+    nodes[2].stop()
+    h_stop = await cli_height(rpc[0])
+    copy_a, copy_b, copy_c = (os.path.join(work, f"node2_{c}")
+                              for c in "abc")
+    for c in (copy_a, copy_b, copy_c):
+        shutil.copytree(homes[2], c)
+    rc, text = cli_run(times, "unsafe_reset_all",
+                       ["--home", copy_b, "unsafe-reset-all"])
+    if rc or "Removed all data in" not in text or os.path.exists(
+            os.path.join(copy_b, "data", "blockstore.db")):
+        raise AssertionError(f"cli: unsafe-reset-all {rc}: {text[-2000:]}")
+    # the reset copy starts as node2 while the other two replay (a
+    # replay builds a node but binds none of its ports)
+    nodes[2] = CliProc("node2_reset", ["--home", copy_b, "start", "--device",
+                                       "cpu"], logs)
+    procs.append(nodes[2])
+    h_back = await cli_height(rpc[0])
+    console, replay = await asyncio.gather(
+        asyncio.to_thread(cli_run, times, "replay_console",
+                          ["--home", copy_a, "replay-console"],
+                          stdin="1000000\n"),
+        asyncio.to_thread(cli_run, times, "replay",
+                          ["--home", copy_c, "replay", *CLI_DEVICE]))
+    rc, text = console
+    m = re.search(r"end of WAL \((\d+) messages\)", text)
+    if rc or not m or int(m.group(1)) == 0:
+        raise AssertionError(f"cli: replay-console {rc}: {text[-2000:]}")
+    wal_messages = int(m.group(1))
+    rc, text = replay
+    m = re.search(r"replay complete; consensus at height (\d+)", text)
+    if rc or not m:
+        raise AssertionError(f"cli: replay {rc}: {text[-2000:]}")
+    replay_h = int(m.group(1))
+    await cli_wait(rpc[2], h_back, "node2 after the reset", nodes)
+    times["node2_fast_sync_back"] = time.perf_counter() - nodes[2].t0
+    await cli_same_chain(rpc, h_back, "after node2's reset", nodes)
+    out["reset"] = dict(stopped_at=h_stop, wal_messages=wal_messages,
+                        replay_height=replay_h, back_to=h_back,
+                        log=[ln for ln in nodes[2].text().splitlines()
+                             if "fast" in ln.lower()][:3])
+    out["no_device"] = await no_device
+    cli_step("debug kill")
+    # debug kill on node0: the bundle written, the process gone
+    kill_out = os.path.join(work, "kill.tar.gz")
+    rc, text = cli_run(times, "debug_kill", [
+        "--home", homes[0], "debug", "kill", nodes[0].proc.pid, kill_out,
+        "--rpc-laddr", f"127.0.0.1:{rpc[0]}",
+        "--pprof-laddr", f"127.0.0.1:{pprof}"])
+    try:
+        code0 = nodes[0].proc.wait(30)
+    except subprocess.TimeoutExpired:
+        code0 = None
+    with tarfile.open(kill_out) as tar:
+        knames = set(tar.getnames())
+    if rc or code0 in (None, 0) or "INCOMPLETE.txt" in knames or \
+            "consensus_state.json" not in knames:
+        raise AssertionError(f"cli: debug kill {rc}, node0 {code0}: "
+                             f"{text[-2000:]}")
+    out["kill"] = dict(node0_exit=code0, bundle=len(knames))
+    # the node logs' launch lines: node0 on the card, the peers' flushes
+    out["node0_started"] = bool(re.search(r"node node0 started",
+                                          nodes[0].text()))
+    for p in procs:
+        p.stop()
+    return out
+
+
+def cli_card_name() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0) if CLI_BACKEND == "gpu" else ""
+
+
+def cli_secp256k1() -> dict:
+    """(h): a BatchVerifier of 64 ed25519 and 8 secp256k1 lanes, one bad
+    signature of each type: K4 once for the ed25519 lanes, the
+    secp256k1 lanes on the host; verdicts equal to the keys' own."""
+    from tendermint_tpu_torch.crypto.batch import BatchVerifier
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from tendermint_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+
+    items = []
+    for i in range(64):
+        k = Ed25519PrivKey(hashlib.sha256(b"cli-ed-%d" % i).digest())
+        m = b"cli ed25519 %d" % i
+        items.append((k.pub_key(), m, k.sign(m)))
+    for i in range(8):
+        k = Secp256k1PrivKey.from_secret(b"cli-secp-%d" % i)
+        m = b"cli secp256k1 %d" % i
+        items.append((k.pub_key(), m, k.sign(m)))
+    pk, m, s = items[17]
+    items[17] = (pk, m, s[:5] + bytes([s[5] ^ 4]) + s[6:])
+    pk, m, s = items[64 + 3]
+    items[64 + 3] = (pk, m + b"?", s)
+    bv = BatchVerifier()
+    for it in items:
+        bv.add(*it)
+    k0 = exec_counts()
+    t = time.perf_counter()
+    ok, lanes = bv.verify()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = exec_delta(k0)
+    oracle = [pk.verify_signature(m, s) for pk, m, s in items]
+    if ok or lanes.tolist() != oracle or launches != {"general_verify": 1} \
+            or sorted(i for i, v in enumerate(oracle) if not v) != [17, 67]:
+        raise AssertionError(f"cli: the mixed secp256k1 batch {launches} "
+                             f"{[i for i, v in enumerate(lanes) if not v]}")
+    return dict(lanes=len(items), rejected=[17, 67], ms=ms,
+                launches=launches)
+
+
+def cli_light_full(servers, times: dict) -> dict:
+    """(i): `light --once` in this process over two of the statesync
+    phase's RPC servers (BASELINE.json config #3's 1,000-validator chain,
+    129 blocks), trusted at height 1 by hash; the expanded-table cache
+    cleared and the counters read before and after."""
+    import asyncio
+    import contextlib
+    import io
+
+    from tendermint_tpu_torch import cmd
+    from tendermint_tpu_torch.crypto.cuda import expanded
+
+    async def frames():
+        ready = getattr(servers, "ready", None)
+        if ready is None:
+            ready = servers.ready = await servers.aread(timeout=600)
+        servers.send({"op": "statesync"})
+        return ready, await servers.aread()
+
+    ready, frame = asyncio.run(frames())
+    with expanded._CACHE_LOCK:
+        expanded._CACHE.clear()  # a fresh light client builds its tables
+    argv = ["light", P2P_SYNC_CHAIN, "--primary", frame["rpc"][0],
+            "--witnesses", frame["rpc"][1], "--trust-height", "1",
+            "--trust-hash", ready["hashes"][0], "--trust-period",
+            str(SS_TRUST_PERIOD_S), "--once", *CLI_DEVICE]
+    buf = io.StringIO()
+    k0 = exec_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cmd.main(argv)
+    times["light_1000_validators"] = time.perf_counter() - t
+    launches = exec_delta(k0)
+    text = buf.getvalue()
+    m = re.findall(r"^verified height (\d+): ", text, re.M)
+    if rc or not m or not launches.get("xverify") or \
+            set(launches) - {"build_tables", "xverify", "general_verify"}:
+        raise AssertionError(f"cli: light at 1,000 validators {rc} "
+                             f"{launches}: {text[-2000:]}")
+    return dict(verified_height=int(m[-1]), launches=launches,
+                lines=text.strip().splitlines())
+
+
 # -- phase 18 ------------------------------------------------------------
 
 
@@ -9959,6 +10638,15 @@ def main() -> int:
             emit(dict(phase="statesync", seconds=time.perf_counter() - t0,
                       card=nvidia_smi(), **statesync))
             return 0
+        if phase == "cli":
+            from tendermint_tpu_torch.crypto.cuda import kernels
+
+            kernels.build()
+            state = fallback_state()
+            cli = cli_phase()
+            no_fallback("cli", state)
+            emit(dict(phase="cli", card=nvidia_smi(), **cli))
+            return 0
         if phase == "consensus":
             from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -10103,6 +10791,10 @@ def main() -> int:
         no_fallback("statesync", state)
         emit(dict(phase="statesync", seconds=time.perf_counter() - t0,
                   card=smi, **statesync))
+        state = fallback_state()
+        cli = cli_phase(servers)
+        no_fallback("cli", state)
+        emit(dict(phase="cli", card=smi, **cli))
     finally:
         servers.close()
     state = fallback_state()
@@ -10131,7 +10823,7 @@ def main() -> int:
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
                  light_client, admission, execution, consensus, p2p,
-                 statesync):
+                 statesync, cli):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -483,9 +483,8 @@ class ChaosConfig:
     libs/failpoints.py spec string — e.g.
     "wal.fsync=delay:50;nth=3,device.verify=error" — armed at node
     build time. Config is the STRICT surface: a malformed spec fails
-    validate_basic. The port's spec takes the `nth` and `count`
-    triggers (the env variable, /debug/failpoint and `every=`/`prob=`
-    wait for ROADMAP Queue A item 6)."""
+    validate_basic. It takes what the reference takes: the four
+    actions and the nth, every, prob and count triggers."""
 
     failpoints: str = ""
 

@@ -4,7 +4,7 @@ Mirrors the reference's capability surface (crypto/crypto.go:23-43): a
 ``PubKey``/``PrivKey`` pair per scheme, address = first 20 bytes of
 SHA-256(pubkey). Batches of (pk, msg, sig) triples go through
 ``crypto.batch.BatchVerifier``, which runs wide ones on the GPU.
-The port registers ed25519 and sr25519 (no secp256k1 yet).
+The port registers ed25519, sr25519 and secp256k1.
 """
 
 from __future__ import annotations
@@ -96,5 +96,5 @@ def ed25519_privkey_from_json(raw, what: str) -> "PrivKey":
 
 def _ensure_registered() -> None:
     """Import every key-type module of the port so its register_pubkey
-    ran (the reference's set also has secp256k1, not ported yet)."""
-    from . import ed25519, sr25519  # noqa: F401
+    ran (the reference's key-type set: ed25519, sr25519, secp256k1)."""
+    from . import ed25519, secp256k1, sr25519  # noqa: F401

@@ -474,8 +474,10 @@ def _set_active_devices(backend: str = "ed25519") -> None:
 def host_verify(items, backend: str = "host") -> np.ndarray:
     """Per-lane verdicts of (pub_key, msg, sig) triples on the host: the
     per-key verify (ed25519: OpenSSL strict accept, else the ZIP-215
-    oracle, crypto/ed25519.py; sr25519: the oracle, crypto/sr25519.py),
-    in a crypto.host_verify span."""
+    oracle, crypto/ed25519.py; sr25519: the oracle, crypto/sr25519.py;
+    secp256k1: OpenSSL, else the oracle, crypto/secp256k1.py: every
+    secp256k1 group verifies here, as in the reference), in a
+    crypto.host_verify span."""
     with tracing.TRACER.span(tracing.CRYPTO_HOST_VERIFY, lanes=len(items),
                              backend=backend):
         return np.fromiter(

@@ -30,8 +30,9 @@ Prometheus listener on `instrumentation.prometheus_listen_addr`).
                                one ok/degraded/failing verdict, the
                                watchdog's device check among them
   GET /debug/failpoint         failpoint registry state
-  POST /debug/failpoint        arm/disarm a named failpoint (JSON body;
-                               the port's triggers only: nth, count)
+  POST /debug/failpoint        arm/disarm a named failpoint (JSON body:
+                               name, action, delay_ms and the
+                               triggers nth, every, prob, count)
 """
 
 from __future__ import annotations
@@ -608,13 +609,11 @@ class DebugServer:
 
     @staticmethod
     def _failpoint_route(method: str, body: bytes):
-        """GET: catalog + armed state + hits. POST: arm/disarm —
+        """GET: catalog + armed state + counters. POST: arm/disarm —
         {"name": "wal.fsync", "action": "error", "nth": 3} arms; action
         "off" disarms; {"name": "all", "action": "off"} clears
-        everything. The port's triggers are nth and count: a body with
-        `every` or `prob` is refused, as validate_spec refuses such a
-        spec. Bad requests come back as {"error": ...} (the HTTP/1.0
-        server always answers 200)."""
+        everything. Bad requests come back as {"error": ...} (the
+        HTTP/1.0 server always answers 200)."""
         import json
 
         from . import failpoints
@@ -632,14 +631,11 @@ class DebugServer:
                 elif not failpoints.disarm(name):
                     raise ValueError(f"failpoint {name!r} not armed")
             else:
-                for k in ("every", "prob"):
-                    if k in spec:
-                        raise ValueError(f"bad trigger {k!r} (the port "
-                                         "takes nth and count)")
                 kwargs = {}
-                if "delay_ms" in spec:
-                    kwargs["delay_ms"] = float(spec["delay_ms"])
-                for k in ("nth", "count"):
+                for k in ("delay_ms", "prob"):
+                    if k in spec:
+                        kwargs[k] = float(spec[k])
+                for k in ("nth", "every", "count"):
                     if k in spec:
                         kwargs[k] = int(spec[k])
                 failpoints.arm(name, action, **kwargs)

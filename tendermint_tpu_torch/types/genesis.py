@@ -1,7 +1,6 @@
 """Genesis document (reference: types/genesis.py; Go
-types/genesis.go). The port registers ed25519 and sr25519 keys only
-(crypto/__init__.py): a secp256k1 genesis key raises as an unknown
-type."""
+types/genesis.go). Its keys are ed25519, sr25519 or secp256k1, the
+types crypto/__init__.py registers."""
 
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ DebugServer of each package over the same state — the same launch
 records (from a numpy seed, the reference's TPU device string where the
 port has "cuda:0"), the same spans in the tracer's ring — answers its
 /debug/* routes alike; /metrics renders the same catalog; the pprof
-routes answer; the port's /debug/failpoint refuses the triggers it does
-not take."""
+routes answer; /debug/failpoint arms and refuses alike; /status holds
+the same checks once both packages' plane registries are cleared."""
 
 from __future__ import annotations
 
@@ -201,36 +201,113 @@ def test_the_pprof_routes_answer():
 
 
 def test_failpoint_route_arms_disarms_and_refuses_every_and_prob():
-    """GET lists the catalog; POST arms with the port's triggers and
-    disarms; a body with `every` or `prob` is refused, as the port's
-    validate_spec refuses such a spec, while the reference arms it."""
-    arm = json.dumps({"name": "wal.fsync", "action": "error",
-                      "nth": 2}).encode()
+    """GET lists the catalog; POST arms with every trigger the reference
+    takes (nth, every, prob, count, the crash action) and disarms, in
+    both packages alike; a bad `every` or `prob` value is refused by
+    both with the same error, as both validate_spec refuse it."""
+    bodies = [json.dumps(b).encode() for b in (
+        {"name": "wal.fsync", "action": "error", "nth": 2},
+        {"name": "db.set", "action": "error", "every": 2},
+        {"name": "p2p.send", "action": "corrupt", "prob": 0.5},
+        {"name": "state.apply.app_committed", "action": "crash",
+         "count": 1},
+        {"name": "light.verify", "action": "delay", "delay_ms": 5,
+         "every": 3})]
     off = json.dumps({"name": "all", "action": "off"}).encode()
-    every = json.dumps({"name": "wal.fsync", "action": "error",
-                        "every": 2}).encode()
-    prob = json.dumps({"name": "wal.fsync", "action": "error",
-                       "prob": 0.5}).encode()
+    bad = [json.dumps(b).encode() for b in (
+        {"name": "wal.fsync", "action": "error", "every": 0},
+        {"name": "wal.fsync", "action": "error", "prob": 1.5},
+        {"name": "wal.fsync", "action": "explode"})]
+    pfailpoints.reset()  # lifetime counters of earlier tests in the worker
+    jfailpoints.reset()
     try:
-        armed = _serve_all(["/debug/failpoint"], "POST", arm)
+        armed = [_serve_all(["/debug/failpoint"], "POST", b)
+                 for b in bodies]
         state = _serve_all(["/debug/failpoint"])
         _serve_all(["/debug/failpoint"], "POST", off)
-        refused = {b: _serve_all(["/debug/failpoint"], "POST", b)
-                   for b in (every, prob)}
+        after = _serve_all(["/debug/failpoint"])
+        refused = [_serve_all(["/debug/failpoint"], "POST", b)
+                   for b in bad]
     finally:
-        pfailpoints.disarm_all()
+        pfailpoints.reset()
         jfailpoints.reset()
     for k in PACKAGES:
-        assert json.loads(armed[k][0][1]) == {"ok": True,
-                                              "armed": ["wal.fsync"]}
-        doc = json.loads(state[k][0][1])
-        assert doc["wal.fsync"]["armed"] is not None
-        assert "db.set" in doc
-    for body, answers in refused.items():
-        assert "bad trigger" in json.loads(answers["port"][0][1])["error"]
-        assert json.loads(answers["reference"][0][1])["ok"] is True
-    with pytest.raises(ValueError):
-        pfailpoints.validate_spec("wal.fsync=error;every=2")
+        assert json.loads(armed[-1][k][0][1]) == {
+            "ok": True, "armed": sorted(["wal.fsync", "db.set", "p2p.send",
+                                         "state.apply.app_committed",
+                                         "light.verify"])}
+    docs = {k: json.loads(state[k][0][1]) for k in PACKAGES}
+    assert set(docs["port"]) == set(docs["reference"])
+    for name in docs["port"]:
+        assert {f: docs["port"][name][f] for f in ("armed", "hits",
+                                                   "fires")} == \
+            {f: docs["reference"][name][f] for f in ("armed", "hits",
+                                                     "fires")}
+    assert docs["port"]["db.set"]["armed"] == {"action": "error",
+                                               "every": 2}
+    assert docs["port"]["p2p.send"]["armed"] == {"action": "corrupt",
+                                                 "prob": 0.5}
+    for k in PACKAGES:
+        assert all(v["armed"] is None
+                   for v in json.loads(after[k][0][1]).values())
+    for answers in refused:
+        err = {k: json.loads(answers[k][0][1]) for k in PACKAGES}
+        assert err["port"] == err["reference"] and "error" in err["port"]
+    for spec in ("wal.fsync=error;every=2", "db.set=crash;prob=0.25",
+                 "wal.fsync=error;every=0", "db.set=error;prob=2"):
+        got = []
+        for p in (pfailpoints, jfailpoints):
+            try:
+                p.validate_spec(spec)
+                got.append("ok")
+            except ValueError as e:
+                got.append(str(e))
+        assert got[0] == got[1], spec
+
+
+def test_status_full_check_set_equals_the_reference(monkeypatch):
+    """With both packages' plane registries cleared (the light serving
+    plane, the speculation plane, the state-sync syncer: other tests in
+    the worker leave theirs live), nothing armed and the gauges a bare
+    server reads (the consensus height and sync flags, p2p peers,
+    mempool size, the verify queue's depth) at 0, /status holds the same
+    checks in both, each with the same status but overload's (its
+    controller's queues are whatever the worker's earlier tests
+    registered)."""
+    import importlib
+
+    for pkg in ("tendermint_tpu", "tendermint_tpu_torch"):
+        for mod, attr in (("light.serving", "_ACTIVE_PLANE"),
+                          ("consensus.speculation", "_ACTIVE_PLANE"),
+                          ("statesync.syncer", "_ACTIVE_SYNCER")):
+            monkeypatch.setattr(importlib.import_module(f"{pkg}.{mod}"),
+                                attr, None)
+    pfailpoints.reset()
+    jfailpoints.reset()
+    gauges = []
+    for p in PACKAGES.values():
+        m = p["metrics"]
+        cm = m.consensus_metrics()
+        gauges += [cm.height, cm.fast_syncing, cm.state_syncing,
+                   m.p2p_metrics().peers, m.mempool_metrics().size,
+                   m.tpu_metrics().verify_queue_depth]
+    saved = [g.value() for g in gauges]
+    try:
+        for g in gauges:
+            g.set(0)
+        got = _serve_all(["/status"])
+    finally:
+        for g, v in zip(gauges, saved):
+            g.set(v)
+    checks = {k: json.loads(answers[0][1])["checks"]
+              for k, answers in got.items()}
+    assert set(checks["port"]) == set(checks["reference"]) == CORE_CHECKS
+    status = {k: {c: v["status"] for c, v in checks[k].items()
+                  if c != "overload"} for k in PACKAGES}
+    assert status["port"] == status["reference"]
+    # no node: no height committed yet, no peers
+    assert status["port"]["consensus"] == status["port"]["p2p"] == \
+        "degraded"
 
 
 def test_status_device_check_reads_the_watchdog():

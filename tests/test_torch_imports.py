@@ -1,7 +1,8 @@
 """The port stands alone: no module of tendermint_tpu_torch, and neither
 chip_smoke.py nor sweep_warps.py, imports jax or anything of the JAX package; a CPU
-verify_commit and a CPU sr25519 batch verify in a fresh interpreter
-load neither. No port module imports grpc, which the GPU machine lacks."""
+verify_commit, a CPU sr25519 batch verify and the command line (its
+parser, key commands, abci-cli, secp256k1 and keyfile round trips) in a
+fresh interpreter load neither. No port module imports grpc, which the GPU machine lacks."""
 
 import ast
 import os
@@ -42,7 +43,10 @@ def test_port_sources_import_no_jax_and_no_reference():
         "statesync/syncer", "statesync/reactor", "p2p/pex/__init__",
         "p2p/pex/addrbook", "p2p/pex/reactor", "rpc/__init__",
         "rpc/jsonrpc", "rpc/core", "light/proxy", "abci/server",
-        "abci/kv_proofs", "abci/counter", "node/__init__")} <= names
+        "abci/kv_proofs", "abci/counter", "node/__init__",
+        "cmd/__init__", "cmd/__main__", "cmd/debug", "abci/cli",
+        "crypto/secp256k1", "crypto/symmetric", "crypto/armor",
+        "crypto/keyfile", "libs/fail", "p2p/upnp")} <= names
     bad = {str(f.relative_to(ROOT)): sorted(n for n in _imported(f)
                                              if _forbidden(n))
            for f in files}
@@ -101,5 +105,37 @@ def test_cpu_verify_commit_loads_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=str(ROOT),
                          env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
+
+
+CLI_SCRIPT = r"""
+import contextlib, io, sys, tempfile
+from tendermint_tpu_torch.cmd import build_parser, main
+from tendermint_tpu_torch.abci import cli as abci_cli
+from tendermint_tpu_torch.crypto import keyfile, secp256k1
+from tendermint_tpu_torch.libs import fail  # noqa: F401
+from tendermint_tpu_torch.p2p import upnp  # noqa: F401
+home = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    assert main(["--home", home, "init", "--chain-id", "imp"]) == 0
+    assert main(["--home", home, "show-validator"]) == 0
+    assert main(["version"]) == 0
+build_parser().parse_args(["start", "--device", "cpu"])
+k = secp256k1.Secp256k1PrivKey.from_secret(b"imp")
+assert k.pub_key().verify_signature(b"m", k.sign(b"m"))
+arm = keyfile.encrypt_armor_priv_key(k.bytes(), "pw", "secp256k1")
+assert keyfile.unarmor_decrypt_priv_key(arm, "pw") == (k.bytes(), "secp256k1")
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "tendermint_tpu"))
+print("LOADED", loaded)
+assert not loaded, loaded
+"""
+
+
+def test_cli_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", CLI_SCRIPT], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout

@@ -167,8 +167,18 @@ def test_key_classes_match_reference():
     assert rt == pub and isinstance(rt, sr_keys.Sr25519PubKey)
     ed = pcrypto.pubkey_from_type_and_bytes("ed25519", bytes(32))
     assert ed.type_name == "ed25519"
-    with pytest.raises(ValueError, match="unknown pubkey type"):
-        pcrypto.pubkey_from_type_and_bytes("secp256k1", bytes(33))
+    # secp256k1 is registered in both packages now (an all-zero key
+    # decodes to no point and verifies nothing); an unregistered type
+    # raises in both
+    from tendermint_tpu import crypto as jcrypto
+
+    sk = pcrypto.pubkey_from_type_and_bytes("secp256k1", bytes(33))
+    jk = jcrypto.pubkey_from_type_and_bytes("secp256k1", bytes(33))
+    assert (sk.type_name, sk.address()) == (jk.type_name, jk.address())
+    assert not sk.verify_signature(b"vote", bytes(64))
+    for p in (pcrypto, jcrypto):
+        with pytest.raises(ValueError, match="unknown pubkey type"):
+            p.pubkey_from_type_and_bytes("bls12381", bytes(48))
     with pytest.raises(ValueError, match="32 bytes"):
         sr_keys.Sr25519PubKey(bytes(31))
     with pytest.raises(ValueError, match="32 bytes"):

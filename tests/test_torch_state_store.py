@@ -319,16 +319,27 @@ def test_genesis_doc_equal_reference(tmp_path):
 
 
 def test_secp256k1_genesis_key_is_a_recorded_gap():
-    """The port registers ed25519 and sr25519 only: a secp256k1 genesis
-    key loads in the reference and raises as an unknown type here."""
+    """The gap is closed: the port registers secp256k1, so a secp256k1
+    genesis key (repo form, hex, and Go tmjson form, base64) loads in
+    both packages with the same key, address, power and document hash."""
+    import base64
+
     g = "0279BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798"
-    doc = json.dumps({"chain_id": CHAIN, "genesis_time": 5,
-                      "validators": [{"pub_key": {"type": "secp256k1",
-                                                  "value": g.lower()},
-                                      "power": 1}]})
-    assert jgenesis.GenesisDoc.from_json(doc).validators[0].power == 1
-    with pytest.raises(ValueError, match="unknown pubkey type 'secp256k1'"):
-        pgenesis.GenesisDoc.from_json(doc)
+    forms = [{"type": "secp256k1", "value": g.lower()},
+             {"type": "tendermint/PubKeySecp256k1",
+              "value": base64.b64encode(bytes.fromhex(g)).decode()}]
+    for pk in forms:
+        doc = json.dumps({"chain_id": CHAIN, "genesis_time": 5,
+                          "validators": [{"pub_key": pk, "power": 1}]})
+        got = []
+        for p in (jgenesis, pgenesis):
+            d = p.GenesisDoc.from_json(doc)
+            d.validate_and_complete()
+            v = d.validators[0]
+            got.append((v.pub_key.type_name, v.pub_key.bytes(),
+                        v.pub_key.address(), v.power, d.hash()))
+        assert got[0] == got[1]
+        assert got[0][0] == "secp256k1" and len(got[0][2]) == 20
 
 
 # -- the ValidatorSet additions ---------------------------------------------
