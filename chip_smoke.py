@@ -424,11 +424,45 @@ Phases, each printing one JSON line:
    the statesync phase's RPC servers (config #3's 1,000-validator chain)
    with the table cache cleared: K1, K3 (K2 inside) and K4 as its
    checks need. Each command's wall time and the phase's total;
-18. timing — each kernel at the main path's shapes: its device time a
-   call (`ms`: back-to-back calls captured in a CUDA graph and the
-   replay timed by CUDA events, no host gaps) and its wrapper's time a
-   call (`wrapper_us`: CUDA events around as many calls made from
-   Python, the host's work between launches included), the plain version's time, its bound, and its agreement
+17c. sim — the deterministic simulator (tendermint_tpu_torch/sim: nets
+   of full nodes in one process on virtual time, the gossip picks
+   seeded) under verify_backend "device", in a child (`--phase sim`;
+   alone the same) started when the consensus phase starts, after the
+   rows' timing (phase 18, run after the execution phase) so that it
+   never shares the card with it, and running beside the consensus,
+   p2p, statesync and cli phases; its line is relayed when it ends, its
+   launches added to the kernels line's.
+   Counters zeroed before each run and read after it. (a)
+   mesh_device_loss, seeds 1 and 2, each twice, on four logical shards
+   of cuda:0: the probe
+   evicts the mesh's fourth entry by name (the watchdog reports it),
+   the backend breaker stays closed, the entry is re-admitted, every
+   invariant holds, each run moves the fallback counters by exactly
+   that one eviction and nothing else, no launch (4 validators), equal
+   app hashes within a seed and different across the two; (b)
+   trust_collapse (the bad-signature flood), seed 3: its 5 validators'
+   batches stay under the 40-lane crossover, so no launch, as in the
+   reference; (c) wan_50, seed 1, as the catalog defines it (50 nodes
+   on a ring+3 WAN, a 25/25 partition, a churned node, an equivocator
+   and a garbage flooder, 420 virtual seconds): every invariant holds,
+   evidence committed, K4 launched (each commit of 40 or more
+   signatures, on every node that verifies it) and nothing else, one
+   ledger record a launch, each on the card with its name and verdict
+   ok, no fallback, the sha256 digest of the per-height app hashes
+   equal to SIM_DIGESTS. A port fault from a launch (crypto.batch.
+   UNCAUGHT) halts only its node inside the net, so the phase keeps it
+   and raises it after the run. Printed: wall_s, the final heights, the
+   launches and a histogram of lanes a launch, host and device batches,
+   the p50 of crypto.device_exec and state.apply_block spans, the digest
+   and whether it equals the JAX package's under "host" (same_as_host);
+18. timing (run after the execution phase, before the fault check, the
+   consensus phase and the sim and f32 children) — each kernel at the
+   main path's shapes: its device time a call (`ms`: back-to-back
+   calls captured in a CUDA graph and the replay timed by CUDA events,
+   no host gaps) and its wrapper's time a call (`wrapper_us`: CUDA
+   events around as many calls made from Python, the host's work
+   between launches included), the plain version's time, its bound,
+   and its agreement
    with the plain version, also on a copy with one signature bit and
    one message (K4) or patch (K3) byte flipped, whose two lanes must
    fail (K2's row: what its assembly adds to the
@@ -442,8 +476,8 @@ Phases, each printing one JSON line:
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
    or lane, with no spills;
-19. fault — in a child (`--phase fault`; a sticky fault poisons the
-   context): a test-only kernel built from FAULT_SOURCE, never part of
+19. fault (run after the timing phase, before the consensus phase) —
+   in a child (`--phase fault`; a sticky fault poisons the context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
    inside a BatchVerifier; the ladder must raise KernelError with a
    kernel-fault code (700), every breaker closed, no counter moved,
@@ -453,7 +487,9 @@ Phases, each printing one JSON line:
    restores gpu, and after the window the raised launch alone turns it
    cpu_fallback again;
 20. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
-   <digests>`; the field is chosen at import): the f32 library built
+   <digests>`; the field is chosen at import), started when the
+   consensus phase ends and running beside the p2p, statesync and cli
+   phases (its lines relayed when it ends): the f32 library built
    (every source with -DTM_FIELD_F32); the kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
    verdicts against the digests of the i32 build's (kernels and fabric
@@ -469,9 +505,11 @@ Each child's lines are relayed as {"phase": <child>, "step": ...}; a
 child that fails or outruns its time limit fails the run.
 `python3 chip_smoke.py --phase consensus` builds the kernels and runs
 the consensus phase alone; `--phase p2p` the p2p phase, `--phase
-statesync` the statesync phase, `--phase cli` the cli phase. Every phase
-but healing must end with all breakers closed and the host fallbacks,
-rechecks and evictions unchanged. Then the kernels line, the
+statesync` the statesync phase, `--phase cli` the cli phase, `--phase
+sim` the sim phase. Every phase but healing must end with all breakers
+closed and the host fallbacks, rechecks and evictions unchanged (sim:
+but for the evictions its mesh_device_loss runs inject, one a run).
+Then the kernels line, the
 nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failure
 raises (exit code 1); no phase is caught. Without a CUDA device it
 exits 2 and prints no result; with TM_TPU_FIELD set to anything but
@@ -7654,6 +7692,16 @@ async def p2p_localnet(home: str) -> dict:
 
         loop = asyncio.get_running_loop()
         drainer = loop.create_task(drain())
+        # A's indexer backlog: the most Tx events waiting in its queue
+        backlog = [0]
+
+        async def sample_backlog():
+            q = node.indexer_service._sub.queue
+            while True:
+                backlog[0] = max(backlog[0], q.qsize())
+                await asyncio.sleep(0.01)
+
+        sampler = loop.create_task(sample_backlog())
         net0 = metrics_view("p2p")
         adm0 = metrics_view("admission")
         from tendermint_tpu_torch.libs.metrics import tpu_metrics
@@ -7736,6 +7784,8 @@ async def p2p_localnet(home: str) -> dict:
         rpc = await p2p_rpc_checks(a_rpc, b_rpc, top, committed)
         rpc["seconds"] = time.perf_counter() - t
         drainer.cancel()
+        sampler.cancel()
+        rpc["indexer_backlog_max"] = backlog[0]
         rpc["ws"] = p2p_ws_checks(events, top, committed)
         t = time.perf_counter()
         rpc["light_proxy"] = await p2p_light_proxy(
@@ -9878,6 +9928,266 @@ def cli_light_full(servers, times: dict) -> dict:
                 lines=text.strip().splitlines())
 
 
+# -- phase 17c -----------------------------------------------------------
+
+# The deterministic simulator under the device backend: mesh_device_loss
+# on four logical shards of the card (seeds 1 and 2, each twice), the
+# bad-signature flood trust_collapse (seed 3) and the acceptance net
+# wan_50 (seed 1) at its 50 nodes, as the catalog defines them.
+SIM_MESH = ["cuda:0"] * LOGICAL_SHARDS
+SIM_MESH_SEEDS = (1, 2)
+SIM_FLOOD_SEED = 3
+SIM_WAN_SEED = 1
+# trust_collapse's 5 validators stay under the 40-lane crossover (the
+# CPU rehearsal: no launch), as in the reference.
+SIM_FLOOD_LAUNCHES: dict = {}
+# sim_digest of a run's per-height app hashes: pinned from the first
+# chip run, so every later run holds determinism across processes on the
+# card. SIM_HOST_DIGESTS: the JAX package's digest of the same pair
+# under "host" on a CPU box (its gossip picks drawn from the port's
+# seed, as tests/test_torch_sim.py draws them), computed once.
+SIM_DIGESTS = {("wan_50", 1): "bfce3800c3c9fb9e"}
+SIM_HOST_DIGESTS = {("wan_50", 1): "bfce3800c3c9fb9e"}
+SIM_SPAN_KINDS = ("crypto.device_exec", "state.apply_block",
+                  "crypto.host_verify", "crypto.verify")
+
+
+def sim_digest(app_hashes) -> str:
+    return hashlib.sha256(json.dumps(app_hashes).encode()).hexdigest()[:16]
+
+
+class SpanTally:
+    """The durations (ms) of SIM_SPAN_KINDS spans closed while it is
+    installed as the tracer's metrics sink (chained to the one it
+    replaces): a 50-node net closes far more spans than the ring holds."""
+
+    def __init__(self):
+        self.ms = {k: [] for k in SIM_SPAN_KINDS}
+
+    def __enter__(self):
+        from tendermint_tpu_torch.libs import tracing
+
+        self.tracer = tracing.TRACER
+        self.prev = self.tracer.metrics_sink
+        self.tracer.set_metrics_sink(self.sink)
+        return self
+
+    def sink(self, kind: str, seconds: float) -> None:
+        if kind in self.ms:
+            self.ms[kind].append(seconds * 1e3)
+        if self.prev is not None:
+            self.prev(kind, seconds)
+
+    def __exit__(self, *exc) -> bool:
+        self.tracer.set_metrics_sink(self.prev)
+        return False
+
+    def p50(self, kind: str):
+        v = self.ms[kind]
+        return statistics.median(v) if v else None
+
+
+class LaunchWatch:
+    """crypto.cuda.verify.verify_batch (BatchVerifier's device route)
+    wrapped while a scenario runs: a port fault (crypto.batch.UNCAUGHT)
+    from a launch halts the node that met it, which the simulator
+    reports only as stalled heights, so it is kept here and re-raised
+    after the run."""
+
+    def __enter__(self):
+        from tendermint_tpu_torch.crypto import batch as cbatch
+        from tendermint_tpu_torch.crypto.cuda import verify
+
+        self.verify, self.uncaught = verify, cbatch.UNCAUGHT
+        self.orig = verify.verify_batch
+        self.faults: list = []
+
+        def watched(*a, **kw):
+            try:
+                return self.orig(*a, **kw)
+            except self.uncaught as e:
+                self.faults.append(e)
+                raise
+
+        verify.verify_batch = watched
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.verify.verify_batch = self.orig
+        if exc[0] is None and self.faults:
+            raise self.faults[0]
+        return False
+
+
+def sim_run(scenario, seed: int) -> dict:
+    """One scenario run under the device backend: its report, the
+    launches by kernel (counters read just before and after), the
+    ledger records it added, and its span tally. Every invariant must
+    hold."""
+    from tendermint_tpu_torch.crypto.cuda import ledger
+    from tendermint_tpu_torch.sim import run_scenario
+
+    cap = ledger.capacity()
+    ledger.set_capacity(max(cap, 1 << 16))
+    try:
+        t_mono = time.monotonic()
+        k0 = exec_counts()
+        with SpanTally() as tally, LaunchWatch():
+            report = run_scenario(scenario, seed)
+        launches = exec_delta(k0)
+        records = [r for r in ledger.snapshot() if r["mono"] >= t_mono]
+    finally:
+        ledger.set_capacity(cap)
+    if report["violations"]:
+        raise AssertionError(f"sim: {scenario.name} seed {seed}: "
+                             f"{report['violations']}")
+    return dict(report=report, launches=launches, records=records,
+                tally=tally)
+
+
+def sim_mesh_runs() -> dict:
+    """(a): mesh_device_loss under "device" on four logical shards of
+    the card, seeds SIM_MESH_SEEDS, each twice. The probe must evict a
+    real entry of that mesh (its fourth), the watchdog report it and the
+    entry come back; the backend breaker stays closed; each run moves
+    the fallback counters by exactly one eviction (that entry, reason
+    "scenario") and nothing else; equal app hashes within a seed,
+    different ones across the seeds."""
+    import copy
+
+    from tendermint_tpu_torch import device
+    from tendermint_tpu_torch.crypto.cuda import verify
+    from tendermint_tpu_torch.sim import SCENARIOS
+
+    device.set_mesh(SIM_MESH)
+    try:
+        names = list(verify._mesh().names)
+        runs = []
+        for seed in SIM_MESH_SEEDS:
+            for _ in range(2):
+                sc = SCENARIOS["mesh_device_loss"]()
+                # set on the instance: dataclasses.replace drops the probe
+                sc.verify_backend = "device"
+                before = fallback_state()
+                r = sim_run(sc, seed)
+                rep = r["report"]
+                dev = rep["mesh_device"]
+                want = copy.deepcopy(before["metrics"])
+                key = (dev, "scenario")
+                want["evictions"][key] = want["evictions"].get(key, 0) + 1
+                after = fallback_state()
+                if dev != names[3] or dev not in rep["mesh_evicted"] or \
+                        dev in rep["mesh_readmitted"] or r["launches"] or \
+                        after["metrics"] != want or any(
+                            v != "closed" for v in
+                            list(after["breakers"].values())
+                            + list(after["device_breakers"].values())):
+                    raise AssertionError(
+                        f"sim: mesh_device_loss seed {seed}: {dev} of "
+                        f"{names}, {rep['mesh_evicted']} -> "
+                        f"{rep['mesh_readmitted']}, {r['launches']}, "
+                        f"{before} -> {after}")
+                runs.append(dict(seed=seed, entry=dev,
+                                 evicted=rep["mesh_evicted"],
+                                 readmitted=rep["mesh_readmitted"],
+                                 heights=rep["final_heights"],
+                                 digest=sim_digest(rep["app_hashes"]),
+                                 wall_s=rep["wall_s"]))
+    finally:
+        device.set_mesh(None)
+    digests = {s: {r["digest"] for r in runs if r["seed"] == s}
+               for s in SIM_MESH_SEEDS}
+    if any(len(d) != 1 for d in digests.values()) or \
+            len(set.union(*digests.values())) != len(SIM_MESH_SEEDS):
+        raise AssertionError(f"sim: mesh_device_loss digests {digests}")
+    return dict(mesh=names, runs=runs)
+
+
+def sim_flood_run() -> dict:
+    """(b): trust_collapse (the bad-signature flood) under "device": its
+    5 validators' batches stay under the crossover, so the launches are
+    SIM_FLOOD_LAUNCHES."""
+    import dataclasses
+
+    from tendermint_tpu_torch.sim import SCENARIOS
+
+    state = fallback_state()
+    r = sim_run(dataclasses.replace(SCENARIOS["trust_collapse"](),
+                                    verify_backend="device"),
+                SIM_FLOOD_SEED)
+    no_fallback("sim", state)
+    if r["launches"] != SIM_FLOOD_LAUNCHES:
+        raise AssertionError(f"sim: trust_collapse launched "
+                             f"{r['launches']}, predicted "
+                             f"{SIM_FLOOD_LAUNCHES}")
+    rep = r["report"]
+    return dict(seed=SIM_FLOOD_SEED, launches=r["launches"],
+                heights=rep["final_heights"], wall_s=rep["wall_s"],
+                host_batches=len(r["tally"].ms["crypto.host_verify"]),
+                digest=sim_digest(rep["app_hashes"]))
+
+
+def sim_wan_run(name: str) -> dict:
+    """(c): wan_50 at seed SIM_WAN_SEED under "device", as the catalog
+    defines it. Every invariant green, evidence committed, K4 launched,
+    every ledger record of the run on the card with its name and verdict
+    ok, no fallback; its digest equal to SIM_DIGESTS once pinned."""
+    import dataclasses
+
+    from tendermint_tpu_torch.sim import SCENARIOS
+
+    state = fallback_state()
+    r = sim_run(dataclasses.replace(SCENARIOS["wan_50"](),
+                                    verify_backend="device"), SIM_WAN_SEED)
+    no_fallback("sim", state)
+    rep, recs, tally = r["report"], r["records"], r["tally"]
+    digest = sim_digest(rep["app_hashes"])
+    pinned = SIM_DIGESTS[("wan_50", SIM_WAN_SEED)]
+    k4 = r["launches"].get("general_verify", 0)
+    bad = [x for x in recs if x["backend"] != "gpu"
+           or x["device_name"] != name or x["verdict"] != "ok"]
+    if rep["evidence_committed"] < 1 or min(rep["final_heights"]) < 10 \
+            or rep["restarts"][7] != 1 or not k4 or bad \
+            or set(r["launches"]) != {"general_verify"} \
+            or len(recs) != k4 or (pinned is not None and digest != pinned):
+        raise AssertionError(
+            f"sim: wan_50 {r['launches']} evidence "
+            f"{rep['evidence_committed']} heights {rep['final_heights']} "
+            f"records {len(recs)} bad {bad[:3]} digest {digest} "
+            f"pinned {pinned}")
+    lanes: dict = {}
+    for x in recs:
+        lanes[x["lanes"]] = lanes.get(x["lanes"], 0) + 1
+    return dict(
+        seed=SIM_WAN_SEED, wall_s=rep["wall_s"],
+        final_heights=rep["final_heights"],
+        evidence_committed=rep["evidence_committed"],
+        restarts=rep["restarts"], net=rep["net"],
+        launches=r["launches"],
+        lanes_per_launch={str(k): lanes[k] for k in sorted(lanes)},
+        batches={"host": len(tally.ms["crypto.host_verify"]),
+                 "device": len(tally.ms["crypto.verify"])},
+        p50_ms={"crypto.device_exec": tally.p50("crypto.device_exec"),
+                "state.apply_block": tally.p50("state.apply_block")},
+        spans={k: len(v) for k, v in tally.ms.items()},
+        digest=digest, pinned=pinned,
+        same_as_host=digest == SIM_HOST_DIGESTS[("wan_50", SIM_WAN_SEED)])
+
+
+def sim_phase() -> dict:
+    """The simulator on the card (docstring, phase 17c)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    out = {"mesh_device_loss": sim_mesh_runs(),
+           "trust_collapse": sim_flood_run(),
+           "wan_50": sim_wan_run(name)}
+    out["launches"] = dict(out["wan_50"]["launches"])
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # -- phase 18 ------------------------------------------------------------
 
 
@@ -10255,7 +10565,8 @@ F32_KERNELS = ("build_tables", "xverify", "general_verify", "shard_verify",
 F32_ROWS = ("build_tables", "xverify", "general_verify",
             "general_verify_mixed", "sr_verify", "shard_verify",
             "arena_verify", "mesh_arena_verify")
-CHILD_TIMEOUT_S = {"f32": 700, "fault": 240, "execution_host": 400}
+CHILD_TIMEOUT_S = {"f32": 700, "fault": 240, "execution_host": 400,
+                   "sim": 900}
 # The fault check's watchdog window: short, so that one launch decides
 # the classification.
 FAULT_WINDOW_S = 3.0
@@ -10274,39 +10585,74 @@ extern "C" int tm_fault(void* stream) {
 """
 
 
-def run_child(phase: str, *args) -> list[dict]:
-    """Run `python3 chip_smoke.py --phase <phase> args...` (the f32 child
-    with TM_TPU_FIELD=f32), relay each JSON line it prints as
-    {"phase": phase, "step": <its phase>, ...}, and return the lines.
-    A non-zero exit or the time limit fails the parent; the child is
-    killed on the way out."""
-    import threading
+class Child:
+    """`python3 chip_smoke.py --phase <phase> args...` (the f32 child
+    with TM_TPU_FIELD=f32) started now. Its JSON lines are read as it
+    prints them, and relayed at once when `live`; finish() waits for it,
+    relays the rest as {"phase": phase, "step": <its phase>, ...} and
+    returns them all. A non-zero exit, or the time limit counted from
+    its start, fails the parent; the child is killed on the way out."""
 
-    env = dict(os.environ)
-    if phase == "f32":
-        env["TM_TPU_FIELD"] = "f32"
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--phase", phase, *args],
-        stdout=subprocess.PIPE, text=True, env=env)
-    timer = threading.Timer(CHILD_TIMEOUT_S[phase], proc.kill)
-    timer.start()
-    lines = []
-    try:
-        for line in proc.stdout:
-            obj = json.loads(line)
-            lines.append(obj)
+    def __init__(self, phase: str, *args, live: bool = True):
+        import threading
+
+        env = dict(os.environ)
+        if phase == "f32":
+            env["TM_TPU_FIELD"] = "f32"
+        self.phase, self.live = phase, live
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase", phase,
+             *args], stdout=subprocess.PIPE, text=True, env=env)
+        self.timer = threading.Timer(CHILD_TIMEOUT_S[phase], self.proc.kill)
+        self.timer.start()
+        self.lines: list = []
+        self.relayed = 0
+        self.error = None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        try:
+            for line in self.proc.stdout:
+                self.lines.append(json.loads(line))
+                if self.live:
+                    self._relay()
+        except Exception as e:  # noqa: BLE001 - raised by finish()
+            self.error = e
+            self.proc.kill()
+
+    def _relay(self) -> None:
+        for obj in self.lines[self.relayed:]:
             if "kernels" not in obj:
-                emit({"phase": phase, "step": obj.get("phase"),
+                emit({"phase": self.phase, "step": obj.get("phase"),
                       **{k: v for k, v in obj.items() if k != "phase"}})
-        rc = proc.wait()
-    finally:
-        timer.cancel()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if rc != 0:
-        raise AssertionError(f"the {phase} child exited {rc}")
-    return lines
+        self.relayed = len(self.lines)
+
+    def stop(self) -> None:
+        """Kill the child if it still runs (a parent that fails first)."""
+        self.timer.cancel()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self) -> list[dict]:
+        try:
+            self.reader.join()
+            rc = self.proc.wait()
+        finally:
+            self.stop()
+        if self.error is not None:
+            raise self.error
+        self._relay()
+        if rc != 0:
+            raise AssertionError(f"the {self.phase} child exited {rc}")
+        return self.lines
+
+
+def run_child(phase: str, *args) -> list[dict]:
+    """Run a child to its end (Child), relaying its lines as it prints
+    them."""
+    return Child(phase, *args).finish()
 
 
 def fault_child() -> int:
@@ -10511,12 +10857,12 @@ def f32_child(i32: dict) -> int:
     return 0
 
 
-def f32_phase(i32_digests: dict, i32_paths: dict, rows: list) -> list:
-    """Run the f32 child, relay its lines, hold each of its paths'
-    outcomes to the i32 phase's (`i32_paths`: slice, speculation,
-    mixed, fabric and healing records), print the two fields' times
-    side by side, and return its kernels rows."""
-    lines = run_child("f32", "--i32", json.dumps(i32_digests))
+def f32_phase(lines: list, i32_paths: dict, rows: list) -> list:
+    """Given the f32 child's lines (its Child's finish(), which relayed
+    them), hold each of its paths' outcomes to the i32 phase's
+    (`i32_paths`: slice, speculation, mixed, fabric and healing
+    records), print the two fields' times side by side, and return its
+    kernels rows."""
     step = {o.get("phase"): o for o in lines}
     f32_rows = next(o["kernels"] for o in lines if "kernels" in o)
     held = {"slice": ("rejected", "launches"),
@@ -10647,6 +10993,12 @@ def main() -> int:
             no_fallback("cli", state)
             emit(dict(phase="cli", card=nvidia_smi(), **cli))
             return 0
+        if phase == "sim":
+            from tendermint_tpu_torch.crypto.cuda import kernels
+
+            kernels.build()
+            emit(dict(phase="sim", card=nvidia_smi(), **sim_phase()))
+            return 0
         if phase == "consensus":
             from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -10769,34 +11121,6 @@ def main() -> int:
     no_fallback("execution", state)
     emit(dict(phase="execution", seconds=time.perf_counter() - t0,
               card=smi, **execution))
-    # the p2p phase's serving child builds its chain (host only, one
-    # process) while the consensus phase runs
-    servers = P2pChild("p2p_servers")
-    try:
-        t0 = time.perf_counter()
-        state = fallback_state()
-        consensus = consensus_phase()
-        no_fallback("consensus", state)
-        emit(dict(phase="consensus", seconds=time.perf_counter() - t0,
-                  card=smi, **consensus))
-        t0 = time.perf_counter()
-        state = fallback_state()
-        p2p = p2p_phase(servers)
-        no_fallback("p2p", state)
-        emit(dict(phase="p2p", seconds=time.perf_counter() - t0, card=smi,
-                  **p2p))
-        t0 = time.perf_counter()
-        state = fallback_state()
-        statesync = statesync_phase(servers)
-        no_fallback("statesync", state)
-        emit(dict(phase="statesync", seconds=time.perf_counter() - t0,
-                  card=smi, **statesync))
-        state = fallback_state()
-        cli = cli_phase(servers)
-        no_fallback("cli", state)
-        emit(dict(phase="cli", card=smi, **cli))
-    finally:
-        servers.close()
     state = fallback_state()
     rows = timing_phase(vs, commit, torch.device("cuda"))
     rows += arena_rows(arena, vs, commit, torch.device("cuda"))
@@ -10811,19 +11135,69 @@ def main() -> int:
           "rows": observe_against_rows(observe, rows)})
     t0 = time.perf_counter()
     run_child("fault")
-    emit({"phase": "fault", "seconds": time.perf_counter() - t0, "card": smi})
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()  # the child needs 3.3 GB of f32 tables
-    f32_rows = f32_phase(dict(checks["verdicts"],
-                              **fabric["k5_check"]["verdicts"]),
-                         dict(slice=res, speculation=spec, mixed=mixed,
-                              fabric=fabric, healing=healing), rows)
-    emit({"phase": "f32", "step": "done", "card": smi,
-          "seconds": time.perf_counter() - t0})
+    emit({"phase": "fault", "seconds": time.perf_counter() - t0,
+          "card": smi})
+    # the p2p phase's serving child builds its chain (host only, one
+    # process) while the consensus phase runs
+    servers = P2pChild("p2p_servers")
+    sim_proc = f32_proc = None
+    try:
+        try:
+            # the sim phase (17c), host Python with a few K4 launches a
+            # second, runs in a child from here on, beside the consensus,
+            # p2p, statesync and cli phases: never beside the rows'
+            # timing (above)
+            sim_proc = Child("sim", live=False)
+            t0 = time.perf_counter()
+            state = fallback_state()
+            consensus = consensus_phase()
+            no_fallback("consensus", state)
+            emit(dict(phase="consensus", seconds=time.perf_counter() - t0,
+                      card=smi, **consensus))
+            # the f32 child beside the p2p, statesync and cli phases
+            torch.cuda.empty_cache()  # it needs 3.3 GB of f32 tables
+            t_f32 = time.perf_counter()
+            f32_proc = Child("f32", "--i32", json.dumps(dict(
+                checks["verdicts"], **fabric["k5_check"]["verdicts"])),
+                live=False)
+            t0 = time.perf_counter()
+            state = fallback_state()
+            p2p = p2p_phase(servers)
+            no_fallback("p2p", state)
+            emit(dict(phase="p2p", seconds=time.perf_counter() - t0,
+                      card=smi, **p2p))
+            t0 = time.perf_counter()
+            state = fallback_state()
+            statesync = statesync_phase(servers)
+            no_fallback("statesync", state)
+            emit(dict(phase="statesync", seconds=time.perf_counter() - t0,
+                      card=smi, **statesync))
+            state = fallback_state()
+            cli = cli_phase(servers)
+            no_fallback("cli", state)
+            emit(dict(phase="cli", card=smi, **cli))
+        finally:
+            servers.close()
+        t0 = time.perf_counter()
+        f32_rows = f32_phase(f32_proc.finish(),
+                             dict(slice=res, speculation=spec, mixed=mixed,
+                                  fabric=fabric, healing=healing), rows)
+        emit({"phase": "f32", "step": "done", "card": smi,
+              "seconds": time.perf_counter() - t_f32,
+              "waited_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        sim = next(x for x in sim_proc.finish()
+                   if x.get("phase") == "sim")
+        emit({"phase": "sim", "step": "waited", "card": smi,
+              "seconds": time.perf_counter() - t0})
+    finally:
+        for child in (sim_proc, f32_proc):
+            if child is not None:
+                child.stop()
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
                  light_client, admission, execution, consensus, p2p,
-                 statesync, cli):
+                 statesync, cli, sim):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -23,9 +23,19 @@ from __future__ import annotations
 import os
 
 CHOICE = os.environ.get("TM_TPU_FIELD", "i32")
-if CHOICE == "f32":
-    from . import field_f32 as F  # noqa: F401
-elif CHOICE == "i32":
-    from . import field as F  # noqa: F401
-else:  # a typo must not silently run the other field
+if CHOICE not in ("i32", "f32"):  # a typo must not silently run the other
     raise ValueError(f"TM_TPU_FIELD={CHOICE!r}: expected 'i32' or 'f32'")
+
+
+def __getattr__(name: str):
+    """``F``, the chosen field module, loads on first use: it imports
+    torch, which a caller that needs only CHOICE (kernels.py, and so the
+    command line's key and home commands) must not pay for."""
+    if name != "F":
+        raise AttributeError(name)
+    if CHOICE == "f32":
+        from . import field_f32 as F
+    else:
+        from . import field as F
+    globals()["F"] = F
+    return F

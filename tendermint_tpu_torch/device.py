@@ -15,10 +15,11 @@ reference's virtual XLA devices.
 
 from __future__ import annotations
 
-import torch
-
-_DEFAULT: torch.device | None = None
-_MESH: tuple[torch.device, ...] | None = None
+# torch is imported where a device is made, not here: the command line's
+# key and home commands import this module (through crypto/batch.py) and
+# need no torch.
+_DEFAULT = None  # torch.device | None
+_MESH = None  # tuple[torch.device, ...] | None
 
 
 class NoDeviceError(RuntimeError):
@@ -31,12 +32,16 @@ def set_default_device(name: str | torch.device | None) -> None:
     """Pin the device for the port's entry points ("cpu" or "cuda");
     None restores the CUDA default."""
     global _DEFAULT
+    import torch
+
     _DEFAULT = None if name is None else torch.device(name)
 
 
 def default_device() -> torch.device:
     if _DEFAULT is not None:
         return _DEFAULT
+    import torch
+
     if not torch.cuda.is_available():
         raise NoDeviceError(
             "no CUDA device available; call "
@@ -60,6 +65,8 @@ def set_mesh(devices) -> None:
     entry must be of the default device's type: a CPU entry under a
     CUDA default raises ValueError, and so does the reverse."""
     global _MESH
+    import torch
+
     if devices is None:
         _MESH = None
         return
@@ -77,6 +84,8 @@ def mesh_devices() -> tuple[torch.device, ...] | None:
     is CUDA and there are at least two, else None."""
     if _MESH is not None:
         return _checked(_MESH)
+    import torch
+
     if default_device().type == "cuda" and torch.cuda.device_count() >= 2:
         return tuple(torch.device("cuda", i)
                      for i in range(torch.cuda.device_count()))

@@ -3,7 +3,21 @@ libs/bits/bit_array.go)."""
 
 from __future__ import annotations
 
+import random
 import secrets
+
+# pick_random's draw: the OS's entropy, as the reference's; the
+# simulator seeds it (seed_picks) so that a (scenario, seed) pair
+# replays its gossip order.
+_randbelow = secrets.randbelow
+
+
+def seed_picks(seed: int | None) -> None:
+    """Draw pick_random from random.Random(seed) from now on; None
+    restores the OS's entropy."""
+    global _randbelow
+    _randbelow = (secrets.randbelow if seed is None
+                  else random.Random(seed).randrange)
 
 
 class BitArray:
@@ -70,7 +84,7 @@ class BitArray:
         idxs = [i for i in range(self.size) if self.get(i)]
         if not idxs:
             return 0, False
-        return idxs[secrets.randbelow(len(idxs))], True
+        return idxs[_randbelow(len(idxs))], True
 
     def to_bytes(self) -> bytes:
         nbytes = (self.size + 7) // 8

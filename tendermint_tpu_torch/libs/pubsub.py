@@ -184,11 +184,15 @@ class PubSub:
         self._buffer = buffer
         self._subs: dict[tuple[str, str], Subscription] = {}
 
-    def subscribe(self, subscriber: str, query: Query) -> Subscription:
+    def subscribe(self, subscriber: str, query: Query,
+                  buffer: int | None = None) -> Subscription:
+        """`buffer` overrides the bus's bound for this subscriber; 0 is
+        unbounded (nothing is ever dropped, as Go's SubscribeUnbuffered,
+        which blocks the publisher instead)."""
         key = (subscriber, str(query))
         if key in self._subs:
             raise ValueError(f"already subscribed: {key}")
-        sub = Subscription(query, self._buffer)
+        sub = Subscription(query, self._buffer if buffer is None else buffer)
         self._subs[key] = sub
         return sub
 

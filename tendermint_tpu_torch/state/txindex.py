@@ -40,6 +40,14 @@ class TxIndexer:
         self.db = db
 
     def index(self, tr: TxResult) -> None:
+        self.db.write_batch(self._ops(tr))
+
+    def index_batch(self, trs: list[TxResult]) -> None:
+        """Every result in one db batch: one append (and one fsync on a
+        durable db) for the lot (Go kv.go AddBatch)."""
+        self.db.write_batch([op for tr in trs for op in self._ops(tr)])
+
+    def _ops(self, tr: TxResult) -> list[tuple[bytes, bytes]]:
         h = tr.hash()
         payload = json.dumps({
             "height": tr.height, "index": tr.index,
@@ -56,7 +64,7 @@ class TxIndexer:
                 composite = f"{etype}.{k}={v}".encode()
                 ops.append((_BY_EVENT + composite + b"/" +
                             _u64(tr.height) + _u32(tr.index) + h, b""))
-        self.db.write_batch(ops)
+        return ops
 
     def get(self, tx_hash: bytes) -> TxResult | None:
         raw = self.db.get(_PRIMARY + tx_hash)
@@ -256,7 +264,14 @@ class BlockIndexer:
 
 class IndexerService:
     """Bridges EventBus → TxIndexer
-    (reference: state/txindex/indexer_service.go)."""
+    (reference: state/txindex/indexer_service.go).
+
+    Its Tx subscription is unbounded and each wake-up indexes every
+    queued Tx event in one batch. The JAX package's service takes the
+    bus's drop-oldest queue of 1024 and writes one batch a tx, so a
+    durable db's fsync a tx lets it fall behind under load and lose the
+    oldest events from the index for good (ROADMAP Queue C); Go's
+    service subscribes unbuffered and never loses one."""
 
     SUBSCRIBER = "tx-indexer"
 
@@ -269,8 +284,8 @@ class IndexerService:
     def start(self) -> None:
         import asyncio
 
-        self._sub = self.event_bus.subscribe(self.SUBSCRIBER,
-                                             query_for_event("Tx"))
+        self._sub = self.event_bus.subscribe(
+            self.SUBSCRIBER, query_for_event("Tx"), buffer=0)
         self._blk_sub = self.event_bus.subscribe(
             self.SUBSCRIBER, query_for_event("NewBlock")) \
             if self.block_indexer is not None else None
@@ -292,17 +307,21 @@ class IndexerService:
 
         while True:
             try:
-                msg = await self._sub.next()
+                msgs = [await self._sub.next()]
             except asyncio.CancelledError:
                 return
-            data = msg.data
-            if isinstance(data, EventDataTx):
+            while not self._sub.queue.empty():
+                msgs.append(self._sub.queue.get_nowait())
+            trs = [TxResult(m.data.height, m.data.index, m.data.tx,
+                            m.data.result)
+                   for m in msgs if isinstance(m.data, EventDataTx)]
+            if trs:
                 try:
-                    self.indexer.index(TxResult(data.height, data.index,
-                                                data.tx, data.result))
+                    self.indexer.index_batch(trs)
                 except Exception:
-                    logger.exception("failed to index tx at height %d",
-                                     data.height)
+                    logger.exception("failed to index %d txs at heights "
+                                     "%d-%d", len(trs), trs[0].height,
+                                     trs[-1].height)
 
     async def _run_blocks(self) -> None:
         import asyncio

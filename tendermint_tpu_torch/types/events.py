@@ -92,8 +92,9 @@ class EventBus:
     def __init__(self):
         self.pubsub = PubSub()
 
-    def subscribe(self, subscriber: str, query: Query):
-        return self.pubsub.subscribe(subscriber, query)
+    def subscribe(self, subscriber: str, query: Query,
+                  buffer: int | None = None):
+        return self.pubsub.subscribe(subscriber, query, buffer)
 
     def unsubscribe(self, subscriber: str, query: Query) -> None:
         self.pubsub.unsubscribe(subscriber, query)

@@ -206,3 +206,43 @@ def test_indexer_service_over_the_event_bus():
 
     got = [asyncio.run(go(p)) for p in (PORT, REF)]
     assert got[0] == got[1] and got[0][2:] == (2, 0)
+
+
+def test_indexer_service_keeps_every_tx_past_the_bus_buffer():
+    """A recorded divergence (ROADMAP Queue C): 1,100 Tx events published
+    before the service runs, past the bus's buffer of 1,024. The port's
+    unbounded subscription indexes all of them, in one db batch; the JAX
+    package's drop-oldest queue loses the oldest 76. What both index
+    equals, and equals TxIndexer.index one result at a time."""
+    n, buffer = 1100, 1024
+
+    async def go(p):
+        bus = p.events.EventBus()
+        db = p.db.MemDB()
+        batches = []
+        write_batch = db.write_batch
+        db.write_batch = lambda ops: (batches.append(len(ops)),
+                                      write_batch(ops))
+        svc = p.txindex.IndexerService(p.txindex.TxIndexer(db), bus)
+        svc.start()
+        for tr in tx_results(p, n):
+            bus.publish_tx(p.events.EventDataTx(tr.height, tr.tx, tr.index,
+                                                tr.result),
+                           tr.result["events"])
+        idle = 0
+        while idle < 16:  # a message takes a few loop turns past its get
+            await asyncio.sleep(0)
+            idle = 0 if not svc._sub.queue.empty() else idle + 1
+        svc.stop()
+        return db_bytes(db), len(batches)
+
+    (port_db, port_batches), (ref_db, ref_batches) = [
+        asyncio.run(go(p)) for p in (PORT, REF)]
+    want = []
+    for trs in (tx_results(PORT, n), tx_results(REF, n)[n - buffer:]):
+        txi = PORT.txindex.TxIndexer(PORT.db.MemDB())
+        for tr in trs:
+            txi.index(tr)
+        want.append(db_bytes(txi.db))
+    assert port_db == want[0] and port_batches == 1
+    assert ref_db == want[1] and ref_batches == buffer
