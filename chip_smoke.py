@@ -6,7 +6,12 @@
 Phases, each printing one JSON line:
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the CUDA kernels built from tendermint_tpu_torch/csrc;
+2. build — the CUDA kernels built from tendermint_tpu_torch/csrc, and
+   the port's C message packer (tendermint_tpu_torch/native/pack.c,
+   built with cc into build/native/): it must load, or the run fails
+   (pad_messages would take its numpy path), and its calls are counted
+   from here on, so every later pad of 256 messages or more (every K4
+   launch, every bytes-form K3 launch) shows on the C path;
 3. kernels — each of K1, K3 and K4 against its plain PyTorch version on
    an adversarial batch (1,024 lanes over 256 keys), K3's structured
    form (K2's assembly inside the launch) on a structured commit with
@@ -18,7 +23,7 @@ Phases, each printing one JSON line:
    branch of the ristretto equality and square root taken): verdicts
    bit-identical, tables, sign bytes and the seven spliced buffers
    identical; K4's, K7's and K9's verdict digests equal to
-   VERDICT_DIGESTS;
+   VERDICT_DIGESTS (K3's bytes form and K4 on C-packed rows);
 4. slice — a 10,240-validator set and a signed 10,240-signature commit
    through ValidatorSet.verify_commit, verify_commit_light and
    verify_commit_light_trusting (trust 1/3), a corrupted signature that
@@ -455,6 +460,36 @@ Phases, each printing one JSON line:
    launches and a histogram of lanes a launch, host and device batches,
    the p50 of crypto.device_exec and state.apply_block spans, the digest
    and whether it equals the JAX package's under "host" (same_as_host);
+17d. e2e — the e2e harness (tendermint_tpu_torch/e2e), in a child
+   (`--phase e2e`; alone the same) started after the cli phase once the
+   sim child has ended, so it never shares the host with the sim, and
+   running beside the f32 child's tail (its lines relayed when it
+   ends; `beside_f32_s` says how long): e2e/sample_manifest.toml as the repo has it, at its
+   full width, through the port's Runner with device "cuda" (every
+   node `cmd start --device cuda`, the light_proxy perturbation's
+   serving plane in the child's process on the card) and every port
+   from the OS: 4 validators to wait_height 10 under 5 tx/s of load; a
+   kill at 3 and a crash armed at state.apply.app_committed at 4; a
+   pause at 5; light_proxy at 5; overload at 6 (device.verify delayed
+   25 ms, 150 tx/s, 30% garbage and 10% signed envelopes); a
+   disconnect at 7; a restart at 8; disconnect_hard at 9; node 2
+   double-prevoting at 4; node 3's power 3 from height 2. Held to what
+   the reference's runner and its tests assert: no fork, evidence
+   committed, every kill_recoveries entry fired at its point and
+   healed, the overload report's heights advancing with sheds (RPC and
+   admission), bounded queues and the level cleared, light_proxy under
+   12 launches for 24 requests with parity, 429 sheds and its depth
+   within the bound, the validator set as scheduled; every node's
+   /debug/launches answered and every record in it on the card with
+   its name. Counters zeroed before, read after (the child's process);
+   the nodes' K4 launches come from their ledgers. At 4 validators
+   most batches stay under the 40-lane crossover, so a count of 0 is
+   recorded, never forced up. Printed: the K4 launches by node and in
+   the child with the lanes of each, each stage's wall time and each
+   node start's seconds to its first RPC answer. Then the port's
+   signer harness (--secret-connection) against a `cmd signer
+   --connect` child must exit 0, and against an in-process signer
+   without double-sign protection 5;
 18. timing (run after the execution phase, before the fault check, the
    consensus phase and the sim and f32 children) — each kernel at the
    main path's shapes: its device time a call (`ms`: back-to-back
@@ -475,7 +510,14 @@ Phases, each printing one JSON line:
    dynamic shared memory, resident warps an SM from
    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers and stack)
    and the ptxas spills: each launch must run at least 4 threads a key
-   or lane, with no spills;
+   or lane, with no spills. Then `native`: the C packer against
+   pad_messages' numpy path at the commit's 10,240 sign bytes, a
+   fast-sync window's 11,264 lanes, a 512-envelope admission flush of
+   0-2,000 bytes and 255, 256 and 257 messages (byte-equal rows, equal
+   int32 block counts, host ms a call p50 of 20 on each path), K4 at
+   the mixed commit's 8,192-lane bucket and K3's bytes form at 11,264
+   lanes launched on C-packed rows, their verdicts equal to the plain
+   versions' on numpy-packed rows;
 19. fault (run after the timing phase, before the consensus phase) —
    in a child (`--phase fault`; a sticky fault poisons the context): a test-only kernel built from FAULT_SOURCE, never part of
    the port's library, stores through a bad address just before K4
@@ -489,8 +531,10 @@ Phases, each printing one JSON line:
 20. f32 — in a child with TM_TPU_FIELD=f32 (`--phase f32 --i32
    <digests>`; the field is chosen at import), started when the
    consensus phase ends and running beside the p2p, statesync and cli
-   phases (its lines relayed when it ends): the f32 library built
-   (every source with -DTM_FIELD_F32); the kernels check again, K1,
+   phases and the e2e child's start (its lines relayed when it ends):
+   the f32 library built
+   (every source with -DTM_FIELD_F32) and the C packer loaded; the
+   kernels check again, K1,
    K3, K4, K5, K7 and K9 against their f32 plain versions, their
    verdicts against the digests of the i32 build's (kernels and fabric
    phases) that the parent passes; the slice, speculation, mixed,
@@ -506,7 +550,7 @@ child that fails or outruns its time limit fails the run.
 `python3 chip_smoke.py --phase consensus` builds the kernels and runs
 the consensus phase alone; `--phase p2p` the p2p phase, `--phase
 statesync` the statesync phase, `--phase cli` the cli phase, `--phase
-sim` the sim phase. Every phase but healing must end with all breakers
+sim` the sim phase, `--phase e2e` the e2e phase. Every phase but healing must end with all breakers
 closed and the host fallbacks, rechecks and evictions unchanged (sim:
 but for the evictions its mesh_device_loss runs inject, one a run).
 Then the kernels line, the
@@ -10553,6 +10597,441 @@ def entry(name, err, times, plain, ops, nbytes) -> dict:
             "library_ms": None}
 
 
+# -- the native packer: kernels and timing ------------------------------
+
+NATIVE_FLUSH = 512  # an admission flush's bucket
+NATIVE_WINDOW_EXTRA = 1024  # a fast-sync window: the commit's 10,240 + these
+
+
+class CountingPack:
+    """The native library with its tm_pack_pad calls counted (`calls`,
+    and the messages they padded), installed over native._lib once it
+    is loaded: the run then shows which pads took the C path."""
+
+    def __init__(self, lib):
+        self.lib, self.calls, self.messages = lib, 0, 0
+
+    def tm_pack_pad(self, *args):
+        self.calls += 1
+        self.messages += int(args[3])
+        return self.lib.tm_pack_pad(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def native_library() -> dict:
+    """The port's C packer loaded, from a library built under
+    build/native/ from tendermint_tpu_torch/native/pack.c, and counted
+    (CountingPack). Without it pad_messages would take its numpy path:
+    the run fails instead."""
+    from pathlib import Path
+
+    from tendermint_tpu_torch import native
+    from tendermint_tpu_torch.crypto.cuda import kernels
+
+    t0 = time.perf_counter()
+    lib = native.lib()
+    if lib is None:
+        raise AssertionError("the native packer did not load (no C compiler "
+                             "or a failed build): the numpy path would run")
+    if not isinstance(lib, CountingPack):
+        so = Path(lib._name).resolve()
+        root = (kernels.BUILD_ROOT.parent / "native").resolve()
+        if not so.is_relative_to(root) or not native.SOURCE.exists():
+            raise AssertionError(f"the native packer is not the port's: {so}")
+        native._lib = CountingPack(lib)
+    so = Path(native._lib.lib._name).resolve()
+    return {"library": str(so.relative_to(kernels.BUILD_ROOT.parent.parent)),
+            "load_s": time.perf_counter() - t0}
+
+
+class numpy_packing:
+    """Within: pad_messages takes its numpy path (native.lib() None), as
+    on a machine with no C compiler."""
+
+    def __enter__(self):
+        from tendermint_tpu_torch import native
+
+        self.saved = native._lib, native._tried
+        native._lib, native._tried = None, True
+
+    def __exit__(self, *exc):
+        from tendermint_tpu_torch import native
+
+        native._lib, native._tried = self.saved
+
+
+def native_shapes(commit) -> dict:
+    """{shape: messages} at the widths the main path pads: the commit's
+    10,240 sign bytes (2-3 lengths), a fast-sync window's 11,264 lanes,
+    an admission flush of 512 envelopes of 0-2,000 bytes, and 255, 256
+    and 257 messages around the C path's threshold."""
+    import numpy as np
+
+    sign = [commit.vote_sign_bytes(CHAIN, i) for i in range(N_VALIDATORS)]
+    rng = np.random.default_rng(23)
+
+    def mixed(n: int) -> list:
+        return [rng.integers(0, 256, int(k), dtype=np.uint8).tobytes()
+                for k in rng.integers(0, 2001, n)]
+
+    return {"commit_sign_bytes": sign,
+            "fastsync_window": sign + sign[:NATIVE_WINDOW_EXTRA],
+            "admission_flush": mixed(NATIVE_FLUSH),
+            **{f"edge_{n}": mixed(n) for n in (255, 256, 257)}}
+
+
+def native_phase(vs, commit, mvs, mcommit, dev) -> dict:
+    """The C packer against the numpy path at each shape (byte-equal rows,
+    equal int32 block counts, host ms a call p50 of 20 each), then K4 at
+    the mixed commit's 8,192-lane bucket and K3's bytes form at a
+    fast-sync window launched on C-packed rows, their verdicts equal to
+    the plain versions' on numpy-packed rows."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch import native
+    from tendermint_tpu_torch.crypto.cuda import expanded, verify
+    from tendermint_tpu_torch.crypto.cuda import sha512 as sh
+
+    counter = native._lib
+    shapes = {}
+    for name, msgs in native_shapes(commit).items():
+        calls = counter.calls
+        c_rows, c_nb = sh.pad_messages(msgs, prefix_len=64)
+        path = "c" if counter.calls > calls else "numpy"
+        with numpy_packing():
+            p_rows, p_nb = sh.pad_messages(msgs, prefix_len=64)
+            p_ms = host_ms(lambda: sh.pad_messages(msgs, prefix_len=64))
+        c_ms = host_ms(lambda: sh.pad_messages(msgs, prefix_len=64))
+        if (path == "c") != (len(msgs) >= 256):
+            raise AssertionError(f"native {name}: the {path} path at "
+                                 f"{len(msgs)} messages")
+        if not (np.array_equal(c_rows, p_rows) and np.array_equal(c_nb, p_nb)
+                and c_nb.dtype == p_nb.dtype == np.int32):
+            raise AssertionError(f"native {name}: the C and numpy rows differ")
+        shapes[name] = dict(messages=len(msgs), path=path,
+                            lengths=len({len(m) for m in msgs}),
+                            width=int(c_rows.shape[1]), max_blocks=int(
+                                c_nb.max()), c_ms=c_ms, numpy_ms=p_ms)
+    # K4 at the mixed commit's ed25519 lanes (one 8,192-lane bucket)
+    lanes = [i for i, v in enumerate(mvs.validators)
+             if v.pub_key.type_name == "ed25519"]
+    c_args = k4_args(mvs, mcommit, lanes, dev)
+    with numpy_packing():
+        p_args = k4_args(mvs, mcommit, lanes, dev)
+    if not all(torch.equal(a, b) for a, b in zip(c_args[:5], p_args[:5])):
+        raise AssertionError("native: K4's C-packed arguments differ")
+    v_k = verify.general_verify(*c_args)
+    v_p = verify.general_verify_plain(*p_args)
+    if not (torch.equal(v_k, v_p) and bool(v_k[:len(lanes)].all())):
+        raise AssertionError("native: K4 on C-packed rows against its plain "
+                             "version on numpy-packed rows")
+    k4 = dict(lanes=int(c_args[0].shape[0]), live=len(lanes),
+              equal_plain=True, digest=digest(v_k))
+    # K3's bytes form at a fast-sync window's 11,264 lanes
+    exp = expanded.get_expanded([v.pub_key.bytes() for v in vs.validators])
+    w_lanes = list(range(N_VALIDATORS)) + list(range(NATIVE_WINDOW_EXTRA))
+    msgs = [commit.vote_sign_bytes(CHAIN, i) for i in w_lanes]
+    sigs = [commit.signatures[i].signature for i in w_lanes]
+    calls = counter.calls
+    idx, fields, _wf = exp._prepare(w_lanes, msgs, sigs)
+    if counter.calls != calls + 1:
+        raise AssertionError("native: K3's bytes form did not pack in C")
+    with numpy_packing():
+        p_idx, p_fields, _ = exp._prepare(w_lanes, msgs, sigs)
+    if not (np.array_equal(idx, p_idx) and all(
+            np.array_equal(fields[k], p_fields[k]) for k in fields)):
+        raise AssertionError("native: K3's C-packed fields differ")
+    btab = verify._btab(dev)
+
+    def k3(f, fn):
+        t = verify.to_device(dict(f[1], idx=f[0]), dev)
+        return fn(t["idx"], exp.akeys, t["sb"], t["s_ok"], exp.key_ok,
+                  exp.tables, btab, msg=t["msg"], nblocks=t["nblocks"])
+
+    x_k = k3((idx, fields), expanded.xverify)
+    x_p = k3((p_idx, p_fields), expanded.shard_verify_plain)
+    if not (torch.equal(x_k, x_p) and bool(x_k[:len(w_lanes)].all())):
+        raise AssertionError("native: K3 on C-packed rows against its plain "
+                             "version on numpy-packed rows")
+    k3_out = dict(lanes=int(idx.shape[0]), live=len(w_lanes),
+                  equal_plain=True, digest=digest(x_k))
+    return dict(shapes=shapes, general_verify_mixed=k4, xverify_window=k3_out,
+                c_calls=counter.calls, c_messages=counter.messages)
+
+
+# -- phase 17d: the e2e harness ------------------------------------------
+
+E2E_MANIFEST = os.path.join(CLI_ROOT, "e2e", "sample_manifest.toml")
+# The runner's device and the backend and card name its nodes' ledger
+# records must read; a CPU rehearsal sets "cpu", "cpu-fallback" and "".
+E2E_DEVICE = "cuda"
+E2E_BACKEND = "gpu"
+E2E_CHAIN = "e2e-signer-chain"
+E2E_HARNESS_TIMEOUT_S = 120.0  # the signer child imports torch first
+
+
+def e2e_step(what: str) -> None:
+    print(f"e2e: {time.strftime('%H:%M:%S')} {what}", file=sys.stderr,
+          flush=True)
+
+
+def e2e_timed(runner, stages: list, starts: list) -> None:
+    """Wrap the runner's stages (each call's wall seconds into `stages`)
+    and, once setup made them, each node's start (a record into
+    `starts`, whose rpc_s the poller fills)."""
+    import asyncio
+
+    def wrap(name, label):
+        fn = getattr(runner, name)
+
+        if asyncio.iscoroutinefunction(fn):
+            async def timed(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    stages.append((label(a), time.perf_counter() - t))
+        else:
+            def timed(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    stages.append((label(a), time.perf_counter() - t))
+                    if name == "setup":
+                        for node in runner.nodes:
+                            wrap_start(node)
+        setattr(runner, name, timed)
+
+    def wrap_start(node):
+        start = node.start
+
+        def timed_start(*a, **k):
+            starts.append(dict(node=node, t0=time.perf_counter(),
+                               rpc_s=None))
+            return start(*a, **k)
+
+        node.start = timed_start
+
+    for name in ("setup", "start", "check_valset", "check",
+                 "collect_timeline", "collect_launch_ledger"):
+        wrap(name, lambda a, n=name: n)
+    wrap("wait_net_height", lambda a: f"wait_net_height {a[0]}")
+    wrap("wait_all_height", lambda a: f"wait_all_height {a[0]}")
+    wrap("apply", lambda a: f"{a[0].op} node{a[0].node} at {a[0].at_height}")
+    wrap("apply_valupdate",
+         lambda a: f"valupdate node{a[0].node} at {a[0].at_height}")
+
+
+async def e2e_drive(runner, starts: list) -> dict:
+    """runner.run() beside a poller that reads, for each node start, the
+    seconds until its RPC first answers."""
+    import asyncio
+
+    async def poll():
+        while True:
+            for rec in starts:
+                if rec["rpc_s"] is None and rec["node"].alive():
+                    try:
+                        await asyncio.wait_for(
+                            runner.height_of(rec["node"]), 2.0)
+                    except Exception:  # noqa: BLE001 - not up yet
+                        continue
+                    rec["rpc_s"] = time.perf_counter() - rec["t0"]
+            await asyncio.sleep(0.1)
+
+    task = asyncio.create_task(poll())
+    try:
+        return await runner.run()
+    finally:
+        task.cancel()
+
+
+def e2e_checks(runner, report: dict, card: str) -> dict:
+    """What the reference's runner and its tests assert of this
+    manifest's run (the runner asserts no fork, recovery, coalescing and
+    parity itself), and the nodes' launch ledgers: every node answered
+    /debug/launches, every record on E2E_BACKEND with the card's name.
+    Returns the K4 launches by node, with their lanes."""
+    m = runner.m
+    if not report.get("ok") or report["height"] != m.wait_height:
+        raise AssertionError(f"e2e: the run did not pass: {report}")
+    if report["evidence_committed"] < 1:
+        raise AssertionError("e2e: the maverick's evidence was not committed")
+    kills = [p for p in m.perturbations if p.op == "kill" and p.failpoint]
+    recs = report.get("kill_recoveries", [])
+    if len(recs) != len(kills) or not all(
+            r["crashed_at_point"] and r["recovered"] for r in recs):
+        raise AssertionError(f"e2e: kill_recoveries {recs}")
+    (orep,) = runner.overload_reports
+    hs = [h for h in orep["heights"] if h]
+    if not (hs and all(b >= a for a, b in zip(hs, hs[1:])) and hs[-1] > hs[0]
+            and orep["shed_delta"] > 0 and orep["bounded"] and orep["cleared"]
+            and orep.get("admission_shed_delta", 0) > 0):
+        raise AssertionError(f"e2e: overload report {orep}")
+    (lrep,) = report["light_proxy"]
+    if not (lrep["verify_launches"] < lrep["requests"] // 2
+            and lrep["flood_shed"] >= 1 and lrep["max_queue_depth"] <= 2
+            and lrep["net_advanced"]):
+        raise AssertionError(f"e2e: light_proxy report {lrep}")
+    if report["valset_changes"] != len(m.validator_updates):
+        raise AssertionError("e2e: the validator update was not applied")
+    if report["txs_sent"] <= 0:
+        raise AssertionError("e2e: no load was sent")
+    labels = {f"node{i}" for i in range(m.nodes)}
+    if set(runner.ledger_answered) != labels:
+        raise AssertionError(f"e2e: /debug/launches answered on "
+                             f"{runner.ledger_answered}, not every node")
+    k4 = {label: {"launches": 0, "lanes": []} for label in sorted(labels)}
+    for label, entry in (report.get("launch_ledger") or {}).items():
+        for g in entry["launches"]:
+            if (g["backend"], g["device_name"]) != (E2E_BACKEND, card):
+                raise AssertionError(f"e2e: {label}'s ledger record {g}")
+            if g["kernel"] == "general":
+                k4[label]["launches"] += g["launches"]
+                k4[label]["lanes"] += g["lanes"]
+    return k4
+
+
+def e2e_signer_harness(work: str, logs: str, times: dict) -> dict:
+    """The port's signer harness against a `cmd signer --connect` child
+    (SecretConnection, the home's key expected): exit 0; then against an
+    in-process signer without double-sign protection: exit 5."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto.ed25519 import Ed25519PrivKey
+    from tendermint_tpu_torch.privval.signer import SignerServer
+    from tendermint_tpu_torch.tools import signer_harness
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+
+    home = os.path.join(work, "signer")
+    rc, text = cli_run(times, "signer_init", ["--home", home, "init",
+                                              "--chain-id", E2E_CHAIN])
+    if rc:
+        raise AssertionError(f"e2e: init {rc}: {text[-2000:]}")
+    key = signer_harness._load_expected_key(
+        os.path.join(home, "config", "priv_validator_key.json"))
+    (port,) = free_ports(1)
+    t0 = time.perf_counter()
+    child = CliProc("signer", ["--home", home, "signer", "--connect",
+                               f"tcp://127.0.0.1:{port}", "--device",
+                               E2E_DEVICE], logs)
+
+    async def harness(conn_key, timeout):
+        try:
+            return await signer_harness.run_harness(
+                f"127.0.0.1:{port}", E2E_CHAIN, expected_key=key,
+                timeout=timeout, log=e2e_step, conn_key=conn_key)
+        except signer_harness.HarnessFailure as e:
+            return e.code
+
+    try:
+        code = asyncio.run(harness(Ed25519PrivKey.generate(),
+                                   E2E_HARNESS_TIMEOUT_S))
+    finally:
+        child.stop()
+    times["signer_harness"] = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"e2e: the harness against `cmd signer` exited "
+                             f"{code}: {child.text()[-3000:]}")
+
+    async def unsafe():
+        pv = MockPV()  # no last-sign state: re-signs anything
+        nonlocal key
+        key = pv.get_pub_key().bytes()
+        task = asyncio.create_task(harness(None, 20.0))
+        await asyncio.sleep(0.3)
+        dial = asyncio.create_task(
+            SignerServer(pv, E2E_CHAIN).dial_and_serve("127.0.0.1", port))
+        try:
+            return await asyncio.wait_for(task, 30)
+        finally:
+            dial.cancel()
+
+    unsafe_code = asyncio.run(unsafe())
+    if unsafe_code != 5:
+        raise AssertionError(f"e2e: the harness against a signer without "
+                             f"double-sign protection exited {unsafe_code}")
+    return {"cmd_signer_exit": code, "unsafe_signer_exit": unsafe_code}
+
+
+def e2e_phase() -> dict:
+    """Phase 17d (docstring): the sample manifest through the port's
+    runner with its nodes on E2E_DEVICE, its report held to what the
+    reference asserts, the launches, stage and start-to-RPC times; then
+    the signer harness. Counters zeroed before, read after (the runner's
+    process: its light plane)."""
+    import asyncio
+    import contextlib
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.e2e import Manifest, Runner
+
+    card = cli_card_name() if E2E_BACKEND == "gpu" else ""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="e2e-")
+    logs = os.path.join(work, "logs")
+    os.makedirs(logs)
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    stages: list = []
+    starts: list = []
+    times: dict = {}
+    manifest = Manifest.load(E2E_MANIFEST)
+    runner = Runner(manifest, os.path.join(work, "net"), base_port=0,
+                    log=e2e_step, device=E2E_DEVICE)
+    e2e_timed(runner, stages, starts)
+    try:
+        # testnet's and the harness's lines: stdout is the JSON channel
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            report = asyncio.run(e2e_drive(runner, starts))
+            run_s = time.perf_counter() - t0
+            runner_launches = {k: fn.launches for k, fn in kernels.items()}
+            k4_nodes = e2e_checks(runner, report, card)
+            harness = e2e_signer_harness(work, logs, times)
+    finally:
+        runner.cleanup()
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k: n for k, n in runner_launches.items() if n}
+    for entry in (report.get("launch_ledger") or {}).values():
+        for g in entry["launches"]:
+            k = LEDGER_KERNELS.get(g["kernel"], g["kernel"])
+            launches[k] = launches.get(k, 0) + g["launches"]
+    return dict(
+        manifest=os.path.relpath(E2E_MANIFEST, CLI_ROOT), device=E2E_DEVICE,
+        nodes=manifest.nodes, wait_height=manifest.wait_height,
+        report={k: v for k, v in report.items()
+                if k not in ("launch_ledger", "timeline")},
+        overload=runner.overload_reports, timeline=report.get("timeline"),
+        ledger_answered=sorted(runner.ledger_answered),
+        k4_nodes=k4_nodes, runner_launches=runner_launches,
+        launches=launches, run_s=run_s,
+        stages_s=[{"stage": s, "seconds": t} for s, t in stages],
+        start_to_rpc_s=[{"node": r["node"].index, "seconds": r["rpc_s"]}
+                        for r in starts],
+        signer_harness=harness, times_s=times,
+        seconds=time.perf_counter() - t_phase)
+
+
+def e2e_child() -> int:
+    """`--phase e2e`: the phase alone, in a child of its own."""
+    from tendermint_tpu_torch.crypto.cuda import kernels
+
+    kernels.build()
+    native = native_library()
+    state = fallback_state()
+    e2e = e2e_phase()
+    no_fallback("e2e", state)
+    emit(dict(phase="e2e", card=nvidia_smi(), native=native, **e2e))
+    return 0
+
+
 # -- the f32 phase and the fault check: child processes ------------------
 
 # The f32 build's kernels: every field-bearing kernel (K6 does no field
@@ -10566,7 +11045,7 @@ F32_ROWS = ("build_tables", "xverify", "general_verify",
             "general_verify_mixed", "sr_verify", "shard_verify",
             "arena_verify", "mesh_arena_verify")
 CHILD_TIMEOUT_S = {"f32": 700, "fault": 240, "execution_host": 400,
-                   "sim": 900}
+                   "sim": 900, "e2e": 600}
 # The fault check's watchdog window: short, so that one launch decides
 # the classification.
 FAULT_WINDOW_S = 3.0
@@ -10777,7 +11256,8 @@ def f32_child(i32: dict) -> int:
         kernels.BUILD_ROOT.parent.parent)),
         "seconds": time.perf_counter() - t0,
         "nvcc_seconds": kernels.BUILD_INFO.get("seconds"),
-        "ptxas": {k: kernel_ptxas(k) for k in F32_KERNELS}})
+        "ptxas": {k: kernel_ptxas(k) for k in F32_KERNELS},
+        "native": native_library()})
     t0 = time.perf_counter()
     state = fallback_state()
     checks = kernel_phase(256, 1024, dev)
@@ -10999,6 +11479,8 @@ def main() -> int:
             kernels.build()
             emit(dict(phase="sim", card=nvidia_smi(), **sim_phase()))
             return 0
+        if phase == "e2e":
+            return e2e_child()
         if phase == "consensus":
             from tendermint_tpu_torch.crypto.cuda import kernels
 
@@ -11032,7 +11514,8 @@ def main() -> int:
     kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kernels.BUILD_INFO.get("seconds"),
-          "ptxas": {k: kernel_ptxas(k) for k in SOURCES}})
+          "ptxas": {k: kernel_ptxas(k) for k in SOURCES},
+          "native": native_library()})
     t0 = time.perf_counter()
     state = fallback_state()
     checks = kernel_phase(256, 1024, torch.device("cuda"))
@@ -11134,13 +11617,19 @@ def main() -> int:
     emit({"phase": "observe", "step": "exec_vs_device_ms", "card": smi,
           "rows": observe_against_rows(observe, rows)})
     t0 = time.perf_counter()
+    state = fallback_state()
+    native = native_phase(vs, commit, mvs, mcommit, torch.device("cuda"))
+    no_fallback("native", state)
+    emit(dict(phase="native", seconds=time.perf_counter() - t0, card=smi,
+              **native))
+    t0 = time.perf_counter()
     run_child("fault")
     emit({"phase": "fault", "seconds": time.perf_counter() - t0,
           "card": smi})
     # the p2p phase's serving child builds its chain (host only, one
     # process) while the consensus phase runs
     servers = P2pChild("p2p_servers")
-    sim_proc = f32_proc = None
+    sim_proc = f32_proc = e2e_proc = None
     try:
         try:
             # the sim phase (17c), host Python with a few K4 launches a
@@ -11179,25 +11668,36 @@ def main() -> int:
         finally:
             servers.close()
         t0 = time.perf_counter()
-        f32_rows = f32_phase(f32_proc.finish(),
-                             dict(slice=res, speculation=spec, mixed=mixed,
-                                  fabric=fabric, healing=healing), rows)
-        emit({"phase": "f32", "step": "done", "card": smi,
-              "seconds": time.perf_counter() - t_f32,
-              "waited_s": time.perf_counter() - t0})
-        t0 = time.perf_counter()
         sim = next(x for x in sim_proc.finish()
                    if x.get("phase") == "sim")
         emit({"phase": "sim", "step": "waited", "card": smi,
               "seconds": time.perf_counter() - t0})
+        # the e2e harness's net (17d) once the sim has ended (never
+        # beside the sim's host load), beside the f32 child's tail: its
+        # nodes launch nothing on the card at 4 validators
+        t_e2e = time.perf_counter()
+        e2e_proc = Child("e2e", live=False)
+        t0 = time.perf_counter()
+        f32_rows = f32_phase(f32_proc.finish(),
+                             dict(slice=res, speculation=spec, mixed=mixed,
+                                  fabric=fabric, healing=healing), rows)
+        t_f32_end = time.perf_counter()
+        emit({"phase": "f32", "step": "done", "card": smi,
+              "seconds": t_f32_end - t_f32, "waited_s": t_f32_end - t0})
+        t0 = time.perf_counter()
+        e2e = next(x for x in e2e_proc.finish() if x.get("phase") == "e2e")
+        emit({"phase": "e2e", "step": "done", "card": smi,
+              "seconds": time.perf_counter() - t_e2e,
+              "waited_s": time.perf_counter() - t0,
+              "beside_f32_s": t_f32_end - t_e2e})
     finally:
-        for child in (sim_proc, f32_proc):
+        for child in (sim_proc, f32_proc, e2e_proc):
             if child is not None:
                 child.stop()
     launches = {}
     for path in (res, spec, mixed, fabric, healing, fastsync, votes, light,
                  light_client, admission, execution, consensus, p2p,
-                 statesync, cli, sim):
+                 statesync, cli, sim, e2e):
         for kernel, count in path["launches"].items():
             launches[kernel] = launches.get(kernel, 0) + count
     for r in rows:

@@ -33,6 +33,15 @@ from . import ledger as _ledger
 from . import scalar as sc
 from . import sha512 as sh
 
+# Warm the native packer at import (node and verifier start): its
+# build-on-first-use cc subprocess must never run lazily inside a
+# commit's verify.
+try:
+    from ...native import lib as _native_lib
+
+    _native_lib()
+except Exception:  # pragma: no cover - never block import on this
+    pass
 _L = ref.L
 _MAX_BATCH = 1 << 15
 _MIN_BATCH = 1 << 7

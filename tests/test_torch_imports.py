@@ -1,5 +1,6 @@
 """The port stands alone: no module of tendermint_tpu_torch, and neither
-chip_smoke.py nor sweep_warps.py, imports jax or anything of the JAX package; a CPU
+chip_smoke.py nor sweep_warps.py, imports jax or anything of the JAX
+package, nor names one of its modules in a string (a child's argv); a CPU
 verify_commit, a CPU sr25519 batch verify and the command line (its
 parser, key commands, abci-cli, secp256k1 and keyfile round trips) in a
 fresh interpreter load neither. No port module imports grpc, which the GPU machine lacks."""
@@ -46,9 +47,26 @@ def test_port_sources_import_no_jax_and_no_reference():
         "abci/kv_proofs", "abci/counter", "node/__init__",
         "cmd/__init__", "cmd/__main__", "cmd/debug", "abci/cli",
         "crypto/secp256k1", "crypto/symmetric", "crypto/armor",
-        "crypto/keyfile", "libs/fail", "p2p/upnp")} <= names
+        "crypto/keyfile", "libs/fail", "p2p/upnp", "native/__init__",
+        "e2e/__init__", "e2e/manifest", "e2e/generate", "e2e/runner",
+        "tools/signer_harness", "light/mbt_ref", "tools/height_forensics",
+        "tools/crash_sweep", "tools/check_recovery", "tools/soak")} <= names
     bad = {str(f.relative_to(ROOT)): sorted(n for n in _imported(f)
                                              if _forbidden(n))
+           for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_no_port_source_names_a_reference_module():
+    """A child's argv (`python -m <module>`) is a string the import
+    checks above cannot see: no port source, chip_smoke.py included,
+    names a tendermint_tpu.<module> anywhere in its text."""
+    import re
+
+    files = sorted((ROOT / "tendermint_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    pat = re.compile(r"\btendermint_tpu\.[a-z_]")
+    bad = {str(f.relative_to(ROOT)): pat.findall(f.read_text())
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
